@@ -24,7 +24,21 @@ non-zero before the last line:
    before: every kernel of the path must have launched;
 6. trace   — the same engine's steady decode with all four slots busy,
    timed on the host clock and then traced by ``torch.profiler``: device
-   busy time, idle share and device time by kernel.
+   busy time, idle share and device time by kernel;
+7. kernels, K3 — (run right after phase 3, on a 1024-block pool) the
+   paged flash-partial kernel against its plain version at the decode
+   (R = 4, a 64-entry table, bf16/f32/fp8 pools, windows 4096 and 100)
+   and seeded-admission (R = 4·64, 4·1024) shapes, timed likewise;
+8. paged model — after the contiguous engine is freed, a paged engine
+   (8 slots, max_len 4096, 1024 blocks of 64, prefix cache): four prompts
+   prefilled into its pool, their last 64 tokens prefilled again with the
+   prefix read from the pool by K3, logits against the full prefill;
+9. paged serve — ``CUDASummarizer`` over that engine, three rounds of 8
+   threads (misses, the same threads again, new threads), with the launch
+   counts reset before the first: K3 must launch in admission and decode,
+   prefix hits and saved tokens must equal a host-side oracle of the trie
+   rule, and the pool's books must balance;
+10. paged trace — phase 6 on the paged engine, 8 slots busy.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +46,7 @@ Then the kernel table as one JSON line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -45,12 +60,19 @@ from pathlib import Path
 #: 14336 products in another order; bf16 output rounding (2**-8).
 K1_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K2_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: K3 vs its plain version, compared as the normalised output
+#: combine_partials([part]) in f32. Both read the same pool values and
+#: convert them to f32 exactly (bf16 and fp8 included) and neither rounds
+#: its output, so the only differences are f32 sums over up to 4096
+#: positions taken in another order (online vs one-pass softmax) and expf
+#: vs torch.exp: near f32 level for every pool dtype.
+K3_ATOL = 1e-4
 #: model consistency: relative L2 of kernel vs plain last-position logits
 #: after 32 bf16 layers (rounding differences compound through depth)
 LOGITS_REL_L2 = 5e-2
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12}
 
 
 def emit(obj) -> None:
@@ -68,7 +90,9 @@ def nvidia_smi() -> str:
 def time_ms(fn, n: int = 10, flush=None) -> float:
     """Median device time of ``fn`` over ``n`` launches, each timed by its
     own CUDA events after a warm-up; ``flush`` (a large tensor) is
-    rewritten before each launch so the call finds L2 cold."""
+    rewritten before each launch so the call finds L2 cold. A device-side
+    sleep of ~1 ms ahead of the first event keeps the card busy while the
+    host enqueues the call, so the host's enqueue time is not counted."""
     import torch
 
     fn()
@@ -77,6 +101,7 @@ def time_ms(fn, n: int = 10, flush=None) -> float:
     for _ in range(n):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -203,6 +228,115 @@ def phase_kernels(dev, flush):
     return rows
 
 
+def k3_cases():
+    """(label, pool dtype, window, rows R, lengths) at the paged main
+    path's shapes: B 8, Hkv 8, D 128, blocks of 64 in a 1024-block pool.
+    Decode: R = 4 (the group of Hq 32 / Hkv 8), a 64-entry table. Seeded
+    admission: R = 4·S query rows against prefixes read from the pool."""
+    dec = [0, 1, 64, 65, 1000, 4095, 2048, 777]
+    return [
+        ("decode", "bfloat16", 4096, 4, dec),
+        ("decode_w100", "bfloat16", 100, 4, dec),
+        ("decode", "float32", 4096, 4, dec),
+        ("decode", "float8_e4m3fn", 4096, 4, dec),
+        ("seeded_s64", "bfloat16", 0, 4 * 64,
+         [0, 64, 128, 333, 512, 700, 960, 1]),
+        ("seeded_s1024", "bfloat16", 0, 4 * 1024, [128] * 8),
+    ]
+
+
+def phase_k3(dev, flush):
+    """K3 held against its plain version at the paged main path's
+    shapes (normalised through combine_partials), timed beside its bound,
+    its plain version and SDPA over the pre-gathered view."""
+    import torch
+    import torch.nn.functional as F
+
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+    from copilot_for_consensus_tpu_torch.ops.attention import (
+        combine_partials,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, hkv, d, blk, nbtot, n_l, li = 8, 8, 128, 64, 1024, 2, 1
+    rows = {}
+    pools = {}
+    for label, pdt, window, r, lens in k3_cases():
+        dt = getattr(torch, pdt)
+        if pdt not in pools:
+            shape = (n_l, nbtot, hkv, blk, d)
+            pools[pdt] = tuple(
+                torch.randn(shape, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        pk, pv = pools[pdt]
+        qdt = torch.float32 if pdt == "float32" else torch.bfloat16
+        q = torch.randn(b, hkv, r, d, generator=g, device=dev).to(qdt)
+        nb = 64 if label.startswith("decode") else max(
+            1, -(-max(lens) // blk))
+        # each row's blocks are distinct shuffled ids; the rest are pads
+        tables = torch.full((b, nb), nbtot, dtype=torch.int32, device=dev)
+        perm = torch.randperm(nbtot, generator=g, device=dev)
+        for i, n in enumerate(lens):
+            need = -(-n // blk)
+            tables[i, :need] = perm[i * 64:i * 64 + need].to(torch.int32)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q_pos = lengths + 2
+        args = (q, pk, pv, li, tables, lengths, q_pos)
+        part = pa.paged_attention_partial(*args, window=window)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_partial_ref(*args, window=window)
+        got = combine_partials([part], torch.float32)
+        want = combine_partials([ref], torch.float32)
+        err = (got - want).abs().max().item()
+        dead = lengths == 0
+        ok = (bool(torch.isfinite(got).all()) and err <= K3_ATOL
+              and bool(torch.isinf(part[1][dead]).all())
+              and not bool(part[2][dead].any()))
+        # the work this input needs: positions [lo, hi) of each row and
+        # the pool blocks that hold them
+        hi = lengths.clamp(max=nb * blk).long()
+        lo = (q_pos.long() - window + 1).clamp(min=0) if window > 0 \
+            else torch.zeros_like(hi)
+        pos = (hi - lo).clamp(min=0)
+        blocks = torch.where(hi > lo, -(-hi // blk) - lo // blk, 0)
+        elt = pk.element_size()
+        kv_bytes = int(blocks.sum()) * hkv * blk * d * elt * 2
+        out_bytes = sum(t.numel() * 4 for t in part)
+        bnd, by = bound_ms(
+            kv_bytes + nbytes(q, tables, lengths, q_pos) + out_bytes,
+            4.0 * r * d * hkv * int(pos.sum()), pdt)
+        # yardstick: SDPA over the pre-gathered view with the same mask
+        # (normalised output; the gather is excluded from its time)
+        kg, vg = pa.paged_gather_layer(pk[li], pv[li], tables)
+        kg, vg = kg.to(qdt), vg.to(qdt)
+        t = torch.arange(kg.shape[2], device=dev)[None]
+        mask = (t < lengths.long()[:, None]) & (t >= lo[:, None])
+        grp = 4
+        qs = q.reshape(b, hkv * grp, r // grp, d)
+        row = {"kernel": "K3", "case": label, "dtype": pdt,
+               "shape": [b, hkv, r, d, blk, nb], "window": window,
+               "max_abs_err": err, "tol": K3_ATOL,
+               "ms": time_ms(lambda: pa.paged_attention_partial(
+                   *args, window=window), flush=flush),
+               "plain_ms": time_ms(lambda: pa.paged_attention_partial_ref(
+                   *args, window=window), n=3, flush=flush),
+               "library_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qs, kg, vg, attn_mask=mask[:, None, None],
+                       enable_gqa=True), flush=flush),
+               "library": "SDPA over the pre-gathered view, normalised "
+                          "output, gather excluded",
+               "bound_ms": bnd, "bound_by": by}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"K3 {label} {pdt}: error {err}")
+        rows[("K3", label, pdt)] = row
+        del q, part, ref, got, want, kg, vg
+    del pools
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_model(dev, cfg, params):
     import torch
 
@@ -281,8 +415,8 @@ def phase_serve(dev, cfg, params, smi):
     comps = []
     plain_generate = eng.generate
 
-    def recording_generate(prompts, max_new_tokens):
-        comps.extend(plain_generate(prompts, max_new_tokens))
+    def recording_generate(prompts, max_new_tokens, **kw):
+        comps.extend(plain_generate(prompts, max_new_tokens, **kw))
         return comps
 
     generation.sample = checked_sample
@@ -331,6 +465,250 @@ def phase_serve(dev, cfg, params, smi):
     return launches, prompts, eng
 
 
+def phase_paged_model(dev, cfg, eng):
+    """The paged passes at full width, bf16, on the paged engine's pool:
+    four prompts of 512-1024 tokens prefilled through a miss wave (K1)
+    into pool blocks, then their last 64 tokens run again through
+    ``prefill_seeded_paged`` with the prefix read from the pool by K3.
+    Last-position logits against the full prefill's, by relative L2."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    lens, bucket, suffix = [1024, 777, 512, 640], 1024, 64
+    n = len(lens)
+    tokens = torch.randint(3, 259, (n, bucket), generator=g, device=dev)
+    pool = eng._pool
+    tables = [pool.alloc(pool.blocks_for(ln)) for ln in lens]
+    try:
+        with torch.inference_mode():
+            scratch = decoder.init_cache(cfg, n, bucket, dtype=eng.kv_dtype,
+                                         device=dev)
+            t0 = time.monotonic()
+            full, scratch = decoder.prefill(
+                eng.params, tokens, torch.tensor(lens, device=dev), cfg,
+                scratch)
+            sbids, soffs = eng._write_maps(
+                [(i, tables[i], 0, ln) for i, ln in enumerate(lens)],
+                bucket, n)
+            pool.scatter(scratch["k"], scratch["v"], sbids, soffs)
+            torch.cuda.synchronize()
+            miss_s = time.monotonic() - t0
+            del scratch
+            pref = [ln - suffix for ln in lens]
+            suf = torch.stack([tokens[i, p:p + suffix]
+                               for i, p in enumerate(pref)])
+            nb = max(len(t) for t in tables)
+            bids = torch.tensor(
+                [t + [pool.num_blocks] * (nb - len(t)) for t in tables],
+                dtype=torch.int32, device=dev)
+
+            def partial_fn(li, q_rows, lns, q_pos):
+                return pa.paged_attention_partial(
+                    q_rows, pool.k, pool.v, li, bids, lns, q_pos, window=0)
+
+            k3_before = pa.paged_attention_partial.launches
+            t0 = time.monotonic()
+            seeded, _, _ = decoder.prefill_seeded_paged(
+                eng.params, suf, torch.full((n,), suffix, device=dev),
+                torch.tensor(pref, device=dev), cfg, partial_fn)
+            torch.cuda.synchronize()
+            seeded_s = time.monotonic() - t0
+    finally:
+        for t in tables:
+            pool.free(t)
+    rel = ((seeded - full).norm() / full.norm()).item()
+    row = {"phase": "paged_model", "config": cfg.name, "rows": n,
+           "prompt_lens": lens, "suffix": suffix, "prefix_lens": pref,
+           "logits_shape": list(seeded.shape), "rel_l2": rel,
+           "bound": LOGITS_REL_L2, "miss_wave_s": miss_s,
+           "seeded_s": seeded_s,
+           "k3_launches": pa.paged_attention_partial.launches - k3_before}
+    emit(row)
+    if not (torch.isfinite(seeded).all() and torch.isfinite(full).all()):
+        raise AssertionError("non-finite paged prefill logits")
+    if tuple(seeded.shape) != (n, cfg.vocab_size) or rel > LOGITS_REL_L2:
+        raise AssertionError(f"seeded vs full prefill logits: {row}")
+    if pool.free_blocks != pool.num_blocks:
+        raise AssertionError("paged model phase leaked pool blocks")
+
+
+def expected_hit(prompt: list[int], published: list[list[int]],
+                 blk: int) -> int:
+    """The prefix a radix trie over whole published prompts must hand
+    ``prompt``, by plain list comparison: the longest run of whole blocks
+    it shares from position 0 with any published prompt (which publishes
+    ``len // blk`` blocks), leaving at least one prompt token to prefill."""
+    cap = (len(prompt) - 1) // blk
+    best = 0
+    for p in published:
+        n = 0
+        while (n < min(cap, len(p) // blk)
+               and prompt[n * blk:(n + 1) * blk] == p[n * blk:(n + 1) * blk]):
+            n += 1
+        best = max(best, n)
+    return best * blk
+
+
+def phase_paged_serve(dev, cfg, eng, smi):
+    """``CUDASummarizer`` (cache_scope "full") over the paged engine, three
+    rounds of 64 new tokens with the K1/K2/K3 counts reset before the
+    first: 8 threads (all misses, published on retire), the same 8 again
+    (every row a pointer hit of all but its last block-aligned span), and
+    8 new threads (a hit on the shared template head, 2 blocks, where the
+    prompt fits ``prompt_limit``; a tail-truncated prompt has lost its
+    head). Each round's admission is one wave, so a request can only hit
+    prompts of earlier rounds: hits and saved tokens must equal
+    ``expected_hit`` over the prompts the engine was given."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine import generation
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+        build_prompt,
+    )
+
+    new_tokens = 64
+    summ = CUDASummarizer(cfg.name, engine=eng, max_new_tokens=new_tokens)
+    blk = eng._pool.block
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    plain_sample = generation.sample
+
+    def checked_sample(logits, gen, sampling):
+        finite.logical_and_(torch.isfinite(logits).all())
+        return plain_sample(logits, gen, sampling)
+
+    comps: list = []
+    plain_generate = eng.generate
+
+    def recording_generate(prompts, max_new_tokens, **kw):
+        out = plain_generate(prompts, max_new_tokens, **kw)
+        comps.extend(out)
+        return out
+
+    # K3 launches by where they happen: admission waves or decode
+    k3_by = {"admit": 0, "decode": 0}
+
+    def counted(kind, fn):
+        def run(*a, **kw):
+            n0 = pa.paged_attention_partial.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                k3_by[kind] += pa.paged_attention_partial.launches - n0
+        return run
+
+    eng._admit = counted("admit", eng._admit)
+    eng._decode_once = counted("decode", eng._decode_once)
+    eng.generate = recording_generate
+    generation.sample = checked_sample
+    rounds = [("round1", synthetic_threads(8)),
+              ("round2", synthetic_threads(8)),
+              ("round3", synthetic_threads(16)[8:])]
+    fa.flash_attention.launches = 0
+    qm.int8_matmul.launches = 0
+    pa.paged_attention_partial.launches = 0
+    published: list[list[int]] = []
+    expect_saved = expect_hits = 0
+    rows = []
+    try:
+        for label, threads in rounds:
+            prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
+                       [-eng.prompt_limit:] for t in threads]
+            hits = [expected_hit(p, published, blk) for p in prompts]
+            expect_saved += sum(hits)
+            expect_hits += sum(1 for h in hits if h)
+            before = dict(prefill_s=eng.admitted_s, decode_s=eng.decode_s,
+                          decode_tokens=eng.decode_tokens,
+                          prefill_tokens=eng.prefill_tokens,
+                          saved=eng.prefill_tokens_saved,
+                          hits=eng.zero_copy_admits, k3=dict(k3_by))
+            n0 = len(comps)
+            t0 = time.monotonic()
+            summaries = summ.summarize_batch(threads)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            rc = comps[n0:]
+            if [s.thread_id for s in summaries] != \
+                    [t.thread_id for t in threads] or \
+                    any(s.completion_tokens != len(c.tokens)
+                        for s, c in zip(summaries, rc)):
+                raise AssertionError(f"{label}: summaries out of order")
+            if [c.prompt_len for c in rc] != [len(p) for p in prompts]:
+                raise AssertionError(f"{label}: prompt lengths differ")
+            published += prompts
+            dec_s = eng.decode_s - before["decode_s"]
+            dec_t = eng.decode_tokens - before["decode_tokens"]
+            row = {"phase": "paged_serve", "round": label,
+                   "threads": len(threads),
+                   "prompt_tokens": sum(c.prompt_len for c in rc),
+                   "prefill_tokens": eng.prefill_tokens
+                   - before["prefill_tokens"],
+                   "prefill_tokens_saved": eng.prefill_tokens_saved
+                   - before["saved"],
+                   "zero_copy_admits": eng.zero_copy_admits
+                   - before["hits"],
+                   "expected_hit_tokens": hits,
+                   "truncated": sum(1 for t in threads if len(
+                       summ.tokenizer.encode(build_prompt(t), add_bos=True))
+                       > eng.prompt_limit),
+                   "prefill_s": eng.admitted_s - before["prefill_s"],
+                   "ttft_s": [c.ttft_s for c in rc],
+                   "decode_s": dec_s, "decode_tokens": dec_t,
+                   "decode_tok_per_s": dec_t / dec_s if dec_s else None,
+                   "wall_s": wall,
+                   "k3_admit": k3_by["admit"] - before["k3"]["admit"],
+                   "k3_decode": k3_by["decode"] - before["k3"]["decode"],
+                   "finish": [c.finish_reason for c in rc]}
+            emit(row)
+            rows.append(row)
+    finally:
+        generation.sample = plain_sample
+    launches = {"K1": fa.flash_attention.launches,
+                "K2": qm.int8_matmul.launches,
+                "K3": pa.paged_attention_partial.launches}
+    st, ps = eng.kv_pool_stats(), eng.prefix_stats()
+    node_count = eng._prefix.node_count
+    summary = {"phase": "paged_serve", "config": cfg.name,
+               "launches": launches, "k3_by": k3_by,
+               "zero_copy_admits": st["zero_copy_admits"],
+               "prefill_tokens_saved": ps["prefill_tokens_saved"],
+               "expected_zero_copy_admits": expect_hits,
+               "expected_saved": expect_saved,
+               "free_blocks": st["free_blocks"],
+               "pinned_blocks": st["pinned_blocks"],
+               "num_blocks": st["num_blocks"], "trie_nodes": node_count,
+               "fragmentation_ratio": st["fragmentation_ratio"],
+               "device": smi}
+    emit(summary)
+    if not bool(finite):
+        raise AssertionError("non-finite logits while serving (paged)")
+    if k3_by["admit"] <= 0 or k3_by["decode"] <= 0:
+        raise AssertionError(f"K3 not launched in admission and decode: "
+                             f"{k3_by}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the paged "
+                                 f"path")
+    if rows[1]["zero_copy_admits"] != len(rounds[1][1]):
+        raise AssertionError("round 2: not every row was a pointer hit")
+    if (st["zero_copy_admits"], ps["prefill_tokens_saved"]) != \
+            (expect_hits, expect_saved):
+        raise AssertionError(
+            f"zero_copy_admits {st['zero_copy_admits']} / prefill_tokens_"
+            f"saved {ps['prefill_tokens_saved']} != expected "
+            f"{expect_hits} / {expect_saved}")
+    if (st["free_blocks"] + st["pinned_blocks"] != st["num_blocks"]
+            or st["pinned_blocks"] != node_count):
+        raise AssertionError(f"pool books do not balance: {summary}")
+    return launches, rows
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -341,9 +719,9 @@ def busy_us(intervals) -> float:
     return total
 
 
-def phase_trace(cfg, eng, prompts, smi, n: int = 2):
-    """Device busy and idle share of steady decode: four 1024-token
-    prompts fill the slots in one wave; after one warm dispatch, ``n``
+def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
+    """Device busy and idle share of steady decode: the longest prompts
+    fill the slots in one wave; after one warm dispatch, ``n``
     dispatches run on the host clock alone and the next ``n`` under
     ``torch.profiler`` tracing the card's activity. Idle share = 1 - (union
     of the traced device intervals) / (host wall time of the n steps)."""
@@ -387,7 +765,8 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2):
             e.time_range.end - e.time_range.start)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    row = {"phase": "trace", "config": cfg.name, "dispatches": n,
+    row = {"phase": label, "config": cfg.name, "slots": len(ids),
+           "kv": "paged" if eng.paged else "contiguous", "dispatches": n,
            "steps": n * window, "step_ms": plain_s / (n * window) * 1e3,
            "traced_step_ms": traced_s / (n * window) * 1e3,
            "device_events": len(kernels),
@@ -437,6 +816,7 @@ def main() -> int:
     # a buffer beyond the 50 MB L2, rewritten before each timed launch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, flush)
+    rows.update(phase_k3(dev, flush))
     del flush
 
     cfg = decoder_config("mistral-7b")
@@ -450,21 +830,41 @@ def main() -> int:
     phase_model(dev, cfg, params)
     launches, prompts, eng = phase_serve(dev, cfg, params, smi)
     phase_trace(cfg, eng, prompts, smi)
+    # the contiguous engine's cache goes before the paged pool comes
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    k1 = rows[("K1", "s1024", "bfloat16")]
-    k2 = rows[("K2", "m4_d4096_f14336", "bfloat16")]
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    paged = GenerationEngine(cfg, params, num_slots=8, max_len=4096,
+                             prefill_chunk=64, kv_pool_blocks=1024,
+                             prefix_cache_blocks=1, quantize="int8",
+                             device=dev)
+    phase_paged_model(dev, cfg, paged)
+    paged_launches, _ = phase_paged_serve(dev, cfg, paged, smi)
+    phase_trace(cfg, paged, prompts, smi, label="paged_trace")
+
     table = []
     for name, row, src, tpu in (
-            ("flash_attention", k1,
+            ("flash_attention", rows[("K1", "s1024", "bfloat16")],
              "copilot_for_consensus_tpu_torch/csrc/flash_attention.cu",
              "copilot_for_consensus_tpu/ops/flash_attention.py:119"),
-            ("int8_matmul", k2,
+            ("int8_matmul", rows[("K2", "m4_d4096_f14336", "bfloat16")],
              "copilot_for_consensus_tpu_torch/csrc/int8_matmul.cu",
-             "copilot_for_consensus_tpu/ops/quant_matmul.py:50")):
+             "copilot_for_consensus_tpu/ops/quant_matmul.py:50"),
+            ("paged_attention", rows[("K3", "decode", "bfloat16")],
+             "copilot_for_consensus_tpu_torch/csrc/paged_attention.cu",
+             "copilot_for_consensus_tpu/ops/paged_attention.py:166")):
+        k = row["kernel"]
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches["K1" if name == "flash_attention"
-                                 else "K2"],
+            # the paged serve phase runs all three kernels; the contiguous
+            # serve phase's counts (K1, K2) stand beside them
+            "launches": paged_launches[k],
+            "launches_by_path": {"serve": launches.get(k),
+                                 "paged_serve": paged_launches[k]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,21 +1,40 @@
 """Continuous-batching LLM generation engine — the contiguous-cache route
-of the JAX package's ``engine/generation.py``, ported to PyTorch.
+and the paged kernel route of the JAX package's ``engine/generation.py``,
+ported to PyTorch.
 
 * **Slot batch.** Decode state is a fixed batch of ``num_slots``
-  sequences sharing one KV cache ``[L, slots, Hkv, max_len, Dh]``; every
-  decode dispatch advances all slots, and requests join and leave between
-  dispatches.
+  sequences; every decode dispatch advances all slots, and requests join
+  and leave between dispatches.
 * **Admission waves.** Queued prompts are prefilled together, padded to
   the next prefill bucket (rows to a power of two), under an
-  ``admission_token_budget``; their KV is inserted into free slots and
-  the first token sampled — one host sync per wave.
+  ``admission_token_budget``; their KV is inserted and the first token
+  sampled — one host sync per wave.
 * **Windowed decode.** One dispatch runs ``decode_window`` steps; fresh KV
-  goes to small window buffers and is merged into the cache once per
+  goes to small window buffers and is written into the cache once per
   dispatch, so the cache is read-only during the window.
 
-Where the JAX engine builds new arrays, this one updates the cache in
-place (no second cache allocation). It has no telemetry, journal, fault
-injection, scheduler, prefix cache, paged pool or speculative decoding.
+Two KV layouts:
+
+* **Contiguous** (default): one cache ``[L, slots, Hkv, max_len, Dh]``.
+* **Paged** (``kv_pool_blocks`` > 0): one block pool
+  ``[L, kv_pool_blocks, Hkv, block, Dh]`` (``engine/kv_pool.py``, block =
+  ``prefill_chunk``) under admission and decode. Slots map positions onto
+  pool blocks through per-slot block tables and take blocks on demand;
+  admission reserves each request's worst-case block count against free +
+  trie-evictable blocks, so a dispatch never runs the pool dry. Decode
+  scores the committed blocks in place with K3
+  (``ops.paged_attention.paged_attention_partial``) and folds the window
+  in with ``combine_partials``. With ``prefix_cache_blocks`` > 0 a radix
+  trie over the same pool (``engine/prefix_cache.py``) turns a cached
+  prompt prefix into a pointer hit: the matched block ids are appended to
+  the slot's table and only the suffix is prefilled, its prefix read by
+  K3; a retiring request's prompt blocks are adopted by the trie.
+
+Where the JAX engine builds new arrays, this one updates the cache and the
+pool in place (no second allocation). It has no telemetry, journal, fault
+injection, scheduler, speculative decoding, chunked prefill or
+disaggregated roles, and no gather-based reference route for the paged
+layout.
 """
 
 from __future__ import annotations
@@ -28,12 +47,27 @@ import torch
 
 from copilot_for_consensus_tpu_torch.device import resolve_device, \
     resolve_dtype
+from copilot_for_consensus_tpu_torch.engine.kv_pool import (
+    BLOCK_TABLE_DTYPE,
+    BlockPool,
+)
+from copilot_for_consensus_tpu_torch.engine.prefix_cache import PrefixCache
 from copilot_for_consensus_tpu_torch.engine.sampling import (
     SamplingConfig,
     sample,
 )
 from copilot_for_consensus_tpu_torch.models import decoder, quant
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
+from copilot_for_consensus_tpu_torch.ops.paged_attention import (
+    paged_attention_partial,
+)
+
+#: the JAX engine's verify write margin at its default draft lengths
+#: (longest draft 8, plus the bonus token). Its paged admission reserves
+#: at least this much past a request's generation budget even with
+#: speculative decoding off; reserving the same keeps both engines'
+#: admission accounting — and so their waves and hit counts — equal.
+_VERIFY_MARGIN = 9
 
 
 @dataclass
@@ -41,8 +75,12 @@ class Request:
     request_id: int
     prompt: list[int]
     max_new_tokens: int
+    #: leading prompt tokens the prefix cache may publish (None: all)
+    cache_eligible_tokens: int | None = None
     submitted_at: float = field(default_factory=time.monotonic)
     decode_started_at: float = 0.0
+    #: the prompt's block digests, computed once (``_req_digests``)
+    block_digests: list | None = None
 
 
 @dataclass
@@ -87,6 +125,9 @@ class GenerationEngine:
         quantize: bool | str = False,
         decode_window: int = 8,
         admission_token_budget: int = 16384,
+        prefill_chunk: int = 64,
+        kv_pool_blocks: int = 0,
+        prefix_cache_blocks: int = 0,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -128,17 +169,79 @@ class GenerationEngine:
             params = quant.quantize_params(params)
         self.params = params
         self.kv_dtype = self.dtype
-        self._cache = decoder.init_cache(cfg, num_slots, self.max_len,
-                                         dtype=self.kv_dtype,
-                                         device=self.device)
+
+        # ---- KV layout: the contiguous slot cache, or one block pool ------
+        self.paged = bool(kv_pool_blocks)
+        self.prefill_chunk = max(1, prefill_chunk)
+        if prefix_cache_blocks and not self.paged:
+            raise ValueError(
+                "prefix_cache_blocks requires kv_pool_blocks: the port's "
+                "prefix cache is the paged pool's radix trie (the "
+                "contiguous engine's copy-publish cache is not ported)")
+        if prefix_cache_blocks and cfg.sliding_window \
+                and cfg.sliding_window < self.max_len:
+            raise ValueError(
+                "prefix_cache_blocks requires full attention: a reused "
+                "prefix under a sliding window needs absolute-timeline "
+                "window masking the seeded prefill does not implement")
+        self._cache = None
+        self._pool: BlockPool | None = None
+        self._prefix: PrefixCache | None = None
+        if self.paged:
+            block = self.prefill_chunk
+            if 128 % block:
+                raise ValueError(
+                    f"kv_pool_blocks requires prefill_chunk (the block "
+                    f"size) to divide 128, got {block}: decode kv "
+                    f"extents bucket to 128-aligned widths and every "
+                    f"bucket must be block-aligned")
+            if self.max_len % block:
+                raise ValueError(
+                    f"kv_pool_blocks requires max_len % prefill_chunk "
+                    f"== 0, got {self.max_len} % {block}")
+            self._block = block
+            self._max_blocks = self.max_len // block
+            #: furthest a dispatch writes past a slot's committed length
+            self._write_margin = max(self.decode_window, _VERIFY_MARGIN)
+            if kv_pool_blocks < self._max_blocks + 1:
+                raise ValueError(
+                    f"kv_pool_blocks={kv_pool_blocks} cannot hold even "
+                    f"one max_len={self.max_len} slot "
+                    f"({self._max_blocks} blocks) plus one block")
+            self._pool = BlockPool(cfg, num_blocks=kv_pool_blocks,
+                                   block_size=block, kv_dtype=self.kv_dtype,
+                                   device=self.device)
+            #: slot → block table (pool ids; position p lives at
+            #: table[p // block] offset p % block) and the index where
+            #: OWNED blocks start (entries before it are BORROWED from the
+            #: prefix trie, pinned through the request's PrefixMatch)
+            self._tables: list[list[int]] = [[] for _ in range(num_slots)]
+            self._owned_from: list[int] = [0] * num_slots
+            #: seeded admissions that appended matched block ids (pointer
+            #: hits) / all paged admissions / most slots active at once
+            self.zero_copy_admits = 0
+            self.paged_admits = 0
+            self.peak_active = 0
+            if prefix_cache_blocks:
+                # prefix_cache_blocks enables the trie; its budget is the
+                # shared pool's
+                self._prefix = PrefixCache(shared=self._pool)
+        else:
+            self._cache = decoder.init_cache(cfg, num_slots, self.max_len,
+                                             dtype=self.kv_dtype,
+                                             device=self.device)
+        self._prefix_pins: dict[int, object] = {}  # request_id → match
+        #: prompt tokens prefilled / skipped through prefix hits
+        self.prefill_tokens = 0
+        self.prefill_tokens_saved = 0
 
         # ---- host-side slot state ---------------------------------------
         self._free = list(range(num_slots))
         self._active: dict[int, Request] = {}          # slot → request
         self._generated: dict[int, list[int]] = {}     # slot → new tokens
         # Free slots park at position max_len (out of range): every
-        # decode dispatch advances ALL rows, and the merge drops their
-        # out-of-range garbage KV.
+        # decode dispatch advances ALL rows, and the cache write drops
+        # their out-of-range garbage KV.
         self._positions = np.full(num_slots, self.max_len, dtype=np.int64)
         self._next_tok = np.zeros(num_slots, dtype=np.int64)
         self._t_prefill: dict[int, float] = {}
@@ -162,79 +265,183 @@ class GenerationEngine:
         window of cache headroom, capped by the largest prefill bucket)."""
         return min(self.max_len - self.decode_window, self.buckets[-1])
 
-    def submit(self, prompt: list[int], max_new_tokens: int = 256) -> int:
-        """Enqueue a tokenized prompt; returns a request id."""
+    def submit(self, prompt: list[int], max_new_tokens: int = 256, *,
+               cache_eligible_tokens: int | None = None) -> int:
+        """Enqueue a tokenized prompt; returns a request id.
+        ``cache_eligible_tokens`` caps how many leading prompt tokens the
+        prefix cache may publish when the request retires (None: the
+        whole block-aligned prompt)."""
         if not prompt:
             raise ValueError("empty prompt")
         limit = self.prompt_limit
         if len(prompt) > limit:
             # Keep the tail: instructions sit at the end of the prompt.
             prompt = prompt[-limit:]
+            # the cap indexed the ORIGINAL prompt; its head is gone
+            if cache_eligible_tokens is not None:
+                cache_eligible_tokens = 0
         rid = self._next_id
         self._next_id += 1
-        self._queue.append(Request(rid, list(prompt), max_new_tokens))
+        self._queue.append(Request(rid, list(prompt), max_new_tokens,
+                                   cache_eligible_tokens))
         return rid
 
     def step(self) -> list[Completion]:
         """Admit queued requests into free slots, run one decode dispatch
         for all active slots, retire finished ones. Returns completions."""
         self._admit()
+        if self.paged:
+            self.peak_active = max(self.peak_active, len(self._active))
         if self._active:
             self._decode_once()
         return self._drain_done()
 
     def generate(self, prompts: list[list[int]],
-                 max_new_tokens: int = 256) -> list[Completion]:
+                 max_new_tokens: int = 256, *,
+                 cache_eligible_tokens: int | None = None
+                 ) -> list[Completion]:
         """Batch convenience: submit all, run to completion, return in
         submission order."""
-        ids = [self.submit(p, max_new_tokens) for p in prompts]
+        ids = [self.submit(p, max_new_tokens,
+                           cache_eligible_tokens=cache_eligible_tokens)
+               for p in prompts]
         results: dict[int, Completion] = {}
         while len(results) < len(ids):
             for c in self.step():
                 results[c.request_id] = c
         return [results[i] for i in ids]
 
+    def prefix_stats(self) -> dict:
+        """Prefix-cache counters (the JAX engine's keys): ``hit_rate`` is
+        over admission lookups; ``prefill_tokens`` / ``..._saved`` count
+        prompt tokens prefilled and skipped."""
+        out = {"enabled": self._prefix is not None,
+               "prefill_tokens": self.prefill_tokens,
+               "prefill_tokens_saved": self.prefill_tokens_saved}
+        if self._prefix is not None:
+            st = self._prefix.stats.as_dict()
+            out.update(st)
+            out["hit_rate"] = (st["hits"] / st["lookups"]
+                               if st["lookups"] else 0.0)
+            out["blocks_in_use"] = self._prefix.node_count
+        return out
+
+    def kv_pool_stats(self) -> dict:
+        """Paged-KV counters (the JAX engine's keys): the pool's books,
+        internal fragmentation of the allocated blocks, and pointer hits
+        over all paged admissions."""
+        out = {"enabled": self.paged}
+        if not self.paged:
+            return out
+        pool = self._pool
+        out.update({
+            "num_blocks": pool.num_blocks,
+            "block_size": self._block,
+            "free_blocks": pool.free_blocks,
+            "blocks_in_use": pool.blocks_in_use,
+            "pinned_blocks": pool.pinned_blocks,
+            "fragmentation_ratio": round(
+                pool.fragmentation(self._used_tokens()), 4),
+            "zero_copy_admits": self.zero_copy_admits,
+            "paged_admits": self.paged_admits,
+            "zero_copy_hit_rate": (
+                self.zero_copy_admits / self.paged_admits
+                if self.paged_admits else 0.0),
+            "peak_active": self.peak_active,
+            "headroom_blocks": self._block_headroom(),
+        })
+        return out
+
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
 
+    def _req_digests(self, req: Request) -> list:
+        if req.block_digests is None:
+            req.block_digests = self._prefix.prompt_digests(req.prompt)
+        return req.block_digests
+
     def _admit(self) -> None:
         """Admit every queued request a free slot can take, as ONE
         batched prefill over [N, bucket]: one pass over the weights, one
-        cache insert, one sample, one host fetch of the N first tokens."""
+        KV write, one sample, one host fetch of the N first tokens.
+
+        Paged engines admit a request only while its worst-case block
+        footprint fits the pool's headroom, look its prompt up in the
+        prefix trie (pinning the match), and budget the wave by SUFFIX
+        tokens: the cached span is never prefilled."""
         if not (self._queue and self._free):
             return
         t0 = time.monotonic()
         batch: list[tuple[int, Request]] = []
+        matches: list = []            # PrefixMatch | None, aligned w/ batch
         longest = 0
+        headroom = self._block_headroom() if self.paged else 0
         # Cap a wave at 128 rows AND the prompt-token budget: prefill
         # scratch and activations scale with rows × bucket.
         while self._queue and self._free and len(batch) < 128:
             head = self._queue[0]
-            longest = max(longest, len(head.prompt))
+            match_len = 0
+            if self.paged:
+                # the FULL worst case, borrowed prefix included: pinning
+                # the matched blocks takes them out of the evictable
+                # headroom this gate was computed against
+                need = self._worst_blocks_total(head)
+                if need > headroom:
+                    break
+                if self._prefix is not None:
+                    match_len = self._prefix.match_tokens(
+                        head.prompt, digests=self._req_digests(head))
+            longest = max(longest, len(head.prompt) - match_len)
             if batch and (len(batch) + 1) * _next_bucket(
                     longest, self.buckets) > self.admission_token_budget:
                 break
+            m = None
+            if self._prefix is not None:
+                m = self._prefix.lookup(head.prompt,
+                                        digests=self._req_digests(head))
+                if m.tokens == 0:       # miss: nothing pinned
+                    m = None
+            if self.paged:
+                headroom -= need
             batch.append((self._free.pop(0), self._queue.pop(0)))
+            matches.append(m)
+        if not batch:
+            return                      # the pool cannot take the head
         plens = [len(req.prompt) for _, req in batch]
-        bucket = _next_bucket(max(plens), self.buckets)
+        suffix_lens = [plens[i] - (matches[i].tokens if matches[i] else 0)
+                       for i in range(len(batch))]
+        bucket = _next_bucket(max(suffix_lens), self.buckets)
         # Pad N to the next power of two; padded rows prefill garbage and
-        # are never inserted.
+        # their KV is never written.
         n = 1
         while n < len(batch):
             n *= 2
-        tokens = np.zeros((n, bucket), dtype=np.int64)
-        lengths = np.ones((n,), dtype=np.int64)
-        for i, (_slot, req) in enumerate(batch):
-            tokens[i, :plens[i]] = req.prompt
-            lengths[i] = plens[i]
-        first = self._admit_wave(tokens, lengths,
-                                 [slot for slot, _ in batch])
+        if self.paged:
+            first = self._admit_wave_paged(batch, matches, suffix_lens,
+                                           bucket, n)
+        else:
+            tokens = np.zeros((n, bucket), dtype=np.int64)
+            lengths = np.ones((n,), dtype=np.int64)
+            for i, (_slot, req) in enumerate(batch):
+                tokens[i, :plens[i]] = req.prompt
+                lengths[i] = plens[i]
+            first = self._admit_wave(tokens, lengths,
+                                     [slot for slot, _ in batch])
         prefill_s = time.monotonic() - t0
         self.admitted_s += prefill_s
+        self.prefill_tokens += sum(suffix_lens)
+        self.prefill_tokens_saved += sum(m.tokens for m in matches if m)
+        if self.paged:
+            self.paged_admits += len(batch)
+            self.zero_copy_admits += sum(1 for m in matches if m)
         now = time.monotonic()
         for i, (slot, req) in enumerate(batch):
             tok = int(first[i])
+            if matches[i] is not None:
+                # pinned until retirement: the blocks a slot reads must
+                # not be evicted under it
+                self._prefix_pins[req.request_id] = matches[i]
             self._active[slot] = req
             self._generated[slot] = [tok]
             self._positions[slot] = plens[i]
@@ -264,6 +471,156 @@ class GenerationEngine:
         first = sample(logits[:rows], self._gen, self.sampling)
         return first.cpu().numpy()                 # the ONE host sync
 
+    @torch.inference_mode()
+    def _admit_wave_paged(self, batch, matches, suffix_lens: list[int],
+                          bucket: int, n: int) -> np.ndarray:
+        """One paged admission wave. Each row's table is the matched block
+        ids (borrowed, by pointer) plus freshly allocated blocks for the
+        rest of its prompt. A miss wave is ``decoder.prefill`` (K1); a
+        wave with any hit is ``prefill_seeded_paged``, which reads the
+        matched prefixes in place with K3 (window 0). Either way the fresh
+        suffix KV lands in the row's own blocks in one pool scatter."""
+        dev = self.device
+        tokens = np.zeros((n, bucket), dtype=np.int64)
+        lengths = np.ones((n,), dtype=np.int64)
+        rows = []
+        for i, (slot, req) in enumerate(batch):
+            tbl = list(matches[i].block_ids) if matches[i] else []
+            self._owned_from[slot] = len(tbl)
+            need = self._pool.blocks_for(len(req.prompt)) - len(tbl)
+            if need > 0:
+                tbl.extend(self._alloc_blocks(need))
+            self._tables[slot] = tbl
+            start = len(req.prompt) - suffix_lens[i]
+            tokens[i, :suffix_lens[i]] = req.prompt[start:]
+            lengths[i] = suffix_lens[i]
+            rows.append((i, tbl, start, suffix_lens[i]))
+        sbids, soffs = self._write_maps(rows, bucket, n)
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
+        if any(m is not None for m in matches):
+            nb = 1
+            while nb < max(len(m.block_ids) for m in matches if m):
+                nb *= 2
+            bids = np.full((n, nb), self._pool.num_blocks,
+                           dtype=BLOCK_TABLE_DTYPE)
+            pref = np.zeros((n,), dtype=np.int64)
+            for i, m in enumerate(matches):
+                if m is not None:
+                    bids[i, :len(m.block_ids)] = m.block_ids
+                    pref[i] = m.tokens
+            tables = torch.from_numpy(bids).to(dev)
+            pool = self._pool
+
+            def partial_fn(li, q_rows, lns, q_pos):
+                return paged_attention_partial(q_rows, pool.k, pool.v, li,
+                                               tables, lns, q_pos, window=0)
+
+            logits, k_new, v_new = decoder.prefill_seeded_paged(
+                self.params, tokens_t, lengths_t,
+                torch.from_numpy(pref).to(dev), self.cfg, partial_fn)
+        else:
+            scratch = decoder.init_cache(self.cfg, n, bucket,
+                                         dtype=self.kv_dtype, device=dev)
+            logits, scratch = decoder.prefill(self.params, tokens_t,
+                                              lengths_t, self.cfg, scratch)
+            k_new, v_new = scratch["k"], scratch["v"]
+        self._pool.scatter(k_new, v_new, sbids, soffs)
+        first = sample(logits[:len(batch)], self._gen, self.sampling)
+        return first.cpu().numpy()                 # the ONE host sync
+
+    # ------------------------------------------------------------------
+    # paged KV host plumbing
+    # ------------------------------------------------------------------
+
+    def _worst_blocks_total(self, req: Request) -> int:
+        """Most blocks this request's slot can ever hold (borrowed +
+        owned): prompt, generation budget and write margin, capped at
+        the cache ceiling. Admission reserves this much headroom per
+        request, which makes mid-decode pool exhaustion unreachable."""
+        span = min(len(req.prompt) + req.max_new_tokens
+                   + self._write_margin, self.max_len)
+        return self._pool.blocks_for(span)
+
+    def _block_headroom(self) -> int:
+        """Free + trie-evictable blocks minus what admitted work may
+        still allocate."""
+        need = sum(max(0, self._worst_blocks_total(req)
+                       - len(self._tables[slot]))
+                   for slot, req in self._active.items())
+        evictable = self._prefix.evictable_blocks \
+            if self._prefix is not None else 0
+        return self._pool.free_blocks + evictable - need
+
+    def _alloc_blocks(self, n: int) -> list[int]:
+        """Allocate ``n`` pool blocks, first reclaiming idle prefix-trie
+        leaves when the free list runs short."""
+        free = self._pool.free_blocks
+        if n > free and self._prefix is not None:
+            self._prefix.reclaim(n - free)
+        return self._pool.alloc(n)
+
+    def _ensure_blocks(self, slot: int, upto: int) -> None:
+        """Grow the slot's table to cover positions [0, upto)."""
+        tbl = self._tables[slot]
+        need = self._pool.blocks_for(upto) - len(tbl)
+        if need > 0:
+            tbl.extend(self._alloc_blocks(need))
+
+    def _paged_release_slot(self, slot: int, keep=frozenset()) -> None:
+        """Return the slot's OWNED blocks to the pool (minus any the trie
+        adopted) and clear its table. Borrowed entries are the trie's;
+        the request's match release hands them back."""
+        tbl = self._tables[slot]
+        owned = [b for b in tbl[self._owned_from[slot]:] if b not in keep]
+        if owned:
+            self._pool.free(owned)
+        self._tables[slot] = []
+        self._owned_from[slot] = 0
+
+    def _gather_bids(self, width_tokens: int) -> np.ndarray:
+        """[num_slots, width/block] block-id map for a read of
+        ``width_tokens`` columns per slot; rows pad with the sentinel past
+        their table (clamped by K3, masked by the slot's length)."""
+        nb = -(-width_tokens // self._block)
+        arr = np.full((self.num_slots, nb), self._pool.num_blocks,
+                      dtype=BLOCK_TABLE_DTYPE)
+        for s in range(self.num_slots):
+            tbl = self._tables[s][:nb]
+            arr[s, :len(tbl)] = tbl
+        return arr
+
+    def _write_maps(self, rows, width: int, n_rows: int):
+        """Per-(row, column) pool write maps for one dispatch: ``rows`` is
+        ``[(row_idx, table, start_pos, n_valid)]``; column j of a row
+        targets block ``table[(start+j) // block]`` offset
+        ``(start+j) % block`` for j < n_valid. Everything else — padding,
+        rows without a request, columns at or past ``max_len`` — carries
+        the sentinel id and is dropped by the scatter."""
+        bids = np.full((n_rows, width), self._pool.num_blocks,
+                       dtype=BLOCK_TABLE_DTYPE)
+        offs = np.zeros((n_rows, width), dtype=BLOCK_TABLE_DTYPE)
+        for idx, tbl, start, n_valid in rows:
+            n = min(n_valid, width, self.max_len - start)
+            if n <= 0:
+                continue
+            pos = start + np.arange(n)
+            bids[idx, :n] = np.asarray(tbl, dtype=BLOCK_TABLE_DTYPE)[
+                pos // self._block]
+            offs[idx, :n] = pos % self._block
+        return bids, offs
+
+    def _used_tokens(self) -> int:
+        """Live positions in the pool: committed slot timelines minus
+        their borrowed spans (counted once, as trie nodes), plus the
+        published blocks (always full)."""
+        used = sum(int(self._positions[s])
+                   - self._owned_from[s] * self._block
+                   for s in self._active)
+        if self._prefix is not None:
+            used += self._prefix.node_count * self._block
+        return used
+
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
@@ -271,7 +628,7 @@ class GenerationEngine:
     def _kv_bucket(self) -> int:
         """Attention extent for the next decode dispatch: the occupied
         cache prefix rounded up to 128. The dispatch's own fresh KV lives
-        in the window buffers until the merge, so the extent covers only
+        in the window buffers until the write, so the extent covers only
         what was in the cache BEFORE the dispatch."""
         hi = max([int(self._positions[s]) for s in self._active] + [0])
         if hi == 0:
@@ -286,8 +643,13 @@ class GenerationEngine:
     @torch.inference_mode()
     def _decode_dispatch(self, kv_len: int) -> np.ndarray:
         """``decode_window`` steps — decode → sample → feed back — then
-        one merge of the window's KV into the cache. Returns the sampled
-        tokens [window, slots] on the host."""
+        one write of the window's KV into the cache or the pool. Returns
+        the sampled tokens [window, slots] on the host.
+
+        Paged: each step scores the committed blocks of
+        ``tables[:, :kv_len // block]`` in place with K3 (window =
+        the model's sliding window), and the window's KV is scattered into
+        the slots' blocks once, at the end."""
         cfg, w_sz = self.cfg, self.decode_window
         b = self.num_slots
         shape = (cfg.n_layers, b, cfg.n_kv_heads, w_sz, cfg.head_dim)
@@ -295,17 +657,42 @@ class GenerationEngine:
         v_win = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
         tok = torch.from_numpy(self._next_tok).to(self.device)
         positions = torch.from_numpy(self._positions).to(self.device)
+        if self.paged:
+            for slot in self._active:
+                self._ensure_blocks(slot, int(self._positions[slot]) + w_sz)
+            rows = [(s, self._tables[s], int(self._positions[s]), w_sz)
+                    for s in self._active]
+            sbids, soffs = self._write_maps(rows, w_sz, b)
+            tables = torch.from_numpy(self._gather_bids(kv_len)).to(
+                self.device)
+            pool = self._pool
+
+            def partial_fn(li, q_rows, lengths, q_pos):
+                return paged_attention_partial(
+                    q_rows, pool.k, pool.v, li, tables, lengths, q_pos,
+                    window=cfg.sliding_window)
+
+            def step(w):
+                return decoder.decode_step_windowed_paged(
+                    self.params, tok, positions, w, cfg, partial_fn, k_win,
+                    v_win)
+        else:
+            def step(w):
+                return decoder.decode_step_windowed(
+                    self.params, tok, positions, w, cfg, self._cache, k_win,
+                    v_win, kv_len=kv_len)
         out = []
         for w in range(w_sz):
-            logits, k_cols, v_cols = decoder.decode_step_windowed(
-                self.params, tok, positions, w, cfg, self._cache, k_win,
-                v_win, kv_len=kv_len)
+            logits, k_cols, v_cols = step(w)
             k_win[:, :, :, w] = k_cols
             v_win[:, :, :, w] = v_cols
             tok = sample(logits, self._gen, self.sampling)
             out.append(tok)
-        decoder.merge_window(self._cache, k_win, v_win, positions,
-                             steps=w_sz)
+        if self.paged:
+            self._pool.scatter(k_win, v_win, sbids, soffs)
+        else:
+            decoder.merge_window(self._cache, k_win, v_win, positions,
+                                 steps=w_sz)
         return torch.stack(out).cpu().numpy()
 
     def _decode_once(self) -> None:
@@ -345,6 +732,21 @@ class GenerationEngine:
     def _retire(self, slot: int, reason: str) -> None:
         self._positions[slot] = self.max_len   # park out of range
         req = self._active.pop(slot)
+        if self.paged:
+            adopted: set[int] | frozenset = frozenset()
+            if self._prefix is not None:
+                # publish by refcount handoff: the trie adopts the slot's
+                # own prompt-prefix blocks; then the request's match pins
+                # go back
+                adopted = self._prefix.adopt_blocks(
+                    req.prompt, self._tables[slot], self._owned_from[slot],
+                    eligible_tokens=req.cache_eligible_tokens)
+                m = self._prefix_pins.pop(req.request_id, None)
+                if m is not None:
+                    self._prefix.release(m)
+            # tail blocks (generated-token KV, unpublished prompt tail)
+            # go straight back to the allocator
+            self._paged_release_slot(slot, keep=adopted)
         gen = self._generated.pop(slot)
         if gen and gen[-1] in self._eos_set:
             gen = gen[:-1]

@@ -1,19 +1,37 @@
 """Tokenizers for the serving engine (the port's own copy).
 
 Copied from the JAX package's ``engine/tokenizer.py``: the ``Tokenizer``
-interface and the zero-dependency ``ByteTokenizer`` (raw UTF-8 bytes
+interface, the zero-dependency ``ByteTokenizer`` (raw UTF-8 bytes
 shifted past the special ids), which the summarizer uses when no trained
-vocabulary is given.
+vocabulary is given, and ``stable_block_hash``, the prefix cache's block
+digest (byte for byte, so both packages' tries match the same prompts).
 """
 
 from __future__ import annotations
 
 import abc
+import hashlib
 
 PAD_ID = 0
 BOS_ID = 1
 EOS_ID = 2
 N_SPECIALS = 3
+
+
+def stable_block_hash(prev: bytes, tokens) -> bytes:
+    """Chained hash of one token block for the prefix KV cache.
+
+    ``prev`` is the parent block's digest (``b""`` for the first block),
+    so a digest commits to the ENTIRE token prefix, not just its own
+    block — two prompts share a radix-trie node iff every token from
+    position zero matches. Uses blake2b over the explicit little-endian
+    token bytes, NOT Python's ``hash()``: the digest keys cross-request
+    (and potentially cross-process / on-disk) reuse, so it must not
+    change between interpreter runs (PYTHONHASHSEED) or platforms."""
+    h = hashlib.blake2b(prev, digest_size=16)
+    h.update(b"".join(int(t).to_bytes(8, "little", signed=True)
+                      for t in tokens))
+    return h.digest()
 
 
 class Tokenizer(abc.ABC):

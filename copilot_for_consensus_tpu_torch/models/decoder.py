@@ -1,5 +1,5 @@
 """Decoder-only LLM (Mistral / Llama class) — port of the JAX package's
-``models/decoder.py`` for the contiguous serving path.
+``models/decoder.py`` for the contiguous and paged serving paths.
 
 Pre-norm transformer with RoPE, GQA, SwiGLU FFN and RMSNorm. Weights keep
 the JAX layout — every layer leaf stacked on a leading layer axis — and
@@ -10,7 +10,12 @@ the ``lax.scan`` over that axis becomes a Python loop. Entry points:
   logits;
 * ``decode_step_windowed``  — one token per slot against the read-only
   cache plus the dispatch's window buffer;
-* ``merge_window``          — writes a window's KV into the cache, once.
+* ``merge_window``          — writes a window's KV into the cache, once;
+* ``decode_step_windowed_paged`` / ``prefill_seeded_paged`` — the paged
+  engine's decode step and seeded admission pass: the KV held in the block
+  pool is scored in place by a ``partial_fn(li, q_rows, lengths, q_pos)``
+  (K3), handed the layer index ``li`` as an int offset into the stacked
+  pool, so no per-layer pool slice is copied.
 
 ``impl`` ("auto" | "plain") of ``forward`` and ``prefill`` selects the
 kernel wrappers or their plain versions for every attention and int8
@@ -19,6 +24,7 @@ matmul of the pass; decode always goes through the wrappers.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -141,6 +147,63 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
         v_cols.append(v_cur)
     return (_unembed(x, params, cfg)[:, 0], torch.stack(k_cols),
             torch.stack(v_cols))
+
+
+def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
+                               positions0: torch.Tensor, w: int,
+                               cfg: DecoderConfig, partial_fn,
+                               k_win: torch.Tensor, v_win: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Paged twin of :func:`decode_step_windowed`: the committed KV is
+    never an array here — ``partial_fn(li, qg, lengths, q_pos)`` scores
+    the slot's pool blocks of layer ``li`` in place, and the window
+    buffers carry the dispatch's fresh KV until the caller's one pool
+    scatter. Returns ([B, V] f32 logits, k_cols, v_cols [L, B, Hkv, Dh])."""
+    x = params["tok_emb"][tokens.long()][:, None, :]        # [B, 1, D]
+    k_cols, v_cols = [], []
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        h, k_cur, v_cur = L.attn_decode_windowed_paged(
+            L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
+            positions0, w, functools.partial(partial_fn, li), k_win[li],
+            v_win[li])
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                         layer)
+        k_cols.append(k_cur)
+        v_cols.append(v_cur)
+    return (_unembed(x, params, cfg)[:, 0], torch.stack(k_cols),
+            torch.stack(v_cols))
+
+
+def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
+                         lengths: torch.Tensor, prefix_lens: torch.Tensor,
+                         cfg: DecoderConfig, partial_fn
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Seeded admission pass: right-padded suffix tokens [B, S] at
+    absolute positions ``prefix_lens[b] + i`` attend their prefix,
+    scored off the block pool by ``partial_fn(li, q_rows, lengths,
+    q_pos)``, and their own causal suffix below ``lengths[b]``. Returns
+    (last-valid-position logits [B, V] f32, selected before the lm_head;
+    k_new, v_new [L, B, Hkv, S, Dh] in the compute dtype for the pool
+    scatter)."""
+    b, s = tokens.shape
+    x = params["tok_emb"][tokens.long()]
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+    k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
+    v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        h, k_new[li], v_new[li] = L.attn_prefill_seeded_paged(
+            L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
+            functools.partial(partial_fn, li), prefix_lens, lengths)
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                         layer)
+    x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
+    return _unembed(x_last, params, cfg), k_new, v_new
 
 
 def merge_window(cache: Params, k_win: torch.Tensor, v_win: torch.Tensor,

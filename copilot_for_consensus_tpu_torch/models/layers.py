@@ -1,11 +1,14 @@
 """Transformer building blocks (port of the JAX package's
-``models/layers.py``, the parts the contiguous serving path runs).
+``models/layers.py``, the parts the contiguous and paged serving paths
+run).
 
 Params are plain dicts of tensors; activations flow in the compute dtype
 (bf16 by default) while norms, RoPE and softmax statistics run in f32.
 ``impl`` ("auto" | "plain") of the prefill functions picks between the
 kernel wrappers and their plain versions, as in ``ops.attention.attention``;
-decode always takes the wrappers.
+decode always takes the wrappers. The ``_paged`` twins score the pool
+piece through a ``partial_fn`` (K3 over the paged block pool) and fold
+the dispatch-local pieces in with ``combine_partials``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from copilot_for_consensus_tpu_torch.models.quant import quant_kind
 from copilot_for_consensus_tpu_torch.ops.attention import (
     IMPLS,
     attention,
+    causal_suffix_partial,
+    combine_partials,
     decode_attention_prefix_window,
+    decode_window_partial,
 )
 from copilot_for_consensus_tpu_torch.ops.quant_matmul import (
     int8_matmul,
@@ -121,6 +127,56 @@ def attn_decode_windowed(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
         window=cfg.sliding_window, kv_len=kv_len)            # [B, Hq, Dh]
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return qmatmul(o, layer["wo"]), k_cur, v_cur
+
+
+def attn_decode_windowed_paged(x: torch.Tensor, layer: dict,
+                               cfg: DecoderConfig, positions0: torch.Tensor,
+                               w: int, partial_fn, k_win_l: torch.Tensor,
+                               v_win_l: torch.Tensor):
+    """Paged twin of :func:`attn_decode_windowed`: the committed prefix is
+    never materialized — ``partial_fn(qg, lengths, q_pos)`` returns its
+    flash (acc, m, l) straight off the block pool (K3), and the current
+    window and the token itself fold in through one ``combine_partials``.
+    Projections, RoPE and the output matmul are the contiguous twin's."""
+    b = x.shape[0]
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    q_pos = positions0 + w
+    q, k, v = _project_qkv(x, layer, cfg, q_pos[:, None])
+    k_cur = k[:, :, 0, :]
+    v_cur = v[:, :, 0, :]
+    qg = q[:, :, 0, :].reshape(b, hkv, cfg.n_heads // hkv, dh).contiguous()
+    pool_part = partial_fn(qg, positions0, q_pos)
+    local_part = decode_window_partial(
+        qg, k_win_l, v_win_l, k_cur, v_cur, positions0, w,
+        window=cfg.sliding_window)
+    o = combine_partials([pool_part, local_part], x.dtype)
+    o = o.reshape(b, 1, cfg.n_heads * dh)
+    return qmatmul(o, layer["wo"]), k_cur, v_cur
+
+
+def attn_prefill_seeded_paged(x: torch.Tensor, layer: dict,
+                              cfg: DecoderConfig, partial_fn,
+                              prefix_lens: torch.Tensor,
+                              lengths: torch.Tensor | None = None):
+    """Suffix prefill against a prefix held in the block pool: row b's
+    tokens sit at absolute positions ``prefix_lens[b] + i`` (RoPE rotates
+    with that offset). ``partial_fn(q_rows, lengths, q_pos)`` scores the
+    prefix in place (K3 over R = G·S rows, (g, s) flattened row-major) and
+    the fresh causal suffix joins through ``combine_partials``. Returns
+    (out [B, S, D_model], k, v) with the fresh suffix k/v in
+    [B, Hkv, S, Dh] for the pool scatter at the per-row offset."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = prefix_lens[:, None] + torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(x, layer, cfg, positions)
+    q_rows = q.reshape(b, hkv, (hq // hkv) * s, dh).contiguous()
+    pool_part = partial_fn(q_rows, prefix_lens, prefix_lens)
+    suffix_part = causal_suffix_partial(q, k, v, kv_lengths=lengths)
+    o = combine_partials([pool_part, suffix_part], x.dtype)
+    # the f32 partials (128 MiB each at B 8, R 4096) are dead past the fold
+    del pool_part, suffix_part
+    o = o.reshape(b, hq, s, dh).transpose(1, 2).reshape(b, s, hq * dh)
+    return qmatmul(o, layer["wo"]), k, v
 
 
 def swiglu(x: torch.Tensor, layer: dict, impl: str = "auto") -> torch.Tensor:

@@ -42,6 +42,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # x, q, scale, out, workspace, M, D, F, splits, is_bf16, stream
         "int8_matmul_fwd": [_P] * 5 + [_I] * 5 + [_P],
     },
+    "paged_attention": {
+        # q_rows, pool_k, pool_v, tables, lengths, q_pos, acc, m, l,
+        # B, Hkv, R, D, L, NBtot, blk, NB, li, window, q_bf16, kv_kind,
+        # stream
+        "paged_attention_fwd": [_P] * 9 + [_I] * 12 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,18 @@
 """Attention front end and the plain attention functions.
 
 Port of the JAX package's ``ops/attention.py`` (the parts the contiguous
-serving path runs). Shapes, GQA throughout:
+and paged serving paths run). Shapes, GQA throughout:
     q: [B, Hq, S, D]    k, v: [B, Hkv, S, D]    Hq % Hkv == 0
 
 ``attention`` is the prefill dispatch: ``impl="auto"`` goes through the K1
 wrapper (the CUDA kernel on the card, its plain version on the CPU),
 ``impl="plain"`` selects K1's plain version on any device. Decode
 attention over the contiguous cache is plain PyTorch, as it is plain XLA
-in the JAX package.
+in the JAX package. So are the flash-partial functions of the paged route
+(``combine_partials``, ``decode_window_partial``,
+``causal_suffix_partial``): K3 scores the pool piece, these score the
+dispatch-local pieces and fold everything into one joint softmax, with
+every mask through ``_piece_mask``.
 """
 
 from __future__ import annotations
@@ -164,3 +168,129 @@ def decode_attention_prefix_window(
     out = out + torch.einsum("bhgw,bhwd->bhgd", pw.to(dt), v_win)
     out = out + pc.to(dt) * v_cur[:, :, None, :]
     return out.reshape(b, hq, d)
+
+
+# ---------------------------------------------------------------------------
+# flash partials: the paged route's joint softmax over separate KV pieces
+# ---------------------------------------------------------------------------
+
+
+def _safe(m: torch.Tensor) -> torch.Tensor:
+    """``m`` with -inf (a fully masked row) pinned to 0, so that
+    ``exp(s - m)`` never forms ``-inf - -inf``."""
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+def combine_partials(parts, dtype: torch.dtype) -> torch.Tensor:
+    """Fold flash-style (acc, m, l) partials of independent KV pieces into
+    the jointly softmaxed attention output — what lets K3 score the pool
+    piece in place while the dispatch-local pieces stay plain PyTorch.
+
+    Each part: acc [..., R, D] = Σ exp(s - m)·v over its piece, m
+    [..., R, 1] its max (-inf when fully masked), l [..., R, 1] =
+    Σ exp(s - m). Rows masked in EVERY piece emit exact zeros — the value
+    ``_joint_probs``'s NaN guard produces."""
+    m_tot = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_tot = torch.maximum(m_tot, m)
+    m_safe = _safe(m_tot)
+    l_tot = acc_tot = 0.0
+    for acc, m, l in parts:
+        scale = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                            torch.zeros_like(m))
+        l_tot = l_tot + l * scale
+        acc_tot = acc_tot + acc * scale
+    ok = l_tot > 0
+    out = acc_tot / torch.where(ok, l_tot, torch.ones_like(l_tot))
+    return torch.where(ok, out, torch.zeros_like(out)).to(dtype)
+
+
+def _masked_partial(logits: torch.Tensor, v_pieces: list[torch.Tensor]
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(acc, m, l) of already-masked score rows [..., R, T] against their
+    stacked values [..., T, D], f32 throughout. ``logits`` is consumed:
+    it becomes the probabilities in place (the seeded wave's score
+    tensor is the largest transient of admission)."""
+    v_all = torch.cat([v.float() for v in v_pieces], dim=-2) \
+        if len(v_pieces) > 1 else v_pieces[0].float()
+    m = logits.amax(dim=-1, keepdim=True)
+    p = logits.sub_(_safe(m)).exp_()                 # exp(-inf) = 0 pads
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p, v_all)
+    return acc, m, l
+
+
+def decode_window_partial(
+    qg: torch.Tensor,
+    k_win: torch.Tensor,
+    v_win: torch.Tensor,
+    k_cur: torch.Tensor,
+    v_cur: torch.Tensor,
+    prefix_lengths: torch.Tensor,
+    w: int,
+    window: int = 0,
+    k_done: torch.Tensor | None = None,
+    v_done: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash partial over the DISPATCH-LOCAL pieces of
+    ``decode_attention_prefix_window`` — completed windows, current
+    window, self — everything except the pool piece, which K3 scores in
+    place. Masks are ``_piece_mask`` against the same dispatch timeline,
+    so folding this with the pool partial reproduces the joint softmax.
+
+    qg: [B, Hkv, G, D] grouped queries; k_win/v_win: [B, Hkv, W, D];
+    k_cur/v_cur: [B, Hkv, D]; k_done/v_done: [B, Hkv, Wd, D]. Returns f32
+    (acc [B, Hkv, G, D], m/l [B, Hkv, G, 1])."""
+    dt = qg.dtype
+    dev = qg.device
+    n_win = k_win.shape[2]
+    n_done = 0 if k_done is None else k_done.shape[2]
+    d = qg.shape[-1]
+    pl = prefix_lengths.to(dev)[:, None, None, None]
+    cur_pos = pl + n_done + w
+
+    lw = _grouped_scores(qg, k_win.to(dt))
+    lc = torch.einsum("bhgd,bhd->bhg", qg.float(),
+                      k_cur.to(dt).float())[..., None] * (d ** -0.5)
+    pos_w = pl + n_done + torch.arange(n_win, device=dev)[None, None, None]
+    lw = lw.masked_fill(~_piece_mask(pos_w, cur_pos, cur_pos, window),
+                        float("-inf"))
+    pieces_l, pieces_v = [], []
+    if n_done:
+        ld = _grouped_scores(qg, k_done.to(dt))
+        pos_dn = pl + torch.arange(n_done, device=dev)[None, None, None]
+        pieces_l.append(ld.masked_fill(
+            ~_piece_mask(pos_dn, cur_pos, cur_pos, window), float("-inf")))
+        pieces_v.append(v_done.to(dt))
+    pieces_l += [lw, lc]
+    pieces_v += [v_win.to(dt), v_cur.to(dt)[:, :, None, :]]
+    return _masked_partial(torch.cat(pieces_l, dim=-1), pieces_v)
+
+
+def causal_suffix_partial(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash partial over the fresh causal-suffix piece of a seeded
+    prefill (``jk <= iq`` and below the row's valid suffix length), with
+    the (g, s) query rows flattened row-major into R = G·S — the row
+    layout K3 scores the pool prefix in, so the two partials zip straight
+    into ``combine_partials``.
+
+    q: [B, Hq, S, D]; k/v: [B, Hkv, S, D]. Returns f32
+    (acc [B, Hkv, G·S, D], m/l [B, Hkv, G·S, 1])."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, s, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float())
+    logits.mul_(d ** -0.5)
+    iq = torch.arange(s, device=q.device)
+    mask = (iq[None, :] <= iq[:, None])[None, None, None]
+    if kv_lengths is not None:
+        mask = mask & (iq[None, None, None, None, :]
+                       < kv_lengths.to(q.device)[:, None, None, None, None])
+    logits.masked_fill_(~mask, float("-inf"))
+    return _masked_partial(logits.reshape(b, hkv, g * s, s), [v])

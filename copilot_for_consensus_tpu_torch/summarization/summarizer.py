@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``summarization/tpu_summarizer.py``
 (``TPUSummarizer`` → ``CUDASummarizer``): the same template,
-``build_prompt``, ``summarize`` and ``summarize_batch``, served by the
-port's ``GenerationEngine``. Prompts longer than the engine's
-``prompt_limit`` keep their tail (there is no long-context engine here).
+``build_prompt``, ``shared_template_head``, ``cache_scope``,
+``summarize`` and ``summarize_batch``, served by the port's
+``GenerationEngine`` (a paged one with a prefix cache comes in through
+``engine=``). Prompts longer than the engine's ``prompt_limit`` keep their
+tail (there is no long-context engine here).
 """
 
 from __future__ import annotations
@@ -55,10 +57,39 @@ def build_prompt(thread: ThreadContext, template: str = DEFAULT_TEMPLATE,
     )
 
 
+#: per-thread template variables, in any order — everything BEFORE the
+#: first of these in the template is byte-identical across threads
+_THREAD_FIELDS = ("subject", "thread_id", "participants",
+                  "message_count", "email_chunks")
+
+
+def shared_template_head(template: str = DEFAULT_TEMPLATE,
+                         system: str = DEFAULT_SYSTEM) -> str:
+    """The rendered prompt span shared by EVERY thread's prompt: the
+    template head up to the first per-thread placeholder, with the
+    (deployment-constant) system prompt substituted — the span the
+    summarizer marks prefix-cache-eligible under ``cache_scope="template"``."""
+    cut = len(template)
+    for fld in _THREAD_FIELDS:
+        i = template.find("{" + fld + "}")
+        if i >= 0:
+            cut = min(cut, i)
+    # only {system} may appear in the head; replace (not .format) so
+    # stray braces in a custom template cannot raise
+    return template[:cut].replace("{system}", system)
+
+
 class CUDASummarizer(Summarizer):
     """Summaries from the port's engine. With no ``engine`` given it
     builds one for ``model`` with random weights from ``seed``, int8 by
-    default (``quantize``), on ``device`` (None → the card)."""
+    default (``quantize``), on ``device`` (None → the card).
+
+    ``cache_scope`` is how much of each prompt the engine's prefix cache
+    may publish (``GenerationEngine.submit``'s ``cache_eligible_tokens``):
+    "full" — the whole prompt (a re-summarized thread re-sends a
+    near-identical prompt); "template" — only the shared template head,
+    for small pools where thread-unique context would evict it; "off" —
+    nothing."""
 
     def __init__(self, model: str = "mistral-7b", *, engine=None,
                  tokenizer: Tokenizer | None = None,
@@ -68,6 +99,7 @@ class CUDASummarizer(Summarizer):
                  max_len: int = 4096, params: dict | None = None,
                  dtype: str | torch.dtype | None = None,
                  quantize: bool | str = "int8", seed: int = 0,
+                 cache_scope: str = "full",
                  device: str | torch.device | None = None):
         self._model = model
         self.max_new_tokens = max_new_tokens
@@ -85,6 +117,19 @@ class CUDASummarizer(Summarizer):
             max(259, self.engine.cfg.vocab_size))
         if self.tokenizer.vocab_size > self.engine.cfg.vocab_size:
             raise ValueError("tokenizer vocab exceeds model vocab")
+        if cache_scope not in ("full", "template", "off"):
+            raise ValueError(f"unknown cache_scope {cache_scope!r}")
+        self.cache_scope = cache_scope
+        self._cache_eligible: int | None = None
+        if cache_scope == "template":
+            # BPE merges at the boundary may differ between the head alone
+            # and a full prompt; one token shaved keeps the marked span
+            # inside the shared bytes (the publish cap is block-aligned)
+            head = shared_template_head(self.template, self.system)
+            self._cache_eligible = max(
+                0, len(self.tokenizer.encode(head, add_bos=True)) - 1)
+        elif cache_scope == "off":
+            self._cache_eligible = 0
 
     def summarize(self, thread: ThreadContext) -> Summary:
         return self.summarize_batch([thread])[0]
@@ -96,7 +141,9 @@ class CUDASummarizer(Summarizer):
                 build_prompt(t, self.template, self.system), add_bos=True)
             for t in threads
         ]
-        comps = self.engine.generate(prompts, self.max_new_tokens)
+        comps = self.engine.generate(
+            prompts, self.max_new_tokens,
+            cache_eligible_tokens=self._cache_eligible)
         return [
             Summary(
                 thread_id=thread.thread_id,

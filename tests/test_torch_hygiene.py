@@ -59,7 +59,8 @@ def test_no_jax_imports_in_source(path):
 
 @pytest.mark.parametrize("name,replaces", [
     ("flash_attention", "copilot_for_consensus_tpu/ops/flash_attention.py"),
-    ("int8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py")])
+    ("int8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("paged_attention", "copilot_for_consensus_tpu/ops/paged_attention.py")])
 def test_kernel_sources_carry_their_note(name, replaces):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
