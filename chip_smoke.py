@@ -28,7 +28,8 @@ non-zero before the last line:
 7. kernels, K3 — (run right after phase 3, on a 1024-block pool) the
    paged flash-partial kernel against its plain version at the decode
    (R = 4, a 64-entry table, bf16/f32/fp8 pools, windows 4096 and 100)
-   and seeded-admission (R = 4·64, 4·1024) shapes, timed likewise;
+   and seeded-admission (R = 4·64, 4·1024) shapes — the normalised output
+   and the raw m and l — timed likewise;
 8. paged model — after the contiguous engine is freed, a paged engine
    (8 slots, max_len 4096, 1024 blocks of 64, prefix cache): four prompts
    prefilled into its pool, their last 64 tokens prefilled again with the
@@ -67,6 +68,15 @@ K2_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: positions taken in another order (online vs one-pass softmax) and expf
 #: vs torch.exp: near f32 level for every pool dtype.
 K3_ATOL = 1e-4
+#: K3's raw partials, which every paged step folds with the window's piece
+#: (so a wrong m would skew the joint softmax while the one-piece check
+#: above stays blind to it): on rows that attend anything, m (a max of
+#: scores of magnitude < ~10, each a 128-term f32 dot product summed in
+#: another order) within 1e-5 absolute, and l (a sum of up to 4096 f32
+#: exponentials, each off by the scores' error) within 1e-5 relative;
+#: rows that attend nothing must give m = -inf and l = 0 exactly.
+K3_M_ATOL = 1e-5
+K3_L_RTOL = 1e-5
 #: model consistency: relative L2 of kernel vs plain last-position logits
 #: after 32 bf16 layers (rounding differences compound through depth)
 LOGITS_REL_L2 = 5e-2
@@ -288,19 +298,25 @@ def phase_k3(dev, flush):
         got = combine_partials([part], torch.float32)
         want = combine_partials([ref], torch.float32)
         err = (got - want).abs().max().item()
-        dead = lengths == 0
+        # the raw (m, l) against the plain version's, row by row
+        live = torch.isfinite(ref[1])
+        m_err = (part[1] - ref[1])[live].abs().max().item()
+        l_err = ((part[2] - ref[2]).abs() / ref[2])[live].max().item()
         ok = (bool(torch.isfinite(got).all()) and err <= K3_ATOL
-              and bool(torch.isinf(part[1][dead]).all())
-              and not bool(part[2][dead].any()))
-        # the work this input needs: positions [lo, hi) of each row and
-        # the pool blocks that hold them
+              and m_err <= K3_M_ATOL and l_err <= K3_L_RTOL
+              and bool(torch.isinf(part[1][~live]).all())
+              and not bool(part[2][~live].any()))
+        # the work this input needs: positions [lo, hi) of each row, whose
+        # K and V rows are read once each
         hi = lengths.clamp(max=nb * blk).long()
         lo = (q_pos.long() - window + 1).clamp(min=0) if window > 0 \
             else torch.zeros_like(hi)
         pos = (hi - lo).clamp(min=0)
-        blocks = torch.where(hi > lo, -(-hi // blk) - lo // blk, 0)
+        # in decode, the 64-position tiles the longest (slot, head) block
+        # walks in turn: with B·Hkv = 64 blocks on 132 SMs it sets the time
+        tiles = int(torch.where(hi > lo, -(-hi // 64) - lo // 64, 0).max())
         elt = pk.element_size()
-        kv_bytes = int(blocks.sum()) * hkv * blk * d * elt * 2
+        kv_bytes = int(pos.sum()) * hkv * d * elt * 2
         out_bytes = sum(t.numel() * 4 for t in part)
         bnd, by = bound_ms(
             kv_bytes + nbytes(q, tables, lengths, q_pos) + out_bytes,
@@ -316,6 +332,9 @@ def phase_k3(dev, flush):
         row = {"kernel": "K3", "case": label, "dtype": pdt,
                "shape": [b, hkv, r, d, blk, nb], "window": window,
                "max_abs_err": err, "tol": K3_ATOL,
+               "m_err": m_err, "m_tol": K3_M_ATOL,
+               "l_rel_err": l_err, "l_rtol": K3_L_RTOL,
+               "positions": int(pos.sum()),
                "ms": time_ms(lambda: pa.paged_attention_partial(
                    *args, window=window), flush=flush),
                "plain_ms": time_ms(lambda: pa.paged_attention_partial_ref(
@@ -327,9 +346,13 @@ def phase_k3(dev, flush):
                "library": "SDPA over the pre-gathered view, normalised "
                           "output, gather excluded",
                "bound_ms": bnd, "bound_by": by}
+        if r <= 8:
+            # the decode tiling: one block a (slot, head)
+            row.update(max_tiles=tiles, us_per_tile=row["ms"] * 1e3 / tiles)
         emit(row)
         if not ok:
-            raise AssertionError(f"K3 {label} {pdt}: error {err}")
+            raise AssertionError(f"K3 {label} {pdt}: error {err}, m error "
+                                 f"{m_err}, l relative error {l_err}")
         rows[("K3", label, pdt)] = row
         del q, part, ref, got, want, kg, vg
     del pools

@@ -20,13 +20,19 @@
 //
 // What bounds it on this card: two regimes.
 //   * Decode (R = group = 4, B = 8, Hkv = 8, D = 128, blk = 64): each K/V
-//     byte is used by only 4 query rows, so the kernel is bound by the bytes
-//     of the valid K/V blocks (~37.7 MB a layer at ~1100 positions, ~11 us
-//     at 3.35 TB/s). Its grid is only B * Hkv = 64 blocks for 132 SMs, and
-//     each block walks its slot's tiles one after another, one tile's loads
-//     in flight while the previous one computes: a long slot sets the time.
-//     Splitting the table across blocks with a second combine pass is the
-//     redesign that would approach the bound.
+//     byte is used by only 4 query rows, so the work is bound by the bytes
+//     of the attended positions (~34 MB a layer at ~1050 positions, ~10 us
+//     at 3.35 TB/s). This version is held back by the fixed cost of each
+//     64-position tile in its loop, not by the grid's shape alone: a block
+//     spends ~6.5 us a tile (H100 80GB HBM3 at 700 W, chip_smoke.py's K3
+//     decode cases), moving ~5 GB/s where an SM's share of HBM is ~25
+//     GB/s. Within that cost the 8-row tiling computes 8 rows for R =
+//     4, so half of its QK and PV FMAs go to zero rows, and each tile's
+//     loads, conversion, two barriers and shuffles run with one 128-thread
+//     block an SM to hide them. The grid is only B * Hkv = 64 blocks for
+//     132 SMs, so splitting the table across blocks (with a second combine
+//     pass) buys at most ~2x on its own; a parked slot (length max_len)
+//     also walks its whole NB-wide table of clamped pad ids.
 //   * Seeded admission (R = group * S, S up to 1024): each K/V tile serves
 //     64 rows, so the work is arithmetic; this version does it with f32
 //     FMAs on the CUDA cores (as K1 does), so its ceiling is the 67 TFLOP/s

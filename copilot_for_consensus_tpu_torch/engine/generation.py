@@ -28,7 +28,10 @@ Two KV layouts:
   trie over the same pool (``engine/prefix_cache.py``) turns a cached
   prompt prefix into a pointer hit: the matched block ids are appended to
   the slot's table and only the suffix is prefilled, its prefix read by
-  K3; a retiring request's prompt blocks are adopted by the trie.
+  K3; a retiring request's prompt blocks are adopted by the trie. As in
+  the JAX paged engine, ``prefix_cache_blocks`` is only an enable flag:
+  the trie's budget is the shared pool, so every positive value behaves
+  the same.
 
 Where the JAX engine builds new arrays, this one updates the cache and the
 pool in place (no second allocation). It has no telemetry, journal, fault
@@ -223,8 +226,8 @@ class GenerationEngine:
             self.paged_admits = 0
             self.peak_active = 0
             if prefix_cache_blocks:
-                # prefix_cache_blocks enables the trie; its budget is the
-                # shared pool's
+                # an enable flag only: the trie's budget is the shared
+                # pool's, so 1 and 8 behave the same
                 self._prefix = PrefixCache(shared=self._pool)
         else:
             self._cache = decoder.init_cache(cfg, num_slots, self.max_len,
@@ -504,7 +507,8 @@ class GenerationEngine:
                 nb *= 2
             bids = np.full((n, nb), self._pool.num_blocks,
                            dtype=BLOCK_TABLE_DTYPE)
-            pref = np.zeros((n,), dtype=np.int64)
+            # int32, as K3 takes it: no conversion in any layer
+            pref = np.zeros((n,), dtype=np.int32)
             for i, m in enumerate(matches):
                 if m is not None:
                     bids[i, :len(m.block_ids)] = m.block_ids
@@ -656,8 +660,10 @@ class GenerationEngine:
         k_win = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
         v_win = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
         tok = torch.from_numpy(self._next_tok).to(self.device)
-        positions = torch.from_numpy(self._positions).to(self.device)
         if self.paged:
+            # int32, as K3 takes lengths and q_pos: built once a dispatch
+            positions = torch.from_numpy(
+                self._positions.astype(np.int32)).to(self.device)
             for slot in self._active:
                 self._ensure_blocks(slot, int(self._positions[slot]) + w_sz)
             rows = [(s, self._tables[s], int(self._positions[s]), w_sz)
@@ -677,6 +683,8 @@ class GenerationEngine:
                     self.params, tok, positions, w, cfg, partial_fn, k_win,
                     v_win)
         else:
+            positions = torch.from_numpy(self._positions).to(self.device)
+
             def step(w):
                 return decoder.decode_step_windowed(
                     self.params, tok, positions, w, cfg, self._cache, k_win,

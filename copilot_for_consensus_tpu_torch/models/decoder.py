@@ -159,15 +159,21 @@ def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
     never an array here — ``partial_fn(li, qg, lengths, q_pos)`` scores
     the slot's pool blocks of layer ``li`` in place, and the window
     buffers carry the dispatch's fresh KV until the caller's one pool
-    scatter. Returns ([B, V] f32 logits, k_cols, v_cols [L, B, Hkv, Dh])."""
+    scatter. Returns ([B, V] f32 logits, k_cols, v_cols [L, B, Hkv, Dh]).
+
+    K3 takes int32 lengths and query positions: they are built here once
+    a step (the engine passes int32 ``positions0``, so only the add runs),
+    not in every layer."""
     x = params["tok_emb"][tokens.long()][:, None, :]        # [B, 1, D]
+    positions0 = positions0.to(torch.int32)
+    q_pos = positions0 + w
     k_cols, v_cols = [], []
     for li in range(cfg.n_layers):
         layer = layer_params(params, li)
         h, k_cur, v_cur = L.attn_decode_windowed_paged(
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
-            positions0, w, functools.partial(partial_fn, li), k_win[li],
-            v_win[li])
+            positions0, w, q_pos, functools.partial(partial_fn, li),
+            k_win[li], v_win[li])
         x = x + h
         x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
                          layer)
@@ -188,8 +194,9 @@ def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
     q_pos)``, and their own causal suffix below ``lengths[b]``. Returns
     (last-valid-position logits [B, V] f32, selected before the lm_head;
     k_new, v_new [L, B, Hkv, S, Dh] in the compute dtype for the pool
-    scatter)."""
+    scatter). ``prefix_lens`` goes to K3 as int32, converted once here."""
     b, s = tokens.shape
+    prefix_lens = prefix_lens.to(torch.int32)
     x = params["tok_emb"][tokens.long()]
     shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
     k_new = torch.empty(shape, dtype=x.dtype, device=x.device)

@@ -131,16 +131,16 @@ def attn_decode_windowed(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
 
 def attn_decode_windowed_paged(x: torch.Tensor, layer: dict,
                                cfg: DecoderConfig, positions0: torch.Tensor,
-                               w: int, partial_fn, k_win_l: torch.Tensor,
-                               v_win_l: torch.Tensor):
+                               w: int, q_pos: torch.Tensor, partial_fn,
+                               k_win_l: torch.Tensor, v_win_l: torch.Tensor):
     """Paged twin of :func:`attn_decode_windowed`: the committed prefix is
     never materialized — ``partial_fn(qg, lengths, q_pos)`` returns its
     flash (acc, m, l) straight off the block pool (K3), and the current
     window and the token itself fold in through one ``combine_partials``.
-    Projections, RoPE and the output matmul are the contiguous twin's."""
+    Projections, RoPE and the output matmul are the contiguous twin's.
+    ``q_pos`` = ``positions0 + w``, built once a step by the caller."""
     b = x.shape[0]
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    q_pos = positions0 + w
     q, k, v = _project_qkv(x, layer, cfg, q_pos[:, None])
     k_cur = k[:, :, 0, :]
     v_cur = v[:, :, 0, :]

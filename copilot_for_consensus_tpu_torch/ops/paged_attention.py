@@ -131,6 +131,20 @@ def _check(q_rows, pool_k, pool_v, li, tables) -> None:
         raise ValueError("q_rows, pools and tables must be contiguous")
 
 
+def _check_rows(lengths, q_pos, b: int, device) -> None:
+    """The per-row vectors as the kernel reads them: contiguous int32 [B]
+    on the queries' device. The wrapper refuses anything else rather than
+    converting it, so callers build them once a step, not once a layer."""
+    for name, x in (("lengths", lengths), ("q_pos", q_pos)):
+        if not (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+                and x.shape == (b,) and x.device == device
+                and x.is_contiguous()):
+            desc = (f"{x.dtype} {tuple(x.shape)} on {x.device}"
+                    if isinstance(x, torch.Tensor) else type(x).__name__)
+            raise TypeError(f"{name} must be a contiguous int32 [{b}] "
+                            f"tensor on {device}, got {desc}")
+
+
 def paged_attention_partial(
     q_rows: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     li: int, tables: torch.Tensor, lengths, q_pos, *, window: int = 0,
@@ -142,20 +156,20 @@ def paged_attention_partial(
     bf16, f32 or float8_e4m3fn; ``li``: layer index (an offset into the
     stacked pool: no per-layer slice is copied); tables: [B, NB] int32
     (pad ids >= NBtot are clamped and must be length-masked); lengths,
-    q_pos: [B] (``q_pos`` is read only when ``window > 0``). Returns f32
-    (acc [B, Hkv, R, D], m [B, Hkv, R, 1], l [B, Hkv, R, 1])."""
+    q_pos: int32 [B] tensors on the same device (``q_pos`` is read only
+    when ``window > 0``). Returns f32 (acc [B, Hkv, R, D], m [B, Hkv, R,
+    1], l [B, Hkv, R, 1])."""
+    if q_rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no paged attention for device {q_rows.device}")
+    _check_rows(lengths, q_pos, q_rows.shape[0], q_rows.device)
     if q_rows.device.type == "cpu":
         return paged_attention_partial_ref(q_rows, pool_k, pool_v, li,
                                            tables, lengths, q_pos,
                                            window=window)
-    if q_rows.device.type != "cuda":
-        raise ValueError(f"no paged attention for device {q_rows.device}")
     li = int(li)
     _check(q_rows, pool_k, pool_v, li, tables)
     b, hkv, r, d = q_rows.shape
     n_l, nbtot, _, blk, _ = pool_k.shape
-    lens = _row_vec(lengths, b, q_rows.device)
-    qp = _row_vec(q_pos, b, q_rows.device)
     acc = torch.empty((b, hkv, r, d), dtype=torch.float32,
                       device=q_rows.device)
     m = torch.empty((b, hkv, r, 1), dtype=torch.float32,
@@ -164,7 +178,7 @@ def paged_attention_partial(
     lib = _build.library("paged_attention")
     err = lib.paged_attention_fwd(
         q_rows.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), qp.data_ptr(),
+        tables.data_ptr(), lengths.data_ptr(), q_pos.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, hkv, r, d, n_l, nbtot, blk, tables.shape[1], li, int(window),
         int(q_rows.dtype == torch.bfloat16), _KV_KINDS[pool_k.dtype],

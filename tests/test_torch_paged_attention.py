@@ -228,6 +228,23 @@ def test_wrapper_refuses_other_devices():
         tpa.paged_attention_partial(q, pool, pool, 0, tables, [1], [0])
 
 
+@pytest.mark.parametrize("lengths,q_pos,match", [
+    (torch.tensor([3, 1]), torch.tensor([3, 1], dtype=torch.int32),
+     "lengths"),
+    (torch.tensor([3, 1], dtype=torch.int32), [3, 1], "q_pos"),
+    (torch.tensor([3, 1], dtype=torch.int32),
+     torch.tensor([3], dtype=torch.int32), "q_pos"),
+], ids=["int64-lengths", "list-q_pos", "short-q_pos"])
+def test_wrapper_refuses_row_vectors_it_would_convert(lengths, q_pos, match):
+    """lengths and q_pos must arrive as the kernel reads them (int32 [B] on
+    the queries' device), on either route: the wrapper converts nothing."""
+    q, pk, pv, li, tables = _good_inputs()
+    good = torch.tensor([3, 1], dtype=torch.int32)
+    tpa.paged_attention_partial(q, pk, pv, li, tables, good, good)
+    with pytest.raises(TypeError, match=match):
+        tpa.paged_attention_partial(q, pk, pv, li, tables, lengths, q_pos)
+
+
 def _good_inputs():
     q = torch.zeros(2, 2, 4, 32)
     pool = torch.zeros(3, 5, 2, 8, 32, dtype=torch.bfloat16)
