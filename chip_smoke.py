@@ -39,10 +39,26 @@ non-zero before the last line:
    counts reset before the first: K3 must launch in admission and decode,
    prefix hits and saved tokens must equal a host-side oracle of the trie
    rule, and the pool's books must balance;
-10. paged trace — phase 6 on the paged engine, 8 slots busy.
+10. paged trace — phase 6 on the paged engine, 8 slots busy;
+11. kernels, K5/K4/K6 — (run right after phase 7) the quantized matmuls
+   against their plain versions at the int4 / a8 main path's shapes: K5
+   (int4 weight-only) and K6 (W4A8) on the five int4 projections at M = 32
+   (decode) and 5632 (a 2 x 2816 wave), K4 (W8A8) on the four int8 layer
+   projections at M = 4096, plus one f32 case each — timed likewise;
+12. a8 model — (run right after phase 4) one 4 x 1024 int8 wave with
+   ``set_act_quant("a8")``, through K4 and through the plain versions;
+13. int4 serve — after the paged engine and the int8 weights are freed,
+   an int4 engine of the JAX bench's 3072-context deployment (32 slots,
+   one 2816 bucket, an 8192-token admission budget, decode window 32)
+   behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
+   (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
+   forward pass must make 4 quantized launches a layer plus the lm_head's;
+14. int4 trace — phase 6 on the int4 engine, 32 slots busy.
 
-Then the kernel table as one JSON line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+Then the kernel table (K1-K6, each with its launches on every path) as
+one JSON line, the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``. About 5-6.5 minutes on one H100 (the host's speed varies), the
+build included.
 """
 
 from __future__ import annotations
@@ -77,12 +93,36 @@ K3_ATOL = 1e-4
 #: rows that attend nothing must give m = -inf and l = 0 exactly.
 K3_M_ATOL = 1e-5
 K3_L_RTOL = 1e-5
+#: K5 (int4 weight-only) vs its plain version, relative to the largest
+#: output. Both sum each group's exact products in f32 (the kernel on the
+#: tensor cores, the plain version in one f32 matmul a group) in another
+#: order, then scale and accumulate the groups: f32 level at f32, one output
+#: rounding (2**-8) plus an f32 sum that lands on the other side of a bf16
+#: rounding boundary at bf16 — K2's tolerances.
+K5_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: K4 (W8A8): the kernel quantizes x as the plain version does (true
+#: division, half to even), sums the int8 products exactly in int32 and
+#: finishes with the same two f32 multiplies: equal bit for bit, so 0.
+K4_ATOL = 0.0
+#: K6 (W4A8): exact int32 group products, scaled and summed in group order
+#: with the same f32 operations as the plain version on the tiled path
+#: (equal there); the split path of M <= 32 sums its splits' partials in
+#: another order: f32 level, and one bf16 output rounding at bf16.
+K6_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: model consistency: relative L2 of kernel vs plain last-position logits
 #: after 32 bf16 layers (rounding differences compound through depth)
 LOGITS_REL_L2 = 5e-2
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
+              "int8": 1979e12}
+#: the int4 / a8 main path's projections (D, F) of mistral-7b: the fused
+#: q/k/v and gate/up leaves, wo, w_down and the lm_head
+INT4_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+               (4096, 32000)]
+#: int8 leaves K4 takes in a8 mode (the layers' projections; the lm_head at
+#: M = 4 stays on K2)
+A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 
 
 def emit(obj) -> None:
@@ -132,6 +172,34 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    return {"K1": fa.flash_attention, "K2": qm.int8_matmul,
+            "K3": pa.paged_attention_partial, "K4": qm.w8a8_matmul,
+            "K5": qm.int4_matmul, "K6": qm.w4a8_matmul}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def check_path(label: str, launches: dict, used) -> None:
+    """Every kernel of the path launched, and no other."""
+    for k, n in launches.items():
+        if (n > 0) != (k in used):
+            raise AssertionError(f"{label}: {k} launched {n} times; the "
+                                 f"path's kernels are {sorted(used)}")
 
 
 def k1_cases():
@@ -234,6 +302,104 @@ def phase_kernels(dev, flush):
             raise AssertionError(f"K2 {row['case']} {dt_name}: error {err}")
         rows[("K2", row["case"], dt_name)] = row
         del x, q, s, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_quant_kernels(dev, flush):
+    """K5, K4 and K6 against their plain versions at the int4 / a8 main
+    path's shapes: K5 and K6 at M = 32 (a decode step of the 3072-context
+    deployment's 32 slots, the split streaming path) and M = 5632 (its
+    2 x 2816 admission wave, the tiled path), K4 at M = 4096 (the 4 x 1024
+    wave), bf16 — plus one f32 case each. Timed beside the bound, the plain
+    version and a PyTorch yardstick where one call computes the same
+    function."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+
+    def record(row, ok):
+        emit(row)
+        if not ok:
+            raise AssertionError(f"{row['kernel']} {row['case']} "
+                                 f"{row['dtype']}: error {row['max_abs_err']}")
+        rows[(row["kernel"], row["case"], row["dtype"])] = row
+
+    int4_cases = [(d, f, m, "bfloat16") for d, f in INT4_SHAPES
+                  for m in (32, 5632)] + [(4096, 4096, 32, "float32")]
+    for d, f, m, dt_name in int4_cases:
+        dt = getattr(torch, dt_name)
+        x = torch.randn(m, d, generator=g, device=dev).to(dt)
+        q4 = torch.randint(-128, 128, (d // 2, f), generator=g,
+                           dtype=torch.int8, device=dev)
+        s = torch.rand(d // quant.INT4_GROUP, f, generator=g, device=dev) \
+            * (2 * d ** -0.5 / 4.61)
+        w = quant.dequant_int4({"q4": q4, "scale": s}, dt)
+        for kernel, fn, ref, rtol, peak in (
+                ("K5", qm.int4_matmul, qm.int4_matmul_ref, K5_RTOL, dt_name),
+                ("K6", qm.w4a8_matmul, qm.w4a8_matmul_ref, K6_RTOL, "int8")):
+            out = fn(x, q4, s)
+            torch.cuda.synchronize()
+            want = ref(x, q4, s)
+            top = want.float().abs().max().item()
+            err = (out.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and err <= rtol[dt_name] * top
+            bnd, by = bound_ms(nbytes(x, q4, s, out), 2.0 * m * d * f, peak)
+            row = {"kernel": kernel, "case": f"m{m}_d{d}_f{f}",
+                   "dtype": dt_name, "shape": [m, d, f],
+                   # K5 takes f32 x on its CUDA-core loop at every M
+                   "path": "split" if m <= qm.STREAM_MAX_M and (
+                       kernel == "K6" or dt_name == "bfloat16") else "tiled",
+                   "max_abs_err": err, "tol": rtol[dt_name] * top,
+                   "ms": time_ms(lambda: fn(x, q4, s), flush=flush),
+                   "plain_ms": time_ms(lambda: ref(x, q4, s), n=3,
+                                       flush=flush),
+                   "bound_ms": bnd, "bound_by": by}
+            if kernel == "K5":
+                row["library_ms"] = time_ms(lambda: x @ w, flush=flush)
+                row["library"] = "x @ w, w dequantized to x's dtype " \
+                                 "beforehand"
+            else:
+                row["library_ms"] = None
+                row["library"] = "none: no PyTorch call scales int32 " \
+                                 "partial products per group"
+            record(row, ok)
+            del out, want
+        del x, q4, s, w
+    a8_cases = [(d, f, 4096, "bfloat16") for d, f in A8_SHAPES] + \
+        [(4096, 4096, 4096, "float32")]
+    for d, f, m, dt_name in a8_cases:
+        dt = getattr(torch, dt_name)
+        x = torch.randn(m, d, generator=g, device=dev).to(dt)
+        q = torch.randint(-127, 128, (d, f), generator=g, dtype=torch.int8,
+                          device=dev)
+        s = torch.rand(1, f, generator=g, device=dev) * (2 * d ** -0.5
+                                                          / 73.3)
+        out = qm.w8a8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        want = qm.w8a8_matmul_ref(x, q, s)
+        err = (out.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= K4_ATOL
+        xq, sx = qm.quantize_rows(x)
+        bnd, by = bound_ms(nbytes(x, q, s, out), 2.0 * m * d * f, "int8")
+        row = {"kernel": "K4", "case": f"m{m}_d{d}_f{f}", "dtype": dt_name,
+               "shape": [m, d, f], "max_abs_err": err, "tol": K4_ATOL,
+               "bit_equal": bool(torch.equal(out, want)),
+               "ms": time_ms(lambda: qm.w8a8_matmul(x, q, s), flush=flush),
+               "plain_ms": time_ms(lambda: qm.w8a8_matmul_ref(x, q, s), n=3,
+                                   flush=flush),
+               "library_ms": time_ms(
+                   lambda: (torch._int_mm(xq, q).float() * sx * s).to(dt),
+                   flush=flush),
+               "library": "torch._int_mm(xq, q) then the two scales, xq "
+                          "quantized beforehand",
+               "bound_ms": bnd, "bound_by": by}
+        record(row, ok)
+        del x, q, s, out, want, xq, sx
     torch.cuda.empty_cache()
     return rows
 
@@ -393,6 +559,62 @@ def phase_model(dev, cfg, params):
         raise AssertionError(f"kernel vs plain prefill logits: {row}")
 
 
+def phase_a8_model(dev, cfg, params):
+    """One 4 x 1024 admission wave of the int8 model with activation
+    quantization on (``set_act_quant("a8")``): through the kernels, where
+    every layer projection (M = 4096 >= 1024 rows) takes K4 and the lm_head
+    (M = 4) stays on K2, and through the plain versions; last-position
+    logits compared by relative L2. The weight-only kernel logits of the
+    same wave are printed beside them, not gated on: they show what a8
+    changes."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder, quant
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows, bucket = 4, 1024
+    tokens = torch.randint(3, 259, (rows, bucket), generator=g, device=dev)
+    lengths = torch.tensor([1024, 700, 333, 1000], device=dev)
+
+    def run(impl):
+        cache = decoder.init_cache(cfg, rows, bucket, dtype=torch.bfloat16,
+                                   device=dev)
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            logits, _ = decoder.prefill(params, tokens, lengths, cfg, cache,
+                                        impl=impl)
+        torch.cuda.synchronize()
+        return logits, time.monotonic() - t0
+
+    weight_only, weight_only_s = run("auto")
+    quant.set_act_quant("a8")
+    try:
+        reset_launches()
+        a, kernel_s = run("auto")
+        launches = read_launches()
+        b, plain_s = run("plain")
+    finally:
+        quant.set_act_quant("weight_only")
+
+    def rel(u, v):
+        return ((u - v).norm() / v.norm()).item()
+    row = {"phase": "a8_model", "config": cfg.name, "rows": rows,
+           "bucket": bucket, "rel_l2": rel(a, b), "bound": LOGITS_REL_L2,
+           "rel_l2_vs_weight_only": rel(a, weight_only),
+           "launches": launches, "expected_k4": 7 * cfg.n_layers,
+           "kernel_prefill_s": kernel_s, "plain_prefill_s": plain_s,
+           "weight_only_prefill_s": weight_only_s}
+    emit(row)
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("non-finite a8 prefill logits")
+    if row["rel_l2"] > LOGITS_REL_L2:
+        raise AssertionError(f"a8 kernel vs plain prefill logits: {row}")
+    check_path("a8_model", launches, ("K1", "K2", "K4"))
+    if (launches["K4"], launches["K2"]) != (7 * cfg.n_layers, 1):
+        raise AssertionError(f"a8 wave launches {launches}")
+    return launches
+
+
 def synthetic_threads(n: int = 8):
     from copilot_for_consensus_tpu_torch.summarization.base import (
         ThreadContext,
@@ -414,8 +636,6 @@ def phase_serve(dev, cfg, params, smi):
     import torch
 
     from copilot_for_consensus_tpu_torch.engine import generation
-    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
-    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
     from copilot_for_consensus_tpu_torch.summarization.summarizer import (
         CUDASummarizer,
         build_prompt,
@@ -445,14 +665,12 @@ def phase_serve(dev, cfg, params, smi):
     generation.sample = checked_sample
     eng.generate = recording_generate
     threads = synthetic_threads(8)
-    fa.flash_attention.launches = 0
-    qm.int8_matmul.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     summaries = summ.summarize_batch(threads)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"K1": fa.flash_attention.launches,
-                "K2": qm.int8_matmul.launches}
+    launches = read_launches()
     generation.sample = plain_sample
 
     prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
@@ -473,9 +691,7 @@ def phase_serve(dev, cfg, params, smi):
             raise AssertionError(f"{t.thread_id}: eos past the limit")
         if s.completion_tokens != len(c.tokens):
             raise AssertionError(f"{t.thread_id}: summary/tokens mismatch")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    check_path("serve", launches, ("K1", "K2"))
     emit({"phase": "serve", "config": cfg.name, "threads": len(threads),
           "prompt_tokens": [c.prompt_len for c in comps],
           "completion_tokens": [len(c.tokens) for c in comps],
@@ -588,9 +804,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
     import torch
 
     from copilot_for_consensus_tpu_torch.engine import generation
-    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
     from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
-    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
     from copilot_for_consensus_tpu_torch.summarization.summarizer import (
         CUDASummarizer,
         build_prompt,
@@ -633,9 +847,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
     rounds = [("round1", synthetic_threads(8)),
               ("round2", synthetic_threads(8)),
               ("round3", synthetic_threads(16)[8:])]
-    fa.flash_attention.launches = 0
-    qm.int8_matmul.launches = 0
-    pa.paged_attention_partial.launches = 0
+    reset_launches()
     published: list[list[int]] = []
     expect_saved = expect_hits = 0
     rows = []
@@ -692,9 +904,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
             rows.append(row)
     finally:
         generation.sample = plain_sample
-    launches = {"K1": fa.flash_attention.launches,
-                "K2": qm.int8_matmul.launches,
-                "K3": pa.paged_attention_partial.launches}
+    launches = read_launches()
     st, ps = eng.kv_pool_stats(), eng.prefix_stats()
     node_count = eng._prefix.node_count
     summary = {"phase": "paged_serve", "config": cfg.name,
@@ -714,10 +924,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
     if k3_by["admit"] <= 0 or k3_by["decode"] <= 0:
         raise AssertionError(f"K3 not launched in admission and decode: "
                              f"{k3_by}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the paged "
-                                 f"path")
+    check_path("paged_serve", launches, ("K1", "K2", "K3"))
     if rows[1]["zero_copy_admits"] != len(rounds[1][1]):
         raise AssertionError("round 2: not every row was a pointer hit")
     if (st["zero_copy_admits"], ps["prefill_tokens_saved"]) != \
@@ -732,6 +939,151 @@ def phase_paged_serve(dev, cfg, eng, smi):
     return launches, rows
 
 
+#: the long-context summarization deployment the JAX bench serves int4 in
+#: (its ``cap3072`` preset, bench.py:71-79): whole threads of up to 2816
+#: prompt tokens on 32 slots at a 3072-token context
+CAP3072 = dict(num_slots=32, max_len=3072, prefill_buckets=(2816,),
+               admission_token_budget=8192, decode_window=32)
+
+
+def long_threads(tokenizer, n: int, lo: int, hi: int):
+    """``n`` synthetic threads whose prompts encode to ``lo`` .. ``hi``
+    tokens, spread evenly: one excerpt each, cut to the length."""
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        build_prompt,
+    )
+
+    filler = ("The working group discussed whether the draft should "
+              "require the new extension by default. ") * 48
+    threads = synthetic_threads(n)
+    for i, t in enumerate(threads):
+        target = lo + (hi - lo) * i // max(1, n - 1)
+        t.chunks = [dict(t.chunks[0], text="")]
+        room = target - len(tokenizer.encode(build_prompt(t), add_bos=True))
+        text = filler[:room].rstrip()
+        t.chunks[0]["text"] = text + "." * (room - len(text))
+        if len(tokenizer.encode(build_prompt(t), add_bos=True)) != target:
+            raise AssertionError(f"thread {i}: prompt is not {target} long")
+    return threads
+
+
+def phase_int4_serve(dev, cfg, smi):
+    """An int4 engine of the 3072-context deployment (``CAP3072``, random
+    packed weights from seed 0, q/k/v and gate/up fused) behind
+    ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens, 64 new tokens
+    each, weight-only; then ``set_act_quant("a8")`` on the same engine for
+    8 threads. Launch counts are reset before each round: each forward
+    pass (an admission wave or a decode step) makes 4 quantized matmuls a
+    layer plus the lm_head, all on K5 in the first round and all on K6 in
+    the second, and none on K2."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine import generation
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+        build_prompt,
+    )
+
+    t0 = time.monotonic()
+    eng = generation.GenerationEngine(cfg, None, quantize="int4",
+                                      device=dev, **CAP3072)
+    torch.cuda.synchronize()
+    emit({"phase": "int4_weights", "config": cfg.name,
+          "bytes": quant.param_bytes(eng.params),
+          "fused": sorted(k for k in eng.params["layers"]
+                          if quant.quant_kind(eng.params["layers"][k])),
+          "seconds": time.monotonic() - t0})
+    new_tokens = 64
+    summ = CUDASummarizer(cfg.name, engine=eng, max_new_tokens=new_tokens)
+    threads = long_threads(summ.tokenizer, 32, 2000, 2816)
+    prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
+               for t in threads]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    plain_sample = generation.sample
+
+    def checked_sample(logits, gen, sampling):
+        finite.logical_and_(torch.isfinite(logits).all())
+        return plain_sample(logits, gen, sampling)
+
+    passes = {"waves": 0, "dispatches": 0}
+
+    def counted(kind, fn):
+        def run(*a, **kw):
+            passes[kind] += 1
+            return fn(*a, **kw)
+        return run
+
+    eng._admit_wave = counted("waves", eng._admit_wave)
+    eng._decode_dispatch = counted("dispatches", eng._decode_dispatch)
+    comps: list = []
+    plain_generate = eng.generate
+
+    def recording_generate(prompts, max_new_tokens, **kw):
+        out = plain_generate(prompts, max_new_tokens, **kw)
+        comps.extend(out)
+        return out
+
+    eng.generate = recording_generate
+    per_pass = 4 * cfg.n_layers + 1
+
+    def serve_round(label, round_threads, mode):
+        quant.set_act_quant(mode)
+        reset_launches()
+        before = dict(passes, prefill_s=eng.admitted_s,
+                      decode_s=eng.decode_s, decode_tokens=eng.decode_tokens)
+        n0 = len(comps)
+        t0 = time.monotonic()
+        summaries = summ.summarize_batch(round_threads)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        rc = comps[n0:]
+        waves = passes["waves"] - before["waves"]
+        steps = (passes["dispatches"] - before["dispatches"]) \
+            * eng.decode_window
+        dec_s = eng.decode_s - before["decode_s"]
+        dec_t = eng.decode_tokens - before["decode_tokens"]
+        row = {"phase": "int4_serve", "round": label, "act_quant": mode,
+               "config": cfg.name, "threads": len(round_threads),
+               "prompt_tokens": [c.prompt_len for c in rc],
+               "completion_tokens": [len(c.tokens) for c in rc],
+               "waves": waves, "decode_steps": steps,
+               "prefill_s": eng.admitted_s - before["prefill_s"],
+               "ttft_s": [c.ttft_s for c in rc],
+               "decode_s": dec_s, "decode_tokens": dec_t,
+               "decode_tok_per_s": dec_t / dec_s if dec_s else None,
+               "ms_per_step": dec_s / steps * 1e3 if steps else None,
+               "wall_s": wall, "launches": launches,
+               "expected": per_pass * (waves + steps), "device": smi}
+        emit(row)
+        if [s.thread_id for s in summaries] != \
+                [t.thread_id for t in round_threads] or any(
+                    s.completion_tokens != len(c.tokens)
+                    for s, c in zip(summaries, rc)):
+            raise AssertionError(f"int4 {label}: summaries out of order")
+        if [c.prompt_len for c in rc] != [
+                len(p) for p in prompts[:len(round_threads)]]:
+            raise AssertionError(f"int4 {label}: prompts were cut")
+        on = "K5" if mode == "weight_only" else "K6"
+        check_path(f"int4 {label}", launches, ("K1", on))
+        if launches[on] != row["expected"]:
+            raise AssertionError(f"int4 {label}: launches {launches}, "
+                                 f"expected {row['expected']} on {on}")
+        return launches
+
+    generation.sample = checked_sample
+    try:
+        wo = serve_round("weight_only", threads, "weight_only")
+        a8 = serve_round("a8", threads[:8], "a8")
+    finally:
+        quant.set_act_quant("weight_only")
+        generation.sample = plain_sample
+    if not bool(finite):
+        raise AssertionError("non-finite logits while serving int4")
+    return eng, prompts, wo, a8
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -744,26 +1096,42 @@ def busy_us(intervals) -> float:
 
 def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     """Device busy and idle share of steady decode: the longest prompts
-    fill the slots in one wave; after one warm dispatch, ``n``
-    dispatches run on the host clock alone and the next ``n`` under
-    ``torch.profiler`` tracing the card's activity. Idle share = 1 - (union
-    of the traced device intervals) / (host wall time of the n steps)."""
+    fill the slots, in as many admission waves as the engine's token budget
+    needs (one dispatch after each); after the last, ``n`` dispatches run
+    on the host clock alone and the next ``n`` under ``torch.profiler``
+    tracing the card's activity. Idle share = 1 - (union of the traced
+    device intervals) / (host wall time of the n steps). The engine is left
+    with its slots busy: the caller discards it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        _next_bucket,
+    )
+
     window = eng.decode_window
-    # one token from the wave, then one window a dispatch: the slots stay
-    # busy through the warm dispatch and the 2n measured ones, and finish
-    # on the dispatch after them
-    ids = [eng.submit(p, max_new_tokens=1 + window * (2 + 2 * n))
-           for p in sorted(prompts, key=len)[-eng.num_slots:]]
+    chosen = sorted(prompts, key=len)[-eng.num_slots:]
+    bucket = _next_bucket(min(len(chosen[-1]), eng.prompt_limit),
+                          eng.buckets)
+    per_wave = max(1, min(128, eng.admission_token_budget // bucket))
+    waves = -(-len(chosen) // per_wave)
+    # a slot of the first wave sees every admission dispatch and the 2n
+    # measured ones: its prompt tail and token budget leave room for them
+    # and one window more, so no slot finishes inside the measurement
+    dispatches = waves + 2 * n
+    room = eng.max_len - 1 - window * (dispatches + 1)
+    ids = [eng.submit(p[-room:], max_new_tokens=1 + window * (dispatches + 1))
+           for p in chosen]
     done: set[int] = set()
 
     def step():
         done.update(c.request_id for c in eng.step())
 
-    step()                               # admission wave + first dispatch
+    for _ in range(waves):               # admission waves + a dispatch each
+        step()
+    if eng._queue or len(eng._active) != len(ids):
+        raise AssertionError(f"{label}: slots not filled in {waves} waves")
 
     def steps():
         torch.cuda.synchronize()
@@ -778,8 +1146,6 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
         traced_s = steps()
     if done:
         raise AssertionError("a slot finished inside the measured decode")
-    while len(done) < len(ids):
-        step()
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA]
     by_name: dict[str, float] = {}
@@ -789,7 +1155,9 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     row = {"phase": label, "config": cfg.name, "slots": len(ids),
-           "kv": "paged" if eng.paged else "contiguous", "dispatches": n,
+           "kv": "paged" if eng.paged else "contiguous",
+           "quantize": eng.quant_mode, "admission_waves": waves,
+           "dispatches": n,
            "steps": n * window, "step_ms": plain_s / (n * window) * 1e3,
            "traced_step_ms": traced_s / (n * window) * 1e3,
            "device_events": len(kernels),
@@ -840,6 +1208,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, flush)
     rows.update(phase_k3(dev, flush))
+    rows.update(phase_quant_kernels(dev, flush))
     del flush
 
     cfg = decoder_config("mistral-7b")
@@ -851,6 +1220,7 @@ def main() -> int:
           "bytes": quant.param_bytes(params),
           "seconds": time.monotonic() - t0})
     phase_model(dev, cfg, params)
+    a8_launches = phase_a8_model(dev, cfg, params)
     launches, prompts, eng = phase_serve(dev, cfg, params, smi)
     phase_trace(cfg, eng, prompts, smi)
     # the contiguous engine's cache goes before the paged pool comes
@@ -868,26 +1238,46 @@ def main() -> int:
     phase_paged_model(dev, cfg, paged)
     paged_launches, _ = phase_paged_serve(dev, cfg, paged, smi)
     phase_trace(cfg, paged, prompts, smi, label="paged_trace")
+    # the paged pool and the int8 weights go before the int4 engine comes
+    del paged, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4, int4_prompts, int4_launches, int4_a8_launches = phase_int4_serve(
+        dev, cfg, smi)
+    phase_trace(cfg, int4, int4_prompts, smi, label="int4_trace")
+    del int4
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    by_path = {"serve": launches, "paged_serve": paged_launches,
+               "a8_model": a8_launches, "int4_serve": int4_launches,
+               "int4_serve_a8": int4_a8_launches}
     table = []
-    for name, row, src, tpu in (
+    q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
+    for name, row, path, tpu in (
             ("flash_attention", rows[("K1", "s1024", "bfloat16")],
-             "copilot_for_consensus_tpu_torch/csrc/flash_attention.cu",
-             "copilot_for_consensus_tpu/ops/flash_attention.py:119"),
+             "paged_serve", "copilot_for_consensus_tpu/ops/"
+             "flash_attention.py:119"),
             ("int8_matmul", rows[("K2", "m4_d4096_f14336", "bfloat16")],
-             "copilot_for_consensus_tpu_torch/csrc/int8_matmul.cu",
-             "copilot_for_consensus_tpu/ops/quant_matmul.py:50"),
+             "paged_serve", f"{q}:50"),
             ("paged_attention", rows[("K3", "decode", "bfloat16")],
-             "copilot_for_consensus_tpu_torch/csrc/paged_attention.cu",
-             "copilot_for_consensus_tpu/ops/paged_attention.py:166")):
+             "paged_serve", "copilot_for_consensus_tpu/ops/"
+             "paged_attention.py:166"),
+            ("w8a8_matmul", rows[("K4", "m4096_d4096_f14336", "bfloat16")],
+             "a8_model", f"{q}:309"),
+            ("int4_matmul", rows[("K5", "m32_d4096_f28672", "bfloat16")],
+             "int4_serve", f"{q}:178"),
+            ("w4a8_matmul", rows[("K6", "m32_d4096_f28672", "bfloat16")],
+             "int4_serve_a8", f"{q}:405")):
         k = row["kernel"]
         table.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            # the paged serve phase runs all three kernels; the contiguous
-            # serve phase's counts (K1, K2) stand beside them
-            "launches": paged_launches[k],
-            "launches_by_path": {"serve": launches.get(k),
-                                 "paged_serve": paged_launches[k]},
+            "name": name, "route": "cuda",
+            "source": f"copilot_for_consensus_tpu_torch/csrc/{name}.cu",
+            "replaces": tpu,
+            # the count of the path that runs the kernel on the main path;
+            # every path's count beside it
+            "launches": by_path[path][k], "launches_path": path,
+            "launches_by_path": {p: c[k] for p, c in by_path.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

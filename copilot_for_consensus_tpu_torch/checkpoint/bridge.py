@@ -1,11 +1,12 @@
 """Param trees from numpy: the bridge between the two packages' weights.
 
 ``params_from_numpy`` takes a decoder param tree whose leaves are numpy
-arrays — the JAX package's tree after ``np.asarray`` on every leaf, int8
-``{"q", "scale"}`` leaves included — and returns the port's tree on
-``device``: int8 ``q`` stays int8, ``scale`` is f32, every other leaf is
-cast to ``dtype``. Layouts are the same in both packages, so the same
-weights drive both.
+arrays — the JAX package's tree after ``np.asarray`` on every leaf,
+quantized leaves included (int8 ``{"q", "scale"}``, packed int4
+``{"q4", "scale"}``) — and returns the port's tree on ``device``: the
+int8 bytes of ``q`` and ``q4`` stay int8, ``scale`` is f32, every other
+leaf is cast to ``dtype``. Layouts are the same in both packages, so the
+same weights drive both.
 """
 
 from __future__ import annotations
@@ -19,13 +20,18 @@ from copilot_for_consensus_tpu_torch.device import resolve_device, \
     resolve_dtype
 
 
+#: leaves that hold int8 bytes: cast to the activation dtype, packed
+#: nibbles would be destroyed
+_INT8_LEAVES = ("q", "q4")
+
+
 def params_from_numpy(tree: dict[str, Any], device, dtype) -> dict:
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
 
     def leaf(name: str, a) -> torch.Tensor:
         a = np.asarray(a)
-        if name == "q":
+        if name in _INT8_LEAVES:
             return torch.from_numpy(a.astype(np.int8)).to(device)
         if name == "scale":
             return torch.from_numpy(a.astype(np.float32)).to(device)

@@ -1,0 +1,73 @@
+// K6: W4A8 matmul for Hopper (sm_90a), CUDA C++ with a plain C interface
+// (built by ops/_build.py, bound with ctypes by ops/quant_matmul.py).
+//
+// Replaces: copilot_for_consensus_tpu/ops/quant_matmul.py, `w4a8_matmul`
+//   (pallas_call) and its body `_kernel_w4a8`.
+//
+// Computes out[M, F] = sx * sum_g scale[g] * (xq[:, g] @ unpack(q4)[g]):
+// x (bf16 or f32) quantized per row to int8 by `quantize_rows` (into
+// scratch the wrapper allocates); q4 packed int4 [D/2, F] (byte row i holds
+// row 2i in its low nibble, 2i+1 in its high one), unpacked to int8 in
+// registers; each scale group's int8 product summed exactly in int32 on
+// the tensor cores (mma.sync m16n8k32 s8), converted to f32 and multiplied
+// by the group's scale row, then added to the f32 sum in group order; sx
+// multiplies the sum at the end, and the result is rounded once to x's
+// dtype. On the tiled path that is the plain version's arithmetic,
+// operation for operation; the split path sums its splits' partials in
+// another order (f32 rounding level).
+//
+// What bounds it on this card, and what the design does about it:
+//   * Decode (M = the slot count, 32 in the 3072-context deployment): ~4*M
+//     operations per packed weight byte, far below the ~590 op/byte int8
+//     ridge: bound by reading the packed bytes once (3.35 TB/s). The wrapper
+//     passes splits > 0 for M <= 32: a 32-row tile, 128 columns a block,
+//     the contraction split by whole scale groups over blockIdx.z so every
+//     projection puts hundreds of blocks in flight; partials go to an f32
+//     workspace summed in a fixed order by a second pass.
+//   * Prefill (M up to 2 x 2816): bound by operations on the int8 tensor
+//     cores (1,979 TOP/s). 128x128 tiles of 8 warps.
+// The weight never exists unpacked in device memory. No cp.async/TMA
+// pipeline or wgmma yet: later work. The tiled body is shared with K4 and
+// K5 (quant_mma.cuh).
+
+#include "quant_mma.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t run(const void* xv, const int8_t* q4, const float* scale,
+                void* outv, int8_t* xq, float* sx, float* ws, int M, int D,
+                int F, int G, int splits, cudaStream_t st) {
+  qmma::quantize_rows<T><<<M, qmma::QR_THREADS, 0, st>>>(
+      static_cast<const T*>(xv), xq, sx, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return qmma::launch_qgemm<qmma::W4A8, T>(xq, q4, scale, sx,
+                                           static_cast<T*>(outv), ws, M, D,
+                                           F, G, splits, st);
+}
+
+}  // namespace
+
+extern "C" int w4a8_matmul_fwd(const void* x, const void* q4,
+                               const void* scale, void* out, void* xq,
+                               void* sx, void* workspace, int M, int D, int F,
+                               int G, int splits, int is_bf16, void* stream) {
+  if (M <= 0 || D <= 0 || F <= 0 || G <= 0 || D % G || splits < 0)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qq = static_cast<const int8_t*>(q4);
+  const float* sc = static_cast<const float*>(scale);
+  int8_t* xqq = static_cast<int8_t*>(xq);
+  float* sxx = static_cast<float*>(sx);
+  float* ws = static_cast<float*>(workspace);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)run<__nv_bfloat16>(x, qq, sc, out, xqq, sxx, ws, M, D, F, G,
+                                   splits, st);
+  return (int)run<float>(x, qq, sc, out, xqq, sxx, ws, M, D, F, G, splits,
+                         st);
+}
+
+extern "C" const char* w4a8_matmul_error(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}

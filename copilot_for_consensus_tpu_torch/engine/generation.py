@@ -155,21 +155,32 @@ class GenerationEngine:
                 f"room in max_len {self.max_len}")
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
+        # quantize: False | True ("int8") | "int8" | "int4" (packed
+        # nibbles with group scales: half the int8 weight bytes again)
         qmode = ("int8" if quantize is True else quantize) or None
-        if qmode not in (None, "int8"):
-            raise ValueError(f"unsupported quantize mode {qmode!r}")
+        if qmode is not None and qmode not in quant.QUANT_MODES:
+            raise ValueError(f"unknown quantize mode {qmode!r}")
+        self.quant_mode = qmode
         if params is None:
             if qmode:
                 params = quant.init_random_quantized(
-                    cfg, seed=seed, dtype=self.dtype, device=self.device)
+                    cfg, seed=seed, dtype=self.dtype, device=self.device,
+                    mode=qmode)
             else:
                 params = decoder.init_params(cfg, seed=seed,
                                              dtype=self.dtype,
                                              device=self.device)
         params = _to_device(params, self.device)
-        if qmode and not quant.is_quantized(params["layers"]["wq"]):
+        layers_t = params["layers"]
+        if qmode and not quant.is_quantized(
+                layers_t["wq"] if "wq" in layers_t else layers_t["wqkv"]):
             # full-precision weights given: quantize on the fly
-            params = quant.quantize_params(params)
+            params = quant.quantize_params(params, mode=qmode)
+        if qmode == "int4":
+            # q/k/v and gate/up fused: 4 kernel calls a layer instead of
+            # 7. The JAX engine fuses on a single TPU chip; the port
+            # serves dense decoders on one card, so always.
+            params = quant.fuse_int4_projections(params)
         self.params = params
         self.kv_dtype = self.dtype
 

@@ -17,7 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
-from copilot_for_consensus_tpu_torch.models.quant import quant_kind
+from copilot_for_consensus_tpu_torch.models.quant import (
+    act_quant_mode,
+    quant_kind,
+)
 from copilot_for_consensus_tpu_torch.ops.attention import (
     IMPLS,
     attention,
@@ -26,25 +29,43 @@ from copilot_for_consensus_tpu_torch.ops.attention import (
     decode_attention_prefix_window,
     decode_window_partial,
 )
-from copilot_for_consensus_tpu_torch.ops.quant_matmul import (
-    int8_matmul,
-    int8_matmul_ref,
-)
+from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+#: rows (the product of x's leading dims, bucket padding included) from
+#: which an int8 leaf takes K4 in "a8" mode: int8 activations pay where the
+#: matmul is bound by operations, in prefill waves; below it, in decode,
+#: the weight bytes bound it and K2 serves (the JAX package's rule)
+A8_MIN_ROWS = 1024
+
+#: (weight-only, a8) routes of each leaf kind: (kernel wrapper, plain
+#: version) pairs
+_ROUTES = {
+    "int4": ((qm.int4_matmul, qm.int4_matmul_ref),
+             (qm.w4a8_matmul, qm.w4a8_matmul_ref)),
+    "int8": ((qm.int8_matmul, qm.int8_matmul_ref),
+             (qm.w8a8_matmul, qm.w8a8_matmul_ref)),
+}
 
 
 def qmatmul(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
-    """``x @ w`` where ``w`` is a plain tensor or an int8 leaf
-    ``{"q", "scale"}``. int8 leaves go to K2 (``impl="auto"``) or its
-    plain version (``impl="plain"``); plain leaves go to ``torch.matmul``."""
+    """``x @ w`` where ``w`` is a plain tensor or a quantized leaf
+    (``models.quant``). Routes, as the JAX package's ``qmatmul`` does on a
+    TPU: int4 → K5, or K6 in "a8" mode (``quant.set_act_quant``); int8 →
+    K2, or K4 in "a8" mode when x has at least ``A8_MIN_ROWS`` rows.
+    ``impl="plain"`` takes the same route's plain versions; plain leaves go
+    to ``torch.matmul``."""
     kind = quant_kind(w)
     if kind is None:
         return x @ w
-    if kind != "int8":
-        raise NotImplementedError(f"{kind} leaves are not ported yet")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    fn = int8_matmul if impl == "auto" else int8_matmul_ref
-    return fn(x.contiguous(), w["q"], w["scale"])
+    a8 = act_quant_mode() == "a8"
+    if kind == "int8" and x.numel() // x.shape[-1] < A8_MIN_ROWS:
+        a8 = False
+    kernel, plain = _ROUTES[kind][a8]
+    fn = kernel if impl == "auto" else plain
+    return fn(x.contiguous(), w["q4" if kind == "int4" else "q"],
+              w["scale"])
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -81,9 +102,16 @@ def _project_qkv(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
                  positions: torch.Tensor, impl: str = "auto"):
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = qmatmul(x, layer["wq"], impl)
-    k = qmatmul(x, layer["wk"], impl)
-    v = qmatmul(x, layer["wv"], impl)
+    if "wqkv" in layer:
+        # fused int4 leaf (quant.fuse_int4_projections): one kernel call,
+        # the product split by column
+        nq, nkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+        qkv = qmatmul(x, layer["wqkv"], impl)
+        q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
+    else:
+        q = qmatmul(x, layer["wq"], impl)
+        k = qmatmul(x, layer["wk"], impl)
+        v = qmatmul(x, layer["wv"], impl)
     q = q.reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
     k = k.reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
     v = v.reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
@@ -181,6 +209,12 @@ def attn_prefill_seeded_paged(x: torch.Tensor, layer: dict,
 
 def swiglu(x: torch.Tensor, layer: dict, impl: str = "auto") -> torch.Tensor:
     """SwiGLU MLP: silu(x·Wg) ⊙ (x·Wu) · Wd — Llama/Mistral family FFN."""
-    gate = F.silu(qmatmul(x, layer["w_gate"], impl).float())
-    up = qmatmul(x, layer["w_up"], impl).float()
+    if "w_gu" in layer:
+        # fused int4 gate+up: one kernel call, split by column
+        gu = qmatmul(x, layer["w_gu"], impl).float()
+        f = gu.shape[-1] // 2
+        gate, up = F.silu(gu[..., :f]), gu[..., f:]
+    else:
+        gate = F.silu(qmatmul(x, layer["w_gate"], impl).float())
+        up = qmatmul(x, layer["w_up"], impl).float()
     return qmatmul((gate * up).to(x.dtype), layer["w_down"], impl)

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` run into a shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. The libraries land in
 ``build/cuda_kernels/`` beside the package (listed in ``.gitignore``),
-named by a hash of their source so an edited kernel is rebuilt and an
-unchanged one is reused. ``build_all`` starts every compile at once.
+named by a hash of their source and the shared headers (``csrc/*.cuh``)
+so an edited kernel is rebuilt and an unchanged one is reused. ``build_all`` starts every compile at once.
 
 Nothing here runs at import: the first launch of a kernel builds it. A
 failed build raises; there is no fallback.
@@ -42,6 +42,19 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # x, q, scale, out, workspace, M, D, F, splits, is_bf16, stream
         "int8_matmul_fwd": [_P] * 5 + [_I] * 5 + [_P],
     },
+    "int4_matmul": {
+        # x, q4, scale, out, workspace, M, D, F, G, splits, is_bf16, stream
+        "int4_matmul_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "w8a8_matmul": {
+        # x, q, scale, out, xq, sx, M, D, F, is_bf16, stream
+        "w8a8_matmul_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    "w4a8_matmul": {
+        # x, q4, scale, out, xq, sx, workspace, M, D, F, G, splits, is_bf16,
+        # stream
+        "w4a8_matmul_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    },
     "paged_attention": {
         # q_rows, pool_k, pool_v, tables, lengths, q_pos, acc, m, l,
         # B, Hkv, R, D, L, NBtot, blk, NB, li, window, q_bf16, kv_kind,
@@ -66,8 +79,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    # the source and every shared header it may include
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
 

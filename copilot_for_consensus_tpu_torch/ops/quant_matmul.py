@@ -1,16 +1,31 @@
-"""K2: int8 weight-only matmul — wrapper of ``csrc/int8_matmul.cu`` and
-its plain PyTorch version.
+"""Quantized matmuls: the wrappers of the CUDA kernels K2, K5, K4 and K6
+and their plain PyTorch versions.
 
-Replaces the JAX package's Pallas kernel ``ops/quant_matmul.py``
-``int8_matmul`` (body ``_kernel``): ``x[..., D] @ q[D, F] * scale[1, F]``
-with x in bf16 or f32, the int8 weight converted in registers, f32
-accumulation, the per-output-channel scale applied in f32 once at the
-end, and the output in x's dtype. PyTorch has no dequant-fused matmul:
-``x @ q.to(bf16)`` writes a bf16 copy of the weight and reads it back —
-three times the int8 bytes on a decode step that is bound by them.
+Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
 
-``int8_matmul`` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors — on no other condition.
+* K2 ``int8_matmul`` (``csrc/int8_matmul.cu``, Pallas body ``_kernel``):
+  ``x[..., D] @ q[D, F] * scale[1, F]`` with x in bf16 or f32, the int8
+  weight converted in registers, f32 accumulation, the per-output-channel
+  scale applied in f32 once at the end. PyTorch has no dequant-fused
+  matmul: ``x @ q.to(bf16)`` writes a bf16 copy of the weight and reads it
+  back — three times the int8 bytes on a decode step that is bound by
+  them.
+* K5 ``int4_matmul`` (``csrc/int4_matmul.cu``, ``_kernel4``): the weight
+  is signed int4, two nibbles a byte along the contraction axis
+  (``pack_int4``), with one f32 scale per (group of D/G rows, column);
+  each group's f32 partial product is scaled before it is accumulated.
+* K4 ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, ``_kernel_w8a8``): x is
+  quantized to int8 per row (``quantize_rows``), the int8 product is
+  summed in int32, and the output is ``acc · sx · sw``.
+* K6 ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``, ``_kernel_w4a8``): K5's
+  weight layout with K4's int8 activations; each group's int32 partial is
+  scaled in f32 by the group scale, the sum by sx at the end.
+
+Each plain version computes what the Pallas kernel computes (not the JAX
+package's XLA fallbacks, which round the dequantized weight to x's
+dtype). Each wrapper runs its plain version for CPU tensors and launches
+its kernel for CUDA tensors — on no other condition — and counts its
+launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -20,7 +35,7 @@ import torch
 from copilot_for_consensus_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: rows up to which the kernel takes its weight-streaming (GEMV) path. This
+#: rows up to which K2 takes its weight-streaming (GEMV) path. This
 #: module alone decides the path: the kernel runs GEMV when it is given
 #: splits > 0 (it is built for M = 1 .. 8) and the tiled path for splits = 0.
 GEMV_MAX_M = 8
@@ -28,6 +43,79 @@ GEMV_MAX_M = 8
 _GEMV_COLS = 256
 _GEMV_BLOCKS = 512
 _GEMV_MIN_ROWS = 16
+#: rows up to which K5 (bf16 x) and K6 take their streaming path: a
+#: 32-row tile split over the contraction axis by whole scale groups, so a
+#: decode step of 32 slots streams the packed weight once with hundreds of
+#: blocks in flight. Decided here alone: the kernels run it when given
+#: splits > 0 and their 128-row prefill tiling for splits = 0.
+STREAM_MAX_M = 32
+_STREAM_COLS = 128        # the kernels' output columns per block
+_STREAM_BLOCKS = 528      # blocks the split aims for: 4 per SM on 132 SMs
+#: unpacked contraction rows per k-step of the CUDA kernels: K5's bf16
+#: tile (32 rows) and K4's / K6's int8 tile (64 rows). A scale group must
+#: be a whole number of steps, and D a multiple of the step.
+K5_KSTEP = 32
+A8_KSTEP = 64
+
+
+# ---------------------------------------------------------------------------
+# Formats
+# ---------------------------------------------------------------------------
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """[..., D, F] signed nibble values in [-8, 7] → [..., D//2, F] packed
+    int8: byte row i holds row 2i in its low nibble and row 2i+1 in its
+    high nibble (the JAX package's layout, byte for byte)."""
+    d = q.shape[-2]
+    if d % 2:
+        raise ValueError(f"contraction dim must be even, got {d}")
+    q = q.to(torch.int32)
+    byte = ((q[..., 1::2, :] & 0xF) << 4) | (q[..., 0::2, :] & 0xF)
+    return torch.where(byte > 127, byte - 256, byte).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: [..., D//2, F] int8 → [..., D, F]
+    int32. The low nibble sign-extends as ``((p & 0xF) ^ 8) - 8``; the
+    high one is an arithmetic shift of the signed byte."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = p >> 4
+    stacked = torch.stack([lo, hi], dim=-2)          # [..., D/2, 2, F]
+    return stacked.reshape(*packed.shape[:-2], packed.shape[-2] * 2,
+                           packed.shape[-1])
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: [..., D] → (int8 [..., D], f32 [..., 1]).
+    Bit for bit the JAX package's: scale amax/127 (1 for an all-zero row),
+    true division by it, rounding half to even, a clip to ±127.
+
+    The divisor 127 is a tensor: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which can land one ulp off."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                     torch.ones_like(amax))
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def _int4_groups(d: int, q4: torch.Tensor, scale: torch.Tensor) -> int:
+    """Validate an int4 operand pair against x's depth ``d``; returns the
+    group size D // G."""
+    dp, g = q4.shape[-2], scale.shape[-2]
+    if d != 2 * dp:
+        raise ValueError(f"x depth {d} != 2x packed rows {dp}")
+    if d % g:
+        raise ValueError(f"group count {g} must divide D {d}")
+    return d // g
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
 
 
 def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
@@ -39,8 +127,62 @@ def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     return (acc * scale.reshape(f).float()).to(x.dtype)
 
 
+def int4_matmul_ref(x: torch.Tensor, q4: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 on any device: for each scale group, the f32
+    product of x's columns and the group's unpacked rows, scaled in f32
+    by the group's scale row and summed; rounded once to x's dtype."""
+    d = x.shape[-1]
+    group = _int4_groups(d, q4, scale)
+    f = q4.shape[-1]
+    xm = x.reshape(-1, d).float()
+    acc = torch.zeros(xm.shape[0], f, dtype=torch.float32, device=x.device)
+    for g in range(scale.shape[0]):
+        w = unpack_int4(q4[g * group // 2:(g + 1) * group // 2]).float()
+        acc += (xm[:, g * group:(g + 1) * group] @ w) * scale[g].float()
+    return acc.to(x.dtype).reshape(*x.shape[:-1], f)
+
+
+def w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4 on any device: ``quantize_rows(x)``, the int8
+    product summed exactly, then ``(acc · sx) · sw`` in f32. The integer
+    sum is taken in f64, which holds it exactly (|acc| ≤ 127²·D < 2^53),
+    because torch has no int32 matmul on CUDA; its rounding to f32 is the
+    int32 accumulator's."""
+    d, f = q.shape
+    xq, sx = quantize_rows(x.reshape(-1, d))
+    acc = (xq.double() @ q.double()).float()
+    out = acc * sx * scale.reshape(1, f).float()
+    return out.to(x.dtype).reshape(*x.shape[:-1], f)
+
+
+def w4a8_matmul_ref(x: torch.Tensor, q4: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6 on any device: ``quantize_rows(x)``; for each
+    scale group the exact integer product of the int8 columns and the
+    group's unpacked rows (in f64, as in K4's plain version), rounded to
+    f32 and scaled by the group's scale row; the sum times sx."""
+    d = x.shape[-1]
+    group = _int4_groups(d, q4, scale)
+    f = q4.shape[-1]
+    xq, sx = quantize_rows(x.reshape(-1, d))
+    xq = xq.double()
+    acc = torch.zeros(xq.shape[0], f, dtype=torch.float32, device=x.device)
+    for g in range(scale.shape[0]):
+        w = unpack_int4(q4[g * group // 2:(g + 1) * group // 2]).double()
+        pg = (xq[:, g * group:(g + 1) * group] @ w).float()
+        acc += pg * scale[g].float()
+    return (acc * sx).to(x.dtype).reshape(*x.shape[:-1], f)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
 def gemv_splits(m: int, d: int, f: int) -> int:
-    """Contraction-axis splits of the GEMV path (0 for the tiled path):
+    """Contraction-axis splits of K2's GEMV path (0 for the tiled path):
     enough blocks to keep the card's memory busy when F is narrow, each
     split at least 16 rows deep. Partials go to an f32 workspace
     [splits, M, F] that a second pass sums in a fixed order."""
@@ -50,23 +192,52 @@ def gemv_splits(m: int, d: int, f: int) -> int:
     return max(1, min(d // _GEMV_MIN_ROWS, -(-_GEMV_BLOCKS // col_tiles)))
 
 
-def _check(x, q, scale) -> None:
-    if not (x.device == q.device == scale.device):
-        raise ValueError("x, q, scale must lie on one device")
+def stream_splits(m: int, groups: int, f: int) -> int:
+    """Contraction-axis splits of K5's and K6's streaming path (0 for the
+    tiled path): whole scale groups per split, enough splits to put about
+    ``_STREAM_BLOCKS`` blocks in flight, and none empty. Partials go to an
+    f32 workspace [splits, M, F] summed in a fixed order by a second pass."""
+    if m > STREAM_MAX_M:
+        return 0
+    col_tiles = -(-f // _STREAM_COLS)
+    want = max(1, min(groups, -(-_STREAM_BLOCKS // col_tiles)))
+    per = -(-groups // want)
+    return -(-groups // per)
+
+
+def _check(x, w, scale, w_rows: int) -> None:
+    if not (x.device == w.device == scale.device):
+        raise ValueError("x, weight, scale must lie on one device")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be one of {_DTYPES}, got {x.dtype}")
-    if q.dtype != torch.int8 or q.dim() != 2:
-        raise TypeError(f"q must be int8 [D, F], got {q.dtype} "
-                        f"{tuple(q.shape)}")
-    if scale.dtype != torch.float32 or scale.numel() != q.shape[1]:
-        raise TypeError(f"scale must be f32 [1, F={q.shape[1]}], got "
+    if w.dtype != torch.int8 or w.dim() != 2:
+        raise TypeError(f"weight must be int8 [rows, F], got {w.dtype} "
+                        f"{tuple(w.shape)}")
+    if scale.dtype != torch.float32 or scale.shape[-1] != w.shape[1]:
+        raise TypeError(f"scale must be f32 [.., F={w.shape[1]}], got "
                         f"{scale.dtype} {tuple(scale.shape)}")
-    if x.shape[-1] != q.shape[0]:
-        raise ValueError(f"contraction mismatch: x {tuple(x.shape)} @ q "
-                         f"{tuple(q.shape)}")
-    if not (x.is_contiguous() and q.is_contiguous()
+    if x.shape[-1] != w_rows:
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)} @ "
+                         f"weight {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()
             and scale.is_contiguous()):
-        raise ValueError("x, q, scale must be contiguous")
+        raise ValueError("x, weight, scale must be contiguous")
+
+
+def _check_kernel_shape(name: str, d: int, f: int, kstep: int,
+                        group: int | None = None) -> None:
+    """What the CUDA kernels take beyond the function's own contract:
+    16-byte rows of x, 4-byte weight rows, whole k-steps per group."""
+    if d % kstep or f % 8:
+        raise ValueError(f"{name} on CUDA needs D % {kstep} == 0 and "
+                         f"F % 8 == 0, got D={d}, F={f}")
+    if group is not None and group % kstep:
+        raise ValueError(f"{name} on CUDA needs a group size that is a "
+                         f"multiple of {kstep}, got {group}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
@@ -77,7 +248,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
         return int8_matmul_ref(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 matmul for device {x.device}")
-    _check(x, q, scale)
+    _check(x, q, scale, q.shape[0])
+    if scale.numel() != q.shape[1]:
+        raise TypeError(f"scale must be f32 [1, F={q.shape[1]}]")
     d, f = q.shape
     m = x.numel() // d
     out = torch.empty(*x.shape[:-1], f, dtype=x.dtype, device=x.device)
@@ -90,12 +263,112 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     err = lib.int8_matmul_fwd(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
-        m, d, f, splits, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        m, d, f, splits, int(x.dtype == torch.bfloat16), _stream(x))
     _build.check("int8_matmul", err, "int8_matmul launch")
     int8_matmul.launches += 1
     return out
 
 
+def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``x @ dequant(q4, scale)``. x: [..., D] bf16 or f32; q4: packed
+    int8 [D/2, F]; scale: f32 [G, F], group D/G. Returns [..., F] in x's
+    dtype."""
+    if x.device.type == "cpu":
+        return int4_matmul_ref(x, q4, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int4 matmul for device {x.device}")
+    _check(x, q4, scale, 2 * q4.shape[0])
+    d, f, g = x.shape[-1], q4.shape[1], scale.shape[0]
+    group = _int4_groups(d, q4, scale)
+    _check_kernel_shape("int4_matmul", d, f, K5_KSTEP, group)
+    m = x.numel() // d
+    out = torch.empty(*x.shape[:-1], f, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    # f32 x (a test dtype) takes the CUDA-core tile loop at every M
+    splits = stream_splits(m, g, f) if bf16 else 0
+    ws = torch.empty((splits, m, f), dtype=torch.float32,
+                     device=x.device) if splits else None
+    lib = _build.library("int4_matmul")
+    err = lib.int4_matmul_fwd(
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        m, d, f, g, splits, int(bf16), _stream(x))
+    _build.check("int4_matmul", err, "int4_matmul launch")
+    int4_matmul.launches += 1
+    return out
+
+
+def _a8_scratch(x: torch.Tensor, m: int, d: int):
+    return (torch.empty((m, d), dtype=torch.int8, device=x.device),
+            torch.empty((m,), dtype=torch.float32, device=x.device))
+
+
+def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``quantize_rows(x) @ q`` in int32, times sx and scale. x: [..., D]
+    bf16 or f32; q: int8 [D, F]; scale: f32 [1, F]. Returns [..., F] in x's
+    dtype. The kernel quantizes x itself, into scratch made here."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_ref(x, q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no w8a8 matmul for device {x.device}")
+    _check(x, q, scale, q.shape[0])
+    if scale.numel() != q.shape[1]:
+        raise TypeError(f"scale must be f32 [1, F={q.shape[1]}]")
+    d, f = q.shape
+    _check_kernel_shape("w8a8_matmul", d, f, A8_KSTEP)
+    m = x.numel() // d
+    out = torch.empty(*x.shape[:-1], f, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    xq, sx = _a8_scratch(x, m, d)
+    lib = _build.library("w8a8_matmul")
+    err = lib.w8a8_matmul_fwd(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), m, d, f,
+        int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check("w8a8_matmul", err, "w8a8_matmul launch")
+    w8a8_matmul.launches += 1
+    return out
+
+
+def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """``quantize_rows(x) @ dequant(q4, scale)`` with int32 group dots.
+    Same operands as :func:`int4_matmul`. The kernel quantizes x itself,
+    into scratch made here."""
+    if x.device.type == "cpu":
+        return w4a8_matmul_ref(x, q4, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no w4a8 matmul for device {x.device}")
+    _check(x, q4, scale, 2 * q4.shape[0])
+    d, f, g = x.shape[-1], q4.shape[1], scale.shape[0]
+    group = _int4_groups(d, q4, scale)
+    _check_kernel_shape("w4a8_matmul", d, f, A8_KSTEP, group)
+    m = x.numel() // d
+    out = torch.empty(*x.shape[:-1], f, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    xq, sx = _a8_scratch(x, m, d)
+    splits = stream_splits(m, g, f)
+    ws = torch.empty((splits, m, f), dtype=torch.float32,
+                     device=x.device) if splits else None
+    lib = _build.library("w4a8_matmul")
+    err = lib.w4a8_matmul_fwd(
+        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        m, d, f, g, splits, int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check("w4a8_matmul", err, "w4a8_matmul launch")
+    w4a8_matmul.launches += 1
+    return out
+
+
 #: kernel launches since the count was last reset (CPU calls not counted)
 int8_matmul.launches = 0
+int4_matmul.launches = 0
+w8a8_matmul.launches = 0
+w4a8_matmul.launches = 0

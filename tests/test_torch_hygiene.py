@@ -60,7 +60,10 @@ def test_no_jax_imports_in_source(path):
 @pytest.mark.parametrize("name,replaces", [
     ("flash_attention", "copilot_for_consensus_tpu/ops/flash_attention.py"),
     ("int8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
-    ("paged_attention", "copilot_for_consensus_tpu/ops/paged_attention.py")])
+    ("paged_attention", "copilot_for_consensus_tpu/ops/paged_attention.py"),
+    ("int4_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("w8a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("w4a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py")])
 def test_kernel_sources_carry_their_note(name, replaces):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
@@ -68,6 +71,24 @@ def test_kernel_sources_carry_their_note(name, replaces):
     assert "What bounds it on this card" in head
     assert f'extern "C" int {name}_fwd' in src
     assert f'extern "C" const char* {name}_error' in src
+
+
+def test_every_source_is_built_and_bound():
+    from copilot_for_consensus_tpu_torch.ops import _build
+
+    sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    assert sorted(_build.SIGNATURES) == sources
+
+
+def test_build_target_follows_shared_headers(monkeypatch, tmp_path):
+    from copilot_for_consensus_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build._target("k") != first
 
 
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):

@@ -26,6 +26,7 @@ from copilot_for_consensus_tpu_torch.models.layers import qmatmul
 from copilot_for_consensus_tpu_torch.ops.quant_matmul import (
     GEMV_MAX_M,
     gemv_splits,
+    int4_matmul_ref,
     int8_matmul,
     int8_matmul_ref,
 )
@@ -125,8 +126,10 @@ def test_qmatmul_routes_by_leaf_kind():
                        int8_matmul_ref(x, q, scale))
     w = torch.randn(64, 32)
     assert torch.equal(qmatmul(x, w), x @ w)
-    with pytest.raises(NotImplementedError):
-        qmatmul(x, {"q4": q, "scale": scale})
+    # an int4 leaf: 64 rows packed into 32 bytes, one scale group
+    q4 = q[:32]
+    assert torch.equal(qmatmul(x, {"q4": q4, "scale": scale}),
+                       int4_matmul_ref(x, q4, scale))
     with pytest.raises(ValueError):
         qmatmul(x, leaf, "pallas")
 
