@@ -53,19 +53,28 @@ non-zero before the last line:
    behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
    (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
    forward pass must make 4 quantized launches a layer plus the lm_head's;
-14. int4 trace — phase 6 on the int4 engine, 32 slots busy.
+14. int4 trace — phase 6 on the int4 engine, 32 slots busy;
+15. probe — (run right after phase 11, before the 7B weights are made) the
+   weight-stream probe P: its five modes (dma, convdot, i8dot, unpack8,
+   unpack32) against their plain versions at one [128, 4096] x [4096,
+   14336] layer, timed likewise, and one call of each traced by
+   ``torch.profiler`` (L2 flushed): device µs by kernel; then the probe
+   script (``copilot_for_consensus_tpu_torch.scripts.probe_stream``) over
+   all five modes, 20 distinct layers, 10 warm and 10 timed passes, with
+   the counts reset before: each mode must launch 400 times, and none may
+   stream faster than 1.05 x 3.35 TB/s.
 
-Then the kernel table (K1-K6, each with its launches on every path) as
-one JSON line, the nvidia-smi line, and last ``{"ok": true, "device":
-{...}}``. About 5-6.5 minutes on one H100 (the host's speed varies), the
-build included.
+Then the kernel table (K1-K6 and P's five modes, each with its launches on
+every path) as one JSON line, the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``. About 5.5-7 minutes on one H100 (the host's speed
+varies), the build included.
 """
 
 from __future__ import annotations
 
 import gc
 import json
-import subprocess
+import math
 import sys
 import time
 from pathlib import Path
@@ -109,11 +118,23 @@ K4_ATOL = 0.0
 #: (equal there); the split path of M <= 32 sums its splits' partials in
 #: another order: f32 level, and one bf16 output rounding at bf16.
 K6_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: P (the weight-stream probe) vs its plain versions at one full layer.
+#: dma and i8dot sum integers exactly and finish with the same f32 addition
+#: or multiply and one bf16 rounding: equal bit for bit, so 0. convdot and
+#: unpack relative to the largest output: convdot sums its tile in
+#: tensor-core k-steps, the plain version in cuBLAS's order, so an f32 sum
+#: can land on the other side of a bf16 rounding boundary — one bf16 step,
+#: at most 2**-7 of the largest output; unpack keeps the plain version's
+#: order (group partial, scale, group sum, tile sum) with the same f32
+#: operations, so 0 is expected, held to the same one step.
+P_ATOL = {"dma": 0.0, "i8dot": 0.0}
+P_RTOL = {"convdot": 2.0 ** -7, "unpack8": 2.0 ** -7, "unpack32": 2.0 ** -7}
+#: a weight stream faster than this share of 3.35 TB/s dropped loads
+P_MAX_HBM_SHARE = 1.05
 #: model consistency: relative L2 of kernel vs plain last-position logits
 #: after 32 bf16 layers (rounding differences compound through depth)
 LOGITS_REL_L2 = 5e-2
 
-HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
               "int8": 1979e12}
 #: the int4 / a8 main path's projections (D, F) of mistral-7b: the fused
@@ -127,14 +148,6 @@ A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, n: int = 10, flush=None) -> float:
@@ -164,6 +177,10 @@ def time_ms(fn, n: int = 10, flush=None) -> float:
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    from copilot_for_consensus_tpu_torch.scripts.probe_stream import (
+        HBM_BYTES_PER_S,
+    )
+
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -178,11 +195,19 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
     from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+    from copilot_for_consensus_tpu_torch.ops import probe_stream as ps
     from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
 
     return {"K1": fa.flash_attention, "K2": qm.int8_matmul,
             "K3": pa.paged_attention_partial, "K4": qm.w8a8_matmul,
-            "K5": qm.int4_matmul, "K6": qm.w4a8_matmul}
+            "K5": qm.int4_matmul, "K6": qm.w4a8_matmul,
+            "P_dma": ps.probe_dma, "P_convdot": ps.probe_convdot,
+            "P_i8dot": ps.probe_i8dot, "P_unpack": ps.probe_unpack}
+
+
+#: the probe's modes and the counter of the wrapper each one launches
+P_COUNTERS = {"dma": "P_dma", "convdot": "P_convdot", "i8dot": "P_i8dot",
+              "unpack8": "P_unpack", "unpack32": "P_unpack"}
 
 
 def reset_launches() -> None:
@@ -402,6 +427,117 @@ def phase_quant_kernels(dev, flush):
         del x, q, s, out, want, xq, sx
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_probe(dev, flush, smi):
+    """P, the weight-stream probe: each mode's kernel against its plain
+    version at one full layer ([128, 4096] x [4096, 14336], seeded inputs),
+    timed beside its bound, its plain version and a PyTorch yardstick where
+    one call computes the same function; then the probe script over all
+    five modes with the launch counts reset just before: each mode's
+    kernel must launch 2 x n x L times (warm-up and timed passes) and no
+    mode may stream faster than 1.05 x 3.35 TB/s."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.ops import probe_stream as ps
+    from copilot_for_consensus_tpu_torch.scripts import probe_stream as drv
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, d, f = drv.B, drv.D, drv.F
+    x = torch.randn(b, d, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (d, f), generator=g, dtype=torch.int8,
+                      device=dev)
+    w4 = torch.randint(-128, 128, (d // 2, f), generator=g, dtype=torch.int8,
+                       device=dev)
+    xi = x.to(torch.int8)
+    ops = 2.0 * b * d * f
+    cases = [
+        ("dma", lambda: ps.probe_dma(x, w), lambda: ps.dma_ref(x, w),
+         nbytes(x[:, :1], w) + b * f * 2, (d // ps.BD + b) * f, "float32",
+         None, "none: no PyTorch call reads every byte and sums one row a "
+         "tile"),
+        ("convdot", lambda: ps.probe_convdot(x, w),
+         lambda: ps.convdot_ref(x, w), nbytes(x, w) + b * f * 2, ops,
+         "bfloat16", lambda: x @ w.to(torch.bfloat16),
+         "x @ w.to(bf16)"),
+        ("i8dot", lambda: ps.probe_i8dot(x, w), lambda: ps.i8dot_ref(x, w),
+         nbytes(x, w) + b * f * 2, ops, "int8",
+         lambda: (torch._int_mm(xi, w).float() * 1e-4).to(torch.bfloat16),
+         "torch._int_mm(xi, w) * 1e-4, xi truncated beforehand"),
+        ("unpack8", lambda: ps.probe_unpack(x, w4),
+         lambda: ps.unpack_ref(x, w4), nbytes(x, w4) + b * f * 2, ops,
+         "int8", None, "none: no PyTorch call unpacks int4 and scales int32 "
+         "partials per group"),
+        ("unpack32", lambda: ps.probe_unpack(x, w4, widen=True),
+         lambda: ps.unpack_ref(x, w4), nbytes(x, w4) + b * f * 2, ops,
+         "int8", None, "none: no PyTorch call unpacks int4 and scales int32 "
+         "partials per group"),
+    ]
+    rows = {}
+    for mode, fn, ref, nb, flops, peak, lib, lib_desc in cases:
+        out = fn()
+        torch.cuda.synchronize()
+        want = ref()
+        top = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = P_ATOL[mode] if mode in P_ATOL else P_RTOL[mode] * top
+        ok = (bool(torch.isfinite(out).all()) and tuple(out.shape) == (b, f)
+              and err <= tol)
+        bnd, by = bound_ms(nb, flops, peak)
+        row = {"kernel": "P", "case": mode, "dtype": "bfloat16",
+               "shape": [b, d, f], "max_abs_err": err, "tol": tol,
+               "bit_equal": bool(torch.equal(out, want)),
+               "ms": time_ms(fn, flush=flush),
+               "plain_ms": time_ms(ref, n=3, flush=flush),
+               "library_ms": time_ms(lib, flush=flush) if lib else None,
+               "library": lib_desc, "bound_ms": bnd, "bound_by": by,
+               "device_us_by_kernel": traced_us(fn, flush), "device": smi}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"P {mode}: error {err} > {tol}")
+        rows[("P", mode, "bfloat16")] = row
+        del out, want
+    del x, w, w4, xi
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    per_mode = {}
+    for mode in drv.MODES:
+        key = P_COUNTERS[mode]
+        before = read_launches()[key]
+        line = drv.run(mode, device=dev)
+        per_mode[mode] = read_launches()[key] - before
+        line.update(phase="probe", launches=per_mode[mode], device=smi)
+        emit(line)
+        torch.cuda.empty_cache()
+        if line["share_of_hbm"] > P_MAX_HBM_SHARE:
+            raise AssertionError(f"probe {mode}: {line['gb_per_s']} GB/s is "
+                                 f"beyond the card's memory: loads dropped")
+        if not math.isfinite(line["mean_abs_out"]):
+            raise AssertionError(f"probe {mode}: non-finite output")
+        rows[("P", mode, "bfloat16")]["probe"] = line
+    launches = read_launches()
+    check_path("probe", launches, set(P_COUNTERS.values()))
+    want_n = 2 * drv.N * drv.L
+    if any(n != want_n for n in per_mode.values()) or \
+            launches["P_unpack"] != 2 * want_n:
+        raise AssertionError(f"probe launches {per_mode}, {launches}: "
+                             f"{want_n} a mode expected")
+    return rows, launches, per_mode
+
+
+def traced_us(fn, flush) -> dict:
+    """Device µs by kernel of one call of ``fn`` under ``torch.profiler``,
+    L2 flushed before it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_us_by_kernel(prof)[1]
 
 
 def k3_cases():
@@ -1094,6 +1230,19 @@ def busy_us(intervals) -> float:
     return total
 
 
+def device_us_by_kernel(prof) -> tuple[list, dict]:
+    """The traced device events of ``prof`` and their µs summed by kernel
+    name (its first 80 characters), largest first."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (
+            e.time_range.end - e.time_range.start)
+    return events, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
 def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     """Device busy and idle share of steady decode: the longest prompts
     fill the slots, in as many admission waves as the engine's token budget
@@ -1103,7 +1252,6 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     device intervals) / (host wall time of the n steps). The engine is left
     with its slots busy: the caller discards it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from copilot_for_consensus_tpu_torch.engine.generation import (
@@ -1146,14 +1294,9 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
         traced_s = steps()
     if done:
         raise AssertionError("a slot finished inside the measured decode")
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start)
+    kernels, by_name = device_us_by_kernel(prof)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = list(by_name.items())[:6]
     row = {"phase": label, "config": cfg.name, "slots": len(ids),
            "kv": "paged" if eng.paged else "contiguous",
            "quantize": eng.quant_mode, "admission_waves": waves,
@@ -1164,7 +1307,7 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
            "device_busy_ms": busy / 1e3 if kernels else None,
            "idle_share": (1.0 - busy / (traced_s * 1e6)) if kernels
            else None,
-           "device_ms_by_kernel": {k[:80]: v / 1e3 for k, v in top},
+           "device_ms_by_kernel": {k: v / 1e3 for k, v in top},
            "device": smi}
     emit(row)
     return row
@@ -1189,11 +1332,12 @@ def main() -> int:
         decoder_config,
     )
     from copilot_for_consensus_tpu_torch.ops import _build
+    from copilot_for_consensus_tpu_torch.scripts import probe_stream as drv
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = nvidia_smi()
+    smi = drv.card()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1209,6 +1353,8 @@ def main() -> int:
     rows = phase_kernels(dev, flush)
     rows.update(phase_k3(dev, flush))
     rows.update(phase_quant_kernels(dev, flush))
+    probe_rows, probe_launches, probe_per_mode = phase_probe(dev, flush, smi)
+    rows.update(probe_rows)
     del flush
 
     cfg = decoder_config("mistral-7b")
@@ -1251,7 +1397,7 @@ def main() -> int:
 
     by_path = {"serve": launches, "paged_serve": paged_launches,
                "a8_model": a8_launches, "int4_serve": int4_launches,
-               "int4_serve_a8": int4_a8_launches}
+               "int4_serve_a8": int4_a8_launches, "probe": probe_launches}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
     for name, row, path, tpu in (
@@ -1282,6 +1428,24 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": row["case"], "dtype": row["dtype"]})
+    # P: one row a mode; unpack8 and unpack32 share the unpack wrapper's
+    # count, so on the probe path each row gives the mode's own share
+    for mode, key in P_COUNTERS.items():
+        row = rows[("P", mode, "bfloat16")]
+        table.append({
+            "name": f"probe_stream_{mode}", "route": "cuda",
+            "source": "copilot_for_consensus_tpu_torch/csrc/probe_stream.cu",
+            "replaces": "scripts/probe_stream.py:"
+                        + ("146" if mode.startswith("unpack") else "121"),
+            "launches": probe_per_mode[mode], "launches_path": "probe",
+            "launches_by_path": {p: probe_per_mode[mode] if p == "probe"
+                                 else c[key] for p, c in by_path.items()},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "case": row["case"], "dtype": row["dtype"],
+            "probe_ms_per_pass": row["probe"]["ms"],
+            "probe_gb_per_s": row["probe"]["gb_per_s"]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

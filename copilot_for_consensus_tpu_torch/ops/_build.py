@@ -61,6 +61,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # stream
         "paged_attention_fwd": [_P] * 9 + [_I] * 12 + [_P],
     },
+    "probe_stream": {
+        # mode, x, w, out, workspace, B, D, F, bd, gdp, groups, stream
+        "probe_stream_fwd": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    },
 }
 
 _lock = threading.Lock()

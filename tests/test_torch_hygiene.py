@@ -63,7 +63,8 @@ def test_no_jax_imports_in_source(path):
     ("paged_attention", "copilot_for_consensus_tpu/ops/paged_attention.py"),
     ("int4_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
     ("w8a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
-    ("w4a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py")])
+    ("w4a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("probe_stream", "scripts/probe_stream.py")])
 def test_kernel_sources_carry_their_note(name, replaces):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
