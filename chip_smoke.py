@@ -11,10 +11,20 @@ non-zero before the last line:
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build   — compiles every kernel of ``copilot_for_consensus_tpu_torch/
    csrc`` into ``build/cuda_kernels/``;
+   then, for the two libraries with a Hopper body (K5's and K1's wgmma
+   bodies), one ``build_info`` line each: ptxas's registers, spills and
+   shared memory per kernel, the wgmma bodies' dynamic shared memory, and
+   the counts of HGMMA, UTMALDG, LDGSTS and HMMA instructions per kernel
+   in the SASS (``cuobjdump -sass``; "absent" without it) — the wgmma
+   bodies must show HGMMA and UTMALDG;
 3. kernels — holds K1 (flash attention) and K2 (int8 matmul) against their
    plain PyTorch versions at the full Mistral-7B shapes, with the stated
    tolerances, and times kernel, plain version, and one PyTorch call of
-   the same function (``library_ms``, a yardstick the port never calls);
+   the same function (``library_ms``, a yardstick the port never calls).
+   K1's cases: the int8 waves (B4 S512, S1024), the paged miss waves'
+   offsets and begins, the int4 wave (B2 S2816), a window of 256 that
+   bites, and D 64 and D 32, at bf16 and f32, so each of K1's two bodies
+   (wgmma for bf16 at D 64/128, CUDA cores for the rest) runs;
 4. model   — the full-width int8 ``mistral-7b`` (random weights from a
    seed): one 4-row admission-wave prefill through the kernels and the
    same prefill through the plain versions, last-position logits compared
@@ -44,7 +54,9 @@ non-zero before the last line:
    against their plain versions at the int4 / a8 main path's shapes: K5
    (int4 weight-only) and K6 (W4A8) on the five int4 projections at M = 32
    (decode) and 5632 (a 2 x 2816 wave), K4 (W8A8) on the four int8 layer
-   projections at M = 4096, plus one f32 case each — timed likewise;
+   projections at M = 4096, plus one f32 case each — timed likewise; and
+   K5's tiled edges: M = 33, M = 5000 with F = 6128 (ragged against every
+   tile) on its wgmma body, and F = 4104 on the mma.sync tiling;
 12. a8 model — (run right after phase 4) one 4 x 1024 int8 wave with
    ``set_act_quant("a8")``, through K4 and through the plain versions;
 13. int4 serve — after the paged engine and the int8 weights are freed,
@@ -53,7 +65,9 @@ non-zero before the last line:
    behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
    (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
    forward pass must make 4 quantized launches a layer plus the lm_head's;
-14. int4 trace — phase 6 on the int4 engine, 32 slots busy;
+14. int4 wave and trace — one admission wave of the int4 engine (2 x
+   2816) traced by kernel: device ms by kernel and by family, and the
+   launches of each body; then phase 6 on the int4 engine, 32 slots busy;
 15. probe — (run right after phase 11, before the 7B weights are made) the
    weight-stream probe P: its five modes (dma, convdot, i8dot, unpack8,
    unpack32) against their plain versions at one [128, 4096] x [4096,
@@ -64,7 +78,11 @@ non-zero before the last line:
    the counts reset before: each mode must launch 400 times, and none may
    stream faster than 1.05 x 3.35 TB/s.
 
-Then the kernel table (K1-K6 and P's five modes, each with its launches on
+Every serve phase counts K1's and K5's launches by body: the main path's
+K1 launches must all be the wgmma body's, and no K5 launch may take the
+mma.sync or CUDA-core tiled bodies (on the int4 path the wgmma body makes
+4 launches a layer a wave). Then the kernel table (K1-K6, K5's split and
+tiled bodies as two rows, and P's five modes, each with its launches on
 every path) as one JSON line, the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. About 5.5-7 minutes on one H100 (the host's speed
 varies), the build included.
@@ -75,6 +93,9 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -213,6 +234,8 @@ P_COUNTERS = {"dma": "P_dma", "convdot": "P_convdot", "i8dot": "P_i8dot",
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        for body in getattr(fn, "launches_by_body", {}):
+            fn.launches_by_body[body] = 0
 
 
 def read_launches() -> dict:
@@ -227,14 +250,165 @@ def check_path(label: str, launches: dict, used) -> None:
                                  f"path's kernels are {sorted(used)}")
 
 
+#: kernels with more than one body; each wrapper's ``launches_by_body``
+#: counts each body's launches
+BODY_KERNELS = ("K1", "K5")
+
+
+def read_bodies() -> dict:
+    w = kernel_wrappers()
+    return {k: dict(w[k].launches_by_body) for k in BODY_KERNELS}
+
+
+def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None):
+    """The main path's K1 launches all went to the wgmma body, and its K5
+    launches (if any) never to the mma.sync or CUDA-core tiled bodies;
+    ``k5_wgmma`` is the count the wgmma body must have."""
+    if bodies["K1"]["simt"]:
+        raise AssertionError(f"{label}: K1's CUDA-core body launched: "
+                             f"{bodies}")
+    if bodies["K5"]["mma_sync"] or bodies["K5"]["simt"]:
+        raise AssertionError(f"{label}: an old K5 tiled body launched: "
+                             f"{bodies}")
+    if k5_wgmma is not None and bodies["K5"]["wgmma"] != k5_wgmma:
+        raise AssertionError(f"{label}: K5's wgmma body launched "
+                             f"{bodies['K5']['wgmma']} times, expected "
+                             f"{k5_wgmma}")
+
+
+#: the libraries with a Hopper body, and that body's kernel
+REDESIGNED = {"int4_matmul": "k5w::int4_wgmma",
+              "flash_attention": "fa3::flash_wgmma"}
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's demangled name without its return type and parameters
+    (``qmma::qgemm<(qmma::Kind)1, 2, 4, 4, __nv_bfloat16>``), through the
+    toolkit's ``cu++filt`` or binutils' ``c++filt``; the mangled name where
+    neither is installed."""
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None and Path("/usr/local/cuda/bin/cu++filt").exists():
+        tool = "/usr/local/cuda/bin/cu++filt"
+    if tool is None:
+        return mangled
+    out = subprocess.run([tool, mangled], capture_output=True, text=True,
+                         timeout=60).stdout.strip() or mangled
+    out = re.sub(r"^void ", "", out.replace("(anonymous namespace)::", ""))
+    depth = 0
+    for i, ch in enumerate(out):          # cut the parameter list
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0:
+            return out[:i]
+    return out
+
+
+def ptxas_functions(text: str) -> dict:
+    """Per kernel of one ``nvcc -Xptxas -v`` log: registers, barriers,
+    static shared memory, stack, spill stores and loads, and ptxas's
+    performance notes (C75xx)."""
+    funcs: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = funcs.setdefault(short_name(m.group(1)), {"notes": []})
+            continue
+        m = re.search(r"\((C75\d\d)\).*function '([^']+)'", line)
+        if m:
+            funcs.setdefault(short_name(m.group(2)), {"notes": []})[
+                "notes"].append(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers(?:, used (\d+) barriers)?"
+                      r"(?:, (\d+) bytes smem)?", line)
+        if m:
+            cur.update(registers=int(m.group(1)),
+                       barriers=int(m.group(2) or 0),
+                       static_smem=int(m.group(3) or 0))
+    return funcs
+
+
+def sass_counts(lib_path) -> dict | str:
+    """Counts of ``SASS_OPS`` per kernel in a built library, from the
+    toolkit's ``cuobjdump -sass``; "absent" without the tool."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "absent"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts: dict = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(short_name(m.group(1)),
+                                    dict.fromkeys(SASS_OPS, 0))
+            continue
+        if cur is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
+    return counts
+
+
+def phase_build_info():
+    """For each library with a Hopper body: ptxas's registers, spills and
+    shared memory per kernel (from the build's log), the wgmma bodies'
+    dynamic shared memory, and the SASS counts per kernel. The wgmma body
+    must show HGMMA and UTMALDG (tensor-core products fed by TMA)."""
+    from copilot_for_consensus_tpu_torch.ops import _build
+
+    for name, body in REDESIGNED.items():
+        log = _build.build_log.get(name)
+        lib = _build.library(name)
+        smem = ({"k5w::int4_wgmma": lib.int4_matmul_wgmma_smem()}
+                if name == "int4_matmul" else
+                {f"fa3::flash_wgmma<{d}>": lib.flash_attention_wgmma_smem(d)
+                 for d in (64, 128)})
+        sass = sass_counts(_build._target(name))
+        row = {"phase": "build_info", "library": name,
+               "ptxas": ptxas_functions(log["nvcc"]) if log else
+               "not built in this run", "dynamic_smem": smem, "sass": sass}
+        emit(row)
+        if isinstance(sass, dict):
+            mine = {f: c for f, c in sass.items() if f.startswith(body)}
+            if not mine or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
+                               for c in mine.values()):
+                raise AssertionError(f"{name}: the wgmma body's SASS lacks "
+                                     f"HGMMA or UTMALDG: {mine}")
+
+
 def k1_cases():
-    """(label, B, Sq, Skv, kv_lengths, q_offsets, kv_begins) at the Mistral
-    prefill shapes: Hq 32, Hkv 8, D 128, causal, window 4096."""
+    """(label, B, Hq, Hkv, Sq, Skv, D, window, kv_lengths, q_offsets,
+    kv_begins, timed), causal. The Mistral prefill shapes (Hq 32, Hkv 8,
+    D 128, window 4096): the contiguous int8 waves (B4 S512 and S1024),
+    the paged miss waves' offsets and begins, the int4 wave (B2 S2816, the
+    cap3072 deployment), and a window of 256 that bites (the main path's
+    4096 never does). Then D 64 (the wgmma body's other head dim) and D 32
+    (the CUDA-core body's at bf16)."""
     return [
-        ("s512", 4, 512, 512, [512, 300, 1, 0], None, None),
-        ("s1024", 4, 1024, 1024, [1024, 700, 33, 1000], None, None),
-        ("offsets_begins", 4, 256, 1024, [1024, 256, 356, 0],
-         [768, 0, 100, 0], [0, 0, 50, 0]),
+        ("s512", 4, 32, 8, 512, 512, 128, 4096, [512, 300, 1, 0], None,
+         None, False),
+        ("s1024", 4, 32, 8, 1024, 1024, 128, 4096, [1024, 700, 33, 1000],
+         None, None, True),
+        ("offsets_begins", 4, 32, 8, 256, 1024, 128, 4096,
+         [1024, 256, 356, 0], [768, 0, 100, 0], [0, 0, 50, 0], False),
+        ("s2816", 2, 32, 8, 2816, 2816, 128, 4096, [2816, 2000], None, None,
+         True),
+        ("w256", 2, 32, 8, 1024, 1024, 128, 256, [1024, 900], None, None,
+         True),
+        ("d64", 2, 8, 2, 300, 300, 64, 4096, [300, 157], None, None, False),
+        ("d32", 2, 8, 2, 300, 300, 32, 4096, [300, 157], None, None, False),
     ]
 
 
@@ -249,15 +423,16 @@ def phase_kernels(dev, flush):
     rows = {}
     for dt_name, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
-        for label, b, s_q, s_kv, lens, offs, begins in k1_cases():
-            q = torch.randn(b, 32, s_q, 128, generator=g, device=dev).to(dt)
-            k = torch.randn(b, 8, s_kv, 128, generator=g, device=dev).to(dt)
-            v = torch.randn(b, 8, s_kv, 128, generator=g, device=dev).to(dt)
+        for (label, b, hq, hkv, s_q, s_kv, d, window, lens, offs, begins,
+             timed) in k1_cases():
+            q = torch.randn(b, hq, s_q, d, generator=g, device=dev).to(dt)
+            k = torch.randn(b, hkv, s_kv, d, generator=g, device=dev).to(dt)
+            v = torch.randn(b, hkv, s_kv, d, generator=g, device=dev).to(dt)
 
             def ivec(x):
                 return None if x is None else torch.tensor(
                     x, dtype=torch.int32, device=dev)
-            kw = dict(causal=True, window=4096, kv_lengths=ivec(lens),
+            kw = dict(causal=True, window=window, kv_lengths=ivec(lens),
                       q_offsets=ivec(offs), kv_begins=ivec(begins))
             out = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -268,29 +443,31 @@ def phase_kernels(dev, flush):
             lv, ov, bv = fa._row_params(b, s_kv, kw["kv_lengths"],
                                         kw["q_offsets"], kw["kv_begins"],
                                         dev)
-            pairs = int(fa._mask(b, s_q, s_kv, lv, ov, bv, causal=True,
-                                 window=4096, device=dev).sum()) * 32
+            mask = fa._mask(b, s_q, s_kv, lv, ov, bv, causal=True,
+                            window=window, device=dev)
+            pairs = int(mask.sum()) * hq
             bnd, by = bound_ms(nbytes(q, k, v, out) + 3 * 4 * b,
-                               4.0 * 128 * pairs, dt_name)
+                               4.0 * d * pairs, dt_name)
             row = {"kernel": "K1", "case": label, "dtype": dt_name,
-                   "shape": [b, 32, 8, s_q, s_kv, 128],
+                   "shape": [b, hq, hkv, s_q, s_kv, d], "window": window,
+                   "body": fa.flash_body(dt, d),
                    "max_abs_err": err, "tol": K1_ATOL[dt_name]}
-            if label == "s1024":
-                mask = fa._mask(b, s_q, s_kv, lv, ov, bv, causal=True,
-                                window=4096, device=dev)[:, None]
+            # the bf16 serving cases, and s1024 at f32 as before
+            if timed and (dt_name == "bfloat16" or label == "s1024"):
                 row.update(
                     ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
                     plain_ms=time_ms(
                         lambda: fa.flash_attention_ref(q, k, v, **kw), n=3),
                     library_ms=time_ms(
                         lambda: F.scaled_dot_product_attention(
-                            q, k, v, attn_mask=mask, enable_gqa=True)),
+                            q, k, v, attn_mask=mask[:, None],
+                            enable_gqa=True)),
                     bound_ms=bnd, bound_by=by)
             emit(row)
             if not ok:
                 raise AssertionError(f"K1 {label} {dt_name}: error {err}")
             rows[("K1", label, dt_name)] = row
-            del q, k, v, out, ref
+            del q, k, v, out, ref, mask
     shapes = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
               (4096, 32000)]
     # M = 4: decode and the prefill lm_head; 2048 and 4096: admission waves
@@ -376,9 +553,9 @@ def phase_quant_kernels(dev, flush):
             bnd, by = bound_ms(nbytes(x, q4, s, out), 2.0 * m * d * f, peak)
             row = {"kernel": kernel, "case": f"m{m}_d{d}_f{f}",
                    "dtype": dt_name, "shape": [m, d, f],
-                   # K5 takes f32 x on its CUDA-core loop at every M
-                   "path": "split" if m <= qm.STREAM_MAX_M and (
-                       kernel == "K6" or dt_name == "bfloat16") else "tiled",
+                   "path": qm.int4_body(m, f, quant.INT4_GROUP, dt)
+                   if kernel == "K5" else
+                   "split" if m <= qm.STREAM_MAX_M else "tiled",
                    "max_abs_err": err, "tol": rtol[dt_name] * top,
                    "ms": time_ms(lambda: fn(x, q4, s), flush=flush),
                    "plain_ms": time_ms(lambda: ref(x, q4, s), n=3,
@@ -395,6 +572,37 @@ def phase_quant_kernels(dev, flush):
             record(row, ok)
             del out, want
         del x, q4, s, w
+    # K5's tiled edges: the smallest tiled M (33) and M ragged against the
+    # 128-row tiles with F ragged against the 128-column ones (5000 x 6128),
+    # both on the wgmma body; and F % 16 = 8, a layout that body does not
+    # take, on the mma.sync tiling it leaves to
+    for m, d, f in ((33, 4096, 6144), (5000, 4096, 6128), (512, 4096, 4104)):
+        x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
+        q4 = torch.randint(-128, 128, (d // 2, f), generator=g,
+                           dtype=torch.int8, device=dev)
+        s = torch.rand(d // quant.INT4_GROUP, f, generator=g, device=dev) \
+            * (2 * d ** -0.5 / 4.61)
+        w = quant.dequant_int4({"q4": q4, "scale": s}, torch.bfloat16)
+        out = qm.int4_matmul(x, q4, s)
+        torch.cuda.synchronize()
+        want = qm.int4_matmul_ref(x, q4, s)
+        top = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and \
+            err <= K5_RTOL["bfloat16"] * top
+        bnd, by = bound_ms(nbytes(x, q4, s, out), 2.0 * m * d * f,
+                           "bfloat16")
+        record({"kernel": "K5", "case": f"m{m}_d{d}_f{f}",
+                "dtype": "bfloat16", "shape": [m, d, f],
+                "path": qm.int4_body(m, f, quant.INT4_GROUP, torch.bfloat16),
+                "max_abs_err": err, "tol": K5_RTOL["bfloat16"] * top,
+                "ms": time_ms(lambda: qm.int4_matmul(x, q4, s), flush=flush),
+                "plain_ms": time_ms(lambda: qm.int4_matmul_ref(x, q4, s),
+                                    n=3, flush=flush),
+                "library_ms": time_ms(lambda: x @ w, flush=flush),
+                "library": "x @ w, w dequantized to x's dtype beforehand",
+                "bound_ms": bnd, "bound_by": by}, ok)
+        del x, q4, s, w, out, want
     a8_cases = [(d, f, 4096, "bfloat16") for d, f in A8_SHAPES] + \
         [(4096, 4096, 4096, "float32")]
     for d, f, m, dt_name in a8_cases:
@@ -728,6 +936,7 @@ def phase_a8_model(dev, cfg, params):
         reset_launches()
         a, kernel_s = run("auto")
         launches = read_launches()
+        bodies = read_bodies()
         b, plain_s = run("plain")
     finally:
         quant.set_act_quant("weight_only")
@@ -737,7 +946,8 @@ def phase_a8_model(dev, cfg, params):
     row = {"phase": "a8_model", "config": cfg.name, "rows": rows,
            "bucket": bucket, "rel_l2": rel(a, b), "bound": LOGITS_REL_L2,
            "rel_l2_vs_weight_only": rel(a, weight_only),
-           "launches": launches, "expected_k4": 7 * cfg.n_layers,
+           "launches": launches, "launches_by_body": bodies,
+           "expected_k4": 7 * cfg.n_layers,
            "kernel_prefill_s": kernel_s, "plain_prefill_s": plain_s,
            "weight_only_prefill_s": weight_only_s}
     emit(row)
@@ -746,9 +956,10 @@ def phase_a8_model(dev, cfg, params):
     if row["rel_l2"] > LOGITS_REL_L2:
         raise AssertionError(f"a8 kernel vs plain prefill logits: {row}")
     check_path("a8_model", launches, ("K1", "K2", "K4"))
+    check_bodies("a8_model", bodies)
     if (launches["K4"], launches["K2"]) != (7 * cfg.n_layers, 1):
         raise AssertionError(f"a8 wave launches {launches}")
-    return launches
+    return launches, bodies
 
 
 def synthetic_threads(n: int = 8):
@@ -807,6 +1018,7 @@ def phase_serve(dev, cfg, params, smi):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = read_launches()
+    bodies = read_bodies()
     generation.sample = plain_sample
 
     prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
@@ -828,6 +1040,7 @@ def phase_serve(dev, cfg, params, smi):
         if s.completion_tokens != len(c.tokens):
             raise AssertionError(f"{t.thread_id}: summary/tokens mismatch")
     check_path("serve", launches, ("K1", "K2"))
+    check_bodies("serve", bodies)
     emit({"phase": "serve", "config": cfg.name, "threads": len(threads),
           "prompt_tokens": [c.prompt_len for c in comps],
           "completion_tokens": [len(c.tokens) for c in comps],
@@ -836,8 +1049,8 @@ def phase_serve(dev, cfg, params, smi):
           "decode_s": eng.decode_s, "decode_tokens": eng.decode_tokens,
           "decode_tok_per_s": eng.decode_tokens / eng.decode_s,
           "ttft_s": [c.ttft_s for c in comps], "launches": launches,
-          "device": smi})
-    return launches, prompts, eng
+          "launches_by_body": bodies, "device": smi})
+    return launches, bodies, prompts, eng
 
 
 def phase_paged_model(dev, cfg, eng):
@@ -1041,10 +1254,12 @@ def phase_paged_serve(dev, cfg, eng, smi):
     finally:
         generation.sample = plain_sample
     launches = read_launches()
+    bodies = read_bodies()
     st, ps = eng.kv_pool_stats(), eng.prefix_stats()
     node_count = eng._prefix.node_count
     summary = {"phase": "paged_serve", "config": cfg.name,
-               "launches": launches, "k3_by": k3_by,
+               "launches": launches, "launches_by_body": bodies,
+               "k3_by": k3_by,
                "zero_copy_admits": st["zero_copy_admits"],
                "prefill_tokens_saved": ps["prefill_tokens_saved"],
                "expected_zero_copy_admits": expect_hits,
@@ -1061,6 +1276,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
         raise AssertionError(f"K3 not launched in admission and decode: "
                              f"{k3_by}")
     check_path("paged_serve", launches, ("K1", "K2", "K3"))
+    check_bodies("paged_serve", bodies)
     if rows[1]["zero_copy_admits"] != len(rounds[1][1]):
         raise AssertionError("round 2: not every row was a pointer hit")
     if (st["zero_copy_admits"], ps["prefill_tokens_saved"]) != \
@@ -1072,7 +1288,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
     if (st["free_blocks"] + st["pinned_blocks"] != st["num_blocks"]
             or st["pinned_blocks"] != node_count):
         raise AssertionError(f"pool books do not balance: {summary}")
-    return launches, rows
+    return launches, bodies, rows
 
 
 #: the long-context summarization deployment the JAX bench serves int4 in
@@ -1174,6 +1390,7 @@ def phase_int4_serve(dev, cfg, smi):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = read_launches()
+        bodies = read_bodies()
         rc = comps[n0:]
         waves = passes["waves"] - before["waves"]
         steps = (passes["dispatches"] - before["dispatches"]) \
@@ -1191,6 +1408,7 @@ def phase_int4_serve(dev, cfg, smi):
                "decode_tok_per_s": dec_t / dec_s if dec_s else None,
                "ms_per_step": dec_s / steps * 1e3 if steps else None,
                "wall_s": wall, "launches": launches,
+               "launches_by_body": bodies,
                "expected": per_pass * (waves + steps), "device": smi}
         emit(row)
         if [s.thread_id for s in summaries] != \
@@ -1206,7 +1424,10 @@ def phase_int4_serve(dev, cfg, smi):
         if launches[on] != row["expected"]:
             raise AssertionError(f"int4 {label}: launches {launches}, "
                                  f"expected {row['expected']} on {on}")
-        return launches
+        # each wave's 4 layer projections a layer take K5's wgmma body
+        check_bodies(f"int4 {label}", bodies,
+                     4 * cfg.n_layers * waves if on == "K5" else 0)
+        return launches, bodies
 
     generation.sample = checked_sample
     try:
@@ -1218,6 +1439,66 @@ def phase_int4_serve(dev, cfg, smi):
     if not bool(finite):
         raise AssertionError("non-finite logits while serving int4")
     return eng, prompts, wo, a8
+
+
+def phase_int4_wave(cfg, eng, prompts, smi):
+    """One admission wave of the int4 engine, traced by kernel: the two
+    longest prompts in one bucket (the cap3072 deployment's wave, 2 x
+    2816 rows), through ``_admit_wave`` (prefill, cache insert, first-token
+    sample) on the host clock, then again under ``torch.profiler``: device
+    ms by kernel and by kernel family, the card's busy time, and the
+    launches of each kernel body in the wave."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        _next_bucket,
+    )
+
+    chosen = sorted(prompts, key=len)[-2:]
+    bucket = _next_bucket(max(len(p) for p in chosen), eng.buckets)
+    tokens = np.zeros((len(chosen), bucket), dtype=np.int64)
+    lengths = np.array([len(p) for p in chosen], dtype=np.int64)
+    for i, p in enumerate(chosen):
+        tokens[i, :len(p)] = p
+
+    def wave():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng._admit_wave(tokens, lengths, list(range(len(chosen))))
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    plain_s = wave()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_s = wave()
+    bodies = read_bodies()
+    events, by_name = device_us_by_kernel(prof)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in events)
+    families = {"K5 wgmma (int4_wgmma)": "int4_wgmma",
+                "K5 split (qgemm, qgemm_reduce)": "qgemm",
+                "K1 wgmma (flash_wgmma)": "flash_wgmma"}
+    by_family = dict.fromkeys(families, 0.0)
+    by_family["other"] = 0.0
+    for name, us in by_name.items():
+        fam = next((f for f, key in families.items() if key in name),
+                   "other")
+        by_family[fam] += us / 1e3
+    row = {"phase": "int4_wave", "config": cfg.name,
+           "rows": len(chosen), "bucket": bucket,
+           "prompt_tokens": lengths.tolist(), "wave_s": plain_s,
+           "traced_wave_s": traced_s, "device_busy_ms": busy / 1e3,
+           "device_ms_by_family": by_family,
+           "device_ms_by_kernel": {k: v / 1e3 for k, v in
+                                   list(by_name.items())[:12]},
+           "launches_by_body": bodies, "device": smi}
+    emit(row)
+    if bodies["K5"]["wgmma"] != 4 * cfg.n_layers or \
+            bodies["K1"]["wgmma"] != cfg.n_layers:
+        raise AssertionError(f"int4 wave launches by body: {bodies}")
+    return row
 
 
 def busy_us(intervals) -> float:
@@ -1347,6 +1628,7 @@ def main() -> int:
     _build.build_all()
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "kernels": {n: r["seconds"] for n, r in _build.build_log.items()}})
+    phase_build_info()
 
     # a buffer beyond the 50 MB L2, rewritten before each timed launch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1366,8 +1648,8 @@ def main() -> int:
           "bytes": quant.param_bytes(params),
           "seconds": time.monotonic() - t0})
     phase_model(dev, cfg, params)
-    a8_launches = phase_a8_model(dev, cfg, params)
-    launches, prompts, eng = phase_serve(dev, cfg, params, smi)
+    a8_launches, a8_bodies = phase_a8_model(dev, cfg, params)
+    launches, bodies, prompts, eng = phase_serve(dev, cfg, params, smi)
     phase_trace(cfg, eng, prompts, smi)
     # the contiguous engine's cache goes before the paged pool comes
     del eng
@@ -1382,14 +1664,16 @@ def main() -> int:
                              prefix_cache_blocks=1, quantize="int8",
                              device=dev)
     phase_paged_model(dev, cfg, paged)
-    paged_launches, _ = phase_paged_serve(dev, cfg, paged, smi)
+    paged_launches, paged_bodies, _ = phase_paged_serve(dev, cfg, paged,
+                                                         smi)
     phase_trace(cfg, paged, prompts, smi, label="paged_trace")
     # the paged pool and the int8 weights go before the int4 engine comes
     del paged, params
     gc.collect()
     torch.cuda.empty_cache()
-    int4, int4_prompts, int4_launches, int4_a8_launches = phase_int4_serve(
-        dev, cfg, smi)
+    int4, int4_prompts, (int4_launches, int4_bodies), \
+        (int4_a8_launches, int4_a8_bodies) = phase_int4_serve(dev, cfg, smi)
+    phase_int4_wave(cfg, int4, int4_prompts, smi)
     phase_trace(cfg, int4, int4_prompts, smi, label="int4_trace")
     del int4
     gc.collect()
@@ -1398,8 +1682,12 @@ def main() -> int:
     by_path = {"serve": launches, "paged_serve": paged_launches,
                "a8_model": a8_launches, "int4_serve": int4_launches,
                "int4_serve_a8": int4_a8_launches, "probe": probe_launches}
+    bodies_by_path = {"serve": bodies, "paged_serve": paged_bodies,
+                      "a8_model": a8_bodies, "int4_serve": int4_bodies,
+                      "int4_serve_a8": int4_a8_bodies}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
+    csrc = "copilot_for_consensus_tpu_torch/csrc"
     for name, row, path, tpu in (
             ("flash_attention", rows[("K1", "s1024", "bfloat16")],
              "paged_serve", "copilot_for_consensus_tpu/ops/"
@@ -1413,17 +1701,34 @@ def main() -> int:
              "a8_model", f"{q}:309"),
             ("int4_matmul", rows[("K5", "m32_d4096_f28672", "bfloat16")],
              "int4_serve", f"{q}:178"),
+            ("int4_matmul_tiled",
+             rows[("K5", "m5632_d4096_f28672", "bfloat16")], "int4_serve",
+             f"{q}:178"),
             ("w4a8_matmul", rows[("K6", "m32_d4096_f28672", "bfloat16")],
              "int4_serve_a8", f"{q}:405")):
         k = row["kernel"]
+        # K1 and K5 count their launches by body: each of their rows is
+        # one body, whose source is the body's own file
+        body, src = {
+            "flash_attention": ("wgmma", "flash_wgmma.cuh"),
+            "int4_matmul": ("split", "int4_matmul.cu"),
+            "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
+        }.get(name, (None, f"{name}.cu"))
+        extra = {}
+        if body is not None:
+            extra.update(body=body, launches_by_body={
+                p: b[k] for p, b in bodies_by_path.items()})
+            n_launches = bodies_by_path[path][k][body]
+        else:
+            n_launches = by_path[path][k]
         table.append({
-            "name": name, "route": "cuda",
-            "source": f"copilot_for_consensus_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"{csrc}/{src}",
             "replaces": tpu,
             # the count of the path that runs the kernel on the main path;
             # every path's count beside it
-            "launches": by_path[path][k], "launches_path": path,
+            "launches": n_launches, "launches_path": path,
             "launches_by_path": {p: c[k] for p, c in by_path.items()},
+            **extra,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -13,14 +13,17 @@
 // key writes zeros.
 //
 // What bounds it on this card: at the serving prefill shapes (Sq = Skv up to
-// 1024, D = 128) the work is ~4·Sq·Skv·D/2 flops per (row, head) against
+// 2816, D = 128) the work is ~4·Sq·Skv·D/2 flops per (row, head) against
 // ~4·S·D·2 bytes, well above the H100's ~295 flop/byte ridge, so it is
-// bound by arithmetic. This first version does that arithmetic with f32
-// FMAs on the CUDA cores (no tensor cores), so its ceiling is the 67 TFLOP/s
-// f32 rate, not the 989 TFLOP/s bf16 tensor-core rate; wgmma/TMA is later
-// work.
+// bound by arithmetic. bf16 at D 64 and 128 — every prefill the port serves
+// — runs `flash_attention_wgmma_fwd`, the Hopper body of flash_wgmma.cuh
+// (wgmma tensor-core products fed by TMA through a 2-stage K/V ring; see
+// that header's note). The body below takes what that one does not, by the
+// wrapper's dtype and head-dim rule: f32 (a test dtype) and D = 32. It does
+// its arithmetic with f32 FMAs on the CUDA cores, so its ceiling is the 67
+// TFLOP/s f32 rate.
 //
-// Design. The TPU ran kv tiles as its innermost, sequential grid axis with
+// Design of the CUDA-core body. The TPU ran kv tiles as its innermost, sequential grid axis with
 // the running max / denominator / accumulator in VMEM scratch. Here one block
 // owns (b, q-head, 64-row q tile) and loops over the kv tiles itself, so the
 // statistics live in registers:
@@ -41,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -232,21 +237,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, const int* lens, const int* offs,
-                       const int* begins, int B, int Hq, int Hkv, int Sq,
-                       int Skv, int causal, int window, cudaStream_t st) {
+cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
+                         void* o, const int* lens, const int* offs,
+                         const int* begins, int B, int Hq, int Hkv, int Sq,
+                         int Skv, int causal, int window, cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, lens, offs, begins, B, Hq, Hkv, Sq,
-                           Skv, causal, window, st);
+      return launch<float, 32>(q, k, v, o, lens, offs, begins, B, Hq, Hkv,
+                               Sq, Skv, causal, window, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, lens, offs, begins, B, Hq, Hkv, Sq,
-                           Skv, causal, window, st);
+      return launch<float, 64>(q, k, v, o, lens, offs, begins, B, Hq, Hkv,
+                               Sq, Skv, causal, window, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, lens, offs, begins, B, Hq, Hkv, Sq,
-                            Skv, causal, window, st);
+      return launch<float, 128>(q, k, v, o, lens, offs, begins, B, Hq, Hkv,
+                                Sq, Skv, causal, window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -268,12 +272,45 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const int* offs = static_cast<const int*>(q_offsets);
   const int* begins = static_cast<const int*>(kv_begins);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, o, lens, offs, begins,
-                                          B, Hq, Hkv, Sq, Skv, causal, window,
+  if (is_bf16) {
+    // bf16 at D 64 and 128 is the wgmma body's (flash_attention_wgmma_fwd)
+    if (D != 32) return (int)cudaErrorInvalidValue;
+    return (int)launch<__nv_bfloat16, 32>(q, k, v, o, lens, offs, begins, B,
+                                          Hq, Hkv, Sq, Skv, causal, window,
                                           st);
-  return (int)dispatch_d<float>(D, q, k, v, o, lens, offs, begins, B, Hq, Hkv,
+  }
+  return (int)dispatch_f32(D, q, k, v, o, lens, offs, begins, B, Hq, Hkv, Sq,
+                           Skv, causal, window, st);
+}
+
+// the wgmma body: bf16 q, k, v at D 64 or 128
+extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
+                                         const void* v, void* o,
+                                         const void* kv_lengths,
+                                         const void* q_offsets,
+                                         const void* kv_begins, int B, int Hq,
+                                         int Hkv, int Sq, int Skv, int D,
+                                         int causal, int window,
+                                         void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int* lens = static_cast<const int*>(kv_lengths);
+  const int* offs = static_cast<const int*>(q_offsets);
+  const int* begins = static_cast<const int*>(kv_begins);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)fa3::launch<128>(q, k, v, o, lens, offs, begins, B, Hq, Hkv,
+                                 Sq, Skv, causal, window, st);
+  if (D == 64)
+    return (int)fa3::launch<64>(q, k, v, o, lens, offs, begins, B, Hq, Hkv,
                                 Sq, Skv, causal, window, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the wgmma body's dynamic shared memory a CTA at head dim D, in bytes
+extern "C" int flash_attention_wgmma_smem(int D) {
+  return D == 128 ? (int)fa3::smem_bytes<128>()
+                  : D == 64 ? (int)fa3::smem_bytes<64>() : 0;
 }
 
 extern "C" const char* flash_attention_error(int e) {

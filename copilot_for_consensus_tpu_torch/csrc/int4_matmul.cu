@@ -7,8 +7,9 @@
 //
 // Computes out[M, F] = sum_g scale[g] * (x[:, g] @ unpack(q4)[g]): x bf16 or
 // f32; q4 packed int4 [D/2, F] (byte row i holds row 2i in its low nibble,
-// 2i+1 in its high one), unpacked in registers — one packed byte is one
-// k-pair of one column, a bf16x2 word of the tensor-core B fragment; scale
+// 2i+1 in its high one), unpacked on chip — in registers for the mma.sync
+// bodies, where one packed byte is one k-pair of one column, a bf16x2 word
+// of the B fragment; into shared memory for the wgmma body; scale
 // [G, F] per group of D/G rows. Each group's partial product is summed in
 // f32, multiplied by the group's scale row in f32 and then added to the f32
 // sum (the reference's order: partial, scale, accumulate); the result is
@@ -23,13 +24,18 @@
 //     bf16 -> f32), 128 columns a block, the contraction split by whole
 //     scale groups over blockIdx.z so even the 4096-wide projections put
 //     hundreds of blocks in flight; partials go to an f32 workspace summed
-//     in a fixed order by a second pass.
-//   * Prefill (M up to 2 x 2816): bound by operations on the bf16 tensor
-//     cores (989 TFLOP/s). 128x128 tiles of 8 warps, the same body.
+//     in a fixed order by a second pass. This path still loads with __ldg
+//     into one shared buffer (no asynchronous copy): its redesign is owed.
+//   * Prefill (M > 32, up to 2 x 2816): bound by operations on the bf16
+//     tensor cores (989 TFLOP/s). `int4_matmul_wgmma_fwd` runs the Hopper
+//     body of int4_wgmma.cuh: wgmma m64n192k16 fed by TMA through a
+//     4-stage mbarrier ring, the weight unpacked in shared memory into
+//     wgmma's MN-major layout (see that header's note). Layouts it does not
+//     take (F % 16, group % 64) go by the wrapper's shape rule to the
+//     mma.sync tiling of quant_mma.cuh, which K4 and K6 share.
 //   * f32 x (a test dtype; serving is bf16): a 64x64-tile CUDA-core loop.
-// No cp.async/TMA pipeline or wgmma yet: later work. The tiled body is
-// shared with K4 and K6 (quant_mma.cuh).
 
+#include "int4_wgmma.cuh"
 #include "quant_mma.cuh"
 
 namespace {
@@ -120,6 +126,21 @@ extern "C" int int4_matmul_fwd(const void* x, const void* q4,
                                   static_cast<float*>(out), M, D, F, group);
   return (int)cudaGetLastError();
 }
+
+// the wgmma body (bf16 x, the tiled extents): x, q4, scale, out
+extern "C" int int4_matmul_wgmma_fwd(const void* x, const void* q4,
+                                     const void* scale, void* out, int M,
+                                     int D, int F, int G, void* stream) {
+  if (M <= 0 || D <= 0 || F <= 0 || G <= 0 || D % G)
+    return (int)cudaErrorInvalidValue;
+  return (int)k5w::launch(x, static_cast<const int8_t*>(q4),
+                          static_cast<const float*>(scale),
+                          static_cast<__nv_bfloat16*>(out), M, D, F, D / G,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// the wgmma body's dynamic shared memory a CTA, in bytes
+extern "C" int int4_matmul_wgmma_smem() { return (int)k5w::SMEM_BYTES; }
 
 extern "C" const char* int4_matmul_error(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -37,6 +37,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # q, k, v, out, kv_lengths, q_offsets, kv_begins,
         # B, Hq, Hkv, Sq, Skv, D, causal, window, is_bf16, stream
         "flash_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],
+        # the same without is_bf16 (the wgmma body takes bf16 alone)
+        "flash_attention_wgmma_fwd": [_P] * 7 + [_I] * 8 + [_P],
+        # head dim -> the wgmma body's dynamic shared memory in bytes
+        "flash_attention_wgmma_smem": [_I],
     },
     "int8_matmul": {
         # x, q, scale, out, workspace, M, D, F, splits, is_bf16, stream
@@ -45,6 +49,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "int4_matmul": {
         # x, q4, scale, out, workspace, M, D, F, G, splits, is_bf16, stream
         "int4_matmul_fwd": [_P] * 5 + [_I] * 6 + [_P],
+        # x, q4, scale, out, M, D, F, G, stream (the wgmma body, bf16 x)
+        "int4_matmul_wgmma_fwd": [_P] * 4 + [_I] * 4 + [_P],
+        # the wgmma body's dynamic shared memory in bytes
+        "int4_matmul_wgmma_smem": [],
     },
     "w8a8_matmul": {
         # x, q, scale, out, xq, sx, M, D, F, is_bf16, stream

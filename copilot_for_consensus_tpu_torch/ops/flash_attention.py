@@ -10,7 +10,10 @@ statistics and the accumulator are f32; the output is in q's dtype; a
 query row with no attendable key emits zeros.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors — on no other condition.
+plain version for CPU tensors — on no other condition. Of the kernel's two
+bodies, :func:`flash_body` picks one from dtype and head dim alone: the
+Hopper wgmma body (``csrc/flash_wgmma.cuh``) for bf16 at D 64 and 128,
+the CUDA-core body for f32 and D 32.
 """
 
 from __future__ import annotations
@@ -21,6 +24,19 @@ from copilot_for_consensus_tpu_torch.ops import _build
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
+#: head dims the wgmma body takes (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128)
+#: K1's bodies, the keys of ``flash_attention.launches_by_body``
+BODIES = ("wgmma", "simt")
+
+
+def flash_body(dtype: torch.dtype, d: int) -> str:
+    """The body of K1 that a CUDA call runs: ``"wgmma"`` for bf16 at a
+    head dim in ``WGMMA_HEAD_DIMS``, else ``"simt"`` (f32 FMAs on the CUDA
+    cores). Mistral-7B's prefill (bf16, D 128) is ``"wgmma"``."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def _row_params(b: int, s_kv: int, kv_lengths, q_offsets, kv_begins,
@@ -114,17 +130,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lens, offs, begins = _row_params(b, s_kv, kv_lengths, q_offsets,
                                      kv_begins, q.device)
     out = torch.empty_like(q)
+    body = flash_body(q.dtype, d)
     lib = _build.library("flash_attention")
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lens.data_ptr(), offs.data_ptr(), begins.data_ptr(),
-        b, hq, hkv, s_q, s_kv, d, int(causal), int(window),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attention", err, "flash_attention launch")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lens.data_ptr(), offs.data_ptr(), begins.data_ptr(),
+            b, hq, hkv, s_q, s_kv, d, int(causal), int(window))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if body == "wgmma":
+        err = lib.flash_attention_wgmma_fwd(*args, stream)
+    else:
+        err = lib.flash_attention_fwd(
+            *args, int(q.dtype == torch.bfloat16), stream)
+    _build.check("flash_attention", err, f"flash_attention launch ({body})")
     flash_attention.launches += 1
+    flash_attention.launches_by_body[body] += 1
     return out
 
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 flash_attention.launches = 0
+#: launches by body (:func:`flash_body`); they sum to ``launches``
+flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -14,6 +14,11 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
   is signed int4, two nibbles a byte along the contraction axis
   (``pack_int4``), with one f32 scale per (group of D/G rows, column);
   each group's f32 partial product is scaled before it is accumulated.
+  Four bodies, chosen by :func:`int4_body` from dtype and shape alone:
+  the Hopper wgmma GEMM of ``csrc/int4_wgmma.cuh`` for the prefill
+  extents, the mma.sync tiling of ``csrc/quant_mma.cuh`` for tiled
+  layouts the wgmma body does not take, the split streaming path for
+  decode, and a CUDA-core loop for f32 x.
 * K4 ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, ``_kernel_w8a8``): x is
   quantized to int8 per row (``quantize_rows``), the int8 product is
   summed in int32, and the output is ``acc · sx · sw``.
@@ -56,6 +61,13 @@ _STREAM_BLOCKS = 528      # blocks the split aims for: 4 per SM on 132 SMs
 #: be a whole number of steps, and D a multiple of the step.
 K5_KSTEP = 32
 A8_KSTEP = 64
+#: K5's wgmma body (``csrc/int4_wgmma.cuh``): unpacked contraction rows a
+#: stage (a scale group must be whole stages), and the column multiple its
+#: TMA loads of the packed weight need (a 16-byte row pitch)
+K5_WGMMA_KSTEP = 64
+K5_WGMMA_COLS = 16
+#: K5's bodies, the keys of ``int4_matmul.launches_by_body``
+K5_BODIES = ("wgmma", "mma_sync", "split", "simt")
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +217,22 @@ def stream_splits(m: int, groups: int, f: int) -> int:
     return -(-groups // per)
 
 
+def int4_body(m: int, f: int, group: int, dtype: torch.dtype) -> str:
+    """The body of K5 that a CUDA call runs, from dtype and shape alone:
+    ``"simt"`` (the CUDA-core loop) for f32 x at every M; for bf16 x,
+    ``"split"`` (the streaming path) up to ``STREAM_MAX_M`` rows, and above
+    it ``"wgmma"`` (the Hopper GEMM) where the scale group is whole 64-row
+    stages and F a multiple of 16, else ``"mma_sync"`` (the tiling K4 and
+    K6 share). Every Mistral-7B int4 projection at M > 32 is ``"wgmma"``."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if m <= STREAM_MAX_M:
+        return "split"
+    if group % K5_WGMMA_KSTEP == 0 and f % K5_WGMMA_COLS == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
 def _check(x, w, scale, w_rows: int) -> None:
     if not (x.device == w.device == scale.device):
         raise ValueError("x, weight, scale must lie on one device")
@@ -286,18 +314,23 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
     out = torch.empty(*x.shape[:-1], f, dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    bf16 = x.dtype == torch.bfloat16
-    # f32 x (a test dtype) takes the CUDA-core tile loop at every M
-    splits = stream_splits(m, g, f) if bf16 else 0
-    ws = torch.empty((splits, m, f), dtype=torch.float32,
-                     device=x.device) if splits else None
+    body = int4_body(m, f, group, x.dtype)
     lib = _build.library("int4_matmul")
-    err = lib.int4_matmul_fwd(
-        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        m, d, f, g, splits, int(bf16), _stream(x))
-    _build.check("int4_matmul", err, "int4_matmul launch")
+    if body == "wgmma":
+        err = lib.int4_matmul_wgmma_fwd(
+            x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, d, f, g, _stream(x))
+    else:
+        splits = stream_splits(m, g, f) if body == "split" else 0
+        ws = torch.empty((splits, m, f), dtype=torch.float32,
+                         device=x.device) if splits else None
+        err = lib.int4_matmul_fwd(
+            x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            m, d, f, g, splits, int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check("int4_matmul", err, f"int4_matmul launch ({body})")
     int4_matmul.launches += 1
+    int4_matmul.launches_by_body[body] += 1
     return out
 
 
@@ -370,5 +403,7 @@ def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor,
 #: kernel launches since the count was last reset (CPU calls not counted)
 int8_matmul.launches = 0
 int4_matmul.launches = 0
+#: K5's launches by body (:func:`int4_body`); they sum to ``launches``
+int4_matmul.launches_by_body = dict.fromkeys(K5_BODIES, 0)
 w8a8_matmul.launches = 0
 w4a8_matmul.launches = 0

@@ -178,3 +178,37 @@ def test_decode_prefix_window_matches_jax(window, w, kv_len, dtype):
         *tx, prefix_lengths=torch.from_numpy(prefix), w=w, window=window,
         kv_len=kv_len)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype,d,body", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 32, "simt")])
+def test_flash_body_rule(dtype, d, body):
+    # K1's body is chosen from dtype and head dim alone
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as tfa
+
+    assert tfa.flash_body(dtype, d) == body
+    assert body in tfa.BODIES
+
+
+def test_mistral_prefill_takes_the_wgmma_body():
+    from copilot_for_consensus_tpu_torch.models.configs import decoder_config
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as tfa
+
+    # bf16 activations and KV: every prefill wave of every serve path
+    head_dim = decoder_config("mistral-7b").head_dim
+    assert tfa.flash_body(torch.bfloat16, head_dim) == "wgmma"
+
+
+def test_flash_wrapper_on_cpu_counts_no_body():
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as tfa
+
+    arrays = _qkv(3, b=2, s_q=40, s_kv=40, d=64)
+    _, (tq, tk, tv) = _both(arrays, "bfloat16")
+    before = dict(tfa.flash_attention.launches_by_body)
+    got = tfa.flash_attention(tq, tk, tv, causal=True, window=16)
+    assert torch.equal(got, tfa.flash_attention_ref(tq, tk, tv, causal=True,
+                                                    window=16))
+    assert tfa.flash_attention.launches_by_body == before
+    assert sorted(before) == sorted(tfa.BODIES)

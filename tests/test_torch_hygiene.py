@@ -6,6 +6,7 @@
 # in a fresh interpreter.
 import ast
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -64,8 +65,16 @@ def test_no_jax_imports_in_source(path):
     ("int4_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
     ("w8a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
     ("w4a8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
-    ("probe_stream", "scripts/probe_stream.py")])
+    ("probe_stream", "scripts/probe_stream.py"),
+    # the Hopper bodies, headers of the library that launches them
+    ("int4_wgmma.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("flash_wgmma.cuh", "copilot_for_consensus_tpu/ops/flash_attention.py")])
 def test_kernel_sources_carry_their_note(name, replaces):
+    if name.endswith(".cuh"):
+        head = (PKG / "csrc" / name).read_text().split("#pragma once")[0]
+        assert f"Replaces: {replaces}" in head
+        assert "What bounds it on this card" in head
+        return
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
     assert f"Replaces: {replaces}" in head
@@ -74,11 +83,39 @@ def test_kernel_sources_carry_their_note(name, replaces):
     assert f'extern "C" const char* {name}_error' in src
 
 
+def _includes(path):
+    return re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)
+
+
 def test_every_source_is_built_and_bound():
     from copilot_for_consensus_tpu_torch.ops import _build
 
-    sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    csrc = PKG / "csrc"
+    sources = sorted(p.stem for p in csrc.glob("*.cu"))
     assert sorted(_build.SIGNATURES) == sources
+    # every header reaches a built source, directly or through another
+    # header, and every header a source includes exists
+    reached, todo = set(), [csrc / f"{n}.cu" for n in sources]
+    while todo:
+        for inc in _includes(todo.pop()):
+            assert (csrc / inc).exists(), inc
+            if inc not in reached:
+                reached.add(inc)
+                todo.append(csrc / inc)
+    assert reached == {p.name for p in csrc.glob("*.cuh")}
+
+
+@pytest.mark.parametrize("lib,entry", [
+    ("int4_matmul", "int4_matmul_wgmma_fwd"),
+    ("flash_attention", "flash_attention_wgmma_fwd")])
+def test_wgmma_bodies_have_their_own_entry(lib, entry):
+    # the wrapper picks a body by calling its entry; the entry is bound with
+    # its argument types and defined in the library's source
+    from copilot_for_consensus_tpu_torch.ops import _build
+
+    assert entry in _build.SIGNATURES[lib]
+    assert f'extern "C" int {entry}(' in (PKG / "csrc" / f"{lib}.cu") \
+        .read_text()
 
 
 def test_build_target_follows_shared_headers(monkeypatch, tmp_path):

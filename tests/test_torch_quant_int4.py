@@ -153,6 +153,49 @@ def test_wrappers_on_cpu_are_the_plain_versions():
         assert fn.launches == launches
 
 
+#: the int4 main path's projections (D, F) of mistral-7b: fused q/k/v,
+#: wo, fused gate/up, w_down, lm_head
+MISTRAL_INT4 = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                (4096, 32000)]
+
+
+@pytest.mark.parametrize("m", [33, 2816, 5632])
+@pytest.mark.parametrize("d,f", MISTRAL_INT4)
+def test_mistral_int4_waves_take_the_wgmma_body(m, d, f):
+    # every admission-wave projection at the default group goes to the
+    # Hopper body, never to the mma.sync tiling
+    assert tqm.int4_body(m, f, tquant.INT4_GROUP, torch.bfloat16) == "wgmma"
+    assert d % tqm.K5_WGMMA_KSTEP == 0
+
+
+@pytest.mark.parametrize("m,f,group,dtype,body", [
+    (1, 4096, 256, torch.bfloat16, "split"),
+    (32, 28672, 256, torch.bfloat16, "split"),
+    (33, 4096, 256, torch.bfloat16, "wgmma"),
+    (4096, 4104, 256, torch.bfloat16, "mma_sync"),     # F % 16 = 8
+    (4096, 4096, 32, torch.bfloat16, "mma_sync"),      # group % 64 = 32
+    (4096, 4096, 64, torch.bfloat16, "wgmma"),
+    (4096, 4096, 128, torch.bfloat16, "wgmma"),
+    (4096, 4096, 4096, torch.bfloat16, "wgmma"),       # one group
+    (32, 4096, 256, torch.float32, "simt"),
+    (5632, 28672, 256, torch.float32, "simt")])
+def test_int4_body_rule(m, f, group, dtype, body):
+    # K5's body is chosen from dtype and shape alone
+    assert tqm.int4_body(m, f, group, dtype) == body
+    assert body in tqm.K5_BODIES
+
+
+def test_int4_wrapper_on_cpu_counts_no_body():
+    x, qw = _int4_operands(6, 40, 256, 48, 128)
+    leaf = _torch_leaf(qw)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    before = dict(tqm.int4_matmul.launches_by_body)
+    assert torch.equal(tqm.int4_matmul(xt, leaf["q4"], leaf["scale"]),
+                       tqm.int4_matmul_ref(xt, leaf["q4"], leaf["scale"]))
+    assert tqm.int4_matmul.launches_by_body == before
+    assert sorted(before) == sorted(tqm.K5_BODIES)
+
+
 def test_stream_splits_cover_the_groups():
     for m, g, f in [(32, 16, 28672), (32, 16, 4096), (32, 56, 4096),
                     (32, 16, 32000), (4, 1, 96), (33, 16, 4096)]:
