@@ -11,12 +11,14 @@ non-zero before the last line:
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build   — compiles every kernel of ``copilot_for_consensus_tpu_torch/
    csrc`` into ``build/cuda_kernels/``;
-   then, for the two libraries with a Hopper body (K5's and K1's wgmma
-   bodies), one ``build_info`` line each: ptxas's registers, spills and
-   shared memory per kernel, the wgmma bodies' dynamic shared memory, and
-   the counts of HGMMA, UTMALDG, LDGSTS and HMMA instructions per kernel
-   in the SASS (``cuobjdump -sass``; "absent" without it) — the wgmma
-   bodies must show HGMMA and UTMALDG;
+   then, for the four libraries with a Hopper body (the wgmma bodies of
+   K5, K1, K2 and K3, and K3's split-KV decode body), one ``build_info``
+   line each: ptxas's registers, spills and shared memory per kernel, the
+   wgmma bodies' dynamic shared memory, and the counts of HGMMA, UTMALDG,
+   LDGSTS and HMMA instructions per kernel in the SASS (``cuobjdump
+   -sass``; "absent" without it) — the wgmma bodies must show HGMMA and
+   UTMALDG, and K2's and K3's new bodies must build without spills or a
+   ptxas performance note;
 3. kernels — holds K1 (flash attention) and K2 (int8 matmul) against their
    plain PyTorch versions at the full Mistral-7B shapes, with the stated
    tolerances, and times kernel, plain version, and one PyTorch call of
@@ -24,7 +26,12 @@ non-zero before the last line:
    K1's cases: the int8 waves (B4 S512, S1024), the paged miss waves'
    offsets and begins, the int4 wave (B2 S2816), a window of 256 that
    bites, and D 64 and D 32, at bf16 and f32, so each of K1's two bodies
-   (wgmma for bf16 at D 64/128, CUDA cores for the rest) runs;
+   (wgmma for bf16 at D 64/128, CUDA cores for the rest) runs. K2's cases
+   name their body (GEMV at M 4, wgmma for bf16 waves, CUDA cores for f32)
+   and include three few-row waves (M 512 and 64); four more with small
+   integer x must equal the plain version bit for bit on the wgmma body
+   (its int8 -> bf16 conversion is exact), and two layouts it does not take
+   hold the WMMA body to its tolerance;
 4. model   — the full-width int8 ``mistral-7b`` (random weights from a
    seed): one 4-row admission-wave prefill through the kernels and the
    same prefill through the plain versions, last-position logits compared
@@ -32,24 +39,30 @@ non-zero before the last line:
 5. serve   — ``CUDASummarizer.summarize_batch`` on 8 threads (two
    admission waves, 64 new tokens each) with the launch counts reset just
    before: every kernel of the path must have launched;
-6. trace   — the same engine's steady decode with all four slots busy,
+6. int8 wave and trace — one 4 x 1024 admission wave of the same engine
+   traced by kernel (device ms by kernel and by family, the launches of
+   each body); then the engine's steady decode with all four slots busy,
    timed on the host clock and then traced by ``torch.profiler``: device
-   busy time, idle share and device time by kernel;
+   busy time, idle share and device time by kernel and by family;
 7. kernels, K3 — (run right after phase 3, on a 1024-block pool) the
    paged flash-partial kernel against its plain version at the decode
    (R = 4, a 64-entry table, bf16/f32/fp8 pools, windows 4096 and 100)
    and seeded-admission (R = 4·64, 4·1024) shapes — the normalised output
-   and the raw m and l — timed likewise;
+   and the raw m and l — timed likewise; bf16 decode runs the split-KV
+   body, bf16 seeded the wgmma body, f32 and fp8 the CUDA-core body; then,
+   untimed, the other layouts the two new bodies take (D 64, 8 and 16
+   rows, pool blocks of 8, 16 and 128, a window inside a tile);
 8. paged model — after the contiguous engine is freed, a paged engine
    (8 slots, max_len 4096, 1024 blocks of 64, prefix cache): four prompts
    prefilled into its pool, their last 64 tokens prefilled again with the
    prefix read from the pool by K3, logits against the full prefill;
 9. paged serve — ``CUDASummarizer`` over that engine, three rounds of 8
    threads (misses, the same threads again, new threads), with the launch
-   counts reset before the first: K3 must launch in admission and decode,
-   prefix hits and saved tokens must equal a host-side oracle of the trie
-   rule, and the pool's books must balance;
-10. paged trace — phase 6 on the paged engine, 8 slots busy;
+   counts reset before the first: K3 must launch in admission (all on the
+   seeded wgmma body) and in decode (all on the split-KV body), prefix hits
+   and saved tokens must equal a host-side oracle of the trie rule, and
+   the pool's books must balance;
+10. paged trace — phase 6's trace on the paged engine, 8 slots busy;
 11. kernels, K5/K4/K6 — (run right after phase 7) the quantized matmuls
    against their plain versions at the int4 / a8 main path's shapes: K5
    (int4 weight-only) and K6 (W4A8) on the five int4 projections at M = 32
@@ -78,13 +91,16 @@ non-zero before the last line:
    the counts reset before: each mode must launch 400 times, and none may
    stream faster than 1.05 x 3.35 TB/s.
 
-Every serve phase counts K1's and K5's launches by body: the main path's
-K1 launches must all be the wgmma body's, and no K5 launch may take the
+Every serve phase counts K1's, K2's, K3's and K5's launches by body: the
+main path's K1 launches must all be the wgmma body's, its K2 launches the
+GEMV's or the wgmma body's (never WMMA or the CUDA-core loop), its K3
+launches the decode or seeded body's, and no K5 launch may take the
 mma.sync or CUDA-core tiled bodies (on the int4 path the wgmma body makes
-4 launches a layer a wave). Then the kernel table (K1-K6, K5's split and
-tiled bodies as two rows, and P's five modes, each with its launches on
+4 launches a layer a wave). Then the kernel table (K1-K6; K2's GEMV and
+wgmma bodies, K3's decode and seeded bodies, and K5's split and tiled
+bodies as two rows each; and P's five modes, each with its launches on
 every path) as one JSON line, the nvidia-smi line, and last ``{"ok": true,
-"device": {...}}``. About 5.5-7 minutes on one H100 (the host's speed
+"device": {...}}``. About 5-7 minutes on one H100 (the host's speed
 varies), the build included.
 """
 
@@ -252,7 +268,7 @@ def check_path(label: str, launches: dict, used) -> None:
 
 #: kernels with more than one body; each wrapper's ``launches_by_body``
 #: counts each body's launches
-BODY_KERNELS = ("K1", "K5")
+BODY_KERNELS = ("K1", "K2", "K3", "K5")
 
 
 def read_bodies() -> dict:
@@ -261,24 +277,47 @@ def read_bodies() -> dict:
 
 
 def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None):
-    """The main path's K1 launches all went to the wgmma body, and its K5
-    launches (if any) never to the mma.sync or CUDA-core tiled bodies;
-    ``k5_wgmma`` is the count the wgmma body must have."""
-    if bodies["K1"]["simt"]:
-        raise AssertionError(f"{label}: K1's CUDA-core body launched: "
-                             f"{bodies}")
-    if bodies["K5"]["mma_sync"] or bodies["K5"]["simt"]:
-        raise AssertionError(f"{label}: an old K5 tiled body launched: "
-                             f"{bodies}")
+    """The main path's K1 launches all went to the wgmma body, its K2 tiled
+    launches to the wgmma body (never WMMA or the CUDA-core loop), its K3
+    launches to the decode and seeded bodies (never the CUDA-core one), and
+    its K5 launches (if any) never to the mma.sync or CUDA-core tiled
+    bodies; ``k5_wgmma`` is the count K5's wgmma body must have."""
+    old = {"K1": ("simt",), "K2": ("wmma", "simt"), "K3": ("simt",),
+           "K5": ("mma_sync", "simt")}
+    for k, names in old.items():
+        if any(bodies[k][n] for n in names):
+            raise AssertionError(f"{label}: an old {k} body launched: "
+                                 f"{bodies}")
     if k5_wgmma is not None and bodies["K5"]["wgmma"] != k5_wgmma:
         raise AssertionError(f"{label}: K5's wgmma body launched "
                              f"{bodies['K5']['wgmma']} times, expected "
                              f"{k5_wgmma}")
 
 
-#: the libraries with a Hopper body, and that body's kernel
-REDESIGNED = {"int4_matmul": "k5w::int4_wgmma",
-              "flash_attention": "fa3::flash_wgmma"}
+#: the libraries with Hopper bodies: the wgmma body's kernel (which must
+#: show HGMMA and UTMALDG in its SASS) and the prefix of the library's other
+#: new kernels (None where it has none)
+REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", None),
+              "flash_attention": ("fa3::flash_wgmma", None),
+              "int8_matmul": ("k2w::int8_wgmma", None),
+              "paged_attention": ("k3s::paged_wgmma", "k3d::")}
+
+
+def wgmma_smem(name: str, lib) -> dict:
+    """Dynamic shared memory of a library's wgmma body, by template."""
+    if name == "int4_matmul":
+        return {"k5w::int4_wgmma": lib.int4_matmul_wgmma_smem()}
+    if name == "int8_matmul":
+        return {f"k2w::int8_wgmma<{tn}>": lib.int8_matmul_wgmma_smem(tn)
+                for tn in (128, 256)}
+    fn = (lib.flash_attention_wgmma_smem if name == "flash_attention"
+          else lib.paged_attention_seeded_smem)
+    return {f"{REDESIGNED[name][0]}<{d}>": fn(d) for d in (64, 128)}
+
+
+#: the bodies this slice added: ptxas must report them without spills and
+#: without a performance note (C75xx: serialized wgmma and the like)
+NEW_BODIES = ("k2w::", "k3s::", "k3d::")
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
 
@@ -364,21 +403,20 @@ def sass_counts(lib_path) -> dict | str:
 def phase_build_info():
     """For each library with a Hopper body: ptxas's registers, spills and
     shared memory per kernel (from the build's log), the wgmma bodies'
-    dynamic shared memory, and the SASS counts per kernel. The wgmma body
-    must show HGMMA and UTMALDG (tensor-core products fed by TMA)."""
+    dynamic shared memory, and the SASS counts per kernel. Each wgmma body
+    must show HGMMA and UTMALDG (tensor-core products fed by TMA); this
+    slice's bodies must build without spills and without a ptxas note."""
     from copilot_for_consensus_tpu_torch.ops import _build
 
-    for name, body in REDESIGNED.items():
+    for name, (body, others) in REDESIGNED.items():
         log = _build.build_log.get(name)
         lib = _build.library(name)
-        smem = ({"k5w::int4_wgmma": lib.int4_matmul_wgmma_smem()}
-                if name == "int4_matmul" else
-                {f"fa3::flash_wgmma<{d}>": lib.flash_attention_wgmma_smem(d)
-                 for d in (64, 128)})
         sass = sass_counts(_build._target(name))
+        ptxas = ptxas_functions(log["nvcc"]) if log else None
         row = {"phase": "build_info", "library": name,
-               "ptxas": ptxas_functions(log["nvcc"]) if log else
-               "not built in this run", "dynamic_smem": smem, "sass": sass}
+               "ptxas": ptxas if ptxas is not None else
+               "not built in this run", "dynamic_smem": wgmma_smem(name, lib),
+               "sass": sass}
         emit(row)
         if isinstance(sass, dict):
             mine = {f: c for f, c in sass.items() if f.startswith(body)}
@@ -386,6 +424,14 @@ def phase_build_info():
                                for c in mine.values()):
                 raise AssertionError(f"{name}: the wgmma body's SASS lacks "
                                      f"HGMMA or UTMALDG: {mine}")
+            if others and not any(f.startswith(others) for f in sass):
+                raise AssertionError(f"{name}: no kernel of {others} built")
+        for f, info in (ptxas or {}).items():
+            if f.startswith(NEW_BODIES) and (
+                    info.get("spill_stores") or info.get("spill_loads")
+                    or info["notes"]):
+                raise AssertionError(f"{name}: {f} spills or carries a "
+                                     f"ptxas note: {info}")
 
 
 def k1_cases():
@@ -475,6 +521,11 @@ def phase_kernels(dev, flush):
     cases = [(d, f, m, "bfloat16") for d, f in shapes
              for m in (4, 2048, 4096)]
     cases += [(4096, 4096, 4, "float32"), (4096, 4096, 2048, "float32")]
+    # the small waves of the paged engine's hits (8 rows x the 64 bucket)
+    # and a one-row wave: the wgmma body's 128-column tiles where 256-wide
+    # ones would leave SMs idle
+    cases += [(4096, 14336, 512, "bfloat16"), (4096, 4096, 512, "bfloat16"),
+              (4096, 14336, 64, "bfloat16")]
     for d, f, m, dt_name in cases:
         dt = getattr(torch, dt_name)
         x = torch.randn(m, d, generator=g, device=dev).to(dt)
@@ -490,9 +541,11 @@ def phase_kernels(dev, flush):
         ok = bool(torch.isfinite(out).all()) and \
             err <= K2_RTOL[dt_name] * scale_ref
         bnd, by = bound_ms(nbytes(x, q, s, out), 2.0 * m * d * f, dt_name)
+        body = qm.int8_body(m, d, f, dt)
         row = {"kernel": "K2", "case": f"m{m}_d{d}_f{f}", "dtype": dt_name,
-               "shape": [m, d, f], "max_abs_err": err,
-               "tol": K2_RTOL[dt_name] * scale_ref,
+               "shape": [m, d, f], "body": body,
+               "tile_n": qm.int8_tile_n(m, f) if body == "wgmma" else None,
+               "max_abs_err": err, "tol": K2_RTOL[dt_name] * scale_ref,
                "ms": time_ms(lambda: qm.int8_matmul(x, q, s), flush=flush),
                "plain_ms": time_ms(lambda: qm.int8_matmul_ref(x, q, s), n=3,
                                    flush=flush),
@@ -503,6 +556,51 @@ def phase_kernels(dev, flush):
         if not ok:
             raise AssertionError(f"K2 {row['case']} {dt_name}: error {err}")
         rows[("K2", row["case"], dt_name)] = row
+        del x, q, s, out, ref
+    # the wgmma body's int8 -> bf16 conversion, exactly: with small integer
+    # x every product and every f32 partial sum is an exact integer, so the
+    # kernel must equal its plain version bit for bit, whatever the order
+    # of its sums (at both tile widths, ragged M and F, one k-step)
+    for m, d, f in ((256, 4096, 1024), (300, 128, 208), (9, 64, 16),
+                    (1000, 4096, 6128)):
+        x = torch.randint(-8, 9, (m, d), generator=g,
+                          device=dev).to(torch.bfloat16)
+        q = torch.randint(-128, 128, (d, f), generator=g, dtype=torch.int8,
+                          device=dev)
+        s = torch.rand(1, f, generator=g, device=dev)
+        out = qm.int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        ref = qm.int8_matmul_ref(x, q, s)
+        row = {"kernel": "K2", "case": f"exact_m{m}_d{d}_f{f}",
+               "dtype": "bfloat16", "shape": [m, d, f],
+               "body": qm.int8_body(m, d, f, torch.bfloat16),
+               "tile_n": qm.int8_tile_n(m, f),
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "bit_equal": bool(torch.equal(out, ref))}
+        emit(row)
+        if not row["bit_equal"] or row["body"] != "wgmma":
+            raise AssertionError(f"K2 {row['case']}: not bit-equal on the "
+                                 f"wgmma body: {row}")
+        del x, q, s, out, ref
+    # layouts the wgmma body does not take (F % 16, D % 64) on the WMMA body
+    for m, d, f in ((300, 4096, 1000), (300, 96, 4096)):
+        x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randint(-127, 128, (d, f), generator=g, dtype=torch.int8,
+                          device=dev)
+        s = torch.rand(1, f, generator=g, device=dev) * (2 * d ** -0.5
+                                                          / 73.3)
+        out = qm.int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        ref = qm.int8_matmul_ref(x, q, s)
+        tol = K2_RTOL["bfloat16"] * ref.float().abs().max().item()
+        row = {"kernel": "K2", "case": f"layout_m{m}_d{d}_f{f}",
+               "dtype": "bfloat16", "shape": [m, d, f],
+               "body": qm.int8_body(m, d, f, torch.bfloat16),
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "tol": tol}
+        emit(row)
+        if row["body"] != "wmma" or not row["max_abs_err"] <= tol:
+            raise AssertionError(f"K2 {row['case']}: {row}")
         del x, q, s, out, ref
     torch.cuda.empty_cache()
     return rows
@@ -765,6 +863,88 @@ def k3_cases():
     ]
 
 
+def k3_errors(part, ref) -> tuple[float, float, float, bool]:
+    """K3's partials against its plain version's: the normalised output's
+    max error, m's on rows that attend anything, l's relative error there,
+    and whether all are within tolerance with rows that attend nothing at
+    m = -inf and l = 0."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.ops.attention import (
+        combine_partials,
+    )
+
+    got = combine_partials([part], torch.float32)
+    want = combine_partials([ref], torch.float32)
+    err = (got - want).abs().max().item()
+    live = torch.isfinite(ref[1])
+    m_err = (part[1] - ref[1])[live].abs().max().item()
+    l_err = ((part[2] - ref[2]).abs() / ref[2])[live].max().item()
+    ok = (bool(torch.isfinite(got).all()) and err <= K3_ATOL
+          and m_err <= K3_M_ATOL and l_err <= K3_L_RTOL
+          and bool(torch.isinf(part[1][~live]).all())
+          and not bool(part[2][~live].any()))
+    return err, m_err, l_err, ok
+
+
+def k3_layout_cases():
+    """(label, head dim, pool block, rows R, window, lengths, table width,
+    body): the other layouts the decode and seeded bodies take — D 64,
+    8 and 16 rows (the decode body's 8-row groups), pool blocks of 8, 16
+    and 128 (one box or several a K/V tile), R not a multiple of 128, a
+    window that starts inside a tile — on 4 slots of 2 kv heads."""
+    return [
+        ("decode_r8_d64_w100", 64, 64, 8, 100, [0, 1, 300, 4000], 64,
+         "decode"),
+        ("decode_r16_blk16", 128, 16, 16, 0, [17, 1000, 0, 2047], 128,
+         "decode"),
+        ("seeded_r160_d64_blk16", 64, 16, 160, 0, [0, 100, 333, 1024], 64,
+         "seeded"),
+        ("seeded_r300_blk128_w300", 128, 128, 300, 300, [1000, 129, 0, 2000],
+         16, "seeded"),
+        ("seeded_r17_blk8", 128, 8, 17, 0, [5, 64, 200, 0], 32, "seeded"),
+    ]
+
+
+def phase_k3_layouts(dev):
+    """K3's decode and seeded bodies held against the plain version at the
+    layouts of ``k3_layout_cases`` (untimed): each must take its body and
+    meet the tolerances of the main-path cases."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, hkv, n_l, li = 4, 2, 2, 1
+    for label, d, blk, r, window, lens, nb, body in k3_layout_cases():
+        nbtot = b * nb + 1
+        pk, pv = (torch.randn((n_l, nbtot, hkv, blk, d), generator=g,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        q = torch.randn(b, hkv, r, d, generator=g,
+                        device=dev).to(torch.bfloat16)
+        tables = torch.full((b, nb), nbtot, dtype=torch.int32, device=dev)
+        perm = torch.randperm(nbtot - 1, generator=g, device=dev)
+        for i, n in enumerate(lens):
+            need = min(nb, -(-n // blk))
+            tables[i, :need] = perm[i * nb:i * nb + need].to(torch.int32)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, pk, pv, li, tables, lengths, lengths + 2)
+        part = pa.paged_attention_partial(*args, window=window)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_partial_ref(*args, window=window)
+        err, m_err, l_err, ok = k3_errors(part, ref)
+        row = {"kernel": "K3", "case": label, "dtype": "bfloat16",
+               "shape": [b, hkv, r, d, blk, nb], "window": window,
+               "body": pa.paged_body(r, q.dtype, pk.dtype, d, blk),
+               "max_abs_err": err, "m_err": m_err, "l_rel_err": l_err}
+        emit(row)
+        if not ok or row["body"] != body:
+            raise AssertionError(f"K3 {label}: {row}")
+        del pk, pv, q, part, ref
+    torch.cuda.empty_cache()
+
+
 def phase_k3(dev, flush):
     """K3 held against its plain version at the paged main path's
     shapes (normalised through combine_partials), timed beside its bound,
@@ -773,9 +953,6 @@ def phase_k3(dev, flush):
     import torch.nn.functional as F
 
     from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
-    from copilot_for_consensus_tpu_torch.ops.attention import (
-        combine_partials,
-    )
 
     g = torch.Generator(device=dev).manual_seed(3)
     b, hkv, d, blk, nbtot, n_l, li = 8, 8, 128, 64, 1024, 2, 1
@@ -805,25 +982,16 @@ def phase_k3(dev, flush):
         part = pa.paged_attention_partial(*args, window=window)
         torch.cuda.synchronize()
         ref = pa.paged_attention_partial_ref(*args, window=window)
-        got = combine_partials([part], torch.float32)
-        want = combine_partials([ref], torch.float32)
-        err = (got - want).abs().max().item()
-        # the raw (m, l) against the plain version's, row by row
-        live = torch.isfinite(ref[1])
-        m_err = (part[1] - ref[1])[live].abs().max().item()
-        l_err = ((part[2] - ref[2]).abs() / ref[2])[live].max().item()
-        ok = (bool(torch.isfinite(got).all()) and err <= K3_ATOL
-              and m_err <= K3_M_ATOL and l_err <= K3_L_RTOL
-              and bool(torch.isinf(part[1][~live]).all())
-              and not bool(part[2][~live].any()))
+        # the normalised output, and the raw (m, l) row by row
+        err, m_err, l_err, ok = k3_errors(part, ref)
         # the work this input needs: positions [lo, hi) of each row, whose
         # K and V rows are read once each
         hi = lengths.clamp(max=nb * blk).long()
         lo = (q_pos.long() - window + 1).clamp(min=0) if window > 0 \
             else torch.zeros_like(hi)
         pos = (hi - lo).clamp(min=0)
-        # in decode, the 64-position tiles the longest (slot, head) block
-        # walks in turn: with B·Hkv = 64 blocks on 132 SMs it sets the time
+        # on the CUDA-core body, the 64-position tiles the longest (slot,
+        # head) block walks in turn: with B·Hkv = 64 blocks it sets the time
         tiles = int(torch.where(hi > lo, -(-hi // 64) - lo // 64, 0).max())
         elt = pk.element_size()
         kv_bytes = int(pos.sum()) * hkv * d * elt * 2
@@ -839,9 +1007,10 @@ def phase_k3(dev, flush):
         mask = (t < lengths.long()[:, None]) & (t >= lo[:, None])
         grp = 4
         qs = q.reshape(b, hkv * grp, r // grp, d)
+        body = pa.paged_body(r, qdt, dt, d, blk)
         row = {"kernel": "K3", "case": label, "dtype": pdt,
                "shape": [b, hkv, r, d, blk, nb], "window": window,
-               "max_abs_err": err, "tol": K3_ATOL,
+               "body": body, "max_abs_err": err, "tol": K3_ATOL,
                "m_err": m_err, "m_tol": K3_M_ATOL,
                "l_rel_err": l_err, "l_rtol": K3_L_RTOL,
                "positions": int(pos.sum()),
@@ -856,15 +1025,20 @@ def phase_k3(dev, flush):
                "library": "SDPA over the pre-gathered view, normalised "
                           "output, gather excluded",
                "bound_ms": bnd, "bound_by": by}
-        if r <= 8:
-            # the decode tiling: one block a (slot, head)
+        if body == "decode":
+            # the split-KV body: the CTAs that attend anything
+            plan = pa.decode_splits(lens, q_pos.tolist(), window, nb, blk)
+            row.update(live_ctas=hkv * sum(len(p) for p in plan),
+                       split_len=pa.decode_split_len(blk))
+        elif r <= 8:
+            # the CUDA-core decode tiling: one block a (slot, head)
             row.update(max_tiles=tiles, us_per_tile=row["ms"] * 1e3 / tiles)
         emit(row)
         if not ok:
             raise AssertionError(f"K3 {label} {pdt}: error {err}, m error "
                                  f"{m_err}, l relative error {l_err}")
         rows[("K3", label, pdt)] = row
-        del q, part, ref, got, want, kg, vg
+        del q, part, ref, kg, vg
     del pools
     torch.cuda.empty_cache()
     return rows
@@ -1177,16 +1351,22 @@ def phase_paged_serve(dev, cfg, eng, smi):
         comps.extend(out)
         return out
 
-    # K3 launches by where they happen: admission waves or decode
+    # K3 launches by where they happen, admission waves or decode, and by
+    # body in each
     k3_by = {"admit": 0, "decode": 0}
+    k3_bodies = {kind: dict.fromkeys(pa.K3_BODIES, 0) for kind in k3_by}
 
     def counted(kind, fn):
         def run(*a, **kw):
             n0 = pa.paged_attention_partial.launches
+            b0 = dict(pa.paged_attention_partial.launches_by_body)
             try:
                 return fn(*a, **kw)
             finally:
                 k3_by[kind] += pa.paged_attention_partial.launches - n0
+                for body, n in \
+                        pa.paged_attention_partial.launches_by_body.items():
+                    k3_bodies[kind][body] += n - b0[body]
         return run
 
     eng._admit = counted("admit", eng._admit)
@@ -1259,7 +1439,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
     node_count = eng._prefix.node_count
     summary = {"phase": "paged_serve", "config": cfg.name,
                "launches": launches, "launches_by_body": bodies,
-               "k3_by": k3_by,
+               "k3_by": k3_by, "k3_bodies": k3_bodies,
                "zero_copy_admits": st["zero_copy_admits"],
                "prefill_tokens_saved": ps["prefill_tokens_saved"],
                "expected_zero_copy_admits": expect_hits,
@@ -1275,6 +1455,12 @@ def phase_paged_serve(dev, cfg, eng, smi):
     if k3_by["admit"] <= 0 or k3_by["decode"] <= 0:
         raise AssertionError(f"K3 not launched in admission and decode: "
                              f"{k3_by}")
+    # admission's seeded passes (R = 4 x a bucket of 64 or more) all on the
+    # wgmma body, decode's 4 rows all on the split-KV body
+    if (k3_bodies["admit"]["seeded"] != k3_by["admit"]
+            or k3_bodies["decode"]["decode"] != k3_by["decode"]):
+        raise AssertionError(f"K3's bodies in admission and decode: "
+                             f"{k3_bodies}")
     check_path("paged_serve", launches, ("K1", "K2", "K3"))
     check_bodies("paged_serve", bodies)
     if rows[1]["zero_copy_admits"] != len(rounds[1][1]):
@@ -1477,20 +1663,11 @@ def phase_int4_wave(cfg, eng, prompts, smi):
     bodies = read_bodies()
     events, by_name = device_us_by_kernel(prof)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in events)
-    families = {"K5 wgmma (int4_wgmma)": "int4_wgmma",
-                "K5 split (qgemm, qgemm_reduce)": "qgemm",
-                "K1 wgmma (flash_wgmma)": "flash_wgmma"}
-    by_family = dict.fromkeys(families, 0.0)
-    by_family["other"] = 0.0
-    for name, us in by_name.items():
-        fam = next((f for f, key in families.items() if key in name),
-                   "other")
-        by_family[fam] += us / 1e3
     row = {"phase": "int4_wave", "config": cfg.name,
            "rows": len(chosen), "bucket": bucket,
            "prompt_tokens": lengths.tolist(), "wave_s": plain_s,
            "traced_wave_s": traced_s, "device_busy_ms": busy / 1e3,
-           "device_ms_by_family": by_family,
+           "device_ms_by_family": device_ms_by_family(by_name),
            "device_ms_by_kernel": {k: v / 1e3 for k, v in
                                    list(by_name.items())[:12]},
            "launches_by_body": bodies, "device": smi}
@@ -1522,6 +1699,82 @@ def device_us_by_kernel(prof) -> tuple[list, dict]:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + (
             e.time_range.end - e.time_range.start)
     return events, dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+#: the port's kernels by body, each a family of substrings of the device
+#: kernel names; any other kernel is PyTorch's own
+KERNEL_FAMILIES = {
+    "K1 wgmma (flash_wgmma)": ("flash_wgmma",),
+    "K1 CUDA cores (flash_fwd_kernel)": ("flash_fwd_kernel",),
+    "K2 GEMV (gemv_partial, gemv_reduce)": ("gemv_partial", "gemv_reduce"),
+    "K2 wgmma (int8_wgmma)": ("int8_wgmma",),
+    "K2 WMMA, CUDA cores (gemm_wmma, gemm_simt)": ("gemm_wmma", "gemm_simt"),
+    "K3 decode (paged_split, paged_merge)": ("paged_split", "paged_merge"),
+    "K3 seeded (paged_wgmma)": ("paged_wgmma",),
+    "K3 CUDA cores (paged_partial_kernel)": ("paged_partial_kernel",),
+    "K5 wgmma (int4_wgmma)": ("int4_wgmma",),
+    "K5 split, K4, K6 (qgemm, quantize_rows, int4_simt)":
+        ("qgemm", "quantize_rows", "int4_simt"),
+}
+
+
+def device_ms_by_family(by_name: dict) -> dict:
+    """Device ms (from µs by kernel name) summed by ``KERNEL_FAMILIES``;
+    the rest under "PyTorch's own"."""
+    out: dict[str, float] = {}
+    for name, us in by_name.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES.items()
+                    if any(k in name for k in keys)), "PyTorch's own")
+        out[fam] = out.get(fam, 0.0) + us / 1e3
+    return out
+
+
+def phase_int8_wave(cfg, eng, smi):
+    """One admission wave of the contiguous int8 engine, traced by kernel:
+    4 rows of 1024 tokens (seeded), the deployment's largest bucket and the
+    serve phase's wave, through ``_admit_wave`` (prefill, cache insert,
+    first-token sample) on the host clock, then again under
+    ``torch.profiler``: device ms by kernel and by family, the card's busy
+    time, and the launches of each kernel body in the wave — K2's wgmma
+    body 7 times a layer, its GEMV once (the lm_head's 4 rows), K1's wgmma
+    body once a layer. The engine's slots must be free; the wave writes
+    their cache rows only."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, bucket = 4, 1024
+    tokens = np.random.default_rng(7).integers(
+        3, 259, (rows, bucket)).astype(np.int64)
+    lengths = np.full((rows,), bucket, dtype=np.int64)
+
+    def wave():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng._admit_wave(tokens, lengths, list(range(rows)))
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    plain_s = wave()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_s = wave()
+    bodies = read_bodies()
+    events, by_name = device_us_by_kernel(prof)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in events)
+    row = {"phase": "int8_wave", "config": cfg.name, "rows": rows,
+           "bucket": bucket, "wave_s": plain_s, "traced_wave_s": traced_s,
+           "device_busy_ms": busy / 1e3,
+           "device_ms_by_family": device_ms_by_family(by_name),
+           "device_ms_by_kernel": {k: v / 1e3 for k, v in
+                                   list(by_name.items())[:12]},
+           "launches_by_body": bodies, "device": smi}
+    emit(row)
+    if (bodies["K2"]["wgmma"], bodies["K2"]["gemv"], bodies["K1"]["wgmma"]) \
+            != (7 * cfg.n_layers, 1, cfg.n_layers):
+        raise AssertionError(f"int8 wave launches by body: {bodies}")
+    check_bodies("int8_wave", bodies)
+    return row
 
 
 def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
@@ -1577,7 +1830,7 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
         raise AssertionError("a slot finished inside the measured decode")
     kernels, by_name = device_us_by_kernel(prof)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
-    top = list(by_name.items())[:6]
+    top = list(by_name.items())[:12]
     row = {"phase": label, "config": cfg.name, "slots": len(ids),
            "kv": "paged" if eng.paged else "contiguous",
            "quantize": eng.quant_mode, "admission_waves": waves,
@@ -1588,6 +1841,7 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
            "device_busy_ms": busy / 1e3 if kernels else None,
            "idle_share": (1.0 - busy / (traced_s * 1e6)) if kernels
            else None,
+           "device_ms_by_family": device_ms_by_family(by_name),
            "device_ms_by_kernel": {k: v / 1e3 for k, v in top},
            "device": smi}
     emit(row)
@@ -1634,6 +1888,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, flush)
     rows.update(phase_k3(dev, flush))
+    phase_k3_layouts(dev)
     rows.update(phase_quant_kernels(dev, flush))
     probe_rows, probe_launches, probe_per_mode = phase_probe(dev, flush, smi)
     rows.update(probe_rows)
@@ -1650,6 +1905,7 @@ def main() -> int:
     phase_model(dev, cfg, params)
     a8_launches, a8_bodies = phase_a8_model(dev, cfg, params)
     launches, bodies, prompts, eng = phase_serve(dev, cfg, params, smi)
+    phase_int8_wave(cfg, eng, smi)
     phase_trace(cfg, eng, prompts, smi)
     # the contiguous engine's cache goes before the paged pool comes
     del eng
@@ -1694,9 +1950,15 @@ def main() -> int:
              "flash_attention.py:119"),
             ("int8_matmul", rows[("K2", "m4_d4096_f14336", "bfloat16")],
              "paged_serve", f"{q}:50"),
+            ("int8_matmul_tiled",
+             rows[("K2", "m4096_d4096_f14336", "bfloat16")], "serve",
+             f"{q}:50"),
             ("paged_attention", rows[("K3", "decode", "bfloat16")],
              "paged_serve", "copilot_for_consensus_tpu/ops/"
              "paged_attention.py:166"),
+            ("paged_attention_seeded",
+             rows[("K3", "seeded_s1024", "bfloat16")], "paged_serve",
+             "copilot_for_consensus_tpu/ops/paged_attention.py:166"),
             ("w8a8_matmul", rows[("K4", "m4096_d4096_f14336", "bfloat16")],
              "a8_model", f"{q}:309"),
             ("int4_matmul", rows[("K5", "m32_d4096_f28672", "bfloat16")],
@@ -1707,10 +1969,15 @@ def main() -> int:
             ("w4a8_matmul", rows[("K6", "m32_d4096_f28672", "bfloat16")],
              "int4_serve_a8", f"{q}:405")):
         k = row["kernel"]
-        # K1 and K5 count their launches by body: each of their rows is
-        # one body, whose source is the body's own file
+        # K1, K2, K3 and K5 count their launches by body: each of their
+        # rows is one body, whose source is the body's own file, and counts
+        # that body's launches on every path
         body, src = {
             "flash_attention": ("wgmma", "flash_wgmma.cuh"),
+            "int8_matmul": ("gemv", "int8_matmul.cu"),
+            "int8_matmul_tiled": ("wgmma", "int8_wgmma.cuh"),
+            "paged_attention": ("decode", "paged_decode.cuh"),
+            "paged_attention_seeded": ("seeded", "paged_wgmma.cuh"),
             "int4_matmul": ("split", "int4_matmul.cu"),
             "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
         }.get(name, (None, f"{name}.cu"))
@@ -1718,16 +1985,18 @@ def main() -> int:
         if body is not None:
             extra.update(body=body, launches_by_body={
                 p: b[k] for p, b in bodies_by_path.items()})
-            n_launches = bodies_by_path[path][k][body]
+            per_path = {p: bodies_by_path[p][k][body]
+                        if p in bodies_by_path else c[k]
+                        for p, c in by_path.items()}
         else:
-            n_launches = by_path[path][k]
+            per_path = {p: c[k] for p, c in by_path.items()}
         table.append({
             "name": name, "route": "cuda", "source": f"{csrc}/{src}",
             "replaces": tpu,
             # the count of the path that runs the kernel on the main path;
             # every path's count beside it
-            "launches": n_launches, "launches_path": path,
-            "launches_by_path": {p: c[k] for p, c in by_path.items()},
+            "launches": per_path[path], "launches_path": path,
+            "launches_by_path": per_path,
             **extra,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

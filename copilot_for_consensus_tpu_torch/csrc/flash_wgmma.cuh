@@ -78,18 +78,6 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
     hop::wgmma_rs_n64<1>(o, a, db, 1);
 }
 
-// (a, b) -> bf16x2 hi = round(a, b) and lo = round((a, b) - hi): hi + lo
-// carries a and b to ~2^-18 relative, which the wgmma products of P with V
-// keep (they sum in f32)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap qmap,
@@ -252,7 +240,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
       uint32_t ph[32], pl[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i)
-        split_bf16(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
+        hop::split_bf16(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
       hop::mbar_wait(&s.v_full[st], parity);
       hop::fence_regs<32>(ph);
       hop::fence_regs<32>(pl);

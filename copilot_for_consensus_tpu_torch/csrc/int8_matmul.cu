@@ -22,11 +22,17 @@
 //     workspace [splits, M, F] (allocated by the wrapper) and a second pass
 //     sums them in a fixed order — deterministic, no atomics — then scales
 //     and rounds.
-//   * Prefill (M = rows × bucket, up to 16384): bound by arithmetic. Path
-//     `gemm_wmma` (bf16): 128×128 output tiles, 8 warps each owning 32×64,
-//     bf16 tensor-core fragments (WMMA, i.e. mma.sync m16n8k16) with f32
-//     accumulators; the int8 tile is converted to bf16 on its way into
-//     shared memory. No cp.async/TMA pipelining or wgmma yet — later work.
+//   * Prefill (M = rows × bucket, 2048-4096 in the int8 waves): bound by
+//     operations on the bf16 tensor cores (989 TFLOP/s). bf16 x with D %
+//     64 == 0 and F % 16 == 0 (every Mistral-7B leaf) runs
+//     `int8_matmul_wgmma_fwd`, the Hopper body of int8_wgmma.cuh: wgmma
+//     fed by TMA through a 4-stage mbarrier ring, the weight converted to
+//     bf16 in shared memory into wgmma's MN-major layout (see that
+//     header's note). Other bf16 layouts take `gemm_wmma`: 128×128 output
+//     tiles, 8 warps each owning 32×64, WMMA (mma.sync m16n8k16) fragments
+//     with f32 accumulators, the int8 tile converted on its way into shared
+//     memory, no pipelining. The wrapper's shape rule (`int8_body`) picks
+//     the body; nothing falls back.
 //     Path `gemm_simt` (f32 x): a 64×64-tile CUDA-core loop, kept for f32
 //     callers (tests); the serving dtype is bf16.
 
@@ -34,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -367,6 +375,24 @@ extern "C" int int8_matmul_fwd(const void* x, const void* q,
   if (is_bf16)
     return (int)run<__nv_bfloat16>(x, qq, sc, out, ws, M, D, F, splits, st);
   return (int)run<float>(x, qq, sc, out, ws, M, D, F, splits, st);
+}
+
+// the wgmma body (bf16 x, the tiled extents): x, q, scale, out; tn = the
+// CTA's output columns (128 or 256)
+extern "C" int int8_matmul_wgmma_fwd(const void* x, const void* q,
+                                     const void* scale, void* out, int M,
+                                     int D, int F, int tn, void* stream) {
+  if (M <= 0 || D <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  return (int)k2w::launch(x, static_cast<const int8_t*>(q),
+                          static_cast<const float*>(scale),
+                          static_cast<__nv_bfloat16*>(out), M, D, F, tn,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// the wgmma body's dynamic shared memory a CTA at tile width tn, in bytes
+extern "C" int int8_matmul_wgmma_smem(int tn) {
+  return tn == 256 ? (int)k2w::smem_bytes<256>()
+                   : (int)k2w::smem_bytes<128>();
 }
 
 extern "C" const char* int8_matmul_error(int e) {

@@ -18,30 +18,30 @@
 // gives m = -inf, l = 0, acc = 0 and never NaN (the TPU kernel's m_safe /
 // alpha guards).
 //
-// What bounds it on this card: two regimes.
+// What bounds it on this card: two regimes, each with its own body for the
+// main path's bf16 q_rows and bf16 pool at D 64/128 (the wrapper picks one
+// by `paged_body`; nothing falls back):
 //   * Decode (R = group = 4, B = 8, Hkv = 8, D = 128, blk = 64): each K/V
 //     byte is used by only 4 query rows, so the work is bound by the bytes
 //     of the attended positions (~34 MB a layer at ~1050 positions, ~10 us
-//     at 3.35 TB/s). This version is held back by the fixed cost of each
-//     64-position tile in its loop, not by the grid's shape alone: a block
-//     spends ~6.5 us a tile (H100 80GB HBM3 at 700 W, chip_smoke.py's K3
-//     decode cases), moving ~5 GB/s where an SM's share of HBM is ~25
-//     GB/s. Within that cost the 8-row tiling computes 8 rows for R =
-//     4, so half of its QK and PV FMAs go to zero rows, and each tile's
-//     loads, conversion, two barriers and shuffles run with one 128-thread
-//     block an SM to hide them. The grid is only B * Hkv = 64 blocks for
-//     132 SMs, so splitting the table across blocks (with a second combine
-//     pass) buys at most ~2x on its own; a parked slot (length max_len)
-//     also walks its whole NB-wide table of clamped pad ids.
-//   * Seeded admission (R = group * S, S up to 1024): each K/V tile serves
-//     64 rows, so the work is arithmetic; this version does it with f32
-//     FMAs on the CUDA cores (as K1 does), so its ceiling is the 67 TFLOP/s
-//     f32 rate, not the tensor cores'.
+//     at 3.35 TB/s). `paged_attention_decode_fwd` runs the split-KV body of
+//     paged_decode.cuh (R <= 16): the table split over CTAs, 64 positions
+//     a CTA in flight, all R rows in one pass, a fixed-order merge.
+//   * Seeded admission (R = group * S, S up to 1024): also bound by bytes
+//     at the main path's shapes (the f32 acc it writes and the q it reads
+//     outweigh the K/V), but its products cost more than those bytes on
+//     the CUDA cores' f32 rate. `paged_attention_seeded_fwd` runs the
+//     wgmma body of paged_wgmma.cuh (R > 16): K1's Hopper flash partial,
+//     its K/V boxes addressed through the table.
+//   * The f32 and fp8 pools, f32 q_rows and D 32 (test and off-path
+//     layouts: the engine's KV is its activation dtype) take the CUDA-core
+//     body below, `paged_attention_fwd`.
 //
-// Design. The TPU walked the table entries as a sequential grid axis with
-// (m, l, acc) in VMEM scratch and the table in scalar prefetch. Here one
-// block owns a (b, h, row tile) and loops over the slot's positions itself,
-// reading the table and lengths[b] from memory:
+// Design of the CUDA-core body. The TPU walked the table entries as a
+// sequential grid axis with (m, l, acc) in VMEM scratch and the table in
+// scalar prefetch. Here one block owns a (b, h, row tile) and loops over
+// the slot's positions itself, reading the table and lengths[b] from
+// memory, with f32 FMAs (67 TFLOP/s at most):
 //   * the loop runs from the first 64-position tile the window can reach to
 //     min(lengths[b], NB * blk): dead blocks are loop bounds, not masked
 //     work (a parked slot's length can exceed what its table covers);
@@ -51,11 +51,11 @@
 //     thread loads 16-byte chunks of the positions' rows, neighbouring
 //     threads on neighbouring addresses, all of its chunks issued before
 //     any is used, converts them to f32 (fp8 through cuda_fp8.h) and stages
-//     K (rows padded by one word) and V in shared memory; in decode the
+//     K (rows padded by one word) and V in shared memory; with few rows the
 //     next tile's chunks are in flight while the current tile computes;
 //   * two row tilings share one body: RT = 8 rows (16 lanes a row, for
-//     decode's R <= 8) and RT = 64 rows (8 lanes own 4 rows, as K1), with
-//     the row max and sum as xor shuffles inside each lane group;
+//     R <= 8) and RT = 64 rows (8 lanes own 4 rows, as K1), with the row
+//     max and sum as xor shuffles inside each lane group;
 //   * masked scores are -inf; probabilities of masked positions are zeroed
 //     explicitly and exp(-inf - -inf) is never formed.
 
@@ -63,6 +63,9 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "paged_decode.cuh"
+#include "paged_wgmma.cuh"
 
 namespace {
 
@@ -406,6 +409,69 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool_k,
                static_cast<cudaStream_t>(stream)};
   if (q_bf16) return (int)dispatch_kv<__nv_bfloat16>(kv_kind, D, a);
   return (int)dispatch_kv<float>(kv_kind, D, a);
+}
+
+// the split-KV decode body (bf16 q_rows and pool, D 64/128, R <= 16): the
+// same arguments plus the f32 scratch of the splits' partials, part_acc
+// [B, Hkv, NS, R, D] and part_ml [B, Hkv, NS, R, 2], and the split length
+// in positions (NS = ceil(NB * blk / split_len))
+extern "C" int paged_attention_decode_fwd(
+    const void* q, const void* pool_k, const void* pool_v, const void* tables,
+    const void* lengths, const void* q_pos, void* acc, void* m, void* l,
+    void* part_acc, void* part_ml, int B, int Hkv, int R, int D, int L,
+    int NBtot, int blk, int NB, int li, int window, int split_len, int NS,
+    void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hkv > 65535 || R <= 0 || R > 16 || NBtot <= 0 ||
+      blk <= 0 || NB <= 0 || li < 0 || li >= L || split_len <= 0 ||
+      NS != (NB * blk + split_len - 1) / split_len)
+    return (int)cudaErrorInvalidValue;
+  if (D != 128 && D != 64) return (int)cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* qp = static_cast<const int*>(q_pos);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)k3d::launch<128>(
+        q, pool_k, pool_v, tb, ln, qp, static_cast<float*>(acc),
+        static_cast<float*>(m), static_cast<float*>(l), pa, pm, B, Hkv, R,
+        NBtot, blk, NB, li, window, split_len, NS, st);
+  return (int)k3d::launch<64>(
+      q, pool_k, pool_v, tb, ln, qp, static_cast<float*>(acc),
+      static_cast<float*>(m), static_cast<float*>(l), pa, pm, B, Hkv, R,
+      NBtot, blk, NB, li, window, split_len, NS, st);
+}
+
+// the wgmma seeded body (bf16 q_rows and pool, D 64/128, R > 16): the
+// arguments of paged_attention_fwd without the dtypes
+extern "C" int paged_attention_seeded_fwd(
+    const void* q, const void* pool_k, const void* pool_v, const void* tables,
+    const void* lengths, const void* q_pos, void* acc, void* m, void* l,
+    int B, int Hkv, int R, int D, int L, int NBtot, int blk, int NB, int li,
+    int window, void* stream) {
+  if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || R <= 0 ||
+      NBtot <= 0 || blk <= 0 || NB <= 0 || li < 0 || li >= L)
+    return (int)cudaErrorInvalidValue;
+  if (D != 128 && D != 64) return (int)cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* qp = static_cast<const int*>(q_pos);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)k3s::launch<128>(
+        q, pool_k, pool_v, tb, ln, qp, static_cast<float*>(acc),
+        static_cast<float*>(m), static_cast<float*>(l), B, Hkv, R, L, NBtot,
+        blk, NB, li, window, st);
+  return (int)k3s::launch<64>(
+      q, pool_k, pool_v, tb, ln, qp, static_cast<float*>(acc),
+      static_cast<float*>(m), static_cast<float*>(l), B, Hkv, R, L, NBtot,
+      blk, NB, li, window, st);
+}
+
+// the seeded body's dynamic shared memory a CTA at head dim D, in bytes
+extern "C" int paged_attention_seeded_smem(int D) {
+  return D == 64 ? (int)k3s::smem_bytes<64>() : (int)k3s::smem_bytes<128>();
 }
 
 extern "C" const char* paged_attention_error(int e) {

@@ -45,6 +45,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "int8_matmul": {
         # x, q, scale, out, workspace, M, D, F, splits, is_bf16, stream
         "int8_matmul_fwd": [_P] * 5 + [_I] * 5 + [_P],
+        # x, q, scale, out, M, D, F, tn, stream (the wgmma body, bf16 x)
+        "int8_matmul_wgmma_fwd": [_P] * 4 + [_I] * 4 + [_P],
+        # tile width -> the wgmma body's dynamic shared memory in bytes
+        "int8_matmul_wgmma_smem": [_I],
     },
     "int4_matmul": {
         # x, q4, scale, out, workspace, M, D, F, G, splits, is_bf16, stream
@@ -68,6 +72,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # B, Hkv, R, D, L, NBtot, blk, NB, li, window, q_bf16, kv_kind,
         # stream
         "paged_attention_fwd": [_P] * 9 + [_I] * 12 + [_P],
+        # the split-KV decode body: the above without the dtypes, plus the
+        # splits' scratch part_acc, part_ml after l, and split_len, NS
+        # after window
+        "paged_attention_decode_fwd": [_P] * 11 + [_I] * 12 + [_P],
+        # the wgmma seeded body: the above without the dtypes
+        "paged_attention_seeded_fwd": [_P] * 9 + [_I] * 10 + [_P],
+        # head dim -> the seeded body's dynamic shared memory in bytes
+        "paged_attention_seeded_smem": [_I],
     },
     "probe_stream": {
         # mode, x, w, out, workspace, B, D, F, bd, gdp, groups, stream

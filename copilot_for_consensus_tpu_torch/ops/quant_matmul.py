@@ -5,11 +5,15 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
 
 * K2 ``int8_matmul`` (``csrc/int8_matmul.cu``, Pallas body ``_kernel``):
   ``x[..., D] @ q[D, F] * scale[1, F]`` with x in bf16 or f32, the int8
-  weight converted in registers, f32 accumulation, the per-output-channel
+  weight converted on chip, f32 accumulation, the per-output-channel
   scale applied in f32 once at the end. PyTorch has no dequant-fused
   matmul: ``x @ q.to(bf16)`` writes a bf16 copy of the weight and reads it
   back — three times the int8 bytes on a decode step that is bound by
-  them.
+  them. Four bodies, chosen by :func:`int8_body` from dtype and shape
+  alone: the split GEMV for decode, the Hopper wgmma GEMM of
+  ``csrc/int8_wgmma.cuh`` for the prefill extents, a WMMA tiling for
+  tiled layouts the wgmma body does not take, and a CUDA-core loop for
+  f32 x.
 * K5 ``int4_matmul`` (``csrc/int4_matmul.cu``, ``_kernel4``): the weight
   is signed int4, two nibbles a byte along the contraction axis
   (``pack_int4``), with one f32 scale per (group of D/G rows, column);
@@ -68,6 +72,18 @@ K5_WGMMA_KSTEP = 64
 K5_WGMMA_COLS = 16
 #: K5's bodies, the keys of ``int4_matmul.launches_by_body``
 K5_BODIES = ("wgmma", "mma_sync", "split", "simt")
+#: K2's wgmma body (``csrc/int8_wgmma.cuh``): contraction rows a stage (D
+#: must be whole stages) and the column multiple its TMA loads of the
+#: weight need (a 16-byte row pitch)
+K2_WGMMA_KSTEP = 64
+K2_WGMMA_COLS = 16
+#: K2's bodies, the keys of ``int8_matmul.launches_by_body``
+K2_BODIES = ("gemv", "wgmma", "wmma", "simt")
+#: K2's wgmma body takes 256-column tiles where they make at least this
+#: many CTAs (one wave on 132 SMs), else 128-column ones: the wider tile
+#: reads x from L2 half as often, the narrower keeps the SMs busy when F
+#: is narrow (the k/v projections' 1024) or the rows few
+K2_WIDE_MIN_TILES = 132
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +233,29 @@ def stream_splits(m: int, groups: int, f: int) -> int:
     return -(-groups // per)
 
 
+def int8_body(m: int, d: int, f: int, dtype: torch.dtype) -> str:
+    """The body of K2 that a CUDA call runs, from dtype and shape alone:
+    ``"gemv"`` (the split weight stream) up to ``GEMV_MAX_M`` rows at
+    either dtype; above it ``"simt"`` (the CUDA-core loop) for f32 x, and
+    for bf16 x ``"wgmma"`` (the Hopper GEMM) where D is whole 64-row
+    stages and F a multiple of 16, else ``"wmma"``. Every Mistral-7B int8
+    projection at M > 8 is ``"wgmma"``."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    if dtype != torch.bfloat16:
+        return "simt"
+    if d % K2_WGMMA_KSTEP == 0 and f % K2_WGMMA_COLS == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def int8_tile_n(m: int, f: int) -> int:
+    """Output columns of a tile of K2's wgmma body (128-row tiles): 256
+    where 256-wide tiles number ``K2_WIDE_MIN_TILES`` or more, else 128."""
+    wide = -(-m // 128) * -(-f // 256)
+    return 256 if wide >= K2_WIDE_MIN_TILES else 128
+
+
 def int4_body(m: int, f: int, group: int, dtype: torch.dtype) -> str:
     """The body of K5 that a CUDA call runs, from dtype and shape alone:
     ``"simt"`` (the CUDA-core loop) for f32 x at every M; for bf16 x,
@@ -284,16 +323,23 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty(*x.shape[:-1], f, dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    splits = gemv_splits(m, d, f)
-    ws = torch.empty((splits, m, f), dtype=torch.float32,
-                     device=x.device) if splits else None
+    body = int8_body(m, d, f, x.dtype)
     lib = _build.library("int8_matmul")
-    err = lib.int8_matmul_fwd(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        m, d, f, splits, int(x.dtype == torch.bfloat16), _stream(x))
-    _build.check("int8_matmul", err, "int8_matmul launch")
+    if body == "wgmma":
+        err = lib.int8_matmul_wgmma_fwd(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, d, f, int8_tile_n(m, f), _stream(x))
+    else:
+        splits = gemv_splits(m, d, f)
+        ws = torch.empty((splits, m, f), dtype=torch.float32,
+                         device=x.device) if splits else None
+        err = lib.int8_matmul_fwd(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            m, d, f, splits, int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check("int8_matmul", err, f"int8_matmul launch ({body})")
     int8_matmul.launches += 1
+    int8_matmul.launches_by_body[body] += 1
     return out
 
 
@@ -402,6 +448,8 @@ def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor,
 
 #: kernel launches since the count was last reset (CPU calls not counted)
 int8_matmul.launches = 0
+#: K2's launches by body (:func:`int8_body`); they sum to ``launches``
+int8_matmul.launches_by_body = dict.fromkeys(K2_BODIES, 0)
 int4_matmul.launches = 0
 #: K5's launches by body (:func:`int4_body`); they sum to ``launches``
 int4_matmul.launches_by_body = dict.fromkeys(K5_BODIES, 0)

@@ -272,3 +272,120 @@ def test_kernel_input_checks_refuse(bad, match):
     bad(args)
     with pytest.raises((TypeError, ValueError), match=match):
         tpa._check(*args)
+
+
+# ---------------------------------------------------------------------------
+# K3's bodies: the route rule, the decode body's split plan and its merge
+# ---------------------------------------------------------------------------
+
+BF16, F32, FP8 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+
+
+@pytest.mark.parametrize("r,q_dtype,pool_dtype,d,blk,body", [
+    (4, BF16, BF16, 128, 64, "decode"),          # paged decode (Hq 32/Hkv 8)
+    (16, BF16, BF16, 128, 64, "decode"),
+    (4, BF16, BF16, 64, 64, "decode"),
+    (4, BF16, BF16, 128, 3, "decode"),           # any block size
+    (17, BF16, BF16, 128, 64, "seeded"),
+    (4 * 64, BF16, BF16, 128, 64, "seeded"),     # a seeded wave, bucket 64
+    (4 * 1024, BF16, BF16, 128, 64, "seeded"),   # ... bucket 1024
+    (256, BF16, BF16, 64, 16, "seeded"),
+    (256, BF16, BF16, 128, 128, "seeded"),
+    (256, BF16, BF16, 128, 256, "seeded"),
+    (256, BF16, BF16, 128, 4, "simt"),           # less than a swizzle atom
+    (256, BF16, BF16, 128, 192, "simt"),         # boxes would cross blocks
+    (4, BF16, F32, 128, 64, "simt"),             # the f32 pool
+    (4, BF16, FP8, 128, 64, "simt"),             # the fp8 pool
+    (256, BF16, FP8, 128, 64, "simt"),
+    (4, F32, F32, 128, 64, "simt"),              # f32 q_rows
+    (4, BF16, BF16, 32, 64, "simt"),             # D 32
+    (256, BF16, BF16, 32, 64, "simt")])
+def test_paged_body_rule(r, q_dtype, pool_dtype, d, blk, body):
+    # K3's body is chosen from dtypes and shape alone
+    assert tpa.paged_body(r, q_dtype, pool_dtype, d, blk) == body
+    assert body in tpa.K3_BODIES
+
+
+def test_k3_bodies_are_fixed_and_cpu_counts_none():
+    assert tpa.K3_BODIES == ("decode", "seeded", "simt")
+    assert tuple(tpa.paged_attention_partial.launches_by_body) == \
+        tpa.K3_BODIES
+    q, pk, pv, li, tables = _good_inputs()
+    lens = torch.tensor([3, 1], dtype=torch.int32)
+    before = dict(tpa.paged_attention_partial.launches_by_body)
+    got = tpa.paged_attention_partial(q.to(BF16), pk, pv, li, tables, lens,
+                                      lens)
+    want = tpa.paged_attention_partial_ref(q.to(BF16), pk, pv, li, tables,
+                                           lens, lens)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tpa.paged_attention_partial.launches_by_body == before
+
+
+def _attended(n, qp, window, nb, blk):
+    hi = min(n, nb * blk)
+    lo = max(0, qp - window + 1) if window > 0 else 0
+    return set(range(lo, hi))
+
+
+@pytest.mark.parametrize("nb,blk", [(64, 64), (6, 64), (40, 16), (9, 3)])
+@pytest.mark.parametrize("window", [0, 100, 4096])
+def test_decode_split_plan_covers_each_position_once(nb, blk, window):
+    """Every attended position lies in exactly one live split, splits are
+    whole blocks in ascending order, and a split that attends nothing is
+    not in the plan: lengths of 0, 1, a block edge, a split edge, the whole
+    table and a parked slot past it."""
+    reach = nb * blk
+    split_len = tpa.decode_split_len(blk)
+    assert split_len % blk == 0 and 0 < split_len <= max(
+        blk, tpa.DECODE_SPLIT_POSITIONS)
+    lengths = [0, 1, blk, blk + 1, split_len, split_len + 1, reach - 1,
+               reach, reach + 100]
+    q_pos = [n + 2 for n in lengths]
+    plan = tpa.decode_splits(lengths, q_pos, window, nb, blk)
+    assert len(plan) == len(lengths)
+    for n, qp, splits in zip(lengths, q_pos, plan):
+        seen = []
+        for s, first, end in splits:
+            assert s * split_len <= first < end <= (s + 1) * split_len
+            seen.extend(range(first, end))
+        assert seen == sorted(set(seen))            # disjoint, ascending
+        assert set(seen) == _attended(n, qp, window, nb, blk)
+        assert [s for s, _, _ in splits] == sorted({s for s, _, _ in
+                                                    splits})
+
+
+@pytest.mark.parametrize("window", [0, 100, 4096])
+@pytest.mark.parametrize("rows", [4, 8])
+def test_split_merge_matches_jax_kernel(window, rows):
+    """The decode body's algorithm (a partial per split, merged in the
+    kernel's fixed order) against the Pallas kernel in interpret mode:
+    normalised output within 1e-5, l within 1e-5 relative, and m equal to
+    the one-pass plain version's bit for bit (a max of maxes)."""
+    rng = np.random.default_rng(11)
+    b, hkv, d, blk, nbtot, nb, nl, li = 6, 2, 16, 64, 20, 6, 2, 1
+    q = rng.standard_normal((b, hkv, rows, d)).astype(np.float32)
+    pk, pv = _pool(rng, nl, nbtot, hkv, blk, d)
+    tables = rng.integers(0, nbtot + 1, (b, nb)).astype(np.int32)
+    # empty, one position, a block edge, past a split edge, the whole
+    # table, and a parked slot whose length passes its table's reach
+    lengths = np.array([0, 1, blk, 257, nb * blk, nb * blk + 90], np.int32)
+    q_pos = lengths + 2
+    jacc, jm, jl = paged_attention_partial_pallas(
+        jnp.asarray(q), pk, pv, jnp.asarray([li], jnp.int32),
+        jnp.asarray(tables), jnp.asarray(lengths), jnp.asarray(q_pos),
+        window=window, interpret=True)
+    args = (_t(q), _t(pk), _t(pv), li, _t(tables), _t(lengths), _t(q_pos))
+    acc, m, l = tpa.paged_attention_partial_split_ref(*args, window=window)
+    assert max(len(p) for p in tpa.decode_splits(lengths, q_pos, window,
+                                                  nb, blk)) > 1
+    _close(tattn.combine_partials([(acc, m, l)], torch.float32),
+           jax_combine([(jacc, jm, jl)], jnp.float32))
+    plain = tpa.paged_attention_partial_ref(*args, window=window)
+    assert torch.equal(m, plain[1])
+    _close(m, jm)
+    live = torch.isfinite(m)
+    jl_t = _t(jl)
+    assert ((l - jl_t).abs() / jl_t)[live].max() <= TOL
+    # rows that attend nothing: m = -inf, l = 0, acc = 0
+    assert not l[~live].any() and not acc[~live.expand_as(acc)].any()
+    assert torch.isinf(m[0]).all()

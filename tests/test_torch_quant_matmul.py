@@ -23,6 +23,7 @@ from copilot_for_consensus_tpu_torch.checkpoint.bridge import (
 )
 from copilot_for_consensus_tpu_torch.models import quant as tquant
 from copilot_for_consensus_tpu_torch.models.layers import qmatmul
+from copilot_for_consensus_tpu_torch.ops import quant_matmul as tqm
 from copilot_for_consensus_tpu_torch.ops.quant_matmul import (
     GEMV_MAX_M,
     gemv_splits,
@@ -145,3 +146,75 @@ def test_gemv_splits_cover_the_contraction(m, d, f):
     assert 1 <= splits <= max(1, d // 16)
     chunk = -(-d // splits)
     assert chunk * splits >= d
+
+
+# ---------------------------------------------------------------------------
+# K2's bodies: the route rule, the tile width, the wgmma body's conversion
+# ---------------------------------------------------------------------------
+
+#: the int8 layer projections (D, F) of mistral-7b (q, k, v, o, gate, up,
+#: down, each its own leaf) and the lm_head
+MISTRAL_INT8 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                (4096, 32000)]
+
+
+@pytest.mark.parametrize("m", [9, 2048, 4096])
+@pytest.mark.parametrize("d,f", MISTRAL_INT8)
+def test_mistral_int8_waves_take_the_wgmma_body(m, d, f):
+    # every admission-wave projection goes to the Hopper body, and a decode
+    # step's four rows to the GEMV
+    assert tqm.int8_body(m, d, f, torch.bfloat16) == "wgmma"
+    assert tqm.int8_body(4, d, f, torch.bfloat16) == "gemv"
+
+
+@pytest.mark.parametrize("m,d,f,dtype,body", [
+    (1, 4096, 4096, torch.bfloat16, "gemv"),
+    (8, 4096, 4096, torch.bfloat16, "gemv"),
+    (8, 4096, 4096, torch.float32, "gemv"),
+    (9, 4096, 4096, torch.bfloat16, "wgmma"),
+    (300, 128, 208, torch.bfloat16, "wgmma"),
+    (4096, 96, 4096, torch.bfloat16, "wmma"),      # D % 64 = 32
+    (4096, 4096, 200, torch.bfloat16, "wmma"),     # F % 16 = 8
+    (37, 64, 1000, torch.bfloat16, "wmma"),
+    (9, 4096, 4096, torch.float32, "simt"),
+    (4096, 4096, 14336, torch.float32, "simt")])
+def test_int8_body_rule(m, d, f, dtype, body):
+    # K2's body is chosen from dtype and shape alone
+    assert tqm.int8_body(m, d, f, dtype) == body
+    assert body in tqm.K2_BODIES
+
+
+@pytest.mark.parametrize("m,f,tn", [
+    (2048, 1024, 128), (4096, 1024, 128),        # the k/v projections
+    (2048, 4096, 256), (4096, 4096, 256), (4096, 14336, 256),
+    (4096, 32000, 256), (512, 14336, 256),
+    (512, 4096, 128), (64, 14336, 128), (9, 64, 128)])   # few rows
+def test_int8_tile_n(m, f, tn):
+    # 256-column tiles only where they still make a wave on 132 SMs
+    assert tqm.int8_tile_n(m, f) == tn
+    wide = -(-m // 128) * -(-f // 256)
+    assert (wide >= tqm.K2_WIDE_MIN_TILES) == (tn == 256)
+
+
+def test_int8_wrapper_on_cpu_counts_no_body():
+    x, q, scale = (torch.from_numpy(a) for a in _operands(7, 40, 128, 48))
+    xb = x.to(torch.bfloat16)
+    before = dict(tqm.int8_matmul.launches_by_body)
+    assert torch.equal(int8_matmul(xb, q, scale),
+                       int8_matmul_ref(xb, q, scale))
+    assert tqm.int8_matmul.launches_by_body == before
+    assert tuple(before) == tqm.K2_BODIES == ("gemv", "wgmma", "wmma",
+                                              "simt")
+
+
+def test_wgmma_conversion_route_is_exact_for_every_byte():
+    # the wgmma body's int8 -> bf16 route (int8_wgmma.cuh `i8x4_bf16`),
+    # in numpy: (v + 128) in the low mantissa bits of the f32 2^23, minus
+    # 2^23 + 128, is v for every byte, and v is exact in bf16
+    v = np.arange(-128, 128, dtype=np.int32).astype(np.int8)
+    u = (v.view(np.uint8) ^ np.uint8(0x80)).astype(np.uint32)
+    f = (u | np.uint32(0x4B000000)).view(np.float32) - np.float32(8388736.0)
+    assert f.dtype == np.float32
+    np.testing.assert_array_equal(f, v.astype(np.float32))
+    t = torch.from_numpy(f)
+    assert torch.equal(t.to(torch.bfloat16).float(), t)
