@@ -12,13 +12,14 @@ non-zero before the last line:
 2. build   — compiles every kernel of ``copilot_for_consensus_tpu_torch/
    csrc`` into ``build/cuda_kernels/``;
    then, for the four libraries with a Hopper body (the wgmma bodies of
-   K5, K1, K2 and K3, and K3's split-KV decode body), one ``build_info``
-   line each: ptxas's registers, spills and shared memory per kernel, the
-   wgmma bodies' dynamic shared memory, and the counts of HGMMA, UTMALDG,
-   LDGSTS and HMMA instructions per kernel in the SASS (``cuobjdump
-   -sass``; "absent" without it) — the wgmma bodies must show HGMMA and
-   UTMALDG, and K2's and K3's new bodies must build without spills or a
-   ptxas performance note;
+   K5, K1, K2 and K3, K3's split-KV decode body and K5's stream body), one
+   ``build_info`` line each: ptxas's registers, spills and shared memory
+   per kernel, the Hopper bodies' dynamic shared memory, and the counts of
+   HGMMA, UTMALDG, LDGSTS and HMMA instructions per kernel in the SASS
+   (``cuobjdump -sass``; "absent" without it) — the wgmma bodies must show
+   HGMMA and UTMALDG, K5's stream body HMMA and UTMALDG, and the bodies of
+   K2, K3 and K5's stream must build without spills or a ptxas
+   performance note;
 3. kernels — holds K1 (flash attention) and K2 (int8 matmul) against their
    plain PyTorch versions at the full Mistral-7B shapes, with the stated
    tolerances, and times kernel, plain version, and one PyTorch call of
@@ -66,10 +67,13 @@ non-zero before the last line:
 11. kernels, K5/K4/K6 — (run right after phase 7) the quantized matmuls
    against their plain versions at the int4 / a8 main path's shapes: K5
    (int4 weight-only) and K6 (W4A8) on the five int4 projections at M = 32
-   (decode) and 5632 (a 2 x 2816 wave), K4 (W8A8) on the four int8 layer
-   projections at M = 4096, plus one f32 case each — timed likewise; and
-   K5's tiled edges: M = 33, M = 5000 with F = 6128 (ragged against every
-   tile) on its wgmma body, and F = 4104 on the mma.sync tiling;
+   (decode: K5's stream body) and 5632 (a 2 x 2816 wave), K4 (W8A8) on the
+   four int8 layer projections at M = 4096, plus one f32 case each — timed
+   likewise; K5's tiled edges: M = 33, M = 5000 with F = 6128 (ragged
+   against every tile) on its wgmma body, and F = 4104 on the mma.sync
+   tiling; and, untimed, K5's stream edges: M = 1, 8 and 17 at the fused
+   q/k/v shape, and F = 4104 at M = 32, a layout the stream body refuses,
+   on the split qgemm;
 12. a8 model — (run right after phase 4) one 4 x 1024 int8 wave with
    ``set_act_quant("a8")``, through K4 and through the plain versions;
 13. int4 serve — after the paged engine and the int8 weights are freed,
@@ -77,7 +81,9 @@ non-zero before the last line:
    one 2816 bucket, an 8192-token admission budget, decode window 32)
    behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
    (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
-   forward pass must make 4 quantized launches a layer plus the lm_head's;
+   forward pass must make 4 quantized launches a layer plus the lm_head's,
+   K5's all on its wgmma body in the waves' layers and on its stream body
+   in decode and the waves' lm_head;
 14. int4 wave and trace — one admission wave of the int4 engine (2 x
    2816) traced by kernel: device ms by kernel and by family, and the
    launches of each body; then phase 6 on the int4 engine, 32 slots busy;
@@ -95,10 +101,10 @@ Every serve phase counts K1's, K2's, K3's and K5's launches by body: the
 main path's K1 launches must all be the wgmma body's, its K2 launches the
 GEMV's or the wgmma body's (never WMMA or the CUDA-core loop), its K3
 launches the decode or seeded body's, and no K5 launch may take the
-mma.sync or CUDA-core tiled bodies (on the int4 path the wgmma body makes
-4 launches a layer a wave). Then the kernel table (K1-K6; K2's GEMV and
-wgmma bodies, K3's decode and seeded bodies, and K5's split and tiled
-bodies as two rows each; and P's five modes, each with its launches on
+split qgemm, the mma.sync or CUDA-core tiled bodies (on the int4 path the
+wgmma body makes 4 launches a layer a wave, the stream body the rest).
+Then the kernel table (K1-K6; K2's GEMV and wgmma bodies, K3's decode and
+seeded bodies, and K5's stream and tiled bodies as two rows each; and P's five modes, each with its launches on
 every path) as one JSON line, the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. About 5-7 minutes on one H100 (the host's speed
 varies), the build included.
@@ -152,7 +158,7 @@ K5_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 K4_ATOL = 0.0
 #: K6 (W4A8): exact int32 group products, scaled and summed in group order
 #: with the same f32 operations as the plain version on the tiled path
-#: (equal there); the split path of M <= 32 sums its splits' partials in
+#: (equal there); the split qgemm of M <= 32 sums its splits' partials in
 #: another order: f32 level, and one bf16 output rounding at bf16.
 K6_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: P (the weight-stream probe) vs its plain versions at one full layer.
@@ -276,14 +282,16 @@ def read_bodies() -> dict:
     return {k: dict(w[k].launches_by_body) for k in BODY_KERNELS}
 
 
-def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None):
+def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
+                 k5_stream: int | None = None):
     """The main path's K1 launches all went to the wgmma body, its K2 tiled
     launches to the wgmma body (never WMMA or the CUDA-core loop), its K3
     launches to the decode and seeded bodies (never the CUDA-core one), and
-    its K5 launches (if any) never to the mma.sync or CUDA-core tiled
-    bodies; ``k5_wgmma`` is the count K5's wgmma body must have."""
+    its K5 launches (if any) to the wgmma and stream bodies, never to the
+    split qgemm, the mma.sync or CUDA-core tiled bodies; ``k5_wgmma`` and
+    ``k5_stream`` are the counts those two bodies must have."""
     old = {"K1": ("simt",), "K2": ("wmma", "simt"), "K3": ("simt",),
-           "K5": ("mma_sync", "simt")}
+           "K5": ("split", "mma_sync", "simt")}
     for k, names in old.items():
         if any(bodies[k][n] for n in names):
             raise AssertionError(f"{label}: an old {k} body launched: "
@@ -292,12 +300,16 @@ def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None):
         raise AssertionError(f"{label}: K5's wgmma body launched "
                              f"{bodies['K5']['wgmma']} times, expected "
                              f"{k5_wgmma}")
+    if k5_stream is not None and bodies["K5"]["stream"] != k5_stream:
+        raise AssertionError(f"{label}: K5's stream body launched "
+                             f"{bodies['K5']['stream']} times, expected "
+                             f"{k5_stream}")
 
 
 #: the libraries with Hopper bodies: the wgmma body's kernel (which must
 #: show HGMMA and UTMALDG in its SASS) and the prefix of the library's other
 #: new kernels (None where it has none)
-REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", None),
+REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", "k5s::"),
               "flash_attention": ("fa3::flash_wgmma", None),
               "int8_matmul": ("k2w::int8_wgmma", None),
               "paged_attention": ("k3s::paged_wgmma", "k3d::")}
@@ -306,7 +318,9 @@ REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", None),
 def wgmma_smem(name: str, lib) -> dict:
     """Dynamic shared memory of a library's wgmma body, by template."""
     if name == "int4_matmul":
-        return {"k5w::int4_wgmma": lib.int4_matmul_wgmma_smem()}
+        return {"k5w::int4_wgmma": lib.int4_matmul_wgmma_smem(),
+                **{f"k5s::int4_stream<{nt}>": lib.int4_matmul_stream_smem(nt)
+                   for nt in (1, 2, 3, 4)}}
     if name == "int8_matmul":
         return {f"k2w::int8_wgmma<{tn}>": lib.int8_matmul_wgmma_smem(tn)
                 for tn in (128, 256)}
@@ -315,9 +329,13 @@ def wgmma_smem(name: str, lib) -> dict:
     return {f"{REDESIGNED[name][0]}<{d}>": fn(d) for d in (64, 128)}
 
 
-#: the bodies this slice added: ptxas must report them without spills and
-#: without a performance note (C75xx: serialized wgmma and the like)
-NEW_BODIES = ("k2w::", "k3s::", "k3d::")
+#: the bodies of the last two slices: ptxas must report them without
+#: spills and without a performance note (C75xx: serialized wgmma and the
+#: like)
+NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::")
+#: Hopper bodies on mma.sync (not wgmma), by kernel prefix: the SASS
+#: instructions each of their kernels must show
+MMA_SYNC_BODIES = {"k5s::": ("HMMA", "UTMALDG")}
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
 
@@ -426,6 +444,11 @@ def phase_build_info():
                                      f"HGMMA or UTMALDG: {mine}")
             if others and not any(f.startswith(others) for f in sass):
                 raise AssertionError(f"{name}: no kernel of {others} built")
+            for prefix, ops in MMA_SYNC_BODIES.items():
+                for f, c in sass.items():
+                    if f.startswith(prefix) and not all(c[o] for o in ops):
+                        raise AssertionError(f"{name}: {f}'s SASS lacks one "
+                                             f"of {ops}: {c}")
         for f, info in (ptxas or {}).items():
             if f.startswith(NEW_BODIES) and (
                     info.get("spill_stores") or info.get("spill_loads")
@@ -609,7 +632,8 @@ def phase_kernels(dev, flush):
 def phase_quant_kernels(dev, flush):
     """K5, K4 and K6 against their plain versions at the int4 / a8 main
     path's shapes: K5 and K6 at M = 32 (a decode step of the 3072-context
-    deployment's 32 slots, the split streaming path) and M = 5632 (its
+    deployment's 32 slots: K5's stream body, K6's split qgemm) and M =
+    5632 (its
     2 x 2816 admission wave, the tiled path), K4 at M = 4096 (the 4 x 1024
     wave), bf16 — plus one f32 case each. Timed beside the bound, the plain
     version and a PyTorch yardstick where one call computes the same
@@ -660,6 +684,9 @@ def phase_quant_kernels(dev, flush):
                                        flush=flush),
                    "bound_ms": bnd, "bound_by": by}
             if kernel == "K5":
+                if row["path"] == "stream":
+                    row["plan"] = qm.stream_plan(m, d, f,
+                                                 d // quant.INT4_GROUP)
                 row["library_ms"] = time_ms(lambda: x @ w, flush=flush)
                 row["library"] = "x @ w, w dequantized to x's dtype " \
                                  "beforehand"
@@ -668,6 +695,10 @@ def phase_quant_kernels(dev, flush):
                 row["library"] = "none: no PyTorch call scales int32 " \
                                  "partial products per group"
             record(row, ok)
+            if kernel == "K5" and dt_name == "bfloat16" and \
+                    row["path"] != ("stream" if m <= qm.STREAM_MAX_M
+                                    else "wgmma"):
+                raise AssertionError(f"K5 {row['case']}: path {row['path']}")
             del out, want
         del x, q4, s, w
     # K5's tiled edges: the smallest tiled M (33) and M ragged against the
@@ -701,6 +732,36 @@ def phase_quant_kernels(dev, flush):
                 "library": "x @ w, w dequantized to x's dtype beforehand",
                 "bound_ms": bnd, "bound_by": by}, ok)
         del x, q4, s, w, out, want
+    # K5's stream edges, untimed: one and eight tokens and a ragged 17 at
+    # the fused q/k/v shape (all split over the contraction), and F % 16 =
+    # 8 at M = 32, a layout the stream body refuses, on the split qgemm
+    for m, d, f, want_path in ((1, 4096, 6144, "stream"),
+                               (8, 4096, 6144, "stream"),
+                               (17, 4096, 6144, "stream"),
+                               (32, 4096, 4104, "split")):
+        x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
+        q4 = torch.randint(-128, 128, (d // 2, f), generator=g,
+                           dtype=torch.int8, device=dev)
+        s = torch.rand(d // quant.INT4_GROUP, f, generator=g, device=dev) \
+            * (2 * d ** -0.5 / 4.61)
+        before = dict(qm.int4_matmul.launches_by_body)
+        out = qm.int4_matmul(x, q4, s)
+        torch.cuda.synchronize()
+        ran = [b for b, n in qm.int4_matmul.launches_by_body.items()
+               if n != before[b]]
+        want = qm.int4_matmul_ref(x, q4, s)
+        top = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        row = {"kernel": "K5", "case": f"edge_m{m}_d{d}_f{f}",
+               "dtype": "bfloat16", "shape": [m, d, f], "path": ran,
+               "plan": qm.stream_plan(m, d, f, d // quant.INT4_GROUP)
+               if want_path == "stream" else None,
+               "max_abs_err": err, "tol": K5_RTOL["bfloat16"] * top}
+        emit(row)
+        if ran != [want_path] or not bool(torch.isfinite(out).all()) or \
+                not err <= K5_RTOL["bfloat16"] * top:
+            raise AssertionError(f"K5 {row['case']}: {row}")
+        del x, q4, s, out, want
     a8_cases = [(d, f, 4096, "bfloat16") for d, f in A8_SHAPES] + \
         [(4096, 4096, 4096, "float32")]
     for d, f, m, dt_name in a8_cases:
@@ -1610,9 +1671,11 @@ def phase_int4_serve(dev, cfg, smi):
         if launches[on] != row["expected"]:
             raise AssertionError(f"int4 {label}: launches {launches}, "
                                  f"expected {row['expected']} on {on}")
-        # each wave's 4 layer projections a layer take K5's wgmma body
-        check_bodies(f"int4 {label}", bodies,
-                     4 * cfg.n_layers * waves if on == "K5" else 0)
+        # each wave's 4 layer projections a layer take K5's wgmma body;
+        # decode and the waves' lm_head its stream body
+        wg = 4 * cfg.n_layers * waves if on == "K5" else 0
+        check_bodies(f"int4 {label}", bodies, wg,
+                     row["expected"] - wg if on == "K5" else 0)
         return launches, bodies
 
     generation.sample = checked_sample
@@ -1673,6 +1736,7 @@ def phase_int4_wave(cfg, eng, prompts, smi):
            "launches_by_body": bodies, "device": smi}
     emit(row)
     if bodies["K5"]["wgmma"] != 4 * cfg.n_layers or \
+            bodies["K5"]["stream"] != 1 or \
             bodies["K1"]["wgmma"] != cfg.n_layers:
         raise AssertionError(f"int4 wave launches by body: {bodies}")
     return row
@@ -1713,6 +1777,7 @@ KERNEL_FAMILIES = {
     "K3 seeded (paged_wgmma)": ("paged_wgmma",),
     "K3 CUDA cores (paged_partial_kernel)": ("paged_partial_kernel",),
     "K5 wgmma (int4_wgmma)": ("int4_wgmma",),
+    "K5 stream (int4_stream)": ("int4_stream",),
     "K5 split, K4, K6 (qgemm, quantize_rows, int4_simt)":
         ("qgemm", "quantize_rows", "int4_simt"),
 }
@@ -1978,7 +2043,7 @@ def main() -> int:
             "int8_matmul_tiled": ("wgmma", "int8_wgmma.cuh"),
             "paged_attention": ("decode", "paged_decode.cuh"),
             "paged_attention_seeded": ("seeded", "paged_wgmma.cuh"),
-            "int4_matmul": ("split", "int4_matmul.cu"),
+            "int4_matmul": ("stream", "int4_stream.cuh"),
             "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
         }.get(name, (None, f"{name}.cu"))
         extra = {}

@@ -9,7 +9,8 @@
 // f32; q4 packed int4 [D/2, F] (byte row i holds row 2i in its low nibble,
 // 2i+1 in its high one), unpacked on chip — in registers for the mma.sync
 // bodies, where one packed byte is one k-pair of one column, a bf16x2 word
-// of the B fragment; into shared memory for the wgmma body; scale
+// of the B fragment (of the A fragment in the stream body, which swaps the
+// operands); into shared memory for the wgmma body; scale
 // [G, F] per group of D/G rows. Each group's partial product is summed in
 // f32, multiplied by the group's scale row in f32 and then added to the f32
 // sum (the reference's order: partial, scale, accumulate); the result is
@@ -19,13 +20,18 @@
 // What bounds it on this card, and what the design does about it:
 //   * Decode (M = the slot count, 32 in the 3072-context deployment): ~4*M
 //     flops per packed weight byte, far below the ~295 flop/byte bf16
-//     ridge: bound by reading the packed bytes once (3.35 TB/s). The wrapper
-//     passes splits > 0 for M <= 32: a 32-row tile (mma.sync m16n8k16
-//     bf16 -> f32), 128 columns a block, the contraction split by whole
-//     scale groups over blockIdx.z so even the 4096-wide projections put
-//     hundreds of blocks in flight; partials go to an f32 workspace summed
-//     in a fixed order by a second pass. This path still loads with __ldg
-//     into one shared buffer (no asynchronous copy): its redesign is owed.
+//     ridge: bound by reading the packed bytes once (3.35 TB/s), which
+//     needs tens of KB of weight in flight on every SM.
+//     `int4_matmul_stream_fwd` runs the stream body of int4_stream.cuh for
+//     bf16 x at M <= 32: TMA keeps four 8 KB weight stages in flight a CTA
+//     through an mbarrier ring, the weight unpacked in registers (a byte
+//     permute, a lop3 and one bf16x2 subtract per byte) is mma.sync's A
+//     operand with the tokens as n8 tiles, and the contraction is split by
+//     whole groups only where F is narrow, the last CTA of a column tile
+//     summing the splits in order (see that header's note). Layouts it
+//     refuses (group % 128, F % 16) keep the split `qgemm` of
+//     quant_mma.cuh: a 32-row tile, 128 columns a block, whole groups a
+//     split over blockIdx.z, an f32 workspace summed by a second pass.
 //   * Prefill (M > 32, up to 2 x 2816): bound by operations on the bf16
 //     tensor cores (989 TFLOP/s). `int4_matmul_wgmma_fwd` runs the Hopper
 //     body of int4_wgmma.cuh: wgmma m64n192k16 fed by TMA through a
@@ -35,6 +41,7 @@
 //     mma.sync tiling of quant_mma.cuh, which K4 and K6 share.
 //   * f32 x (a test dtype; serving is bf16): a 64x64-tile CUDA-core loop.
 
+#include "int4_stream.cuh"
 #include "int4_wgmma.cuh"
 #include "quant_mma.cuh"
 
@@ -137,6 +144,27 @@ extern "C" int int4_matmul_wgmma_fwd(const void* x, const void* q4,
                           static_cast<const float*>(scale),
                           static_cast<__nv_bfloat16*>(out), M, D, F, D / G,
                           static_cast<cudaStream_t>(stream));
+}
+
+// the stream body (bf16 x, M <= 32): x, q4, scale, out, workspace and
+// counters (both unused when splits == 1), and the wrapper's plan: column
+// tile tn, splits, whole groups a split
+extern "C" int int4_matmul_stream_fwd(const void* x, const void* q4,
+                                      const void* scale, void* out,
+                                      void* workspace, void* counters, int M,
+                                      int D, int F, int G, int tn, int splits,
+                                      int per, void* stream) {
+  return (int)k5s::launch(x, static_cast<const int8_t*>(q4),
+                          static_cast<const float*>(scale),
+                          static_cast<__nv_bfloat16*>(out),
+                          static_cast<float*>(workspace),
+                          static_cast<int*>(counters), M, D, F, G, tn,
+                          splits, per, static_cast<cudaStream_t>(stream));
+}
+
+// the stream body's dynamic shared memory a CTA for nt token tiles (1-4)
+extern "C" int int4_matmul_stream_smem(int nt) {
+  return (int)k5s::smem_for(nt);
 }
 
 // the wgmma body's dynamic shared memory a CTA, in bytes

@@ -57,6 +57,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "int4_matmul_wgmma_fwd": [_P] * 4 + [_I] * 4 + [_P],
         # the wgmma body's dynamic shared memory in bytes
         "int4_matmul_wgmma_smem": [],
+        # x, q4, scale, out, workspace, counters, M, D, F, G, tn, splits,
+        # per, stream (the stream body, bf16 x, M <= 32)
+        "int4_matmul_stream_fwd": [_P] * 6 + [_I] * 7 + [_P],
+        # token tiles (1-4) -> the stream body's dynamic shared memory
+        "int4_matmul_stream_smem": [_I],
     },
     "w8a8_matmul": {
         # x, q, scale, out, xq, sx, M, D, F, is_bf16, stream

@@ -18,11 +18,12 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
   is signed int4, two nibbles a byte along the contraction axis
   (``pack_int4``), with one f32 scale per (group of D/G rows, column);
   each group's f32 partial product is scaled before it is accumulated.
-  Four bodies, chosen by :func:`int4_body` from dtype and shape alone:
-  the Hopper wgmma GEMM of ``csrc/int4_wgmma.cuh`` for the prefill
-  extents, the mma.sync tiling of ``csrc/quant_mma.cuh`` for tiled
-  layouts the wgmma body does not take, the split streaming path for
-  decode, and a CUDA-core loop for f32 x.
+  Five bodies, chosen by :func:`int4_body` from dtype and shape alone:
+  the Hopper weight stream of ``csrc/int4_stream.cuh`` for decode, the
+  Hopper wgmma GEMM of ``csrc/int4_wgmma.cuh`` for the prefill extents,
+  the mma.sync tiling and the split streaming path of
+  ``csrc/quant_mma.cuh`` for layouts those two do not take, and a
+  CUDA-core loop for f32 x.
 * K4 ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, ``_kernel_w8a8``): x is
   quantized to int8 per row (``quantize_rows``), the int8 product is
   summed in int32, and the output is ``acc · sx · sw``.
@@ -52,14 +53,24 @@ GEMV_MAX_M = 8
 _GEMV_COLS = 256
 _GEMV_BLOCKS = 512
 _GEMV_MIN_ROWS = 16
-#: rows up to which K5 (bf16 x) and K6 take their streaming path: a
-#: 32-row tile split over the contraction axis by whole scale groups, so a
-#: decode step of 32 slots streams the packed weight once with hundreds of
-#: blocks in flight. Decided here alone: the kernels run it when given
-#: splits > 0 and their 128-row prefill tiling for splits = 0.
+#: rows up to which K5 (bf16 x) and K6 take their decode paths: K5 its
+#: stream body (``int4_stream.cuh``, planned by :func:`stream_plan`), or,
+#: for layouts that body refuses, the split ``qgemm``; K6 always the split
+#: ``qgemm``. The split ``qgemm`` is a 32-row tile split over the
+#: contraction axis by whole scale groups (:func:`stream_splits`); its
+#: kernels run it when given splits > 0 and their 128-row prefill tiling
+#: for splits = 0. Decided here alone.
 STREAM_MAX_M = 32
-_STREAM_COLS = 128        # the kernels' output columns per block
+_STREAM_COLS = 128        # the split qgemm's output columns per block
 _STREAM_BLOCKS = 528      # blocks the split aims for: 4 per SM on 132 SMs
+#: K5's stream body: output columns a CTA (its tiles), unpacked contraction
+#: rows a stage (a scale group must be whole stages), the column multiple
+#: its TMA loads need (a 16-byte row pitch), and the CTAs it aims to keep
+#: resident (two an SM on 132 SMs)
+STREAM_TN = 128
+K5_STREAM_KSTEP = 128
+K5_STREAM_COLS = 16
+_STREAM_SLOTS = 264
 #: unpacked contraction rows per k-step of the CUDA kernels: K5's bf16
 #: tile (32 rows) and K4's / K6's int8 tile (64 rows). A scale group must
 #: be a whole number of steps, and D a multiple of the step.
@@ -71,7 +82,7 @@ A8_KSTEP = 64
 K5_WGMMA_KSTEP = 64
 K5_WGMMA_COLS = 16
 #: K5's bodies, the keys of ``int4_matmul.launches_by_body``
-K5_BODIES = ("wgmma", "mma_sync", "split", "simt")
+K5_BODIES = ("stream", "wgmma", "mma_sync", "split", "simt")
 #: K2's wgmma body (``csrc/int8_wgmma.cuh``): contraction rows a stage (D
 #: must be whole stages) and the column multiple its TMA loads of the
 #: weight need (a 16-byte row pitch)
@@ -171,6 +182,28 @@ def int4_matmul_ref(x: torch.Tensor, q4: torch.Tensor,
     return acc.to(x.dtype).reshape(*x.shape[:-1], f)
 
 
+def int4_matmul_stream_ref(x: torch.Tensor, q4: torch.Tensor,
+                           scale: torch.Tensor, per: int) -> torch.Tensor:
+    """K5's stream body in its order of operations, on any device: the
+    groups cut into splits of ``per`` whole groups; in each split, each
+    group's f32 partial product times its scale row, summed from zero in
+    group order; the splits' sums added in split order; one rounding to
+    x's dtype. With one split it is :func:`int4_matmul_ref`."""
+    d = x.shape[-1]
+    group = _int4_groups(d, q4, scale)
+    f, g = q4.shape[-1], scale.shape[0]
+    xm = x.reshape(-1, d).float()
+    total = None
+    for g0 in range(0, g, per):
+        acc = torch.zeros(xm.shape[0], f, dtype=torch.float32,
+                          device=x.device)
+        for gi in range(g0, min(g, g0 + per)):
+            w = unpack_int4(q4[gi * group // 2:(gi + 1) * group // 2]).float()
+            acc += (xm[:, gi * group:(gi + 1) * group] @ w) * scale[gi].float()
+        total = acc if total is None else total + acc
+    return total.to(x.dtype).reshape(*x.shape[:-1], f)
+
+
 def w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
                     scale: torch.Tensor) -> torch.Tensor:
     """Plain version of K4 on any device: ``quantize_rows(x)``, the int8
@@ -221,8 +254,8 @@ def gemv_splits(m: int, d: int, f: int) -> int:
 
 
 def stream_splits(m: int, groups: int, f: int) -> int:
-    """Contraction-axis splits of K5's and K6's streaming path (0 for the
-    tiled path): whole scale groups per split, enough splits to put about
+    """Contraction-axis splits of the split ``qgemm`` — K6's decode path
+    and K5's for layouts its stream body refuses (0 for the tiled path): whole scale groups per split, enough splits to put about
     ``_STREAM_BLOCKS`` blocks in flight, and none empty. Partials go to an
     f32 workspace [splits, M, F] summed in a fixed order by a second pass."""
     if m > STREAM_MAX_M:
@@ -231,6 +264,19 @@ def stream_splits(m: int, groups: int, f: int) -> int:
     want = max(1, min(groups, -(-_STREAM_BLOCKS // col_tiles)))
     per = -(-groups // want)
     return -(-groups // per)
+
+
+def stream_plan(m: int, d: int, f: int, groups: int) -> tuple[int, int, int]:
+    """The grid of K5's stream body: (column tile width, splits, whole
+    groups a split). Tiles are ``STREAM_TN`` columns; the contraction is
+    split by whole groups only as far as it takes to bring the CTAs toward
+    ``_STREAM_SLOTS`` (all resident at once), and no further than keeps the
+    f32 workspace (splits × M × F × 4 bytes) at most a quarter of the
+    packed weight's bytes (D/2 × F). No split is empty."""
+    tiles = -(-f // STREAM_TN)
+    cap = max(1, min(groups, _STREAM_SLOTS // tiles, d // (32 * max(m, 1))))
+    per = -(-groups // cap)
+    return STREAM_TN, -(-groups // per), per
 
 
 def int8_body(m: int, d: int, f: int, dtype: torch.dtype) -> str:
@@ -258,14 +304,19 @@ def int8_tile_n(m: int, f: int) -> int:
 
 def int4_body(m: int, f: int, group: int, dtype: torch.dtype) -> str:
     """The body of K5 that a CUDA call runs, from dtype and shape alone:
-    ``"simt"`` (the CUDA-core loop) for f32 x at every M; for bf16 x,
-    ``"split"`` (the streaming path) up to ``STREAM_MAX_M`` rows, and above
-    it ``"wgmma"`` (the Hopper GEMM) where the scale group is whole 64-row
-    stages and F a multiple of 16, else ``"mma_sync"`` (the tiling K4 and
-    K6 share). Every Mistral-7B int4 projection at M > 32 is ``"wgmma"``."""
+    ``"simt"`` (the CUDA-core loop) for f32 x at every M; for bf16 x up to
+    ``STREAM_MAX_M`` rows ``"stream"`` (the Hopper weight stream) where the
+    scale group is whole 128-row stages and F a multiple of 16, else
+    ``"split"`` (the split qgemm K6 shares); above it ``"wgmma"`` (the
+    Hopper GEMM) where the scale group is whole 64-row stages and F a
+    multiple of 16, else ``"mma_sync"`` (the tiling K4 and K6 share).
+    Every Mistral-7B int4 projection (group 256) is ``"stream"`` at
+    M <= 32 and ``"wgmma"`` above."""
     if dtype != torch.bfloat16:
         return "simt"
     if m <= STREAM_MAX_M:
+        if group % K5_STREAM_KSTEP == 0 and f % K5_STREAM_COLS == 0:
+            return "stream"
         return "split"
     if group % K5_WGMMA_KSTEP == 0 and f % K5_WGMMA_COLS == 0:
         return "wgmma"
@@ -305,6 +356,21 @@ def _check_kernel_shape(name: str, d: int, f: int, kstep: int,
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+#: per device, the stream body's split counters (one int32 a column tile):
+#: zero between launches, since the last CTA of a tile resets its own. Its
+#: launches on one device must therefore not run concurrently on two
+#: streams.
+_stream_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _stream_counters.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _stream_counters[device] = c
+    return c
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
@@ -366,6 +432,18 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
         err = lib.int4_matmul_wgmma_fwd(
             x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, d, f, g, _stream(x))
+    elif body == "stream":
+        tn, splits, per = stream_plan(m, d, f, g)
+        ws = cnt = None
+        if splits > 1:
+            ws = torch.empty((splits, m, f), dtype=torch.float32,
+                             device=x.device)
+            cnt = _counters(x.device, -(-f // tn))
+        err = lib.int4_matmul_stream_fwd(
+            x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            cnt.data_ptr() if cnt is not None else None,
+            m, d, f, g, tn, splits, per, _stream(x))
     else:
         splits = stream_splits(m, g, f) if body == "split" else 0
         ws = torch.empty((splits, m, f), dtype=torch.float32,

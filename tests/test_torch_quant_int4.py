@@ -169,8 +169,12 @@ def test_mistral_int4_waves_take_the_wgmma_body(m, d, f):
 
 
 @pytest.mark.parametrize("m,f,group,dtype,body", [
-    (1, 4096, 256, torch.bfloat16, "split"),
-    (32, 28672, 256, torch.bfloat16, "split"),
+    (1, 4096, 256, torch.bfloat16, "stream"),
+    (32, 28672, 256, torch.bfloat16, "stream"),
+    (32, 4104, 256, torch.bfloat16, "split"),          # F % 16 = 8
+    (8, 4096, 64, torch.bfloat16, "split"),            # group % 128 = 64
+    (1, 4096, 32, torch.bfloat16, "split"),            # group % 128 = 32
+    (17, 6152, 128, torch.bfloat16, "split"),          # F % 16 = 8
     (33, 4096, 256, torch.bfloat16, "wgmma"),
     (4096, 4104, 256, torch.bfloat16, "mma_sync"),     # F % 16 = 8
     (4096, 4096, 32, torch.bfloat16, "mma_sync"),      # group % 64 = 32
