@@ -11,17 +11,25 @@
 // applied in f32 once at the end, out in x's dtype. Any M, D, F.
 //
 // What bounds it on this card, and what the design does about it:
-//   * Decode (M = the slot count, 4): ~2·M flops per weight byte, far below
-//     the H100's ~295 flop/byte ridge — bound by reading the int8 bytes once
-//     (3.35 TB/s). Path `gemv_partial` + `gemv_reduce` (M <= 8, taken when
-//     the wrapper passes splits > 0; it alone decides): each lane
-//     streams 8 consecutive int8 columns of a weight row with one 8-byte
-//     load, warps of a block take interleaved rows, and the contraction axis
-//     is split over blockIdx.y so even the 1024-wide k/v projections put
-//     hundreds of blocks in flight. Per-split partials go to an f32
-//     workspace [splits, M, F] (allocated by the wrapper) and a second pass
-//     sums them in a fixed order — deterministic, no atomics — then scales
-//     and rounds.
+//   * Decode (M = the slot count, 4 contiguous or 8 paged): ~2·M flops per
+//     weight byte, far below the H100's ~295 flop/byte ridge — bound by
+//     reading the int8 bytes once (3.35 TB/s). bf16 x with D % 128 == 0
+//     and F % 16 == 0 (every Mistral-7B leaf) runs `int8_matmul_stream_fwd`,
+//     the Hopper weight stream of int8_stream.cuh: TMA keeps four 16 KB
+//     weight stages in flight a CTA through an mbarrier ring, the weight
+//     converted exactly to bf16 in registers (two byte permutes and one f32
+//     subtraction a byte) is mma.sync's A operand with the tokens as one n8
+//     tile, and the contraction is split by whole stages only where F is
+//     narrow, the last CTA of a column tile summing the splits in order —
+//     one launch a call (see that header's note). f32 x and the layouts it
+//     refuses keep the split GEMV, `gemv_partial` + `gemv_reduce` (M <= 8,
+//     taken when the wrapper passes splits > 0): each lane streams 8
+//     consecutive int8 columns of a weight row with one 8-byte load, warps
+//     of a block take interleaved rows, and the contraction axis is split
+//     over blockIdx.y. Per-split partials go to an f32 workspace [splits,
+//     M, F] (allocated by the wrapper) and a second pass sums them in a
+//     fixed order — deterministic, no atomics — then scales and rounds.
+//     The wrapper's shape rule (`int8_body`) picks the body.
 //   * Prefill (M = rows × bucket, 2048-4096 in the int8 waves): bound by
 //     operations on the bf16 tensor cores (989 TFLOP/s). bf16 x with D %
 //     64 == 0 and F % 16 == 0 (every Mistral-7B leaf) runs
@@ -31,8 +39,7 @@
 //     header's note). Other bf16 layouts take `gemm_wmma`: 128×128 output
 //     tiles, 8 warps each owning 32×64, WMMA (mma.sync m16n8k16) fragments
 //     with f32 accumulators, the int8 tile converted on its way into shared
-//     memory, no pipelining. The wrapper's shape rule (`int8_body`) picks
-//     the body; nothing falls back.
+//     memory, no pipelining. Nothing falls back.
 //     Path `gemm_simt` (f32 x): a 64×64-tile CUDA-core loop, kept for f32
 //     callers (tests); the serving dtype is bf16.
 
@@ -41,6 +48,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "int8_stream.cuh"
 #include "int8_wgmma.cuh"
 
 namespace {
@@ -394,6 +402,25 @@ extern "C" int int8_matmul_wgmma_smem(int tn) {
   return tn == 256 ? (int)k2w::smem_bytes<256>()
                    : (int)k2w::smem_bytes<128>();
 }
+
+// the stream body (bf16 x, M <= 8): x, q, scale, out, workspace and
+// counters (both unused when splits == 1), and the wrapper's plan: column
+// tile tn, splits, contraction rows a split
+extern "C" int int8_matmul_stream_fwd(const void* x, const void* q,
+                                      const void* scale, void* out,
+                                      void* workspace, void* counters, int M,
+                                      int D, int F, int tn, int splits,
+                                      int rows, void* stream) {
+  return (int)k2s::launch(x, static_cast<const int8_t*>(q),
+                          static_cast<const float*>(scale),
+                          static_cast<__nv_bfloat16*>(out),
+                          static_cast<float*>(workspace),
+                          static_cast<int*>(counters), M, D, F, tn, splits,
+                          rows, static_cast<cudaStream_t>(stream));
+}
+
+// the stream body's dynamic shared memory a CTA, in bytes
+extern "C" int int8_matmul_stream_smem() { return (int)k2s::SMEM_BYTES; }
 
 extern "C" const char* int8_matmul_error(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -1,7 +1,7 @@
 // K2's tiled path (bf16 x, M > 8: the prefill waves) as a Hopper GEMM with
 // mixed inputs: wgmma tensor-core products fed by TMA through a ring of
 // shared-memory stages, the int8 weight converted to bf16 on chip. Included
-// by int8_matmul.cu; the GEMV path (M <= 8), f32 x and the layouts this
+// by int8_matmul.cu; the decode bodies (M <= 8), f32 x and the layouts this
 // body does not take keep their own bodies there.
 //
 // Replaces: copilot_for_consensus_tpu/ops/quant_matmul.py, `int8_matmul`

@@ -49,6 +49,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "int8_matmul_wgmma_fwd": [_P] * 4 + [_I] * 4 + [_P],
         # tile width -> the wgmma body's dynamic shared memory in bytes
         "int8_matmul_wgmma_smem": [_I],
+        # x, q, scale, out, workspace, counters, M, D, F, tn, splits, rows,
+        # stream (the stream body, bf16 x, M <= 8)
+        "int8_matmul_stream_fwd": [_P] * 6 + [_I] * 6 + [_P],
+        # the stream body's dynamic shared memory in bytes
+        "int8_matmul_stream_smem": [],
     },
     "int4_matmul": {
         # x, q4, scale, out, workspace, M, D, F, G, splits, is_bf16, stream

@@ -9,11 +9,12 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
   scale applied in f32 once at the end. PyTorch has no dequant-fused
   matmul: ``x @ q.to(bf16)`` writes a bf16 copy of the weight and reads it
   back — three times the int8 bytes on a decode step that is bound by
-  them. Four bodies, chosen by :func:`int8_body` from dtype and shape
-  alone: the split GEMV for decode, the Hopper wgmma GEMM of
-  ``csrc/int8_wgmma.cuh`` for the prefill extents, a WMMA tiling for
-  tiled layouts the wgmma body does not take, and a CUDA-core loop for
-  f32 x.
+  them. Five bodies, chosen by :func:`int8_body` from dtype and shape
+  alone: the Hopper weight stream of ``csrc/int8_stream.cuh`` for decode,
+  the Hopper wgmma GEMM of ``csrc/int8_wgmma.cuh`` for the prefill
+  extents, the split GEMV for decode layouts the stream does not take and
+  for f32 x, a WMMA tiling for tiled layouts the wgmma body does not take,
+  and a CUDA-core loop for f32 x.
 * K5 ``int4_matmul`` (``csrc/int4_matmul.cu``, ``_kernel4``): the weight
   is signed int4, two nibbles a byte along the contraction axis
   (``pack_int4``), with one f32 scale per (group of D/G rows, column);
@@ -45,11 +46,21 @@ import torch
 from copilot_for_consensus_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: rows up to which K2 takes its weight-streaming (GEMV) path. This
-#: module alone decides the path: the kernel runs GEMV when it is given
-#: splits > 0 (it is built for M = 1 .. 8) and the tiled path for splits = 0.
+#: rows up to which K2 takes its decode bodies: the stream body
+#: (``int8_stream.cuh``, bf16 x, planned by :func:`int8_stream_plan`) or,
+#: for f32 x and layouts the stream refuses, the split GEMV. This module
+#: alone decides the body: ``int8_matmul_fwd`` runs the GEMV when it is
+#: given splits > 0 (it is built for M = 1 .. 8) and the tiled path for
+#: splits = 0.
 GEMV_MAX_M = 8
-#: GEMV path: output columns per block and the block count it aims for
+#: K2's stream body: output columns a CTA (its tiles), contraction rows a
+#: stage (D must be whole stages), the column multiple its TMA loads need
+#: (a 16-byte row pitch), and the CTAs it aims for (one an SM on 132 SMs)
+K2_STREAM_TN = 128
+K2_STREAM_KSTEP = 128
+K2_STREAM_COLS = 16
+_K2_STREAM_SLOTS = 132
+#: split GEMV: output columns per block and the block count it aims for
 _GEMV_COLS = 256
 _GEMV_BLOCKS = 512
 _GEMV_MIN_ROWS = 16
@@ -89,7 +100,7 @@ K5_BODIES = ("stream", "wgmma", "mma_sync", "split", "simt")
 K2_WGMMA_KSTEP = 64
 K2_WGMMA_COLS = 16
 #: K2's bodies, the keys of ``int8_matmul.launches_by_body``
-K2_BODIES = ("gemv", "wgmma", "wmma", "simt")
+K2_BODIES = ("stream", "gemv", "wgmma", "wmma", "simt")
 #: K2's wgmma body takes 256-column tiles where they make at least this
 #: many CTAs (one wave on 132 SMs), else 128-column ones: the wider tile
 #: reads x from L2 half as often, the narrower keeps the SMs busy when F
@@ -164,6 +175,25 @@ def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     f = q.shape[-1]
     acc = x.float() @ q.float()
     return (acc * scale.reshape(f).float()).to(x.dtype)
+
+
+def int8_matmul_stream_ref(x: torch.Tensor, q: torch.Tensor,
+                           scale: torch.Tensor,
+                           rows_per_split: int) -> torch.Tensor:
+    """K2's stream body in its order of operations, on any device: the
+    contraction cut into splits of ``rows_per_split`` rows; each split's
+    f32 product of x's columns and the int8 rows; the splits' partials
+    added in split order; the sum times the per-column scale in f32; one
+    rounding to x's dtype. With one split it is :func:`int8_matmul_ref`."""
+    d, f = q.shape
+    xm = x.reshape(-1, d).float()
+    total = None
+    for r0 in range(0, d, rows_per_split):
+        part = xm[:, r0:r0 + rows_per_split] @ \
+            q[r0:r0 + rows_per_split].float()
+        total = part if total is None else total + part
+    out = total * scale.reshape(f).float()
+    return out.to(x.dtype).reshape(*x.shape[:-1], f)
 
 
 def int4_matmul_ref(x: torch.Tensor, q4: torch.Tensor,
@@ -243,7 +273,7 @@ def w4a8_matmul_ref(x: torch.Tensor, q4: torch.Tensor,
 
 
 def gemv_splits(m: int, d: int, f: int) -> int:
-    """Contraction-axis splits of K2's GEMV path (0 for the tiled path):
+    """Contraction-axis splits of K2's split GEMV (0 for the tiled path):
     enough blocks to keep the card's memory busy when F is narrow, each
     split at least 16 rows deep. Partials go to an f32 workspace
     [splits, M, F] that a second pass sums in a fixed order."""
@@ -279,14 +309,36 @@ def stream_plan(m: int, d: int, f: int, groups: int) -> tuple[int, int, int]:
     return STREAM_TN, -(-groups // per), per
 
 
+def int8_stream_plan(m: int, d: int, f: int) -> tuple[int, int, int]:
+    """The grid of K2's stream body: (column tile width, splits,
+    contraction rows a split). Tiles are ``K2_STREAM_TN`` columns; the
+    contraction is split by whole ``K2_STREAM_KSTEP``-row stages only as
+    far as it takes to bring the CTAs toward ``_K2_STREAM_SLOTS`` (one an
+    SM), and no further than keeps the f32 workspace (splits × M × F × 4
+    bytes) at most a quarter of the weight's bytes (D × F). So a leaf
+    splits unless its tiles alone fill more than half the slots (F >
+    8448). No split is empty."""
+    tiles = -(-f // K2_STREAM_TN)
+    stages = d // K2_STREAM_KSTEP
+    cap = max(1, min(stages, _K2_STREAM_SLOTS // tiles,
+                     d // (16 * max(m, 1))))
+    per = -(-stages // cap)
+    return K2_STREAM_TN, -(-stages // per), per * K2_STREAM_KSTEP
+
+
 def int8_body(m: int, d: int, f: int, dtype: torch.dtype) -> str:
     """The body of K2 that a CUDA call runs, from dtype and shape alone:
-    ``"gemv"`` (the split weight stream) up to ``GEMV_MAX_M`` rows at
-    either dtype; above it ``"simt"`` (the CUDA-core loop) for f32 x, and
-    for bf16 x ``"wgmma"`` (the Hopper GEMM) where D is whole 64-row
-    stages and F a multiple of 16, else ``"wmma"``. Every Mistral-7B int8
-    projection at M > 8 is ``"wgmma"``."""
+    up to ``GEMV_MAX_M`` rows ``"stream"`` (the Hopper weight stream) for
+    bf16 x where D is whole 128-row stages and F a multiple of 16, else
+    ``"gemv"`` (the split GEMV, and for f32 x); above it ``"simt"`` (the
+    CUDA-core loop) for f32 x, and for bf16 x ``"wgmma"`` (the Hopper GEMM)
+    where D is whole 64-row stages and F a multiple of 16, else
+    ``"wmma"``. Every Mistral-7B int8 projection is ``"stream"`` at M <= 8
+    and ``"wgmma"`` above."""
     if m <= GEMV_MAX_M:
+        if dtype == torch.bfloat16 and d % K2_STREAM_KSTEP == 0 \
+                and f % K2_STREAM_COLS == 0:
+            return "stream"
         return "gemv"
     if dtype != torch.bfloat16:
         return "simt"
@@ -358,10 +410,10 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-#: per device, the stream body's split counters (one int32 a column tile):
-#: zero between launches, since the last CTA of a tile resets its own. Its
-#: launches on one device must therefore not run concurrently on two
-#: streams.
+#: per device, the split counters of the stream bodies of K2 and K5 (one
+#: int32 a column tile), which share them: zero between launches, since
+#: the last CTA of a tile resets its own. Their launches on one device
+#: must therefore not run concurrently on two streams.
 _stream_counters: dict[torch.device, torch.Tensor] = {}
 
 
@@ -395,6 +447,18 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
         err = lib.int8_matmul_wgmma_fwd(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, d, f, int8_tile_n(m, f), _stream(x))
+    elif body == "stream":
+        tn, splits, rows = int8_stream_plan(m, d, f)
+        ws = cnt = None
+        if splits > 1:
+            ws = torch.empty((splits, m, f), dtype=torch.float32,
+                             device=x.device)
+            cnt = _counters(x.device, -(-f // tn))
+        err = lib.int8_matmul_stream_fwd(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            cnt.data_ptr() if cnt is not None else None,
+            m, d, f, tn, splits, rows, _stream(x))
     else:
         splits = gemv_splits(m, d, f)
         ws = torch.empty((splits, m, f), dtype=torch.float32,

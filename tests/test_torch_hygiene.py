@@ -71,7 +71,9 @@ def test_no_jax_imports_in_source(path):
     ("flash_wgmma.cuh", "copilot_for_consensus_tpu/ops/flash_attention.py"),
     ("int8_wgmma.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
     ("paged_decode.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py"),
-    ("paged_wgmma.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py")])
+    ("paged_wgmma.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py"),
+    ("int4_stream.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("int8_stream.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py")])
 def test_kernel_sources_carry_their_note(name, replaces):
     if name.endswith(".cuh"):
         head = (PKG / "csrc" / name).read_text().split("#pragma once")[0]
@@ -111,7 +113,8 @@ def test_every_source_is_built_and_bound():
 @pytest.mark.parametrize("name,bound", [
     ("int8_wgmma.cuh", "bound by operations on the bf16 tensor cores"),
     ("paged_decode.cuh", "bound by the bytes of the attended positions"),
-    ("paged_wgmma.cuh", "bound by bytes")])
+    ("paged_wgmma.cuh", "bound by bytes"),
+    ("int8_stream.cuh", "bound by reading the int8 bytes once")])
 def test_new_bodies_state_their_bound_and_design(name, bound):
     # K2's tiled path is bound by operations, K3 by bytes in both regimes;
     # each note says so and what its design does about it
@@ -125,7 +128,9 @@ def test_new_bodies_state_their_bound_and_design(name, bound):
     ("flash_attention", "flash_attention_wgmma_fwd"),
     ("int8_matmul", "int8_matmul_wgmma_fwd"),
     ("paged_attention", "paged_attention_decode_fwd"),
-    ("paged_attention", "paged_attention_seeded_fwd")])
+    ("paged_attention", "paged_attention_seeded_fwd"),
+    ("int4_matmul", "int4_matmul_stream_fwd"),
+    ("int8_matmul", "int8_matmul_stream_fwd")])
 def test_wgmma_bodies_have_their_own_entry(lib, entry):
     # the wrapper picks a body by calling its entry; the entry is bound with
     # its argument types and defined in the library's source

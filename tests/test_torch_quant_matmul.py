@@ -162,14 +162,15 @@ MISTRAL_INT8 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
 @pytest.mark.parametrize("d,f", MISTRAL_INT8)
 def test_mistral_int8_waves_take_the_wgmma_body(m, d, f):
     # every admission-wave projection goes to the Hopper body, and a decode
-    # step's four rows to the GEMV
+    # step's four rows to the Hopper weight stream
     assert tqm.int8_body(m, d, f, torch.bfloat16) == "wgmma"
-    assert tqm.int8_body(4, d, f, torch.bfloat16) == "gemv"
+    assert tqm.int8_body(4, d, f, torch.bfloat16) == "stream"
 
 
 @pytest.mark.parametrize("m,d,f,dtype,body", [
-    (1, 4096, 4096, torch.bfloat16, "gemv"),
-    (8, 4096, 4096, torch.bfloat16, "gemv"),
+    (1, 4096, 4096, torch.bfloat16, "stream"),
+    (8, 4096, 4096, torch.bfloat16, "stream"),
+    (1, 4096, 4096, torch.float32, "gemv"),
     (8, 4096, 4096, torch.float32, "gemv"),
     (9, 4096, 4096, torch.bfloat16, "wgmma"),
     (300, 128, 208, torch.bfloat16, "wgmma"),
@@ -203,8 +204,8 @@ def test_int8_wrapper_on_cpu_counts_no_body():
     assert torch.equal(int8_matmul(xb, q, scale),
                        int8_matmul_ref(xb, q, scale))
     assert tqm.int8_matmul.launches_by_body == before
-    assert tuple(before) == tqm.K2_BODIES == ("gemv", "wgmma", "wmma",
-                                              "simt")
+    assert tuple(before) == tqm.K2_BODIES == ("stream", "gemv", "wgmma",
+                                              "wmma", "simt")
 
 
 def test_wgmma_conversion_route_is_exact_for_every_byte():
