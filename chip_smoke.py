@@ -11,15 +11,15 @@ non-zero before the last line:
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build   — compiles every kernel of ``copilot_for_consensus_tpu_torch/
    csrc`` into ``build/cuda_kernels/``;
-   then, for the four libraries with a Hopper body (the wgmma bodies of
-   K5, K1, K2 and K3, K3's split-KV decode body and the stream bodies of
-   K5 and K2), one ``build_info`` line each: ptxas's registers, spills and
-   shared memory per kernel, the Hopper bodies' dynamic shared memory, and
-   the counts of HGMMA, UTMALDG, LDGSTS and HMMA instructions per kernel
-   in the SASS (``cuobjdump -sass``; "absent" without it) — the wgmma
-   bodies must show HGMMA and UTMALDG, the stream bodies HMMA and UTMALDG,
-   and the bodies of K2, K3 and the stream bodies must build without
-   spills or a ptxas performance note;
+   then, for the five libraries with a Hopper body (the wgmma bodies of
+   K5, K1, K2, K3 and K6, K3's split-KV decode body and the stream bodies
+   of K5 and K2), one ``build_info`` line each: ptxas's registers, spills
+   and shared memory per kernel, the Hopper bodies' dynamic shared memory,
+   and the counts of HGMMA, IGMMA, UTMALDG, LDGSTS and HMMA instructions
+   per kernel in the SASS (``cuobjdump -sass``; "absent" without it) — the
+   wgmma bodies must show HGMMA (IGMMA for K6's int8 one) and UTMALDG, the
+   stream bodies HMMA and UTMALDG, and the bodies of K2, K3, K6 and the
+   stream bodies must build without spills or a ptxas performance note;
 3. kernels — (after one ``timing_floor`` line: what ``time_ms`` gives a
    one-element kernel, L2 flushed) holds K1 (flash attention) and K2
    (int8 matmul) against their plain PyTorch versions at the full
@@ -72,13 +72,16 @@ non-zero before the last line:
 11. kernels, K5/K4/K6 — (run right after phase 7) the quantized matmuls
    against their plain versions at the int4 / a8 main path's shapes: K5
    (int4 weight-only) and K6 (W4A8) on the five int4 projections at M = 32
-   (decode: K5's stream body) and 5632 (a 2 x 2816 wave), K4 (W8A8) on the
-   four int8 layer projections at M = 4096, plus one f32 case each — timed
-   likewise; K5's tiled edges: M = 33, M = 5000 with F = 6128 (ragged
-   against every tile) on its wgmma body, and F = 4104 on the mma.sync
-   tiling; and, untimed, K5's stream edges: M = 1, 8 and 17 at the fused
-   q/k/v shape, and F = 4104 at M = 32, a layout the stream body refuses,
-   on the split qgemm;
+   (decode: K5's stream body, K6's split qgemm) and 5632 (a 2 x 2816 wave:
+   both wgmma bodies, K6's bit for bit equal to its plain version), K4
+   (W8A8) on the four int8 layer projections at M = 4096, plus one f32
+   case each — timed likewise, K6 beside K5's ``x @ w`` as a yardstick
+   that is not its function; K5's and K6's tiled edges: M = 33, M = 5000
+   with F = 6128 (ragged against every tile) on the wgmma bodies (K6's bit
+   for bit), and F = 4104 on the mma.sync tiling; and, untimed, K6's wgmma
+   body at f32 x (bit for bit), K5's stream edges: M = 1, 8 and 17 at the
+   fused q/k/v shape, and F = 4104 at M = 32, a layout the stream body
+   refuses, on the split qgemm;
 12. a8 model — (run right after phase 4) one 4 x 1024 int8 wave with
    ``set_act_quant("a8")``, through K4 and through the plain versions;
 13. int4 serve — after the paged engine and the int8 weights are freed,
@@ -87,11 +90,13 @@ non-zero before the last line:
    behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
    (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
    forward pass must make 4 quantized launches a layer plus the lm_head's,
-   K5's all on its wgmma body in the waves' layers and on its stream body
-   in decode and the waves' lm_head;
+   all on the wgmma body (K5's, K6's) in the waves' layers, and on K5's
+   stream body or K6's split qgemm in decode and the waves' lm_head;
 14. int4 wave and trace — one admission wave of the int4 engine (2 x
    2816) traced by kernel: device ms by kernel and by family, and the
-   launches of each body; then phase 6 on the int4 engine, 32 slots busy;
+   launches of each body; the same wave again in a8 (128 launches of K6's
+   wgmma body, 1 of its split qgemm, 32 of K1); then phase 6 on the int4
+   engine, 32 slots busy;
 15. probe — (run right after phase 11, before the 7B weights are made) the
    weight-stream probe P: its five modes (dma, convdot, i8dot, unpack8,
    unpack32) against their plain versions at one [128, 4096] x [4096,
@@ -102,15 +107,17 @@ non-zero before the last line:
    the counts reset before: each mode must launch 400 times, and none may
    stream faster than 1.05 x 3.35 TB/s.
 
-Every serve phase counts K1's, K2's, K3's and K5's launches by body: the
-main path's K1 launches must all be the wgmma body's, its K2 launches the
-stream body's or the wgmma body's (never the GEMV, WMMA or the CUDA-core
-loop; 7 a layer and one for the lm_head a forward pass), its K3
-launches the decode or seeded body's, and no K5 launch may take the
-split qgemm, the mma.sync or CUDA-core tiled bodies (on the int4 path the
-wgmma body makes 4 launches a layer a wave, the stream body the rest).
+Every serve phase counts K1's, K2's, K3's, K5's and K6's launches by body:
+the main path's K1 launches must all be the wgmma body's, its K2 launches
+the stream body's or the wgmma body's (never the GEMV, WMMA or the
+CUDA-core loop; 7 a layer and one for the lm_head a forward pass), its K3
+launches the decode or seeded body's, no K5 launch may take the split
+qgemm, the mma.sync or CUDA-core tiled bodies, and no K6 launch the
+mma.sync tiling (on the int4 path each kernel's wgmma body makes 4
+launches a layer a wave, K5's stream body or K6's split qgemm the rest).
 Then the kernel table (K1-K6; K2's stream and wgmma bodies, K3's decode
-and seeded bodies, and K5's stream and tiled bodies as two rows each; and
+and seeded bodies, K5's stream and tiled bodies and K6's split and tiled
+bodies as two rows each; and
 P's five modes, each with its launches on every path) as one JSON line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. About
 5-7 minutes on one H100 (the host's speed varies), the build included.
@@ -163,10 +170,14 @@ K5_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: finishes with the same two f32 multiplies: equal bit for bit, so 0.
 K4_ATOL = 0.0
 #: K6 (W4A8): exact int32 group products, scaled and summed in group order
-#: with the same f32 operations as the plain version on the tiled path
-#: (equal there); the split qgemm of M <= 32 sums its splits' partials in
-#: another order: f32 level, and one bf16 output rounding at bf16.
+#: with the same f32 operations as the plain version on the tiled paths
+#: (the wgmma body, which must equal it bit for bit, and the mma.sync
+#: tiling); the split qgemm of M <= 32 sums its splits' partials in another
+#: order: f32 level, and one bf16 output rounding at bf16.
 K6_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: K6's yardstick: K5's ``x @ w``, timed once a case
+K6_YARDSTICK = ("x @ w, w dequantized to bf16 beforehand: not the same "
+                "function (bf16 weights, no activation quantization)")
 #: P (the weight-stream probe) vs its plain versions at one full layer.
 #: dma and i8dot sum integers exactly and finish with the same f32 addition
 #: or multiply and one bf16 rounding: equal bit for bit, so 0. convdot and
@@ -280,7 +291,7 @@ def check_path(label: str, launches: dict, used) -> None:
 
 #: kernels with more than one body; each wrapper's ``launches_by_body``
 #: counts each body's launches
-BODY_KERNELS = ("K1", "K2", "K3", "K5")
+BODY_KERNELS = ("K1", "K2", "K3", "K5", "K6")
 
 
 def read_bodies() -> dict:
@@ -302,28 +313,30 @@ def check_k2_passes(label: str, launches: dict, bodies: dict,
 
 
 def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
-                 k5_stream: int | None = None):
+                 k5_stream: int | None = None, k6_wgmma: int | None = None,
+                 k6_split: int | None = None):
     """The main path's K1 launches all went to the wgmma body, its K2
     launches to the stream body (M <= 8) and the wgmma body (never the
     split GEMV, WMMA or the CUDA-core loop), its K3 launches to the decode
-    and seeded bodies (never the CUDA-core one), and its K5 launches (if
-    any) to the wgmma and stream bodies, never to the split qgemm, the
-    mma.sync or CUDA-core tiled bodies; ``k5_wgmma`` and ``k5_stream`` are
-    the counts those two bodies must have."""
+    and seeded bodies (never the CUDA-core one), its K5 launches (if any)
+    to the wgmma and stream bodies, never to the split qgemm, the mma.sync
+    or CUDA-core tiled bodies, and its K6 launches (if any) to the wgmma
+    body and the split qgemm, never to the mma.sync tiling; ``k5_wgmma``,
+    ``k5_stream``, ``k6_wgmma`` and ``k6_split`` are the counts those
+    bodies must have."""
     old = {"K1": ("simt",), "K2": ("gemv", "wmma", "simt"), "K3": ("simt",),
-           "K5": ("split", "mma_sync", "simt")}
+           "K5": ("split", "mma_sync", "simt"), "K6": ("mma_sync",)}
     for k, names in old.items():
         if any(bodies[k][n] for n in names):
             raise AssertionError(f"{label}: an old {k} body launched: "
                                  f"{bodies}")
-    if k5_wgmma is not None and bodies["K5"]["wgmma"] != k5_wgmma:
-        raise AssertionError(f"{label}: K5's wgmma body launched "
-                             f"{bodies['K5']['wgmma']} times, expected "
-                             f"{k5_wgmma}")
-    if k5_stream is not None and bodies["K5"]["stream"] != k5_stream:
-        raise AssertionError(f"{label}: K5's stream body launched "
-                             f"{bodies['K5']['stream']} times, expected "
-                             f"{k5_stream}")
+    for k, body, want in (("K5", "wgmma", k5_wgmma),
+                          ("K5", "stream", k5_stream),
+                          ("K6", "wgmma", k6_wgmma),
+                          ("K6", "split", k6_split)):
+        if want is not None and bodies[k][body] != want:
+            raise AssertionError(f"{label}: {k}'s {body} body launched "
+                                 f"{bodies[k][body]} times, expected {want}")
 
 
 #: the libraries with Hopper bodies: the wgmma body's kernel (which must
@@ -332,7 +345,8 @@ def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
 REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", "k5s::"),
               "flash_attention": ("fa3::flash_wgmma", None),
               "int8_matmul": ("k2w::int8_wgmma", "k2s::"),
-              "paged_attention": ("k3s::paged_wgmma", "k3d::")}
+              "paged_attention": ("k3s::paged_wgmma", "k3d::"),
+              "w4a8_matmul": ("k6w::w4a8_wgmma", None)}
 
 
 def wgmma_smem(name: str, lib) -> dict:
@@ -345,6 +359,8 @@ def wgmma_smem(name: str, lib) -> dict:
         return {**{f"k2w::int8_wgmma<{tn}>": lib.int8_matmul_wgmma_smem(tn)
                    for tn in (128, 256)},
                 "k2s::int8_stream": lib.int8_matmul_stream_smem()}
+    if name == "w4a8_matmul":
+        return {"k6w::w4a8_wgmma": lib.w4a8_matmul_wgmma_smem()}
     fn = (lib.flash_attention_wgmma_smem if name == "flash_attention"
           else lib.paged_attention_seeded_smem)
     return {f"{REDESIGNED[name][0]}<{d}>": fn(d) for d in (64, 128)}
@@ -352,12 +368,13 @@ def wgmma_smem(name: str, lib) -> dict:
 
 #: the bodies of the last slices: ptxas must report them without spills
 #: and without a performance note (C75xx: serialized wgmma and the like)
-NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::")
+NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::", "k6w::")
 #: Hopper bodies on mma.sync (not wgmma), by kernel prefix: the SASS
 #: instructions each of their kernels must show
 MMA_SYNC_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
                    "k2s::": ("HMMA", "UTMALDG")}
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+#: (wgmma is HGMMA in the SASS on 16-bit operands, IGMMA on 8-bit integers)
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
 
 def short_name(mangled: str) -> str:
@@ -459,10 +476,10 @@ def phase_build_info():
         emit(row)
         if isinstance(sass, dict):
             mine = {f: c for f, c in sass.items() if f.startswith(body)}
-            if not mine or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
-                               for c in mine.values()):
+            if not mine or any(c["HGMMA"] + c["IGMMA"] == 0
+                               or c["UTMALDG"] == 0 for c in mine.values()):
                 raise AssertionError(f"{name}: the wgmma body's SASS lacks "
-                                     f"HGMMA or UTMALDG: {mine}")
+                                     f"HGMMA/IGMMA or UTMALDG: {mine}")
             if others and not any(f.startswith(others) for f in sass):
                 raise AssertionError(f"{name}: no kernel of {others} built")
             for prefix, ops in MMA_SYNC_BODIES.items():
@@ -718,11 +735,12 @@ def phase_quant_kernels(dev, flush):
     """K5, K4 and K6 against their plain versions at the int4 / a8 main
     path's shapes: K5 and K6 at M = 32 (a decode step of the 3072-context
     deployment's 32 slots: K5's stream body, K6's split qgemm) and M =
-    5632 (its
-    2 x 2816 admission wave, the tiled path), K4 at M = 4096 (the 4 x 1024
-    wave), bf16 — plus one f32 case each. Timed beside the bound, the plain
-    version and a PyTorch yardstick where one call computes the same
-    function."""
+    5632 (its 2 x 2816 admission wave: both wgmma bodies, K6's bit for bit
+    equal to its plain version), K4 at M = 4096 (the 4 x 1024 wave), bf16
+    — plus one f32 case each; then both kernels' tiled edges. Timed beside
+    the bound, the plain version and a PyTorch yardstick: K5's and K6's
+    the same ``x @ w`` (w dequantized to bf16 beforehand), timed once a
+    case, which for K6 is not the same function."""
     import torch
 
     from copilot_for_consensus_tpu_torch.models import quant
@@ -748,6 +766,7 @@ def phase_quant_kernels(dev, flush):
         s = torch.rand(d // quant.INT4_GROUP, f, generator=g, device=dev) \
             * (2 * d ** -0.5 / 4.61)
         w = quant.dequant_int4({"q4": q4, "scale": s}, dt)
+        lib_ms = time_ms(lambda: x @ w, flush=flush)
         for kernel, fn, ref, rtol, peak in (
                 ("K5", qm.int4_matmul, qm.int4_matmul_ref, K5_RTOL, dt_name),
                 ("K6", qm.w4a8_matmul, qm.w4a8_matmul_ref, K6_RTOL, "int8")):
@@ -762,34 +781,37 @@ def phase_quant_kernels(dev, flush):
                    "dtype": dt_name, "shape": [m, d, f],
                    "path": qm.int4_body(m, f, quant.INT4_GROUP, dt)
                    if kernel == "K5" else
-                   "split" if m <= qm.STREAM_MAX_M else "tiled",
+                   qm.w4a8_body(m, d, f, quant.INT4_GROUP, dt),
                    "max_abs_err": err, "tol": rtol[dt_name] * top,
                    "ms": time_ms(lambda: fn(x, q4, s), flush=flush),
                    "plain_ms": time_ms(lambda: ref(x, q4, s), n=3,
                                        flush=flush),
-                   "bound_ms": bnd, "bound_by": by}
+                   "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
             if kernel == "K5":
                 if row["path"] == "stream":
                     row["plan"] = qm.stream_plan(m, d, f,
                                                  d // quant.INT4_GROUP)
-                row["library_ms"] = time_ms(lambda: x @ w, flush=flush)
                 row["library"] = "x @ w, w dequantized to x's dtype " \
                                  "beforehand"
             else:
-                row["library_ms"] = None
-                row["library"] = "none: no PyTorch call scales int32 " \
-                                 "partial products per group"
+                row["bit_equal"] = bool(torch.equal(out, want))
+                row["library"] = K6_YARDSTICK
             record(row, ok)
-            if kernel == "K5" and dt_name == "bfloat16" and \
-                    row["path"] != ("stream" if m <= qm.STREAM_MAX_M
-                                    else "wgmma"):
-                raise AssertionError(f"K5 {row['case']}: path {row['path']}")
+            want_path = {"K5": ("stream", "wgmma"),
+                         "K6": ("split", "wgmma")}[kernel][
+                             m > qm.STREAM_MAX_M]
+            if dt_name == "bfloat16" and row["path"] != want_path:
+                raise AssertionError(f"{kernel} {row['case']}: path "
+                                     f"{row['path']}")
+            if row.get("bit_equal") is False and row["path"] == "wgmma":
+                raise AssertionError(f"K6 {row['case']}: the wgmma body is "
+                                     f"not bit-equal to its plain version")
             del out, want
         del x, q4, s, w
-    # K5's tiled edges: the smallest tiled M (33) and M ragged against the
-    # 128-row tiles with F ragged against the 128-column ones (5000 x 6128),
-    # both on the wgmma body; and F % 16 = 8, a layout that body does not
-    # take, on the mma.sync tiling it leaves to
+    # K5's and K6's tiled edges: the smallest tiled M (33) and M ragged
+    # against the tiles with F ragged against the 128-column ones (5000 x
+    # 6128), both on the wgmma bodies (K6's bit for bit); and F % 16 = 8, a
+    # layout those bodies do not take, on the mma.sync tiling they leave to
     for m, d, f in ((33, 4096, 6144), (5000, 4096, 6128), (512, 4096, 4104)):
         x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
         q4 = torch.randint(-128, 128, (d // 2, f), generator=g,
@@ -797,26 +819,61 @@ def phase_quant_kernels(dev, flush):
         s = torch.rand(d // quant.INT4_GROUP, f, generator=g, device=dev) \
             * (2 * d ** -0.5 / 4.61)
         w = quant.dequant_int4({"q4": q4, "scale": s}, torch.bfloat16)
-        out = qm.int4_matmul(x, q4, s)
-        torch.cuda.synchronize()
-        want = qm.int4_matmul_ref(x, q4, s)
-        top = want.float().abs().max().item()
-        err = (out.float() - want.float()).abs().max().item()
-        ok = bool(torch.isfinite(out).all()) and \
-            err <= K5_RTOL["bfloat16"] * top
-        bnd, by = bound_ms(nbytes(x, q4, s, out), 2.0 * m * d * f,
-                           "bfloat16")
-        record({"kernel": "K5", "case": f"m{m}_d{d}_f{f}",
-                "dtype": "bfloat16", "shape": [m, d, f],
-                "path": qm.int4_body(m, f, quant.INT4_GROUP, torch.bfloat16),
-                "max_abs_err": err, "tol": K5_RTOL["bfloat16"] * top,
-                "ms": time_ms(lambda: qm.int4_matmul(x, q4, s), flush=flush),
-                "plain_ms": time_ms(lambda: qm.int4_matmul_ref(x, q4, s),
-                                    n=3, flush=flush),
-                "library_ms": time_ms(lambda: x @ w, flush=flush),
-                "library": "x @ w, w dequantized to x's dtype beforehand",
-                "bound_ms": bnd, "bound_by": by}, ok)
-        del x, q4, s, w, out, want
+        lib_ms = time_ms(lambda: x @ w, flush=flush)
+        for kernel, fn, ref, rtol, peak, body in (
+                ("K5", qm.int4_matmul, qm.int4_matmul_ref, K5_RTOL,
+                 "bfloat16", qm.int4_body(m, f, quant.INT4_GROUP,
+                                          torch.bfloat16)),
+                ("K6", qm.w4a8_matmul, qm.w4a8_matmul_ref, K6_RTOL, "int8",
+                 qm.w4a8_body(m, d, f, quant.INT4_GROUP, torch.bfloat16))):
+            out = fn(x, q4, s)
+            torch.cuda.synchronize()
+            want = ref(x, q4, s)
+            top = want.float().abs().max().item()
+            err = (out.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and \
+                err <= rtol["bfloat16"] * top
+            bnd, by = bound_ms(nbytes(x, q4, s, out), 2.0 * m * d * f, peak)
+            row = {"kernel": kernel, "case": f"m{m}_d{d}_f{f}",
+                   "dtype": "bfloat16", "shape": [m, d, f], "path": body,
+                   "max_abs_err": err, "tol": rtol["bfloat16"] * top,
+                   "ms": time_ms(lambda: fn(x, q4, s), flush=flush),
+                   "plain_ms": time_ms(lambda: ref(x, q4, s), n=3,
+                                       flush=flush),
+                   "library_ms": lib_ms,
+                   "library": "x @ w, w dequantized to x's dtype beforehand"
+                   if kernel == "K5" else K6_YARDSTICK,
+                   "bound_ms": bnd, "bound_by": by}
+            if kernel == "K6":
+                row["bit_equal"] = bool(torch.equal(out, want))
+            record(row, ok)
+            want_path = "mma_sync" if f % 16 else "wgmma"
+            if body != want_path or row.get("bit_equal") is False and \
+                    body == "wgmma":
+                raise AssertionError(f"{kernel} {row['case']}: {row}")
+            del out, want
+        del x, q4, s, w
+    # K6's wgmma body at f32 x (untimed): only the store differs, so it is
+    # bit-equal to the plain version too
+    x = torch.randn(512, 4096, generator=g, device=dev)
+    q4 = torch.randint(-128, 128, (2048, 4096), generator=g,
+                       dtype=torch.int8, device=dev)
+    s = torch.rand(16, 4096, generator=g, device=dev) * (2 * 4096 ** -0.5
+                                                          / 4.61)
+    before = dict(qm.w4a8_matmul.launches_by_body)
+    out = qm.w4a8_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    ran = [b for b, n in qm.w4a8_matmul.launches_by_body.items()
+           if n != before[b]]
+    want = qm.w4a8_matmul_ref(x, q4, s)
+    row = {"kernel": "K6", "case": "edge_m512_d4096_f4096", "dtype":
+           "float32", "shape": [512, 4096, 4096], "path": ran,
+           "max_abs_err": (out - want).abs().max().item(),
+           "bit_equal": bool(torch.equal(out, want))}
+    emit(row)
+    if ran != ["wgmma"] or not row["bit_equal"]:
+        raise AssertionError(f"K6 {row['case']}: {row}")
+    del x, q4, s, out, want
     # K5's stream edges, untimed: one and eight tokens and a ragged 17 at
     # the fused q/k/v shape (all split over the contraction), and F % 16 =
     # 8 at M = 32, a layout the stream body refuses, on the split qgemm
@@ -1759,11 +1816,16 @@ def phase_int4_serve(dev, cfg, smi):
         if launches[on] != row["expected"]:
             raise AssertionError(f"int4 {label}: launches {launches}, "
                                  f"expected {row['expected']} on {on}")
-        # each wave's 4 layer projections a layer take K5's wgmma body;
-        # decode and the waves' lm_head its stream body
-        wg = 4 * cfg.n_layers * waves if on == "K5" else 0
-        check_bodies(f"int4 {label}", bodies, wg,
-                     row["expected"] - wg if on == "K5" else 0)
+        # each wave's 4 layer projections a layer take the kernel's wgmma
+        # body; decode and the waves' lm_head K5's stream body or K6's split
+        # qgemm
+        wg = 4 * cfg.n_layers * waves
+        if on == "K5":
+            check_bodies(f"int4 {label}", bodies, wg, row["expected"] - wg,
+                         0, 0)
+        else:
+            check_bodies(f"int4 {label}", bodies, 0, 0, wg,
+                         row["expected"] - wg)
         return launches, bodies
 
     generation.sample = checked_sample
@@ -1784,7 +1846,10 @@ def phase_int4_wave(cfg, eng, prompts, smi):
     2816 rows), through ``_admit_wave`` (prefill, cache insert, first-token
     sample) on the host clock, then again under ``torch.profiler``: device
     ms by kernel and by kernel family, the card's busy time, and the
-    launches of each kernel body in the wave."""
+    launches of each kernel body in the wave. Then the same wave with
+    ``set_act_quant("a8")`` (restored to "weight_only" after), likewise:
+    its layers' projections on K6's wgmma body, its lm_head on the split
+    qgemm."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1792,6 +1857,7 @@ def phase_int4_wave(cfg, eng, prompts, smi):
     from copilot_for_consensus_tpu_torch.engine.generation import (
         _next_bucket,
     )
+    from copilot_for_consensus_tpu_torch.models import quant
 
     chosen = sorted(prompts, key=len)[-2:]
     bucket = _next_bucket(max(len(p) for p in chosen), eng.buckets)
@@ -1807,27 +1873,42 @@ def phase_int4_wave(cfg, eng, prompts, smi):
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
-    plain_s = wave()
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced_s = wave()
-    bodies = read_bodies()
-    events, by_name = device_us_by_kernel(prof)
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in events)
-    row = {"phase": "int4_wave", "config": cfg.name,
-           "rows": len(chosen), "bucket": bucket,
-           "prompt_tokens": lengths.tolist(), "wave_s": plain_s,
-           "traced_wave_s": traced_s, "device_busy_ms": busy / 1e3,
-           "device_ms_by_family": device_ms_by_family(by_name),
-           "device_ms_by_kernel": {k: v / 1e3 for k, v in
-                                   list(by_name.items())[:12]},
-           "launches_by_body": bodies, "device": smi}
-    emit(row)
+    def traced(mode):
+        quant.set_act_quant(mode)
+        try:
+            plain_s = wave()
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced_s = wave()
+        finally:
+            quant.set_act_quant("weight_only")
+        bodies = read_bodies()
+        events, by_name = device_us_by_kernel(prof)
+        busy = busy_us((e.time_range.start, e.time_range.end)
+                       for e in events)
+        row = {"phase": "int4_wave", "act_quant": mode, "config": cfg.name,
+               "rows": len(chosen), "bucket": bucket,
+               "prompt_tokens": lengths.tolist(), "wave_s": plain_s,
+               "traced_wave_s": traced_s, "device_busy_ms": busy / 1e3,
+               "device_ms_by_family": device_ms_by_family(by_name),
+               "device_ms_by_kernel": {k: v / 1e3 for k, v in
+                                       list(by_name.items())[:12]},
+               "launches_by_body": bodies, "device": smi}
+        emit(row)
+        return row, bodies
+
+    row, bodies = traced("weight_only")
     if bodies["K5"]["wgmma"] != 4 * cfg.n_layers or \
             bodies["K5"]["stream"] != 1 or \
             bodies["K1"]["wgmma"] != cfg.n_layers:
         raise AssertionError(f"int4 wave launches by body: {bodies}")
-    return row
+    a8_row, bodies = traced("a8")
+    if bodies["K6"]["wgmma"] != 4 * cfg.n_layers or \
+            bodies["K6"]["split"] != 1 or bodies["K6"]["mma_sync"] or \
+            bodies["K1"]["wgmma"] != cfg.n_layers or \
+            any(bodies["K5"].values()):
+        raise AssertionError(f"int4 a8 wave launches by body: {bodies}")
+    return row, a8_row
 
 
 def busy_us(intervals) -> float:
@@ -1867,6 +1948,7 @@ KERNEL_FAMILIES = {
     "K3 CUDA cores (paged_partial_kernel)": ("paged_partial_kernel",),
     "K5 wgmma (int4_wgmma)": ("int4_wgmma",),
     "K5 stream (int4_stream)": ("int4_stream",),
+    "K6 wgmma (w4a8_wgmma)": ("w4a8_wgmma",),
     "K5 split, K4, K6 (qgemm, quantize_rows, int4_simt)":
         ("qgemm", "quantize_rows", "int4_simt"),
 }
@@ -2126,9 +2208,12 @@ def main() -> int:
              rows[("K5", "m5632_d4096_f28672", "bfloat16")], "int4_serve",
              f"{q}:178"),
             ("w4a8_matmul", rows[("K6", "m32_d4096_f28672", "bfloat16")],
-             "int4_serve_a8", f"{q}:405")):
+             "int4_serve_a8", f"{q}:405"),
+            ("w4a8_matmul_tiled",
+             rows[("K6", "m5632_d4096_f28672", "bfloat16")], "int4_serve_a8",
+             f"{q}:405")):
         k = row["kernel"]
-        # K1, K2, K3 and K5 count their launches by body: each of their
+        # K1, K2, K3, K5 and K6 count their launches by body: each of their
         # rows is one body, whose source is the body's own file, and counts
         # that body's launches on every path
         body, src = {
@@ -2139,6 +2224,8 @@ def main() -> int:
             "paged_attention_seeded": ("seeded", "paged_wgmma.cuh"),
             "int4_matmul": ("stream", "int4_stream.cuh"),
             "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
+            "w4a8_matmul": ("split", "quant_mma.cuh"),
+            "w4a8_matmul_tiled": ("wgmma", "w4a8_wgmma.cuh"),
         }.get(name, (None, f"{name}.cu"))
         extra = {}
         if body is not None:

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the wgmma bodies of K5 (int4_wgmma.cuh),
-// K2 (int8_wgmma.cuh), K1 (flash_wgmma.cuh) and K3 (paged_wgmma.cuh):
-// mbarriers, TMA tensor-map loads, the wgmma shared-memory descriptor and
-// the wgmma instructions they issue, all as PTX for sm_90a.
+// K2 (int8_wgmma.cuh), K1 (flash_wgmma.cuh), K3 (paged_wgmma.cuh) and K6
+// (w4a8_wgmma.cuh): mbarriers, TMA tensor-map loads, the wgmma
+// shared-memory descriptor and the wgmma instructions they issue, all as
+// PTX for sm_90a.
 //
 // Shared-memory operands of wgmma use the 128-byte swizzle throughout: a
 // tile is stored as 128-byte lines, and the 16-byte chunk c of line r sits
@@ -10,9 +11,9 @@
 // 128B with a 128-byte inner box); K5 and K2 write it by hand for the
 // weight tile they convert (`swz`).
 //   * K-major operand (k contiguous: x in K5 and K2, Q and K in K1 and
-//     K3): line r holds 64 k-values of row r. Descriptor: start address,
-//     SBO = 1024 (the next 8 rows); a k16 step inside the 64-wide line
-//     advances the start by 32 bytes.
+//     K3, xq in K6): line r holds 64 k-values of row r (128 for int8).
+//     Descriptor: start address, SBO = 1024 (the next 8 rows); a k16 step
+//     (k32 for int8) inside the line advances the start by 32 bytes.
 //   * MN-major operand (n contiguous: the converted weight in K5 and K2, V
 //     in K1 and K3): line k holds 64 n-values of row k. Descriptor: LBO =
 //     the bytes between two 64-wide n blocks, SBO = 1024 (the next 8 k
@@ -347,6 +348,39 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// D[64 x 176] s32 (+)= A[64 x 32] * B[32 x 176], 8-bit signed operands (K6).
+// wgmma on 8-bit types takes K-major operands only (no transpose
+// immediates): A from registers, the m16n8k32 s8 fragment of each warp's 16
+// rows (a0: row lane / 4, k 4 (lane % 4) .. + 3; a1: row + 8; a2, a3: the
+// same at k + 16); B K-major from shared memory (a k32 step advances the
+// start by 32 bytes of the 128-byte line). D in the layout of the f32 forms
+// above. `scale_d` 0 overwrites D. One instruction for both, so no branch
+// between two forms joins on D.
+__device__ __forceinline__ void wgmma_rs_s8_n176(uint32_t* d, const uint32_t* a,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %93, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87}, {%88, %89, %90, %91}, %92, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

@@ -9,12 +9,13 @@
 // scratch the wrapper allocates); q4 packed int4 [D/2, F] (byte row i holds
 // row 2i in its low nibble, 2i+1 in its high one), unpacked to int8 in
 // registers; each scale group's int8 product summed exactly in int32 on
-// the tensor cores (mma.sync m16n8k32 s8), converted to f32 and multiplied
-// by the group's scale row, then added to the f32 sum in group order; sx
+// the tensor cores (wgmma m64n176k32 s8 on the wgmma body, mma.sync
+// m16n8k32 s8 on the others), converted to f32 and multiplied by the
+// group's scale row, then added to the f32 sum in group order; sx
 // multiplies the sum at the end, and the result is rounded once to x's
-// dtype. On the tiled path that is the plain version's arithmetic,
-// operation for operation; the split path sums its splits' partials in
-// another order (f32 rounding level).
+// dtype. On the tiled paths (wgmma and mma.sync) that is the plain
+// version's arithmetic, operation for operation; the split path sums its
+// splits' partials in another order (f32 rounding level).
 //
 // What bounds it on this card, and what the design does about it:
 //   * Decode (M = the slot count, 32 in the 3072-context deployment): ~4*M
@@ -23,14 +24,21 @@
 //     passes splits > 0 for M <= 32: a 32-row tile, 128 columns a block,
 //     the contraction split by whole scale groups over blockIdx.z so every
 //     projection puts hundreds of blocks in flight; partials go to an f32
-//     workspace summed in a fixed order by a second pass.
-//   * Prefill (M up to 2 x 2816): bound by operations on the int8 tensor
-//     cores (1,979 TOP/s). 128x128 tiles of 8 warps.
-// The weight never exists unpacked in device memory. No cp.async/TMA
-// pipeline or wgmma yet: later work. The tiled body is shared with K4 and
-// K5 (quant_mma.cuh).
+//     workspace summed in a fixed order by a second pass. No TMA pipeline
+//     yet: later work.
+//   * Prefill (M > 32, up to 2 x 2816): bound by operations on the int8
+//     tensor cores (1,979 TOP/s), which only wgmma reaches.
+//     `w4a8_matmul_wgmma_fwd` runs the Hopper body of w4a8_wgmma.cuh: the
+//     unpacked weight as wgmma's register A, xq by TMA as its shared B, s32
+//     accumulators a scale group, the fold in registers (see that header's
+//     note). Layouts it does not take (D or the group not whole 128-k
+//     stages, a group over 4096, F % 16) go by the wrapper's shape rule to
+//     the 128x128 mma.sync tiling of quant_mma.cuh (splits = 0 here), which
+//     K4 and K5 share.
+// The weight never exists unpacked in device memory.
 
 #include "quant_mma.cuh"
+#include "w4a8_wgmma.cuh"
 
 namespace {
 
@@ -67,6 +75,41 @@ extern "C" int w4a8_matmul_fwd(const void* x, const void* q4,
   return (int)run<float>(x, qq, sc, out, xqq, sxx, ws, M, D, F, G, splits,
                          st);
 }
+
+// the wgmma body (M > 32, the layouts k6w::takes): x (bf16 or f32), q4,
+// scale, out, the scratch xq [M, D] int8 and sx [M] f32
+extern "C" int w4a8_matmul_wgmma_fwd(const void* x, const void* q4,
+                                     const void* scale, void* out, void* xq,
+                                     void* sx, int M, int D, int F, int G,
+                                     int is_bf16, void* stream) {
+  if (D <= 0 || F <= 0 || !k6w::takes(M, D, F, G))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qq = static_cast<const int8_t*>(q4);
+  const float* sc = static_cast<const float*>(scale);
+  int8_t* xqq = static_cast<int8_t*>(xq);
+  float* sxx = static_cast<float*>(sx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (is_bf16) {
+    qmma::quantize_rows<__nv_bfloat16><<<M, qmma::QR_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), xqq, sxx, D);
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = k6w::launch(xqq, qq, sc, sxx, static_cast<__nv_bfloat16*>(out), M,
+                      D, F, G, st);
+  } else {
+    qmma::quantize_rows<float><<<M, qmma::QR_THREADS, 0, st>>>(
+        static_cast<const float*>(x), xqq, sxx, D);
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = k6w::launch(xqq, qq, sc, sxx, static_cast<float*>(out), M, D, F, G,
+                      st);
+  }
+  return (int)e;
+}
+
+// the wgmma body's dynamic shared memory a CTA, in bytes
+extern "C" int w4a8_matmul_wgmma_smem() { return (int)k6w::SMEM_BYTES; }
 
 extern "C" const char* w4a8_matmul_error(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

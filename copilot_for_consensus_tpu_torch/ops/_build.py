@@ -76,6 +76,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # x, q4, scale, out, xq, sx, workspace, M, D, F, G, splits, is_bf16,
         # stream
         "w4a8_matmul_fwd": [_P] * 7 + [_I] * 6 + [_P],
+        # x, q4, scale, out, xq, sx, M, D, F, G, is_bf16, stream (the wgmma
+        # body, M > 32)
+        "w4a8_matmul_wgmma_fwd": [_P] * 6 + [_I] * 5 + [_P],
+        # the wgmma body's dynamic shared memory in bytes
+        "w4a8_matmul_wgmma_smem": [],
     },
     "paged_attention": {
         # q_rows, pool_k, pool_v, tables, lengths, q_pos, acc, m, l,

@@ -30,7 +30,11 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
   summed in int32, and the output is ``acc · sx · sw``.
 * K6 ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``, ``_kernel_w4a8``): K5's
   weight layout with K4's int8 activations; each group's int32 partial is
-  scaled in f32 by the group scale, the sum by sx at the end.
+  scaled in f32 by the group scale, the sum by sx at the end. Three
+  bodies, chosen by :func:`w4a8_body` from shape alone: the Hopper int8
+  wgmma GEMM of ``csrc/w4a8_wgmma.cuh`` for the prefill extents, and the
+  split streaming path and the mma.sync tiling of ``csrc/quant_mma.cuh``
+  for decode and for layouts the wgmma body does not take.
 
 Each plain version computes what the Pallas kernel computes (not the JAX
 package's XLA fallbacks, which round the dequantized weight to x's
@@ -101,6 +105,13 @@ K2_WGMMA_KSTEP = 64
 K2_WGMMA_COLS = 16
 #: K2's bodies, the keys of ``int8_matmul.launches_by_body``
 K2_BODIES = ("stream", "gemv", "wgmma", "wmma", "simt")
+#: K6's wgmma body (``csrc/w4a8_wgmma.cuh``): contraction rows a stage (D
+#: and the scale group must be whole stages), and the column multiple its
+#: TMA loads of the packed weight need (a 16-byte row pitch)
+K6_WGMMA_KSTEP = 128
+K6_WGMMA_COLS = 16
+#: K6's bodies, the keys of ``w4a8_matmul.launches_by_body``
+K6_BODIES = ("wgmma", "mma_sync", "split")
 #: K2's wgmma body takes 256-column tiles where they make at least this
 #: many CTAs (one wave on 132 SMs), else 128-column ones: the wider tile
 #: reads x from L2 half as often, the narrower keeps the SMs busy when F
@@ -375,6 +386,27 @@ def int4_body(m: int, f: int, group: int, dtype: torch.dtype) -> str:
     return "mma_sync"
 
 
+def w4a8_body(m: int, d: int, f: int, group: int,
+              dtype: torch.dtype) -> str:
+    """The body of K6 that a CUDA call runs, from shape alone: up to
+    ``STREAM_MAX_M`` rows ``"split"`` (the split qgemm); above it
+    ``"wgmma"`` (the Hopper int8 GEMM) where D and the scale group are
+    whole 128-row stages and F a multiple of 16, else ``"mma_sync"`` (the
+    tiling K4 and K5 share). ``dtype`` (bf16 or f32) does not enter: every
+    body multiplies the int8 rows ``quantize_rows`` makes of x, and x's
+    dtype changes only the store, so both take the wgmma body. Every
+    Mistral-7B int4 projection (group 256) is ``"split"`` at M <= 32 and
+    ``"wgmma"`` above."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"x must be one of {_DTYPES}, got {dtype}")
+    if m <= STREAM_MAX_M:
+        return "split"
+    if d % K6_WGMMA_KSTEP == 0 and group % K6_WGMMA_KSTEP == 0 \
+            and f % K6_WGMMA_COLS == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
 def _check(x, w, scale, w_rows: int) -> None:
     if not (x.device == w.device == scale.device):
         raise ValueError("x, weight, scale must lie on one device")
@@ -574,17 +606,25 @@ def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor,
     if m == 0:
         return out
     xq, sx = _a8_scratch(x, m, d)
-    splits = stream_splits(m, g, f)
-    ws = torch.empty((splits, m, f), dtype=torch.float32,
-                     device=x.device) if splits else None
+    body = w4a8_body(m, d, f, group, x.dtype)
     lib = _build.library("w4a8_matmul")
-    err = lib.w4a8_matmul_fwd(
-        x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        m, d, f, g, splits, int(x.dtype == torch.bfloat16), _stream(x))
-    _build.check("w4a8_matmul", err, "w4a8_matmul launch")
+    if body == "wgmma":
+        err = lib.w4a8_matmul_wgmma_fwd(
+            x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), m, d, f, g,
+            int(x.dtype == torch.bfloat16), _stream(x))
+    else:
+        splits = stream_splits(m, g, f)
+        ws = torch.empty((splits, m, f), dtype=torch.float32,
+                         device=x.device) if splits else None
+        err = lib.w4a8_matmul_fwd(
+            x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            m, d, f, g, splits, int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check("w4a8_matmul", err, f"w4a8_matmul launch ({body})")
     w4a8_matmul.launches += 1
+    w4a8_matmul.launches_by_body[body] += 1
     return out
 
 
@@ -597,3 +637,5 @@ int4_matmul.launches = 0
 int4_matmul.launches_by_body = dict.fromkeys(K5_BODIES, 0)
 w8a8_matmul.launches = 0
 w4a8_matmul.launches = 0
+#: K6's launches by body (:func:`w4a8_body`); they sum to ``launches``
+w4a8_matmul.launches_by_body = dict.fromkeys(K6_BODIES, 0)

@@ -110,7 +110,8 @@ def test_plain_k4_matches_pallas_w8a8(m, d, f):
 
 @pytest.mark.parametrize("m,d,f,group", [(4, 512, 96, 256),
                                          (9, 256, 33, 256),
-                                         (8, 1024, 96, 512)])
+                                         (8, 1024, 96, 512),
+                                         (130, 512, 200, 256)])
 def test_plain_k6_matches_pallas_w4a8(m, d, f, group):
     rng = np.random.default_rng(m + f)
     w = (rng.standard_normal((d, f)) * 0.04).astype(np.float32)
