@@ -13,13 +13,15 @@ non-zero before the last line:
    csrc`` into ``build/cuda_kernels/``;
    then, for the five libraries with a Hopper body (the wgmma bodies of
    K5, K1, K2, K3 and K6, K3's split-KV decode body and the stream bodies
-   of K5 and K2), one ``build_info`` line each: ptxas's registers, spills
-   and shared memory per kernel, the Hopper bodies' dynamic shared memory,
-   and the counts of HGMMA, IGMMA, UTMALDG, LDGSTS and HMMA instructions
+   of K5, K2 and K6), one ``build_info`` line each: ptxas's registers,
+   spills and shared memory per kernel, the Hopper bodies' dynamic shared
+   memory, and the counts of HGMMA, IGMMA, UTMALDG, LDGSTS, HMMA and IMMA
+   instructions
    per kernel in the SASS (``cuobjdump -sass``; "absent" without it) — the
    wgmma bodies must show HGMMA (IGMMA for K6's int8 one) and UTMALDG, the
-   stream bodies HMMA and UTMALDG, and the bodies of K2, K3, K6 and the
-   stream bodies must build without spills or a ptxas performance note;
+   stream bodies HMMA (IMMA for K6's int8 one) and UTMALDG, and the bodies
+   of K2, K3, K6 and the stream bodies must build without spills or a
+   ptxas performance note;
 3. kernels — (after one ``timing_floor`` line: what ``time_ms`` gives a
    one-element kernel, L2 flushed) holds K1 (flash attention) and K2
    (int8 matmul) against their plain PyTorch versions at the full
@@ -72,16 +74,19 @@ non-zero before the last line:
 11. kernels, K5/K4/K6 — (run right after phase 7) the quantized matmuls
    against their plain versions at the int4 / a8 main path's shapes: K5
    (int4 weight-only) and K6 (W4A8) on the five int4 projections at M = 32
-   (decode: K5's stream body, K6's split qgemm) and 5632 (a 2 x 2816 wave:
-   both wgmma bodies, K6's bit for bit equal to its plain version), K4
+   (decode: both stream bodies, K6's bit for bit equal to its plain
+   version in its order, ``w4a8_matmul_stream_ref``, and timed beside the
+   split qgemm it replaces) and 5632 (a 2 x 2816 wave: both wgmma bodies,
+   K6's bit for bit equal to its plain version), K4
    (W8A8) on the four int8 layer projections at M = 4096, plus one f32
    case each — timed likewise, K6 beside K5's ``x @ w`` as a yardstick
    that is not its function; K5's and K6's tiled edges: M = 33, M = 5000
    with F = 6128 (ragged against every tile) on the wgmma bodies (K6's bit
    for bit), and F = 4104 on the mma.sync tiling; and, untimed, K6's wgmma
-   body at f32 x (bit for bit), K5's stream edges: M = 1, 8 and 17 at the
-   fused q/k/v shape, and F = 4104 at M = 32, a layout the stream body
-   refuses, on the split qgemm;
+   body at f32 x (bit for bit), K5's and K6's stream edges: M = 1, 8 and
+   17 at the fused q/k/v shape (K6's bit for bit, and K6's at f32 x too),
+   and F = 4104 at M = 32, a layout the stream bodies refuse, on the split
+   qgemm;
 12. a8 model — (run right after phase 4) one 4 x 1024 int8 wave with
    ``set_act_quant("a8")``, through K4 and through the plain versions;
 13. int4 serve — after the paged engine and the int8 weights are freed,
@@ -90,13 +95,15 @@ non-zero before the last line:
    behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
    (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
    forward pass must make 4 quantized launches a layer plus the lm_head's,
-   all on the wgmma body (K5's, K6's) in the waves' layers, and on K5's
-   stream body or K6's split qgemm in decode and the waves' lm_head;
+   all on the wgmma body (K5's, K6's) in the waves' layers, and on the
+   stream body (K5's, K6's) in decode and the waves' lm_head;
 14. int4 wave and trace — one admission wave of the int4 engine (2 x
    2816) traced by kernel: device ms by kernel and by family, and the
    launches of each body; the same wave again in a8 (128 launches of K6's
-   wgmma body, 1 of its split qgemm, 32 of K1); then phase 6 on the int4
-   engine, 32 slots busy;
+   wgmma body, 1 of its stream body, 32 of K1); then phase 6 on the int4
+   engine, 32 slots busy, and again in a8 once those slots are freed
+   (``int4_a8_trace``: K6's device ms a decode step, every M <= 32 launch
+   on its stream body);
 15. probe — (run right after phase 11, before the 7B weights are made) the
    weight-stream probe P: its five modes (dma, convdot, i8dot, unpack8,
    unpack32) against their plain versions at one [128, 4096] x [4096,
@@ -111,13 +118,12 @@ Every serve phase counts K1's, K2's, K3's, K5's and K6's launches by body:
 the main path's K1 launches must all be the wgmma body's, its K2 launches
 the stream body's or the wgmma body's (never the GEMV, WMMA or the
 CUDA-core loop; 7 a layer and one for the lm_head a forward pass), its K3
-launches the decode or seeded body's, no K5 launch may take the split
-qgemm, the mma.sync or CUDA-core tiled bodies, and no K6 launch the
-mma.sync tiling (on the int4 path each kernel's wgmma body makes 4
-launches a layer a wave, K5's stream body or K6's split qgemm the rest).
-Then the kernel table (K1-K6; K2's stream and wgmma bodies, K3's decode
-and seeded bodies, K5's stream and tiled bodies and K6's split and tiled
-bodies as two rows each; and
+launches the decode or seeded body's, and no K5 or K6 launch may take
+the split qgemm or the mma.sync (or K5's CUDA-core) tiled bodies (on the
+int4 path each kernel's wgmma body makes 4 launches a layer a wave, its
+stream body the rest). Then the kernel table (K1-K6; K2's stream and
+wgmma bodies, K3's decode and seeded bodies, and K5's and K6's stream
+and tiled bodies as two rows each; and
 P's five modes, each with its launches on every path) as one JSON line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. About
 5-7 minutes on one H100 (the host's speed varies), the build included.
@@ -172,8 +178,10 @@ K4_ATOL = 0.0
 #: K6 (W4A8): exact int32 group products, scaled and summed in group order
 #: with the same f32 operations as the plain version on the tiled paths
 #: (the wgmma body, which must equal it bit for bit, and the mma.sync
-#: tiling); the split qgemm of M <= 32 sums its splits' partials in another
-#: order: f32 level, and one bf16 output rounding at bf16.
+#: tiling) and as ``w4a8_matmul_stream_ref`` on the stream body (M <= 32,
+#: which must equal it bit for bit too); the split qgemm, which only
+#: layouts the stream body refuses take, sums its splits' partials in
+#: another order: f32 level, and one bf16 output rounding at bf16.
 K6_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: K6's yardstick: K5's ``x @ w``, timed once a case
 K6_YARDSTICK = ("x @ w, w dequantized to bf16 beforehand: not the same "
@@ -314,18 +322,18 @@ def check_k2_passes(label: str, launches: dict, bodies: dict,
 
 def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
                  k5_stream: int | None = None, k6_wgmma: int | None = None,
-                 k6_split: int | None = None):
+                 k6_stream: int | None = None):
     """The main path's K1 launches all went to the wgmma body, its K2
     launches to the stream body (M <= 8) and the wgmma body (never the
     split GEMV, WMMA or the CUDA-core loop), its K3 launches to the decode
-    and seeded bodies (never the CUDA-core one), its K5 launches (if any)
-    to the wgmma and stream bodies, never to the split qgemm, the mma.sync
-    or CUDA-core tiled bodies, and its K6 launches (if any) to the wgmma
-    body and the split qgemm, never to the mma.sync tiling; ``k5_wgmma``,
-    ``k5_stream``, ``k6_wgmma`` and ``k6_split`` are the counts those
+    and seeded bodies (never the CUDA-core one), and its K5 and K6
+    launches (if any) to their wgmma and stream bodies, never to the split
+    qgemm or the mma.sync (or K5's CUDA-core) tiled bodies; ``k5_wgmma``,
+    ``k5_stream``, ``k6_wgmma`` and ``k6_stream`` are the counts those
     bodies must have."""
     old = {"K1": ("simt",), "K2": ("gemv", "wmma", "simt"), "K3": ("simt",),
-           "K5": ("split", "mma_sync", "simt"), "K6": ("mma_sync",)}
+           "K5": ("split", "mma_sync", "simt"),
+           "K6": ("split", "mma_sync")}
     for k, names in old.items():
         if any(bodies[k][n] for n in names):
             raise AssertionError(f"{label}: an old {k} body launched: "
@@ -333,7 +341,7 @@ def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
     for k, body, want in (("K5", "wgmma", k5_wgmma),
                           ("K5", "stream", k5_stream),
                           ("K6", "wgmma", k6_wgmma),
-                          ("K6", "split", k6_split)):
+                          ("K6", "stream", k6_stream)):
         if want is not None and bodies[k][body] != want:
             raise AssertionError(f"{label}: {k}'s {body} body launched "
                                  f"{bodies[k][body]} times, expected {want}")
@@ -346,7 +354,7 @@ REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", "k5s::"),
               "flash_attention": ("fa3::flash_wgmma", None),
               "int8_matmul": ("k2w::int8_wgmma", "k2s::"),
               "paged_attention": ("k3s::paged_wgmma", "k3d::"),
-              "w4a8_matmul": ("k6w::w4a8_wgmma", None)}
+              "w4a8_matmul": ("k6w::w4a8_wgmma", "k6s::")}
 
 
 def wgmma_smem(name: str, lib) -> dict:
@@ -360,7 +368,9 @@ def wgmma_smem(name: str, lib) -> dict:
                    for tn in (128, 256)},
                 "k2s::int8_stream": lib.int8_matmul_stream_smem()}
     if name == "w4a8_matmul":
-        return {"k6w::w4a8_wgmma": lib.w4a8_matmul_wgmma_smem()}
+        return {"k6w::w4a8_wgmma": lib.w4a8_matmul_wgmma_smem(),
+                **{f"k6s::w4a8_stream<{nt}>": lib.w4a8_matmul_stream_smem(nt)
+                   for nt in (1, 2, 3, 4)}}
     fn = (lib.flash_attention_wgmma_smem if name == "flash_attention"
           else lib.paged_attention_seeded_smem)
     return {f"{REDESIGNED[name][0]}<{d}>": fn(d) for d in (64, 128)}
@@ -368,13 +378,16 @@ def wgmma_smem(name: str, lib) -> dict:
 
 #: the bodies of the last slices: ptxas must report them without spills
 #: and without a performance note (C75xx: serialized wgmma and the like)
-NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::", "k6w::")
+NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::", "k6w::",
+              "k6s::")
 #: Hopper bodies on mma.sync (not wgmma), by kernel prefix: the SASS
 #: instructions each of their kernels must show
 MMA_SYNC_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
-                   "k2s::": ("HMMA", "UTMALDG")}
-#: (wgmma is HGMMA in the SASS on 16-bit operands, IGMMA on 8-bit integers)
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "HMMA")
+                   "k2s::": ("HMMA", "UTMALDG"),
+                   "k6s::": ("IMMA", "UTMALDG")}
+#: (wgmma is HGMMA in the SASS on 16-bit operands, IGMMA on 8-bit integers;
+#: mma.sync is HMMA on 16-bit operands, IMMA on 8-bit integers)
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "HMMA", "IMMA")
 
 
 def short_name(mangled: str) -> str:
@@ -731,16 +744,54 @@ def phase_kernels(dev, flush):
     return rows
 
 
+def k6_plain(body: str, m: int, d: int, f: int):
+    """K6's plain version for a call on ``body``: the stream body's order
+    (``w4a8_matmul_stream_ref`` at the plan's groups a split) for
+    ``"stream"``, else ``w4a8_matmul_ref``."""
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    if body != "stream":
+        return qm.w4a8_matmul_ref
+    per = qm.stream_plan(m, d, f, d // quant.INT4_GROUP)[2]
+    return lambda x, q4, s: qm.w4a8_matmul_stream_ref(x, q4, s, per)
+
+
+def k6_split_qgemm(x, q4, s):
+    """The split qgemm that K6 ran at M <= 32 before its stream body (two
+    launches after ``quantize_rows``), called through its C entry for
+    timing beside the stream body; the wrapper's counts do not see it."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.ops import _build
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    m, d = x.shape
+    f, g = q4.shape[1], s.shape[0]
+    splits = qm.stream_splits(m, g, f)
+    out = torch.empty(m, f, dtype=x.dtype, device=x.device)
+    xq, sx = qm._a8_scratch(x, m, d)
+    ws = torch.empty((splits, m, f), dtype=torch.float32, device=x.device)
+    err = _build.library("w4a8_matmul").w4a8_matmul_fwd(
+        x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), ws.data_ptr(), m, d, f, g, splits,
+        int(x.dtype == torch.bfloat16), qm._stream(x))
+    _build.check("w4a8_matmul", err, "w4a8_matmul launch (split qgemm)")
+    return out
+
+
 def phase_quant_kernels(dev, flush):
     """K5, K4 and K6 against their plain versions at the int4 / a8 main
     path's shapes: K5 and K6 at M = 32 (a decode step of the 3072-context
-    deployment's 32 slots: K5's stream body, K6's split qgemm) and M =
-    5632 (its 2 x 2816 admission wave: both wgmma bodies, K6's bit for bit
-    equal to its plain version), K4 at M = 4096 (the 4 x 1024 wave), bf16
-    — plus one f32 case each; then both kernels' tiled edges. Timed beside
-    the bound, the plain version and a PyTorch yardstick: K5's and K6's
-    the same ``x @ w`` (w dequantized to bf16 beforehand), timed once a
-    case, which for K6 is not the same function."""
+    deployment's 32 slots: both stream bodies, K6's bit for bit equal to
+    its plain version in its order and timed beside the split qgemm it
+    replaces, ``split_ms``) and M = 5632 (its 2 x 2816 admission wave: both
+    wgmma bodies, K6's bit for bit equal to its plain version), K4 at M =
+    4096 (the 4 x 1024 wave), bf16 — plus one f32 case each; then both
+    kernels' tiled and stream edges. Timed beside the bound, the plain
+    version and a PyTorch yardstick: K5's and K6's the same ``x @ w`` (w
+    dequantized to bf16 beforehand), timed once a case, which for K6 is
+    not the same function."""
     import torch
 
     from copilot_for_consensus_tpu_torch.models import quant
@@ -767,9 +818,11 @@ def phase_quant_kernels(dev, flush):
             * (2 * d ** -0.5 / 4.61)
         w = quant.dequant_int4({"q4": q4, "scale": s}, dt)
         lib_ms = time_ms(lambda: x @ w, flush=flush)
+        k6_path = qm.w4a8_body(m, d, f, quant.INT4_GROUP, dt)
+        k6_ref = k6_plain(k6_path, m, d, f)
         for kernel, fn, ref, rtol, peak in (
                 ("K5", qm.int4_matmul, qm.int4_matmul_ref, K5_RTOL, dt_name),
-                ("K6", qm.w4a8_matmul, qm.w4a8_matmul_ref, K6_RTOL, "int8")):
+                ("K6", qm.w4a8_matmul, k6_ref, K6_RTOL, "int8")):
             out = fn(x, q4, s)
             torch.cuda.synchronize()
             want = ref(x, q4, s)
@@ -780,8 +833,7 @@ def phase_quant_kernels(dev, flush):
             row = {"kernel": kernel, "case": f"m{m}_d{d}_f{f}",
                    "dtype": dt_name, "shape": [m, d, f],
                    "path": qm.int4_body(m, f, quant.INT4_GROUP, dt)
-                   if kernel == "K5" else
-                   qm.w4a8_body(m, d, f, quant.INT4_GROUP, dt),
+                   if kernel == "K5" else k6_path,
                    "max_abs_err": err, "tol": rtol[dt_name] * top,
                    "ms": time_ms(lambda: fn(x, q4, s), flush=flush),
                    "plain_ms": time_ms(lambda: ref(x, q4, s), n=3,
@@ -796,16 +848,22 @@ def phase_quant_kernels(dev, flush):
             else:
                 row["bit_equal"] = bool(torch.equal(out, want))
                 row["library"] = K6_YARDSTICK
+                if k6_path == "stream":
+                    row["plan"] = qm.stream_plan(m, d, f,
+                                                 d // quant.INT4_GROUP)
+                    # the split qgemm this body replaces, same inputs
+                    row["split_ms"] = time_ms(
+                        lambda: k6_split_qgemm(x, q4, s), flush=flush)
             record(row, ok)
-            want_path = {"K5": ("stream", "wgmma"),
-                         "K6": ("split", "wgmma")}[kernel][
-                             m > qm.STREAM_MAX_M]
-            if dt_name == "bfloat16" and row["path"] != want_path:
+            want_path = ("stream", "wgmma")[m > qm.STREAM_MAX_M]
+            if (dt_name == "bfloat16" or kernel == "K6") and \
+                    row["path"] != want_path:
                 raise AssertionError(f"{kernel} {row['case']}: path "
                                      f"{row['path']}")
-            if row.get("bit_equal") is False and row["path"] == "wgmma":
-                raise AssertionError(f"K6 {row['case']}: the wgmma body is "
-                                     f"not bit-equal to its plain version")
+            if row.get("bit_equal") is False:
+                raise AssertionError(f"K6 {row['case']}: the {k6_path} "
+                                     f"body is not bit-equal to its plain "
+                                     f"version")
             del out, want
         del x, q4, s, w
     # K5's and K6's tiled edges: the smallest tiled M (33) and M ragged
@@ -903,6 +961,43 @@ def phase_quant_kernels(dev, flush):
         if ran != [want_path] or not bool(torch.isfinite(out).all()) or \
                 not err <= K5_RTOL["bfloat16"] * top:
             raise AssertionError(f"K5 {row['case']}: {row}")
+        del x, q4, s, out, want
+    # K6's stream edges, untimed: one, eight and a ragged 17 tokens at the
+    # fused q/k/v shape (all split over the contraction) and f32 x at M =
+    # 32, each bit for bit equal to the stream body's plain version; and F
+    # % 16 = 8 at M = 32, a layout the stream body refuses, on the split
+    # qgemm within K6_RTOL
+    for m, d, f, dt_name, want_path in (
+            (1, 4096, 6144, "bfloat16", "stream"),
+            (8, 4096, 6144, "bfloat16", "stream"),
+            (17, 4096, 6144, "bfloat16", "stream"),
+            (32, 4096, 6144, "float32", "stream"),
+            (32, 4096, 4104, "bfloat16", "split")):
+        dt = getattr(torch, dt_name)
+        x = torch.randn(m, d, generator=g, device=dev).to(dt)
+        q4 = torch.randint(-128, 128, (d // 2, f), generator=g,
+                           dtype=torch.int8, device=dev)
+        s = torch.rand(d // quant.INT4_GROUP, f, generator=g, device=dev) \
+            * (2 * d ** -0.5 / 4.61)
+        before = dict(qm.w4a8_matmul.launches_by_body)
+        out = qm.w4a8_matmul(x, q4, s)
+        torch.cuda.synchronize()
+        ran = [b for b, n in qm.w4a8_matmul.launches_by_body.items()
+               if n != before[b]]
+        want = k6_plain(want_path, m, d, f)(x, q4, s)
+        top = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        row = {"kernel": "K6", "case": f"edge_m{m}_d{d}_f{f}",
+               "dtype": dt_name, "shape": [m, d, f], "path": ran,
+               "plan": qm.stream_plan(m, d, f, d // quant.INT4_GROUP)
+               if want_path == "stream" else None,
+               "max_abs_err": err, "tol": K6_RTOL[dt_name] * top,
+               "bit_equal": bool(torch.equal(out, want))}
+        emit(row)
+        if ran != [want_path] or not bool(torch.isfinite(out).all()) or \
+                not err <= K6_RTOL[dt_name] * top or \
+                (want_path == "stream" and not row["bit_equal"]):
+            raise AssertionError(f"K6 {row['case']}: {row}")
         del x, q4, s, out, want
     a8_cases = [(d, f, 4096, "bfloat16") for d, f in A8_SHAPES] + \
         [(4096, 4096, 4096, "float32")]
@@ -1817,8 +1912,7 @@ def phase_int4_serve(dev, cfg, smi):
             raise AssertionError(f"int4 {label}: launches {launches}, "
                                  f"expected {row['expected']} on {on}")
         # each wave's 4 layer projections a layer take the kernel's wgmma
-        # body; decode and the waves' lm_head K5's stream body or K6's split
-        # qgemm
+        # body; decode and the waves' lm_head the kernel's stream body
         wg = 4 * cfg.n_layers * waves
         if on == "K5":
             check_bodies(f"int4 {label}", bodies, wg, row["expected"] - wg,
@@ -1848,8 +1942,8 @@ def phase_int4_wave(cfg, eng, prompts, smi):
     ms by kernel and by kernel family, the card's busy time, and the
     launches of each kernel body in the wave. Then the same wave with
     ``set_act_quant("a8")`` (restored to "weight_only" after), likewise:
-    its layers' projections on K6's wgmma body, its lm_head on the split
-    qgemm."""
+    its layers' projections on K6's wgmma body, its lm_head on K6's
+    stream body."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1904,7 +1998,8 @@ def phase_int4_wave(cfg, eng, prompts, smi):
         raise AssertionError(f"int4 wave launches by body: {bodies}")
     a8_row, bodies = traced("a8")
     if bodies["K6"]["wgmma"] != 4 * cfg.n_layers or \
-            bodies["K6"]["split"] != 1 or bodies["K6"]["mma_sync"] or \
+            bodies["K6"]["stream"] != 1 or bodies["K6"]["split"] or \
+            bodies["K6"]["mma_sync"] or \
             bodies["K1"]["wgmma"] != cfg.n_layers or \
             any(bodies["K5"].values()):
         raise AssertionError(f"int4 a8 wave launches by body: {bodies}")
@@ -1949,8 +2044,9 @@ KERNEL_FAMILIES = {
     "K5 wgmma (int4_wgmma)": ("int4_wgmma",),
     "K5 stream (int4_stream)": ("int4_stream",),
     "K6 wgmma (w4a8_wgmma)": ("w4a8_wgmma",),
-    "K5 split, K4, K6 (qgemm, quantize_rows, int4_simt)":
-        ("qgemm", "quantize_rows", "int4_simt"),
+    "K6 stream (w4a8_stream)": ("w4a8_stream",),
+    "K4, K6 activation rows (quantize_rows)": ("quantize_rows",),
+    "K5 and K6 split, K4 (qgemm, int4_simt)": ("qgemm", "int4_simt"),
 }
 
 
@@ -2027,6 +2123,7 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     from copilot_for_consensus_tpu_torch.engine.generation import (
         _next_bucket,
     )
+    from copilot_for_consensus_tpu_torch.models import quant
 
     window = eng.decode_window
     chosen = sorted(prompts, key=len)[-eng.num_slots:]
@@ -2067,20 +2164,60 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     kernels, by_name = device_us_by_kernel(prof)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = list(by_name.items())[:12]
+    families = device_ms_by_family(by_name)
+    n_steps = n * window
     row = {"phase": label, "config": cfg.name, "slots": len(ids),
            "kv": "paged" if eng.paged else "contiguous",
-           "quantize": eng.quant_mode, "admission_waves": waves,
-           "dispatches": n,
-           "steps": n * window, "step_ms": plain_s / (n * window) * 1e3,
-           "traced_step_ms": traced_s / (n * window) * 1e3,
+           "quantize": eng.quant_mode, "act_quant": quant.act_quant_mode(),
+           "admission_waves": waves, "dispatches": n,
+           "steps": n_steps, "step_ms": plain_s / n_steps * 1e3,
+           "traced_step_ms": traced_s / n_steps * 1e3,
            "device_events": len(kernels),
            "device_busy_ms": busy / 1e3 if kernels else None,
+           "device_busy_ms_per_step": busy / 1e3 / n_steps if kernels
+           else None,
            "idle_share": (1.0 - busy / (traced_s * 1e6)) if kernels
            else None,
-           "device_ms_by_family": device_ms_by_family(by_name),
+           "device_ms_by_family": families,
+           "device_ms_per_step_by_family": {k: v / n_steps
+                                            for k, v in families.items()},
            "device_ms_by_kernel": {k: v / 1e3 for k, v in top},
            "device": smi}
     emit(row)
+    return row
+
+
+def free_slots(eng) -> None:
+    """Retire every busy slot of ``eng`` (a trace phase leaves them busy),
+    so that another trace phase can fill them again."""
+    for slot in list(eng._active):
+        eng._retire(slot, "length")
+    eng._drain_done()
+
+
+def phase_int4_a8_trace(cfg, eng, prompts, smi):
+    """Phase 6's trace on the int4 engine under ``set_act_quant("a8")``
+    (restored to "weight_only" after), 32 slots busy: the a8 decode step's
+    busy ms, idle share and device ms by family a step (K6's stream body
+    and its ``quantize_rows``). Launches are counted over the phase: its
+    admission waves' layers on K6's wgmma body, every M <= 32 launch on
+    its stream body, none on the split qgemm, the mma.sync tiling or K5."""
+    from copilot_for_consensus_tpu_torch.models import quant
+
+    free_slots(eng)
+    quant.set_act_quant("a8")
+    reset_launches()
+    try:
+        row = phase_trace(cfg, eng, prompts, smi, label="int4_a8_trace")
+    finally:
+        quant.set_act_quant("weight_only")
+    bodies = read_bodies()
+    emit({"phase": "int4_a8_trace_bodies", "launches_by_body": bodies})
+    check_bodies("int4_a8_trace", bodies)
+    if not bodies["K6"]["stream"] or any(bodies["K5"].values()) or \
+            not row["device_ms_by_family"].get("K6 stream (w4a8_stream)"):
+        raise AssertionError(f"int4_a8_trace: K6's stream body did not "
+                             f"carry the a8 decode: {bodies}")
     return row
 
 
@@ -2172,6 +2309,7 @@ def main() -> int:
         (int4_a8_launches, int4_a8_bodies) = phase_int4_serve(dev, cfg, smi)
     phase_int4_wave(cfg, int4, int4_prompts, smi)
     phase_trace(cfg, int4, int4_prompts, smi, label="int4_trace")
+    phase_int4_a8_trace(cfg, int4, int4_prompts, smi)
     del int4
     gc.collect()
     torch.cuda.empty_cache()
@@ -2224,7 +2362,7 @@ def main() -> int:
             "paged_attention_seeded": ("seeded", "paged_wgmma.cuh"),
             "int4_matmul": ("stream", "int4_stream.cuh"),
             "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
-            "w4a8_matmul": ("split", "quant_mma.cuh"),
+            "w4a8_matmul": ("stream", "w4a8_stream.cuh"),
             "w4a8_matmul_tiled": ("wgmma", "w4a8_wgmma.cuh"),
         }.get(name, (None, f"{name}.cu"))
         extra = {}

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma bodies of K5 (int4_wgmma.cuh),
 // K2 (int8_wgmma.cuh), K1 (flash_wgmma.cuh), K3 (paged_wgmma.cuh) and K6
-// (w4a8_wgmma.cuh): mbarriers, TMA tensor-map loads, the wgmma
+// (w4a8_wgmma.cuh) and by the stream bodies of K5, K2 and K6
+// (*_stream.cuh): mbarriers, TMA tensor-map loads, ldmatrix, the wgmma
 // shared-memory descriptor and the wgmma instructions they issue, all as
 // PTX for sm_90a.
 //
@@ -117,6 +118,27 @@ __device__ __forceinline__ void reg_alloc() {
 template <int R>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ldmatrix: four (x4) or two (x2) 8x8 matrices of 16-bit elements from
+// shared memory; lane l gives the address of row l % 8 of matrix l / 8,
+// and lane (g, t) = (l / 4, l % 4) receives row g, elements 2t and 2t + 1
+// of each (the mma.sync A/B fragment layout). The stream bodies of K5, K2
+// and K6 take their token fragments so.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
 }
 
 // a barrier among `count` threads (a multiple of 32), id 1..15

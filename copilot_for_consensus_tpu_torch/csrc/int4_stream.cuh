@@ -96,22 +96,6 @@ __device__ __forceinline__ uint32_t unpack_byte(uint32_t w, uint32_t w4) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
                                        float c, float d) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
@@ -218,10 +202,11 @@ int4_stream(const __grid_constant__ CUtensorMap xmap,
       uint32_t b[NT][2];
 #pragma unroll
       for (int j = 0; j + 1 < NT; j += 2)
-        ldsm_x4(xaddr + j * 8 * 128, b[j][0], b[j][1], b[j + 1][0],
-                b[j + 1][1]);
+        hop::ldsm_x4(xaddr + j * 8 * 128, b[j][0], b[j][1], b[j + 1][0],
+                     b[j + 1][1]);
       if constexpr (NT % 2 == 1)
-        ldsm_x2(xaddr + (NT - 1) * 8 * 128, b[NT - 1][0], b[NT - 1][1]);
+        hop::ldsm_x2(xaddr + (NT - 1) * 8 * 128, b[NT - 1][0],
+                     b[NT - 1][1]);
 #pragma unroll
       for (int T = 0; T < 2; ++T)
 #pragma unroll

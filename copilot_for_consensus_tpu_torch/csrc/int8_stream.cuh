@@ -107,13 +107,6 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
 }
 
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -223,7 +216,8 @@ int8_stream(const __grid_constant__ CUtensorMap xmap,
       // B: x's k16 slice, 16-byte chunk cc of box sub / 4
       const int cc = 2 * (sub & 3) + mi;
       uint32_t b0, b1;
-      ldsm_x2(xb0 + (sub >> 2) * X_BYTES + xrow + ((cc ^ r8) << 4), b0, b1);
+      hop::ldsm_x2(xb0 + (sub >> 2) * X_BYTES + xrow + ((cc ^ r8) << 4), b0,
+                   b1);
       mma_bf16(acc[0], a[0], b0, b1);
       mma_bf16(acc[1], a[1], b0, b1);
     }

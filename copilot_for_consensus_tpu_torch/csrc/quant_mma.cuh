@@ -119,6 +119,24 @@ __device__ __forceinline__ unsigned hi_nibbles(unsigned w) {
   return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
+// packed words w0 (row r) and w1 (row r + 1), four columns each (K6's
+// int8 products): columns 2P and 2P + 1 -> one register each holding the
+// column's four nibbles [lo(r), hi(r), lo(r + 1), hi(r + 1)] as signed
+// bytes, i.e. four consecutive k. ((v ^ 8) | 0x80) - 8 is 128 plus the
+// signed nibble with no borrow between bytes, ^ 0x80 makes it two's
+// complement; one byte permute pairs the two rows' columns first, two
+// more put each column's k in order. Words that hold only columns 0 and 1
+// (16-bit loads) take P = 0.
+template <int P>
+__device__ __forceinline__ void nibble_quads(unsigned w0, unsigned w1,
+                                             unsigned& c0, unsigned& c1) {
+  const unsigned w = __byte_perm(w0, w1, P == 0 ? 0x5410 : 0x7632);
+  const unsigned lo = ((w & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u;
+  const unsigned hi = (((w >> 4) & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u;
+  c0 = __byte_perm(lo, hi, 0x6240) ^ 0x80808080u;
+  c1 = __byte_perm(lo, hi, 0x7351) ^ 0x80808080u;
+}
+
 // one packed byte -> bf16x2 (k = 2i in the low half, 2i+1 in the high)
 __device__ __forceinline__ unsigned nibbles_bf16x2(unsigned byte) {
   const int b = (int)(signed char)byte;

@@ -14,18 +14,28 @@
 // group's scale row, then added to the f32 sum in group order; sx
 // multiplies the sum at the end, and the result is rounded once to x's
 // dtype. On the tiled paths (wgmma and mma.sync) that is the plain
-// version's arithmetic, operation for operation; the split path sums its
-// splits' partials in another order (f32 rounding level).
+// version's arithmetic, operation for operation; the stream body's is
+// `w4a8_matmul_stream_ref`'s (its splits' partials summed in split order,
+// then sx), so each equals its plain version bit for bit. The split
+// qgemm sums its splits' partials in another order (f32 rounding level).
 //
 // What bounds it on this card, and what the design does about it:
 //   * Decode (M = the slot count, 32 in the 3072-context deployment): ~4*M
 //     operations per packed weight byte, far below the ~590 op/byte int8
-//     ridge: bound by reading the packed bytes once (3.35 TB/s). The wrapper
-//     passes splits > 0 for M <= 32: a 32-row tile, 128 columns a block,
-//     the contraction split by whole scale groups over blockIdx.z so every
-//     projection puts hundreds of blocks in flight; partials go to an f32
-//     workspace summed in a fixed order by a second pass. No TMA pipeline
-//     yet: later work.
+//     ridge: bound by reading the packed bytes once (3.35 TB/s), which
+//     needs tens of KB of weight in flight on every SM.
+//     `w4a8_matmul_stream_fwd` runs the stream body of w4a8_stream.cuh at
+//     M <= 32: TMA keeps four 8 KB weight stages (with xq's rows) in flight
+//     a CTA through an mbarrier ring, the weight unpacked to int8 in
+//     registers is int8 mma.sync's A operand with the tokens as n8 tiles,
+//     and the contraction is split by whole groups only where F is narrow,
+//     the last CTA of a column tile summing the splits in order and
+//     multiplying by sx (see that header's note): `quantize_rows` and one
+//     launch, bit-equal to `w4a8_matmul_stream_ref`. Layouts it refuses
+//     (group % 128, F % 16) keep the split `qgemm` of quant_mma.cuh, which
+//     `w4a8_matmul_fwd` runs when given splits > 0: a 32-row tile, 128
+//     columns a block, whole groups a split over blockIdx.z, an f32
+//     workspace summed by a second pass (`qgemm_reduce`).
 //   * Prefill (M > 32, up to 2 x 2816): bound by operations on the int8
 //     tensor cores (1,979 TOP/s), which only wgmma reaches.
 //     `w4a8_matmul_wgmma_fwd` runs the Hopper body of w4a8_wgmma.cuh: the
@@ -38,6 +48,7 @@
 // The weight never exists unpacked in device memory.
 
 #include "quant_mma.cuh"
+#include "w4a8_stream.cuh"
 #include "w4a8_wgmma.cuh"
 
 namespace {
@@ -110,6 +121,49 @@ extern "C" int w4a8_matmul_wgmma_fwd(const void* x, const void* q4,
 
 // the wgmma body's dynamic shared memory a CTA, in bytes
 extern "C" int w4a8_matmul_wgmma_smem() { return (int)k6w::SMEM_BYTES; }
+
+// the stream body (M <= 32, the layouts k6s::takes): x (bf16 or f32), q4,
+// scale, out, the scratch xq [M, D] int8 and sx [M] f32, the split
+// workspace [splits, M, F] f32 and the per-tile counters (both null when
+// splits = 1), and the wrapper's plan (tn, splits, per)
+extern "C" int w4a8_matmul_stream_fwd(const void* x, const void* q4,
+                                      const void* scale, void* out, void* xq,
+                                      void* sx, void* workspace,
+                                      void* counters, int M, int D, int F,
+                                      int G, int tn, int splits, int per,
+                                      int is_bf16, void* stream) {
+  if (D <= 0 || F <= 0 || !k6s::takes(M, D, F, G))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qq = static_cast<const int8_t*>(q4);
+  const float* sc = static_cast<const float*>(scale);
+  int8_t* xqq = static_cast<int8_t*>(xq);
+  float* sxx = static_cast<float*>(sx);
+  float* ws = static_cast<float*>(workspace);
+  int* cnt = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (is_bf16) {
+    qmma::quantize_rows<__nv_bfloat16><<<M, qmma::QR_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), xqq, sxx, D);
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = k6s::launch(xqq, qq, sc, sxx, static_cast<__nv_bfloat16*>(out), ws,
+                      cnt, M, D, F, G, tn, splits, per, st);
+  } else {
+    qmma::quantize_rows<float><<<M, qmma::QR_THREADS, 0, st>>>(
+        static_cast<const float*>(x), xqq, sxx, D);
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = k6s::launch(xqq, qq, sc, sxx, static_cast<float*>(out), ws, cnt, M,
+                      D, F, G, tn, splits, per, st);
+  }
+  return (int)e;
+}
+
+// the stream body's dynamic shared memory a CTA for nt token tiles (1-4)
+extern "C" int w4a8_matmul_stream_smem(int nt) {
+  return (int)k6s::smem_for(nt);
+}
 
 extern "C" const char* w4a8_matmul_error(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -89,20 +89,10 @@ struct Smem {
 };
 constexpr size_t SMEM_BYTES = sizeof(Smem) + 1024;   // + alignment slack
 
-// a lane's packed bytes of columns (c, c + 1) at packed rows r (h0) and
-// r + 1 (h1), each a 16-bit load -> the A registers of those two fragment
-// rows: [lo(r), hi(r), lo(r + 1), hi(r + 1)] of each column, signed
-__device__ __forceinline__ void unpack2(uint32_t h0, uint32_t h1,
-                                        uint32_t& c0, uint32_t& c1) {
-  const uint32_t w = __byte_perm(h0, h1, 0x5410);
-  const uint32_t lo = ((w & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u;
-  const uint32_t hi = (((w >> 4) & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u;
-  c0 = __byte_perm(lo, hi, 0x6240) ^ 0x80808080u;
-  c1 = __byte_perm(lo, hi, 0x7351) ^ 0x80808080u;
-}
-
 // the A fragment of k32 step j of a stage's q4 tile; off_e and off_o are
-// the lane's swizzled byte offsets at packed rows 2t and 2t + 1
+// the lane's swizzled byte offsets at packed rows 2t and 2t + 1: the
+// packed bytes of columns (c, c + 1) at rows r and r + 1, each a 16-bit
+// load, unpacked to the A registers of those two fragment rows
 __device__ __forceinline__ void load_a(const uint8_t* q, int j,
                                        uint32_t off_e, uint32_t off_o,
                                        uint32_t* a) {
@@ -111,8 +101,8 @@ __device__ __forceinline__ void load_a(const uint8_t* q, int j,
   const uint32_t h1 = *reinterpret_cast<const uint16_t*>(p + off_o);
   const uint32_t h2 = *reinterpret_cast<const uint16_t*>(p + 1024 + off_e);
   const uint32_t h3 = *reinterpret_cast<const uint16_t*>(p + 1024 + off_o);
-  unpack2(h0, h1, a[0], a[1]);   // k 4t .. 4t + 3
-  unpack2(h2, h3, a[2], a[3]);   // k 16 + 4t .. + 3
+  qmma::nibble_quads<0>(h0, h1, a[0], a[1]);   // k 4t .. 4t + 3
+  qmma::nibble_quads<0>(h2, h3, a[2], a[3]);   // k 16 + 4t .. + 3
 }
 
 // the four k32 products of one stage (x tile xt, q4 tile q), A's step 0

@@ -81,6 +81,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "w4a8_matmul_wgmma_fwd": [_P] * 6 + [_I] * 5 + [_P],
         # the wgmma body's dynamic shared memory in bytes
         "w4a8_matmul_wgmma_smem": [],
+        # x, q4, scale, out, xq, sx, workspace, counters, M, D, F, G, tn,
+        # splits, per, is_bf16, stream (the stream body, M <= 32)
+        "w4a8_matmul_stream_fwd": [_P] * 8 + [_I] * 8 + [_P],
+        # token tiles (1-4) -> the stream body's dynamic shared memory
+        "w4a8_matmul_stream_smem": [_I],
     },
     "paged_attention": {
         # q_rows, pool_k, pool_v, tables, lengths, q_pos, acc, m, l,

@@ -30,11 +30,12 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
   summed in int32, and the output is ``acc · sx · sw``.
 * K6 ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``, ``_kernel_w4a8``): K5's
   weight layout with K4's int8 activations; each group's int32 partial is
-  scaled in f32 by the group scale, the sum by sx at the end. Three
-  bodies, chosen by :func:`w4a8_body` from shape alone: the Hopper int8
-  wgmma GEMM of ``csrc/w4a8_wgmma.cuh`` for the prefill extents, and the
-  split streaming path and the mma.sync tiling of ``csrc/quant_mma.cuh``
-  for decode and for layouts the wgmma body does not take.
+  scaled in f32 by the group scale, the sum by sx at the end. Four
+  bodies, chosen by :func:`w4a8_body` from shape alone: the Hopper weight
+  stream of ``csrc/w4a8_stream.cuh`` for decode, the Hopper int8 wgmma
+  GEMM of ``csrc/w4a8_wgmma.cuh`` for the prefill extents, and, for
+  layouts those two do not take, the split streaming path (decode) and
+  the mma.sync tiling (prefill) of ``csrc/quant_mma.cuh``.
 
 Each plain version computes what the Pallas kernel computes (not the JAX
 package's XLA fallbacks, which round the dequantized weight to x's
@@ -68,20 +69,24 @@ _K2_STREAM_SLOTS = 132
 _GEMV_COLS = 256
 _GEMV_BLOCKS = 512
 _GEMV_MIN_ROWS = 16
-#: rows up to which K5 (bf16 x) and K6 take their decode paths: K5 its
-#: stream body (``int4_stream.cuh``, planned by :func:`stream_plan`), or,
-#: for layouts that body refuses, the split ``qgemm``; K6 always the split
-#: ``qgemm``. The split ``qgemm`` is a 32-row tile split over the
-#: contraction axis by whole scale groups (:func:`stream_splits`); its
-#: kernels run it when given splits > 0 and their 128-row prefill tiling
-#: for splits = 0. Decided here alone.
+#: rows up to which K5 (bf16 x) and K6 take their decode paths: their
+#: stream bodies (``int4_stream.cuh``, ``w4a8_stream.cuh``, both planned by
+#: :func:`stream_plan`: the packed layout is the same), or, for layouts
+#: those bodies refuse, the split ``qgemm``. The split ``qgemm`` is a
+#: 32-row tile split over the contraction axis by whole scale groups
+#: (:func:`stream_splits`); its kernels run it when given splits > 0 and
+#: their 128-row prefill tiling for splits = 0. Decided here alone. The
+#: two stream bodies share K2's split counters (:func:`_counters`), and
+#: with them the rule that their launches on one device keep to one
+#: stream.
 STREAM_MAX_M = 32
 _STREAM_COLS = 128        # the split qgemm's output columns per block
 _STREAM_BLOCKS = 528      # blocks the split aims for: 4 per SM on 132 SMs
-#: K5's stream body: output columns a CTA (its tiles), unpacked contraction
-#: rows a stage (a scale group must be whole stages), the column multiple
-#: its TMA loads need (a 16-byte row pitch), and the CTAs it aims to keep
-#: resident (two an SM on 132 SMs)
+#: K5's stream body: output columns a CTA (its tiles; K6's stream body's
+#: too), unpacked contraction rows a stage (a scale group must be whole
+#: stages), the column multiple its TMA loads need (a 16-byte row pitch),
+#: and the CTAs both stream bodies aim to keep resident (two an SM on 132
+#: SMs)
 STREAM_TN = 128
 K5_STREAM_KSTEP = 128
 K5_STREAM_COLS = 16
@@ -110,8 +115,13 @@ K2_BODIES = ("stream", "gemv", "wgmma", "wmma", "simt")
 #: TMA loads of the packed weight need (a 16-byte row pitch)
 K6_WGMMA_KSTEP = 128
 K6_WGMMA_COLS = 16
+#: K6's stream body (``csrc/w4a8_stream.cuh``): unpacked contraction rows
+#: a stage (a scale group must be whole stages) and the column multiple
+#: its TMA loads of the packed weight need (a 16-byte row pitch)
+K6_STREAM_KSTEP = 128
+K6_STREAM_COLS = 16
 #: K6's bodies, the keys of ``w4a8_matmul.launches_by_body``
-K6_BODIES = ("wgmma", "mma_sync", "split")
+K6_BODIES = ("stream", "wgmma", "mma_sync", "split")
 #: K2's wgmma body takes 256-column tiles where they make at least this
 #: many CTAs (one wave on 132 SMs), else 128-column ones: the wider tile
 #: reads x from L2 half as often, the narrower keeps the SMs busy when F
@@ -278,6 +288,33 @@ def w4a8_matmul_ref(x: torch.Tensor, q4: torch.Tensor,
     return (acc * sx).to(x.dtype).reshape(*x.shape[:-1], f)
 
 
+def w4a8_matmul_stream_ref(x: torch.Tensor, q4: torch.Tensor,
+                           scale: torch.Tensor, per: int) -> torch.Tensor:
+    """K6's stream body in its order of operations, on any device:
+    ``quantize_rows(x)``; the groups cut into splits of ``per`` whole
+    groups; in each split, each group's exact integer product (in f64, as
+    in :func:`w4a8_matmul_ref`) rounded to f32 and times its scale row,
+    summed from zero in group order; the splits' sums added in split
+    order; the total times sx, rounded once to x's dtype. With one split
+    it is :func:`w4a8_matmul_ref`."""
+    d = x.shape[-1]
+    group = _int4_groups(d, q4, scale)
+    f, g = q4.shape[-1], scale.shape[0]
+    xq, sx = quantize_rows(x.reshape(-1, d))
+    xq = xq.double()
+    total = None
+    for g0 in range(0, g, per):
+        acc = torch.zeros(xq.shape[0], f, dtype=torch.float32,
+                          device=x.device)
+        for gi in range(g0, min(g, g0 + per)):
+            w = unpack_int4(q4[gi * group // 2:(gi + 1) * group // 2]) \
+                .double()
+            pg = (xq[:, gi * group:(gi + 1) * group] @ w).float()
+            acc += pg * scale[gi].float()
+        total = acc if total is None else total + acc
+    return (total * sx).to(x.dtype).reshape(*x.shape[:-1], f)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -295,8 +332,9 @@ def gemv_splits(m: int, d: int, f: int) -> int:
 
 
 def stream_splits(m: int, groups: int, f: int) -> int:
-    """Contraction-axis splits of the split ``qgemm`` — K6's decode path
-    and K5's for layouts its stream body refuses (0 for the tiled path): whole scale groups per split, enough splits to put about
+    """Contraction-axis splits of the split ``qgemm`` — K5's and K6's
+    decode path for layouts their stream bodies refuse (0 for the tiled
+    path): whole scale groups per split, enough splits to put about
     ``_STREAM_BLOCKS`` blocks in flight, and none empty. Partials go to an
     f32 workspace [splits, M, F] summed in a fixed order by a second pass."""
     if m > STREAM_MAX_M:
@@ -308,12 +346,13 @@ def stream_splits(m: int, groups: int, f: int) -> int:
 
 
 def stream_plan(m: int, d: int, f: int, groups: int) -> tuple[int, int, int]:
-    """The grid of K5's stream body: (column tile width, splits, whole
-    groups a split). Tiles are ``STREAM_TN`` columns; the contraction is
-    split by whole groups only as far as it takes to bring the CTAs toward
-    ``_STREAM_SLOTS`` (all resident at once), and no further than keeps the
-    f32 workspace (splits × M × F × 4 bytes) at most a quarter of the
-    packed weight's bytes (D/2 × F). No split is empty."""
+    """The grid of K5's and K6's stream bodies: (column tile width,
+    splits, whole groups a split). Tiles are ``STREAM_TN`` columns; the
+    contraction is split by whole groups only as far as it takes to bring
+    the CTAs toward ``_STREAM_SLOTS`` (all resident at once), and no
+    further than keeps the f32 workspace (splits × M × F × 4 bytes) at
+    most a quarter of the packed weight's bytes (D/2 × F). No split is
+    empty."""
     tiles = -(-f // STREAM_TN)
     cap = max(1, min(groups, _STREAM_SLOTS // tiles, d // (32 * max(m, 1))))
     per = -(-groups // cap)
@@ -389,17 +428,21 @@ def int4_body(m: int, f: int, group: int, dtype: torch.dtype) -> str:
 def w4a8_body(m: int, d: int, f: int, group: int,
               dtype: torch.dtype) -> str:
     """The body of K6 that a CUDA call runs, from shape alone: up to
-    ``STREAM_MAX_M`` rows ``"split"`` (the split qgemm); above it
-    ``"wgmma"`` (the Hopper int8 GEMM) where D and the scale group are
-    whole 128-row stages and F a multiple of 16, else ``"mma_sync"`` (the
-    tiling K4 and K5 share). ``dtype`` (bf16 or f32) does not enter: every
-    body multiplies the int8 rows ``quantize_rows`` makes of x, and x's
-    dtype changes only the store, so both take the wgmma body. Every
-    Mistral-7B int4 projection (group 256) is ``"split"`` at M <= 32 and
-    ``"wgmma"`` above."""
+    ``STREAM_MAX_M`` rows ``"stream"`` (the Hopper weight stream) where the
+    scale group is whole 128-row stages and F a multiple of 16, else
+    ``"split"`` (the split qgemm K5 shares); above it ``"wgmma"`` (the
+    Hopper int8 GEMM) where D and the scale group are whole 128-row stages
+    and F a multiple of 16, else ``"mma_sync"`` (the tiling K4 and K5
+    share). ``dtype`` (bf16 or f32) does not enter: every body multiplies
+    the int8 rows ``quantize_rows`` makes of x, and x's dtype changes only
+    the store, so both take the same body. Every Mistral-7B int4
+    projection (group 256) is ``"stream"`` at M <= 32 and ``"wgmma"``
+    above."""
     if dtype not in _DTYPES:
         raise TypeError(f"x must be one of {_DTYPES}, got {dtype}")
     if m <= STREAM_MAX_M:
+        if group % K6_STREAM_KSTEP == 0 and f % K6_STREAM_COLS == 0:
+            return "stream"
         return "split"
     if d % K6_WGMMA_KSTEP == 0 and group % K6_WGMMA_KSTEP == 0 \
             and f % K6_WGMMA_COLS == 0:
@@ -442,10 +485,10 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-#: per device, the split counters of the stream bodies of K2 and K5 (one
-#: int32 a column tile), which share them: zero between launches, since
-#: the last CTA of a tile resets its own. Their launches on one device
-#: must therefore not run concurrently on two streams.
+#: per device, the split counters of the stream bodies of K2, K5 and K6
+#: (one int32 a column tile), which share them: zero between launches,
+#: since the last CTA of a tile resets its own. Their launches on one
+#: device must therefore not run concurrently on two streams.
 _stream_counters: dict[torch.device, torch.Tensor] = {}
 
 
@@ -612,6 +655,20 @@ def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor,
         err = lib.w4a8_matmul_wgmma_fwd(
             x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
             xq.data_ptr(), sx.data_ptr(), m, d, f, g,
+            int(x.dtype == torch.bfloat16), _stream(x))
+    elif body == "stream":
+        tn, splits, per = stream_plan(m, d, f, g)
+        ws = cnt = None
+        if splits > 1:
+            ws = torch.empty((splits, m, f), dtype=torch.float32,
+                             device=x.device)
+            cnt = _counters(x.device, -(-f // tn))
+        err = lib.w4a8_matmul_stream_fwd(
+            x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            cnt.data_ptr() if cnt is not None else None,
+            m, d, f, g, tn, splits, per,
             int(x.dtype == torch.bfloat16), _stream(x))
     else:
         splits = stream_splits(m, g, f)

@@ -73,7 +73,9 @@ def test_no_jax_imports_in_source(path):
     ("paged_decode.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py"),
     ("paged_wgmma.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py"),
     ("int4_stream.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
-    ("int8_stream.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py")])
+    ("int8_stream.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("w4a8_wgmma.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
+    ("w4a8_stream.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py")])
 def test_kernel_sources_carry_their_note(name, replaces):
     if name.endswith(".cuh"):
         head = (PKG / "csrc" / name).read_text().split("#pragma once")[0]
@@ -114,7 +116,9 @@ def test_every_source_is_built_and_bound():
     ("int8_wgmma.cuh", "bound by operations on the bf16 tensor cores"),
     ("paged_decode.cuh", "bound by the bytes of the attended positions"),
     ("paged_wgmma.cuh", "bound by bytes"),
-    ("int8_stream.cuh", "bound by reading the int8 bytes once")])
+    ("int8_stream.cuh", "bound by reading the int8 bytes once"),
+    ("w4a8_wgmma.cuh", "bound by operations on the int8 tensor cores"),
+    ("w4a8_stream.cuh", "bound by reading the packed bytes once")])
 def test_new_bodies_state_their_bound_and_design(name, bound):
     # K2's tiled path is bound by operations, K3 by bytes in both regimes;
     # each note says so and what its design does about it
@@ -130,7 +134,9 @@ def test_new_bodies_state_their_bound_and_design(name, bound):
     ("paged_attention", "paged_attention_decode_fwd"),
     ("paged_attention", "paged_attention_seeded_fwd"),
     ("int4_matmul", "int4_matmul_stream_fwd"),
-    ("int8_matmul", "int8_matmul_stream_fwd")])
+    ("int8_matmul", "int8_matmul_stream_fwd"),
+    ("w4a8_matmul", "w4a8_matmul_wgmma_fwd"),
+    ("w4a8_matmul", "w4a8_matmul_stream_fwd")])
 def test_wgmma_bodies_have_their_own_entry(lib, entry):
     # the wrapper picks a body by calling its entry; the entry is bound with
     # its argument types and defined in the library's source

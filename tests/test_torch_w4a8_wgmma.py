@@ -41,9 +41,12 @@ def test_mistral_int4_waves_take_the_wgmma_body(leaf, m, dtype):
 @pytest.mark.parametrize("m", [1, 8, 32])
 @pytest.mark.parametrize("leaf", sorted(MISTRAL_INT4))
 def test_mistral_int4_decode_keeps_the_split_qgemm(leaf, m):
+    # decode no longer keeps the split qgemm: every Mistral-7B leaf takes
+    # the stream body of w4a8_stream.cuh at M <= 32 (the split qgemm stays
+    # for the layouts that body refuses, test_w4a8_body_edges)
     d, f = MISTRAL_INT4[leaf]
     assert tqm.w4a8_body(m, d, f, tquant.INT4_GROUP,
-                         torch.bfloat16) == "split"
+                         torch.bfloat16) == "stream"
 
 
 @pytest.mark.parametrize("m,d,f,group,body", [
@@ -53,6 +56,10 @@ def test_mistral_int4_decode_keeps_the_split_qgemm(leaf, m):
     (512, 4096, 4096, 64, "mma_sync"),     # a group of half a stage
     (512, 4160, 4096, 320, "mma_sync"),    # D and the group off the stage
     (512, 14336, 4096, 14336, "wgmma"),    # one group of the whole depth
+    (32, 4096, 4104, 256, "split"),        # decode, F % 16 = 8
+    (32, 4096, 4096, 64, "split"),         # decode, a group of half a stage
+    (1, 4096, 6144, 256, "stream"),        # one token
+    (17, 4096, 6144, 256, "stream"),       # a ragged third token tile
 ])
 def test_w4a8_body_edges(m, d, f, group, body):
     assert tqm.w4a8_body(m, d, f, group, torch.bfloat16) == body
@@ -96,8 +103,9 @@ def _byte_perm(a, b, sel):
 
 
 def _unpack2(h0, h1):
-    """The body's ``unpack2``: the 16-bit loads of columns (c, c + 1) at
-    packed rows r and r + 1 -> the A registers of the two columns."""
+    """The body's unpack (``qmma::nibble_quads<0>``): the 16-bit loads of
+    columns (c, c + 1) at packed rows r and r + 1 -> the A registers of
+    the two columns."""
     w = _byte_perm(h0, h1, 0x5410)
     lo = ((w & 0x0F0F0F0F) ^ 0x88888888) - np.uint32(0x08080808)
     hi = (((w >> 4) & 0x0F0F0F0F) ^ 0x88888888) - np.uint32(0x08080808)
