@@ -11,17 +11,17 @@ non-zero before the last line:
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build   — compiles every kernel of ``copilot_for_consensus_tpu_torch/
    csrc`` into ``build/cuda_kernels/``;
-   then, for the five libraries with a Hopper body (the wgmma bodies of
-   K5, K1, K2, K3 and K6, K3's split-KV decode body and the stream bodies
-   of K5, K2 and K6), one ``build_info`` line each: ptxas's registers,
+   then, for the six libraries with a Hopper body (the wgmma bodies of
+   K5, K1, K2, K3, K6 and K4, K3's split-KV decode body and the stream
+   bodies of K5, K2 and K6), one ``build_info`` line each: ptxas's registers,
    spills and shared memory per kernel, the Hopper bodies' dynamic shared
    memory, and the counts of HGMMA, IGMMA, UTMALDG, LDGSTS, HMMA and IMMA
    instructions
    per kernel in the SASS (``cuobjdump -sass``; "absent" without it) — the
-   wgmma bodies must show HGMMA (IGMMA for K6's int8 one) and UTMALDG, the
-   stream bodies HMMA (IMMA for K6's int8 one) and UTMALDG, and the bodies
-   of K2, K3, K6 and the stream bodies must build without spills or a
-   ptxas performance note;
+   wgmma bodies must show HGMMA (IGMMA for K6's and K4's int8 ones) and
+   UTMALDG, the stream bodies HMMA (IMMA for K6's int8 one) and UTMALDG,
+   and the bodies of K2, K3, K6, K4 and the stream bodies must build
+   without spills or a ptxas performance note;
 3. kernels — (after one ``timing_floor`` line: what ``time_ms`` gives a
    one-element kernel, L2 flushed) holds K1 (flash attention) and K2
    (int8 matmul) against their plain PyTorch versions at the full
@@ -49,9 +49,12 @@ non-zero before the last line:
    before: every kernel of the path must have launched;
 6. int8 wave and trace — one 4 x 1024 admission wave of the same engine
    traced by kernel (device ms by kernel and by family, the launches of
-   each body); then the engine's steady decode with all four slots busy,
-   timed on the host clock and then traced by ``torch.profiler``: device
-   busy time, idle share and device time by kernel and by family;
+   each body), weight-only and then again with ``set_act_quant("a8")``
+   (224 launches of K4's wgmma body, K4's device ms a wave, 1 of K2's
+   stream body, 32 of K1); then the engine's steady decode with all four
+   slots busy, timed on the host clock and then traced by
+   ``torch.profiler``: device busy time, idle share and device time by
+   kernel and by family;
 7. kernels, K3 — (run right after phase 3, on a 1024-block pool) the
    paged flash-partial kernel against its plain version at the decode
    (R = 4, a 64-entry table, bf16/f32/fp8 pools, windows 4096 and 100)
@@ -78,9 +81,13 @@ non-zero before the last line:
    version in its order, ``w4a8_matmul_stream_ref``, and timed beside the
    split qgemm it replaces) and 5632 (a 2 x 2816 wave: both wgmma bodies,
    K6's bit for bit equal to its plain version), K4
-   (W8A8) on the four int8 layer projections at M = 4096, plus one f32
-   case each — timed likewise, K6 beside K5's ``x @ w`` as a yardstick
-   that is not its function; K5's and K6's tiled edges: M = 33, M = 5000
+   (W8A8) on the four int8 layer projections at M = 4096 (its wgmma body,
+   bit for bit equal to its plain version, timed beside the mma.sync
+   tiling it replaces, ``mma_sync_ms``), plus one f32 case each — timed
+   likewise, K6 beside K5's ``x @ w`` as a yardstick that is not its
+   function; K4's edges: M = 1000 with F = 4112 (ragged against every
+   tile) on the wgmma body, D = 4160 and F = 4104 on the mma.sync tiling,
+   each bit for bit; K5's and K6's tiled edges: M = 33, M = 5000
    with F = 6128 (ragged against every tile) on the wgmma bodies (K6's bit
    for bit), and F = 4104 on the mma.sync tiling; and, untimed, K6's wgmma
    body at f32 x (bit for bit), K5's and K6's stream edges: M = 1, 8 and
@@ -88,7 +95,8 @@ non-zero before the last line:
    and F = 4104 at M = 32, a layout the stream bodies refuse, on the split
    qgemm;
 12. a8 model — (run right after phase 4) one 4 x 1024 int8 wave with
-   ``set_act_quant("a8")``, through K4 and through the plain versions;
+   ``set_act_quant("a8")``, through K4 (224 launches, all on its wgmma
+   body) and through the plain versions;
 13. int4 serve — after the paged engine and the int8 weights are freed,
    an int4 engine of the JAX bench's 3072-context deployment (32 slots,
    one 2816 bucket, an 8192-token admission budget, decode window 32)
@@ -114,16 +122,17 @@ non-zero before the last line:
    the counts reset before: each mode must launch 400 times, and none may
    stream faster than 1.05 x 3.35 TB/s.
 
-Every serve phase counts K1's, K2's, K3's, K5's and K6's launches by body:
+Every serve phase counts each kernel's launches by body (K1-K6):
 the main path's K1 launches must all be the wgmma body's, its K2 launches
 the stream body's or the wgmma body's (never the GEMV, WMMA or the
 CUDA-core loop; 7 a layer and one for the lm_head a forward pass), its K3
-launches the decode or seeded body's, and no K5 or K6 launch may take
+launches the decode or seeded body's, and no K4, K5 or K6 launch may take
 the split qgemm or the mma.sync (or K5's CUDA-core) tiled bodies (on the
 int4 path each kernel's wgmma body makes 4 launches a layer a wave, its
-stream body the rest). Then the kernel table (K1-K6; K2's stream and
-wgmma bodies, K3's decode and seeded bodies, and K5's and K6's stream
-and tiled bodies as two rows each; and
+stream body the rest; K4's 224 a wave all go to its wgmma body). Then
+the kernel table (K1-K6; K2's stream and wgmma bodies, K3's decode and
+seeded bodies, and K5's and K6's stream and tiled bodies as two rows
+each; K4's wgmma body with the mma.sync tiling's time beside it; and
 P's five modes, each with its launches on every path) as one JSON line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. About
 5-7 minutes on one H100 (the host's speed varies), the build included.
@@ -299,7 +308,7 @@ def check_path(label: str, launches: dict, used) -> None:
 
 #: kernels with more than one body; each wrapper's ``launches_by_body``
 #: counts each body's launches
-BODY_KERNELS = ("K1", "K2", "K3", "K5", "K6")
+BODY_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def read_bodies() -> dict:
@@ -326,13 +335,14 @@ def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
     """The main path's K1 launches all went to the wgmma body, its K2
     launches to the stream body (M <= 8) and the wgmma body (never the
     split GEMV, WMMA or the CUDA-core loop), its K3 launches to the decode
-    and seeded bodies (never the CUDA-core one), and its K5 and K6
+    and seeded bodies (never the CUDA-core one), its K4 launches (if any)
+    to the wgmma body (never the mma.sync tiling), and its K5 and K6
     launches (if any) to their wgmma and stream bodies, never to the split
     qgemm or the mma.sync (or K5's CUDA-core) tiled bodies; ``k5_wgmma``,
     ``k5_stream``, ``k6_wgmma`` and ``k6_stream`` are the counts those
     bodies must have."""
     old = {"K1": ("simt",), "K2": ("gemv", "wmma", "simt"), "K3": ("simt",),
-           "K5": ("split", "mma_sync", "simt"),
+           "K4": ("mma_sync",), "K5": ("split", "mma_sync", "simt"),
            "K6": ("split", "mma_sync")}
     for k, names in old.items():
         if any(bodies[k][n] for n in names):
@@ -354,7 +364,8 @@ REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", "k5s::"),
               "flash_attention": ("fa3::flash_wgmma", None),
               "int8_matmul": ("k2w::int8_wgmma", "k2s::"),
               "paged_attention": ("k3s::paged_wgmma", "k3d::"),
-              "w4a8_matmul": ("k6w::w4a8_wgmma", "k6s::")}
+              "w4a8_matmul": ("k6w::w4a8_wgmma", "k6s::"),
+              "w8a8_matmul": ("k4w::w8a8_wgmma", None)}
 
 
 def wgmma_smem(name: str, lib) -> dict:
@@ -367,6 +378,8 @@ def wgmma_smem(name: str, lib) -> dict:
         return {**{f"k2w::int8_wgmma<{tn}>": lib.int8_matmul_wgmma_smem(tn)
                    for tn in (128, 256)},
                 "k2s::int8_stream": lib.int8_matmul_stream_smem()}
+    if name == "w8a8_matmul":
+        return {"k4w::w8a8_wgmma": lib.w8a8_matmul_wgmma_smem()}
     if name == "w4a8_matmul":
         return {"k6w::w4a8_wgmma": lib.w4a8_matmul_wgmma_smem(),
                 **{f"k6s::w4a8_stream<{nt}>": lib.w4a8_matmul_stream_smem(nt)
@@ -379,7 +392,7 @@ def wgmma_smem(name: str, lib) -> dict:
 #: the bodies of the last slices: ptxas must report them without spills
 #: and without a performance note (C75xx: serialized wgmma and the like)
 NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::", "k6w::",
-              "k6s::")
+              "k6s::", "k4w::")
 #: Hopper bodies on mma.sync (not wgmma), by kernel prefix: the SASS
 #: instructions each of their kernels must show
 MMA_SYNC_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
@@ -780,6 +793,28 @@ def k6_split_qgemm(x, q4, s):
     return out
 
 
+def k4_mma_sync(x, q, s):
+    """The mma.sync tiling that K4 ran on every layout before its wgmma
+    body (``quantize_rows`` and one launch), called through its C entry
+    for timing beside the wgmma body; the wrapper's counts do not see
+    it."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.ops import _build
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    m, d = x.shape
+    f = q.shape[1]
+    out = torch.empty(m, f, dtype=x.dtype, device=x.device)
+    xq, sx = qm._a8_scratch(x, m, d)
+    err = _build.library("w8a8_matmul").w8a8_matmul_fwd(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), m, d, f,
+        int(x.dtype == torch.bfloat16), qm._stream(x))
+    _build.check("w8a8_matmul", err, "w8a8_matmul launch (mma.sync)")
+    return out
+
+
 def phase_quant_kernels(dev, flush):
     """K5, K4 and K6 against their plain versions at the int4 / a8 main
     path's shapes: K5 and K6 at M = 32 (a decode step of the 3072-context
@@ -787,8 +822,10 @@ def phase_quant_kernels(dev, flush):
     its plain version in its order and timed beside the split qgemm it
     replaces, ``split_ms``) and M = 5632 (its 2 x 2816 admission wave: both
     wgmma bodies, K6's bit for bit equal to its plain version), K4 at M =
-    4096 (the 4 x 1024 wave), bf16 — plus one f32 case each; then both
-    kernels' tiled and stream edges. Timed beside the bound, the plain
+    4096 (the 4 x 1024 wave: its wgmma body, bit for bit equal to its plain
+    version and timed beside the mma.sync tiling it replaces,
+    ``mma_sync_ms``), bf16 — plus one f32 case each; then K4's edges and
+    K5's and K6's tiled and stream edges. Timed beside the bound, the plain
     version and a PyTorch yardstick: K5's and K6's the same ``x @ w`` (w
     dequantized to bf16 beforehand), timed once a case, which for K6 is
     not the same function."""
@@ -999,24 +1036,35 @@ def phase_quant_kernels(dev, flush):
                 (want_path == "stream" and not row["bit_equal"]):
             raise AssertionError(f"K6 {row['case']}: {row}")
         del x, q4, s, out, want
-    a8_cases = [(d, f, 4096, "bfloat16") for d, f in A8_SHAPES] + \
-        [(4096, 4096, 4096, "float32")]
-    for d, f, m, dt_name in a8_cases:
+    # K4 at the a8 wave's four layer shapes and f32 x, then its edges: M
+    # 1000 x F 4112 (ragged against the 256-token and 128-column tiles) on
+    # the wgmma body, and D 4160 and F 4104, layouts it does not take, on
+    # the mma.sync tiling; every one bit for bit equal to the plain version
+    a8_cases = [(d, f, 4096, "bfloat16", "wgmma") for d, f in A8_SHAPES] + \
+        [(4096, 4096, 4096, "float32", "wgmma"),
+         (4096, 4112, 1000, "bfloat16", "wgmma"),
+         (4160, 4096, 1024, "bfloat16", "mma_sync"),
+         (4096, 4104, 1024, "bfloat16", "mma_sync")]
+    for d, f, m, dt_name, want_path in a8_cases:
         dt = getattr(torch, dt_name)
         x = torch.randn(m, d, generator=g, device=dev).to(dt)
         q = torch.randint(-127, 128, (d, f), generator=g, dtype=torch.int8,
                           device=dev)
         s = torch.rand(1, f, generator=g, device=dev) * (2 * d ** -0.5
                                                           / 73.3)
+        before = dict(qm.w8a8_matmul.launches_by_body)
         out = qm.w8a8_matmul(x, q, s)
         torch.cuda.synchronize()
+        ran = [b for b, n in qm.w8a8_matmul.launches_by_body.items()
+               if n != before[b]]
         want = qm.w8a8_matmul_ref(x, q, s)
         err = (out.float() - want.float()).abs().max().item()
         ok = bool(torch.isfinite(out).all()) and err <= K4_ATOL
         xq, sx = qm.quantize_rows(x)
         bnd, by = bound_ms(nbytes(x, q, s, out), 2.0 * m * d * f, "int8")
         row = {"kernel": "K4", "case": f"m{m}_d{d}_f{f}", "dtype": dt_name,
-               "shape": [m, d, f], "max_abs_err": err, "tol": K4_ATOL,
+               "shape": [m, d, f], "path": qm.w8a8_body(m, d, f, dt),
+               "ran": ran, "max_abs_err": err, "tol": K4_ATOL,
                "bit_equal": bool(torch.equal(out, want)),
                "ms": time_ms(lambda: qm.w8a8_matmul(x, q, s), flush=flush),
                "plain_ms": time_ms(lambda: qm.w8a8_matmul_ref(x, q, s), n=3,
@@ -1027,7 +1075,17 @@ def phase_quant_kernels(dev, flush):
                "library": "torch._int_mm(xq, q) then the two scales, xq "
                           "quantized beforehand",
                "bound_ms": bnd, "bound_by": by}
+        if want_path == "wgmma":
+            # the mma.sync tiling this body replaces, same inputs
+            row["mma_sync_ms"] = time_ms(lambda: k4_mma_sync(x, q, s),
+                                         flush=flush)
+            row["faster_than"] = {
+                "mma_sync": row["ms"] < row["mma_sync_ms"],
+                "library": row["ms"] < row["library_ms"]}
         record(row, ok)
+        if row["path"] != want_path or ran != [want_path] or \
+                not row["bit_equal"]:
+            raise AssertionError(f"K4 {row['case']}: {row}")
         del x, q, s, out, want, xq, sx
     torch.cuda.empty_cache()
     return rows
@@ -1378,11 +1436,11 @@ def phase_model(dev, cfg, params):
 def phase_a8_model(dev, cfg, params):
     """One 4 x 1024 admission wave of the int8 model with activation
     quantization on (``set_act_quant("a8")``): through the kernels, where
-    every layer projection (M = 4096 >= 1024 rows) takes K4 and the lm_head
-    (M = 4) stays on K2, and through the plain versions; last-position
-    logits compared by relative L2. The weight-only kernel logits of the
-    same wave are printed beside them, not gated on: they show what a8
-    changes."""
+    every layer projection (M = 4096 >= 1024 rows) takes K4's wgmma body
+    and the lm_head (M = 4) stays on K2, and through the plain versions;
+    last-position logits compared by relative L2. The weight-only kernel
+    logits of the same wave are printed beside them, not gated on: they
+    show what a8 changes."""
     import torch
 
     from copilot_for_consensus_tpu_torch.models import decoder, quant
@@ -1429,9 +1487,11 @@ def phase_a8_model(dev, cfg, params):
         raise AssertionError(f"a8 kernel vs plain prefill logits: {row}")
     check_path("a8_model", launches, ("K1", "K2", "K4"))
     check_bodies("a8_model", bodies)
-    if (launches["K4"], launches["K2"], bodies["K2"]["stream"]) != \
-            (7 * cfg.n_layers, 1, 1):
-        raise AssertionError(f"a8 wave launches {launches}")
+    if (launches["K4"], bodies["K4"]["wgmma"], launches["K2"],
+            bodies["K2"]["stream"]) != (7 * cfg.n_layers, 7 * cfg.n_layers,
+                                        1, 1):
+        raise AssertionError(f"a8 wave launches {launches} by body "
+                             f"{bodies}")
     return launches, bodies
 
 
@@ -2045,8 +2105,10 @@ KERNEL_FAMILIES = {
     "K5 stream (int4_stream)": ("int4_stream",),
     "K6 wgmma (w4a8_wgmma)": ("w4a8_wgmma",),
     "K6 stream (w4a8_stream)": ("w4a8_stream",),
+    "K4 wgmma (w8a8_wgmma)": ("w8a8_wgmma",),
     "K4, K6 activation rows (quantize_rows)": ("quantize_rows",),
-    "K5 and K6 split, K4 (qgemm, int4_simt)": ("qgemm", "int4_simt"),
+    "K5 and K6 split, mma.sync tilings of K4-K6 (qgemm, int4_simt)":
+        ("qgemm", "int4_simt"),
 }
 
 
@@ -2069,11 +2131,17 @@ def phase_int8_wave(cfg, eng, smi):
     ``torch.profiler``: device ms by kernel and by family, the card's busy
     time, and the launches of each kernel body in the wave — K2's wgmma
     body 7 times a layer, its stream body once (the lm_head's 4 rows),
-    K1's wgmma body once a layer. The engine's slots must be free; the
-    wave writes their cache rows only."""
+    K1's wgmma body once a layer. Then the same wave with
+    ``set_act_quant("a8")`` (restored to "weight_only" after), likewise:
+    its layers' projections on K4's wgmma body (7 a layer), its lm_head on
+    K2's stream body, and K4's device ms in the wave (its wgmma body and
+    its ``quantize_rows``). The engine's slots must be free; the wave
+    writes their cache rows only."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from copilot_for_consensus_tpu_torch.models import quant
 
     rows, bucket = 4, 1024
     tokens = np.random.default_rng(7).integers(
@@ -2087,26 +2155,47 @@ def phase_int8_wave(cfg, eng, smi):
         torch.cuda.synchronize()
         return time.monotonic() - t0
 
-    plain_s = wave()
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced_s = wave()
-    bodies = read_bodies()
-    events, by_name = device_us_by_kernel(prof)
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in events)
-    row = {"phase": "int8_wave", "config": cfg.name, "rows": rows,
-           "bucket": bucket, "wave_s": plain_s, "traced_wave_s": traced_s,
-           "device_busy_ms": busy / 1e3,
-           "device_ms_by_family": device_ms_by_family(by_name),
-           "device_ms_by_kernel": {k: v / 1e3 for k, v in
-                                   list(by_name.items())[:12]},
-           "launches_by_body": bodies, "device": smi}
-    emit(row)
+    def traced(mode):
+        quant.set_act_quant(mode)
+        try:
+            plain_s = wave()
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced_s = wave()
+        finally:
+            quant.set_act_quant("weight_only")
+        launches, bodies = read_launches(), read_bodies()
+        events, by_name = device_us_by_kernel(prof)
+        busy = busy_us((e.time_range.start, e.time_range.end)
+                       for e in events)
+        by_family = device_ms_by_family(by_name)
+        row = {"phase": "int8_wave", "act_quant": mode, "config": cfg.name,
+               "rows": rows, "bucket": bucket, "wave_s": plain_s,
+               "traced_wave_s": traced_s, "device_busy_ms": busy / 1e3,
+               "device_ms_by_family": by_family,
+               "device_ms_by_kernel": {k: v / 1e3 for k, v in
+                                       list(by_name.items())[:12]},
+               "launches_by_body": bodies, "device": smi}
+        if mode == "a8":
+            k4 = {"w8a8_wgmma": by_family.get("K4 wgmma (w8a8_wgmma)", 0.0),
+                  "quantize_rows": by_family.get(
+                      "K4, K6 activation rows (quantize_rows)", 0.0)}
+            row["k4_device_ms_per_wave"] = {**k4, "total": sum(k4.values())}
+        emit(row)
+        return row, launches, bodies
+
+    row, _, bodies = traced("weight_only")
     if (bodies["K2"]["wgmma"], bodies["K2"]["stream"], bodies["K1"]["wgmma"]) \
             != (7 * cfg.n_layers, 1, cfg.n_layers):
         raise AssertionError(f"int8 wave launches by body: {bodies}")
     check_bodies("int8_wave", bodies)
-    return row
+    a8_row, launches, bodies = traced("a8")
+    check_path("int8_wave_a8", launches, ("K1", "K2", "K4"))
+    check_bodies("int8_wave_a8", bodies)
+    if (bodies["K4"]["wgmma"], bodies["K2"]["stream"], bodies["K2"]["wgmma"],
+            bodies["K1"]["wgmma"]) != (7 * cfg.n_layers, 1, 0, cfg.n_layers):
+        raise AssertionError(f"int8 a8 wave launches by body: {bodies}")
+    return row, a8_row
 
 
 def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
@@ -2351,9 +2440,9 @@ def main() -> int:
              rows[("K6", "m5632_d4096_f28672", "bfloat16")], "int4_serve_a8",
              f"{q}:405")):
         k = row["kernel"]
-        # K1, K2, K3, K5 and K6 count their launches by body: each of their
-        # rows is one body, whose source is the body's own file, and counts
-        # that body's launches on every path
+        # K1-K6 count their launches by body: each of their rows is one
+        # body, whose source is the body's own file, and counts that
+        # body's launches on every path
         body, src = {
             "flash_attention": ("wgmma", "flash_wgmma.cuh"),
             "int8_matmul": ("stream", "int8_stream.cuh"),
@@ -2364,8 +2453,10 @@ def main() -> int:
             "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
             "w4a8_matmul": ("stream", "w4a8_stream.cuh"),
             "w4a8_matmul_tiled": ("wgmma", "w4a8_wgmma.cuh"),
+            "w8a8_matmul": ("wgmma", "w8a8_wgmma.cuh"),
         }.get(name, (None, f"{name}.cu"))
-        extra = {}
+        extra = {"mma_sync_ms": row["mma_sync_ms"]} \
+            if "mma_sync_ms" in row else {}
         if body is not None:
             extra.update(body=body, launches_by_body={
                 p: b[k] for p, b in bodies_by_path.items()})

@@ -69,8 +69,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "int4_matmul_stream_smem": [_I],
     },
     "w8a8_matmul": {
-        # x, q, scale, out, xq, sx, M, D, F, is_bf16, stream
+        # x, q, scale, out, xq, sx, M, D, F, is_bf16, stream (the mma.sync
+        # tiling)
         "w8a8_matmul_fwd": [_P] * 6 + [_I] * 4 + [_P],
+        # the same arguments (the wgmma body, D % 128, F % 16)
+        "w8a8_matmul_wgmma_fwd": [_P] * 6 + [_I] * 4 + [_P],
+        # the wgmma body's dynamic shared memory in bytes
+        "w8a8_matmul_wgmma_smem": [],
     },
     "w4a8_matmul": {
         # x, q4, scale, out, xq, sx, workspace, M, D, F, G, splits, is_bf16,

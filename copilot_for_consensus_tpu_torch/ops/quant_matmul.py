@@ -27,7 +27,11 @@ Each replaces a Pallas kernel of the JAX package's ``ops/quant_matmul.py``:
   CUDA-core loop for f32 x.
 * K4 ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, ``_kernel_w8a8``): x is
   quantized to int8 per row (``quantize_rows``), the int8 product is
-  summed in int32, and the output is ``acc · sx · sw``.
+  summed in int32, and the output is ``acc · sx · sw``. Two bodies, chosen
+  by :func:`w8a8_body` from shape alone: the Hopper int8 wgmma GEMM of
+  ``csrc/w8a8_wgmma.cuh`` where D is whole 128-row stages and F a multiple
+  of 16 (every Mistral-7B int8 leaf), else the mma.sync tiling of
+  ``csrc/quant_mma.cuh``.
 * K6 ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``, ``_kernel_w4a8``): K5's
   weight layout with K4's int8 activations; each group's int32 partial is
   scaled in f32 by the group scale, the sum by sx at the end. Four
@@ -122,6 +126,13 @@ K6_STREAM_KSTEP = 128
 K6_STREAM_COLS = 16
 #: K6's bodies, the keys of ``w4a8_matmul.launches_by_body``
 K6_BODIES = ("stream", "wgmma", "mma_sync", "split")
+#: K4's wgmma body (``csrc/w8a8_wgmma.cuh``): contraction rows a stage (D
+#: must be whole stages) and the column multiple its TMA loads of the
+#: weight need (a 16-byte row pitch)
+K4_WGMMA_KSTEP = 128
+K4_WGMMA_COLS = 16
+#: K4's bodies, the keys of ``w8a8_matmul.launches_by_body``
+K4_BODIES = ("wgmma", "mma_sync")
 #: K2's wgmma body takes 256-column tiles where they make at least this
 #: many CTAs (one wave on 132 SMs), else 128-column ones: the wider tile
 #: reads x from L2 half as often, the narrower keeps the SMs busy when F
@@ -450,6 +461,21 @@ def w4a8_body(m: int, d: int, f: int, group: int,
     return "mma_sync"
 
 
+def w8a8_body(m: int, d: int, f: int, dtype: torch.dtype) -> str:
+    """The body of K4 that a CUDA call runs, from shape alone: ``"wgmma"``
+    (the Hopper int8 GEMM) where D is whole 128-row stages and F a
+    multiple of 16, else ``"mma_sync"`` (the tiling K5 and K6 share).
+    Neither ``m`` nor ``dtype`` (bf16 or f32) enters: both bodies multiply
+    the int8 rows ``quantize_rows`` makes of x at any M, and x's dtype
+    changes only the store. Every Mistral-7B int8 projection is
+    ``"wgmma"``."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"x must be one of {_DTYPES}, got {dtype}")
+    if d % K4_WGMMA_KSTEP == 0 and f % K4_WGMMA_COLS == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
 def _check(x, w, scale, w_rows: int) -> None:
     if not (x.device == w.device == scale.device):
         raise ValueError("x, weight, scale must lie on one device")
@@ -621,13 +647,16 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     if m == 0:
         return out
     xq, sx = _a8_scratch(x, m, d)
+    body = w8a8_body(m, d, f, x.dtype)
     lib = _build.library("w8a8_matmul")
-    err = lib.w8a8_matmul_fwd(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), m, d, f,
-        int(x.dtype == torch.bfloat16), _stream(x))
-    _build.check("w8a8_matmul", err, "w8a8_matmul launch")
+    fwd = lib.w8a8_matmul_wgmma_fwd if body == "wgmma" \
+        else lib.w8a8_matmul_fwd
+    err = fwd(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+              xq.data_ptr(), sx.data_ptr(), m, d, f,
+              int(x.dtype == torch.bfloat16), _stream(x))
+    _build.check("w8a8_matmul", err, f"w8a8_matmul launch ({body})")
     w8a8_matmul.launches += 1
+    w8a8_matmul.launches_by_body[body] += 1
     return out
 
 
@@ -693,6 +722,8 @@ int4_matmul.launches = 0
 #: K5's launches by body (:func:`int4_body`); they sum to ``launches``
 int4_matmul.launches_by_body = dict.fromkeys(K5_BODIES, 0)
 w8a8_matmul.launches = 0
+#: K4's launches by body (:func:`w8a8_body`); they sum to ``launches``
+w8a8_matmul.launches_by_body = dict.fromkeys(K4_BODIES, 0)
 w4a8_matmul.launches = 0
 #: K6's launches by body (:func:`w4a8_body`); they sum to ``launches``
 w4a8_matmul.launches_by_body = dict.fromkeys(K6_BODIES, 0)
