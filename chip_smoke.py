@@ -11,17 +11,17 @@ non-zero before the last line:
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build   — compiles every kernel of ``copilot_for_consensus_tpu_torch/
    csrc`` into ``build/cuda_kernels/``;
-   then, for the six libraries with a Hopper body (the wgmma bodies of
-   K5, K1, K2, K3, K6 and K4, K3's split-KV decode body and the stream
+   then, for the seven libraries with a Hopper body (the wgmma bodies of
+   K5, K1, K2, K3, K6, K4 and P, K3's split-KV decode body and the stream
    bodies of K5, K2 and K6), one ``build_info`` line each: ptxas's registers,
    spills and shared memory per kernel, the Hopper bodies' dynamic shared
    memory, and the counts of HGMMA, IGMMA, UTMALDG, LDGSTS, HMMA and IMMA
    instructions
    per kernel in the SASS (``cuobjdump -sass``; "absent" without it) — the
-   wgmma bodies must show HGMMA (IGMMA for K6's and K4's int8 ones) and
-   UTMALDG, the stream bodies HMMA (IMMA for K6's int8 one) and UTMALDG,
-   and the bodies of K2, K3, K6, K4 and the stream bodies must build
-   without spills or a ptxas performance note;
+   wgmma bodies must show HGMMA (IGMMA for the int8 ones of K6, K4 and P)
+   and UTMALDG, the stream bodies HMMA (IMMA for K6's int8 one) and
+   UTMALDG, and the bodies of K2, K3, K6, K4, P and the stream bodies must
+   build without spills or a ptxas performance note;
 3. kernels — (after one ``timing_floor`` line: what ``time_ms`` gives a
    one-element kernel, L2 flushed) holds K1 (flash attention) and K2
    (int8 matmul) against their plain PyTorch versions at the full
@@ -116,11 +116,18 @@ non-zero before the last line:
    weight-stream probe P: its five modes (dma, convdot, i8dot, unpack8,
    unpack32) against their plain versions at one [128, 4096] x [4096,
    14336] layer, timed likewise, and one call of each traced by
-   ``torch.profiler`` (L2 flushed): device µs by kernel; then the probe
-   script (``copilot_for_consensus_tpu_torch.scripts.probe_stream``) over
-   all five modes, 20 distinct layers, 10 warm and 10 timed passes, with
-   the counts reset before: each mode must launch 400 times, and none may
-   stream faster than 1.05 x 3.35 TB/s.
+   ``torch.profiler`` (L2 flushed): device µs by kernel. convdot, i8dot
+   and unpack run the Hopper body of ``csrc/probe_wgmma.cuh`` (one launch
+   of it a call, on ``"wgmma"``; i8dot, unpack8 and unpack32 bit for bit
+   equal to their plain versions) and are timed beside the mma.sync body
+   on the same inputs (``simple_ms``); then, untimed, the body's edges (B
+   100 and 1, three contraction tiles) against the plain versions and a
+   layout it refuses (F 384, on ``"simple"``); then the probe script
+   (``copilot_for_consensus_tpu_torch.scripts.probe_stream``) over all five
+   modes, 20 distinct layers, 10 warm and 10 timed passes, with the counts
+   reset before: each mode must launch 400 times (convdot, i8dot and
+   unpack all on ``"wgmma"``), and none may stream faster than 1.05 x 3.35
+   TB/s.
 
 Every serve phase counts each kernel's launches by body (K1-K6):
 the main path's K1 launches must all be the wgmma body's, its K2 launches
@@ -133,7 +140,8 @@ stream body the rest; K4's 224 a wave all go to its wgmma body). Then
 the kernel table (K1-K6; K2's stream and wgmma bodies, K3's decode and
 seeded bodies, and K5's and K6's stream and tiled bodies as two rows
 each; K4's wgmma body with the mma.sync tiling's time beside it; and
-P's five modes, each with its launches on every path) as one JSON line,
+P's five modes, each with its launches on every path, the four on the
+wgmma body with the mma.sync body's time beside them) as one JSON line,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. About
 5-7 minutes on one H100 (the host's speed varies), the build included.
 """
@@ -208,6 +216,11 @@ P_ATOL = {"dma": 0.0, "i8dot": 0.0}
 P_RTOL = {"convdot": 2.0 ** -7, "unpack8": 2.0 ** -7, "unpack32": 2.0 ** -7}
 #: a weight stream faster than this share of 3.35 TB/s dropped loads
 P_MAX_HBM_SHARE = 1.05
+#: P's modes on the Hopper body of csrc/probe_wgmma.cuh, and those of them
+#: that must equal their plain versions bit for bit (exact integer sums,
+#: then the plain version's f32 operations in its order)
+P_WGMMA_MODES = ("convdot", "i8dot", "unpack8", "unpack32")
+P_BIT_EQUAL = ("i8dot", "unpack8", "unpack32")
 #: model consistency: relative L2 of kernel vs plain last-position logits
 #: after 32 bf16 layers (rounding differences compound through depth)
 LOGITS_REL_L2 = 5e-2
@@ -365,7 +378,8 @@ REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", "k5s::"),
               "int8_matmul": ("k2w::int8_wgmma", "k2s::"),
               "paged_attention": ("k3s::paged_wgmma", "k3d::"),
               "w4a8_matmul": ("k6w::w4a8_wgmma", "k6s::"),
-              "w8a8_matmul": ("k4w::w8a8_wgmma", None)}
+              "w8a8_matmul": ("k4w::w8a8_wgmma", None),
+              "probe_stream": ("pw::probe_wgmma", None)}
 
 
 def wgmma_smem(name: str, lib) -> dict:
@@ -380,6 +394,9 @@ def wgmma_smem(name: str, lib) -> dict:
                 "k2s::int8_stream": lib.int8_matmul_stream_smem()}
     if name == "w8a8_matmul":
         return {"k4w::w8a8_wgmma": lib.w8a8_matmul_wgmma_smem()}
+    if name == "probe_stream":
+        return {f"pw::probe_wgmma<{m}>": lib.probe_stream_wgmma_smem(m)
+                for m in (1, 2, 3, 4)}
     if name == "w4a8_matmul":
         return {"k6w::w4a8_wgmma": lib.w4a8_matmul_wgmma_smem(),
                 **{f"k6s::w4a8_stream<{nt}>": lib.w4a8_matmul_stream_smem(nt)
@@ -392,7 +409,7 @@ def wgmma_smem(name: str, lib) -> dict:
 #: the bodies of the last slices: ptxas must report them without spills
 #: and without a performance note (C75xx: serialized wgmma and the like)
 NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::", "k6w::",
-              "k6s::", "k4w::")
+              "k6s::", "k4w::", "pw::")
 #: Hopper bodies on mma.sync (not wgmma), by kernel prefix: the SASS
 #: instructions each of their kernels must show
 MMA_SYNC_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
@@ -1091,14 +1108,88 @@ def phase_quant_kernels(dev, flush):
     return rows
 
 
+def p_body_delta(wrapper, before: dict) -> dict:
+    """A P wrapper's launches by body since ``before`` (its
+    ``launches_by_body`` then)."""
+    return {k: n - before[k] for k, n in wrapper.launches_by_body.items()}
+
+
+def p_check(mode: str, body: str, out, want, label: str) -> dict:
+    """P's output against its plain version: finite, and within the mode's
+    tolerance; bit for bit for ``P_BIT_EQUAL`` on the wgmma body."""
+    import torch
+
+    top = want.float().abs().max().item()
+    err = (out.float() - want.float()).abs().max().item()
+    tol = P_ATOL[mode] if mode in P_ATOL else P_RTOL[mode] * top
+    equal = bool(torch.equal(out, want))
+    ok = bool(torch.isfinite(out).all()) and err <= tol and \
+        out.shape == want.shape
+    if body == "wgmma" and mode in P_BIT_EQUAL:
+        ok = ok and equal
+    if not ok:
+        raise AssertionError(f"{label} {mode} ({body}): error {err} > {tol} "
+                             f"or not bit-equal ({equal})")
+    return {"max_abs_err": err, "tol": tol, "bit_equal": equal}
+
+
+def phase_probe_edges(dev) -> None:
+    """Untimed: the Hopper body of P at B 100 (ragged against the token
+    tile), B 1, and D 6144 (three contraction tiles), and a layout it
+    refuses (F 384, not whole 256-column clusters, on the mma.sync body), each
+    mode against its plain version."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.ops import probe_stream as ps
+
+    for b, d, f, want_body in ((100, 4096, 512, "wgmma"),
+                               (1, 2048, 256, "wgmma"),
+                               (64, 6144, 1024, "wgmma"),
+                               (128, 4096, 384, "simple")):
+        g = torch.Generator(device=dev).manual_seed(b + d + f)
+        x = torch.randn(b, d, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (d, f), generator=g, dtype=torch.int8,
+                          device=dev)
+        w4 = torch.randint(-128, 128, (d // 2, f), generator=g,
+                           dtype=torch.int8, device=dev)
+        line = {"phase": "probe_edge", "shape": [b, d, f], "modes": {}}
+        for mode in P_WGMMA_MODES:
+            body = ps.probe_body(mode, b, d, f)
+            if body != want_body:
+                raise AssertionError(f"probe edge {b}x{d}x{f} {mode}: body "
+                                     f"{body}, expected {want_body}")
+            wrap = kernel_wrappers()[P_COUNTERS[mode]]
+            before = dict(wrap.launches_by_body)
+            if mode == "convdot":
+                out, want = ps.probe_convdot(x, w), ps.convdot_ref(x, w)
+            elif mode == "i8dot":
+                out, want = ps.probe_i8dot(x, w), ps.i8dot_ref(x, w)
+            else:
+                out = ps.probe_unpack(x, w4, widen=mode == "unpack32")
+                want = ps.unpack_ref(x, w4)
+            torch.cuda.synchronize()
+            delta = p_body_delta(wrap, before)
+            if delta[body] != 1 or sum(delta.values()) != 1:
+                raise AssertionError(f"probe edge {mode}: launches {delta}")
+            line["modes"][mode] = {"body": body,
+                                   **p_check(mode, body, out, want,
+                                             "probe edge")}
+        emit(line)
+        del x, w, w4
+    torch.cuda.empty_cache()
+
+
 def phase_probe(dev, flush, smi):
     """P, the weight-stream probe: each mode's kernel against its plain
     version at one full layer ([128, 4096] x [4096, 14336], seeded inputs),
     timed beside its bound, its plain version and a PyTorch yardstick where
-    one call computes the same function; then the probe script over all
-    five modes with the launch counts reset just before: each mode's
-    kernel must launch 2 x n x L times (warm-up and timed passes) and no
-    mode may stream faster than 1.05 x 3.35 TB/s."""
+    one call computes the same function — convdot, i8dot and unpack (both
+    unpackings) on the Hopper body, one launch of it a call, and beside PR
+    4's body on the same inputs (``simple_ms``); then the Hopper body's
+    edges; then the probe script over all five modes with the launch counts
+    reset just before: each mode's kernel must launch 2 x n x L times
+    (warm-up and timed passes), the four on the Hopper body, and no mode
+    may stream faster than 1.05 x 3.35 TB/s."""
     import torch
 
     from copilot_for_consensus_tpu_torch.ops import probe_stream as ps
@@ -1135,41 +1226,61 @@ def phase_probe(dev, flush, smi):
          "int8", None, "none: no PyTorch call unpacks int4 and scales int32 "
          "partials per group"),
     ]
+    # the mma.sync body of each mode on the same inputs (its launches are not
+    # counted)
+    simple = {"convdot": lambda: ps.simple_body("convdot", x, w),
+              "i8dot": lambda: ps.simple_body("i8dot", x, w),
+              "unpack8": lambda: ps.simple_body("unpack8", x, w4),
+              "unpack32": lambda: ps.simple_body("unpack32", x, w4)}
     rows = {}
     for mode, fn, ref, nb, flops, peak, lib, lib_desc in cases:
+        wrap = kernel_wrappers()[P_COUNTERS[mode]]
+        before = dict(getattr(wrap, "launches_by_body", {}))
         out = fn()
         torch.cuda.synchronize()
+        delta = p_body_delta(wrap, before) if before else None
+        body = ps.probe_body(mode, b, d, f) if mode in simple else None
         want = ref()
-        top = want.float().abs().max().item()
-        err = (out.float() - want.float()).abs().max().item()
-        tol = P_ATOL[mode] if mode in P_ATOL else P_RTOL[mode] * top
-        ok = (bool(torch.isfinite(out).all()) and tuple(out.shape) == (b, f)
-              and err <= tol)
         bnd, by = bound_ms(nb, flops, peak)
         row = {"kernel": "P", "case": mode, "dtype": "bfloat16",
-               "shape": [b, d, f], "max_abs_err": err, "tol": tol,
-               "bit_equal": bool(torch.equal(out, want)),
+               "shape": [b, d, f],
+               **p_check(mode, body, out, want, "P"),
                "ms": time_ms(fn, flush=flush),
                "plain_ms": time_ms(ref, n=3, flush=flush),
                "library_ms": time_ms(lib, flush=flush) if lib else None,
                "library": lib_desc, "bound_ms": bnd, "bound_by": by,
                "device_us_by_kernel": traced_us(fn, flush), "device": smi}
+        if body is not None:
+            if body != "wgmma" or delta != {"wgmma": 1, "simple": 0}:
+                raise AssertionError(f"P {mode}: body {body}, launches of "
+                                     f"one call {delta}")
+            old = simple[mode]()
+            torch.cuda.synchronize()
+            row.update(body=body, launches_a_call=delta,
+                       simple_ms=time_ms(simple[mode], flush=flush),
+                       simple=p_check(mode, "simple", old, want,
+                                      "P (the mma.sync body)"))
+            row["x_below_simple"] = row["simple_ms"] / row["ms"]
+            del old
         emit(row)
-        if not ok:
-            raise AssertionError(f"P {mode}: error {err} > {tol}")
         rows[("P", mode, "bfloat16")] = row
         del out, want
     del x, w, w4, xi
     torch.cuda.empty_cache()
+    phase_probe_edges(dev)
 
     reset_launches()
-    per_mode = {}
+    per_mode, by_body = {}, {}
     for mode in drv.MODES:
-        key = P_COUNTERS[mode]
-        before = read_launches()[key]
+        wrap = kernel_wrappers()[P_COUNTERS[mode]]
+        before = read_launches()[P_COUNTERS[mode]]
+        before_body = dict(getattr(wrap, "launches_by_body", {}))
         line = drv.run(mode, device=dev)
-        per_mode[mode] = read_launches()[key] - before
-        line.update(phase="probe", launches=per_mode[mode], device=smi)
+        per_mode[mode] = read_launches()[P_COUNTERS[mode]] - before
+        if before_body:
+            by_body[mode] = p_body_delta(wrap, before_body)
+        line.update(phase="probe", launches=per_mode[mode],
+                    launches_by_body=by_body.get(mode), device=smi)
         emit(line)
         torch.cuda.empty_cache()
         if line["share_of_hbm"] > P_MAX_HBM_SHARE:
@@ -1185,6 +1296,11 @@ def phase_probe(dev, flush, smi):
             launches["P_unpack"] != 2 * want_n:
         raise AssertionError(f"probe launches {per_mode}, {launches}: "
                              f"{want_n} a mode expected")
+    for mode in P_WGMMA_MODES:
+        if by_body[mode] != {"wgmma": want_n, "simple": 0}:
+            raise AssertionError(f"probe {mode}: launches by body "
+                                 f"{by_body[mode]}, all {want_n} on "
+                                 f"\"wgmma\" expected")
     return rows, launches, per_mode
 
 
@@ -2478,17 +2594,25 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": row["case"], "dtype": row["dtype"]})
     # P: one row a mode; unpack8 and unpack32 share the unpack wrapper's
-    # count, so on the probe path each row gives the mode's own share
+    # count, so on the probe path each row gives the mode's own share. The
+    # four GEMM-like modes run the Hopper body (probe_wgmma.cuh), the
+    # mma.sync body's time beside them
     for mode, key in P_COUNTERS.items():
         row = rows[("P", mode, "bfloat16")]
+        extra = {}
+        if "simple_ms" in row:
+            extra = {"body": row["body"], "simple_ms": row["simple_ms"],
+                     "launches_by_body": row["probe"]["launches_by_body"]}
         table.append({
             "name": f"probe_stream_{mode}", "route": "cuda",
-            "source": "copilot_for_consensus_tpu_torch/csrc/probe_stream.cu",
+            "source": f"{csrc}/" + ("probe_wgmma.cuh" if extra
+                                     else "probe_stream.cu"),
             "replaces": "scripts/probe_stream.py:"
                         + ("146" if mode.startswith("unpack") else "121"),
             "launches": probe_per_mode[mode], "launches_path": "probe",
             "launches_by_path": {p: probe_per_mode[mode] if p == "probe"
                                  else c[key] for p, c in by_path.items()},
+            **extra,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the wgmma bodies of K5 (int4_wgmma.cuh),
 // K2 (int8_wgmma.cuh), K1 (flash_wgmma.cuh), K3 (paged_wgmma.cuh), K6
-// (w4a8_wgmma.cuh) and K4 (w8a8_wgmma.cuh) and by the stream bodies of K5,
-// K2 and K6 (*_stream.cuh): mbarriers, TMA tensor-map loads, ldmatrix, the
-// wgmma shared-memory descriptor and the wgmma instructions they issue, all
-// as PTX for sm_90a.
+// (w4a8_wgmma.cuh), K4 (w8a8_wgmma.cuh) and P (probe_wgmma.cuh) and by the
+// stream bodies of K5, K2 and K6 (*_stream.cuh): mbarriers, TMA tensor-map
+// loads (P's multicast across a cluster too), ldmatrix, the wgmma
+// shared-memory descriptor and the wgmma instructions they issue, all as
+// PTX for sm_90a.
 //
 // Shared-memory operands of wgmma use the 128-byte swizzle throughout: a
 // tile is stored as 128-byte lines, and the 16-byte chunk c of line r sits
@@ -97,6 +98,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// clusters
+// ---------------------------------------------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster (release, then acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// arrive once on the mbarrier at `bar`'s offset in the shared memory of
+// the cluster's CTA `rank` (this CTA's own included). With the default
+// semantics, as CUTLASS writes it: with .release.cluster every stage of
+// P's body took far longer than its bytes on the card; the wgmma reads it
+// orders have retired already
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 // generic-proxy stores to shared memory become visible to wgmma (the
 // async proxy) after this fence and a barrier
 __device__ __forceinline__ void fence_proxy_async() {
@@ -155,6 +191,17 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
       : "r"(addr));
 }
 
+// ... and x2: lanes 0-15 give the rows of matrices 0 and 1. P's convdot
+// reads its int8 weight so: a 16-bit element is two adjacent columns of
+// one k row, lane (g, t) gets k 2t and 2t + 1 of its pair in one register
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+
 // a barrier among `count` threads (a multiple of 32), id 1..15
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -184,6 +231,22 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same box written at `dst`'s offset into the shared memory of every
+// CTA of the cluster in `mask` (bit r: rank r), completing on the mbarrier
+// at `bar`'s offset in each of them
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -416,6 +479,27 @@ __device__ __forceinline__ void wgmma_rs_s8_n176(uint32_t* d, const uint32_t* a,
         "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
         "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
         "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ... at N = 128 (P: 64 s32 accumulators a thread)
+__device__ __forceinline__ void wgmma_rs_s8_n128(uint32_t* d, const uint32_t* a,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

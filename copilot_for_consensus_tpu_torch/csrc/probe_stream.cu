@@ -45,9 +45,16 @@
 //     packed rows) a block over blockIdx.z: 224 x 2 = 448 blocks at the
 //     full shape. Partials go to a [tiles, B, F] workspace (f32; int32 for
 //     i8dot, whose sum stays exact) that a second pass sums in tile order.
-// No cp.async/TMA pipeline and no wgmma: one tile in flight a block, a
-// simple body that is right; making it fast is later work.
+// That body (`probe_gemm` + `probe_reduce`, entry `probe_stream_fwd`) has
+// no cp.async/TMA pipeline and no wgmma: one tile in flight a block. The
+// wrapper keeps it for the layouts the Hopper body refuses and calls it
+// "simple". Every layout of the probe script runs the Hopper body of
+// probe_wgmma.cuh instead (entry `probe_stream_wgmma_fwd`): a TMA-fed wgmma
+// weight stream, x multicast across a cluster of two CTAs, no workspace and
+// one launch (after a pre-pass `x_int8` that makes i8dot's and unpack's
+// int8 x once a call); see that header's note.
 
+#include "probe_wgmma.cuh"
 #include "quant_mma.cuh"
 
 namespace {
@@ -408,6 +415,36 @@ __global__ void probe_reduce(const void* __restrict__ ws,
   out[i] = __float2bfloat16(v);
 }
 
+// the Hopper body's int8 x, once a call: x_to_int8 on 8 values a thread
+// (n8 = B * D / 8)
+template <int MODE>
+__global__ void x_int8(const uint4* __restrict__ x, uint2* __restrict__ xq,
+                       int n8) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n8) xq[i] = x_to_int8<MODE>(__ldg(x + i));
+}
+
+template <int MODE>
+cudaError_t run_wgmma(const __nv_bfloat16* x, const int8_t* w, int8_t* xq,
+                      __nv_bfloat16* out, int B, int D, int F, int bd,
+                      int gdp, int groups, cudaStream_t st) {
+  if (!pw::takes(MODE, B, D, F, bd, gdp, groups))
+    return cudaErrorInvalidValue;
+  if constexpr (MODE == CONVDOT) {
+    return pw::launch<MODE>(x, w, out, B, D, F, bd, gdp, groups, st);
+  } else {
+    if (xq == nullptr || ((reinterpret_cast<uintptr_t>(x) |
+                           reinterpret_cast<uintptr_t>(xq)) & 15))
+      return cudaErrorMisalignedAddress;
+    const int n8 = B * (D / 8);               // D % 128 == 0
+    x_int8<MODE><<<(n8 + 255) / 256, 256, 0, st>>>(
+        reinterpret_cast<const uint4*>(x), reinterpret_cast<uint2*>(xq), n8);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    return pw::launch<MODE>(xq, w, out, B, D, F, bd, gdp, groups, st);
+  }
+}
+
 template <int MODE>
 cudaError_t run_gemm(const __nv_bfloat16* x, const int8_t* w, void* ws,
                      __nv_bfloat16* out, int B, int D, int F, int ktile,
@@ -481,6 +518,49 @@ extern "C" int probe_stream_fwd(int mode, const void* x, const void* w,
     }
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the Hopper body (the layouts pw::takes) for mode 1 convdot, 2 i8dot, 3
+// unpack8, 4 unpack32: x bf16 [B, D]; w int8 [D, F] or packed [D/2, F];
+// out bf16 [B, F]; xq the pre-pass's int8 x [B, D] (modes 2-4; unread
+// by convdot, may be null). bd is read by convdot, gdp and groups by
+// unpack.
+extern "C" int probe_stream_wgmma_fwd(int mode, const void* x, const void* w,
+                                      void* out, void* xq, int B, int D,
+                                      int F, int bd, int gdp, int groups,
+                                      void* stream) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  int8_t* xqq = static_cast<int8_t*>(xq);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case CONVDOT:
+      return (int)run_wgmma<CONVDOT>(xb, wq, xqq, ob, B, D, F, bd, gdp,
+                                     groups, st);
+    case I8DOT:
+      return (int)run_wgmma<I8DOT>(xb, wq, xqq, ob, B, D, F, bd, gdp, groups,
+                                   st);
+    case UNPACK8:
+      return (int)run_wgmma<UNPACK8>(xb, wq, xqq, ob, B, D, F, bd, gdp,
+                                     groups, st);
+    case UNPACK32:
+      return (int)run_wgmma<UNPACK32>(xb, wq, xqq, ob, B, D, F, bd, gdp,
+                                      groups, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the Hopper body's dynamic shared memory a CTA, in bytes, for mode 1-4
+extern "C" int probe_stream_wgmma_smem(int mode) {
+  switch (mode) {
+    case CONVDOT: return (int)pw::smem_bytes<pw::CONVDOT>();
+    case I8DOT: return (int)pw::smem_bytes<pw::I8DOT>();
+    case UNPACK8: return (int)pw::smem_bytes<pw::UNPACK8>();
+    case UNPACK32: return (int)pw::smem_bytes<pw::UNPACK32>();
+    default: return -1;
   }
 }
 

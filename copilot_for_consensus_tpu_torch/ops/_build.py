@@ -109,6 +109,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "probe_stream": {
         # mode, x, w, out, workspace, B, D, F, bd, gdp, groups, stream
         "probe_stream_fwd": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+        # mode, x, w, out, xq (int8 x scratch; None for convdot), B, D, F,
+        # bd, gdp, groups, stream (the wgmma body, modes 1-4)
+        "probe_stream_wgmma_fwd": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+        # mode (1-4) -> the wgmma body's dynamic shared memory in bytes
+        "probe_stream_wgmma_smem": [_I],
     },
 }
 

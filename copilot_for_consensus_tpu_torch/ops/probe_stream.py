@@ -21,7 +21,13 @@ group's scale ``1e-4 · (g + 1)``, g counted within its tile.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel for CUDA tensors — on no other condition — and counts its launches
-in ``<wrapper>.launches``.
+in ``<wrapper>.launches``. On the card convdot, i8dot and unpack have two
+bodies, chosen from shape alone by :func:`probe_body`: ``"wgmma"``, the
+Hopper weight stream of ``csrc/probe_wgmma.cuh`` (every layout of the
+probe script), and ``"simple"``, the first mma.sync body with its
+workspace and second launch, for the layouts the first refuses; each
+counts its launches in ``<wrapper>.launches_by_body``. A failure of either
+raises; neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -40,6 +46,17 @@ GROUPS = 8
 #: tile (bd, or 2 · gdp unpacked rows a group) is a whole number of them
 KSTEP = 64
 _MODES = {"dma": 0, "convdot": 1, "i8dot": 2, "unpack8": 3, "unpack32": 4}
+#: the bodies of convdot, i8dot and unpack, the keys of their wrappers'
+#: ``launches_by_body``
+P_BODIES = ("wgmma", "simple")
+#: the Hopper body's tiles (``csrc/probe_wgmma.cuh``): tokens (one wgmma
+#: N), columns a cluster (two CTAs of 128), and unpacked contraction rows a
+#: stage (convdot's bd and unpack's group of 2 · gdp must be whole stages;
+#: i8dot's D)
+WGMMA_TOKENS = 128
+WGMMA_COLS = 256
+WGMMA_KSTEP = {"convdot": 64, "i8dot": 128, "unpack8": 128,
+               "unpack32": 128}
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +172,34 @@ def unpack_ref(x: torch.Tensor, w4: torch.Tensor, gdp: int = GDP,
 # ---------------------------------------------------------------------------
 
 
+def probe_body(mode: str, b: int, d: int, f: int, bd: int = BD,
+               gdp: int = GDP, groups: int = GROUPS) -> str:
+    """The body of P's ``mode`` (convdot, i8dot, unpack8 or unpack32) that a
+    CUDA call runs, from shape alone: ``"wgmma"`` (the Hopper weight stream)
+    where B is one token tile (1-128), F whole clusters of columns and the
+    contraction whole stages — convdot's ``bd`` tile, i8dot's D, unpack's
+    group of ``2 · gdp`` rows — else ``"simple"`` (the mma.sync body).
+    ``d`` is x's width; ``bd`` is read by convdot, ``gdp`` and ``groups``
+    by unpack.
+    The reference's layout (B 128, D 4096, F 14336, bd 2048, gdp 128) is
+    ``"wgmma"`` in every mode."""
+    if mode not in WGMMA_KSTEP:
+        raise ValueError(f"no Hopper body for probe mode {mode!r}; one of "
+                         f"{tuple(WGMMA_KSTEP)}")
+    ks = WGMMA_KSTEP[mode]
+    if not (1 <= b <= WGMMA_TOKENS and d >= 1 and f >= 1
+            and f % WGMMA_COLS == 0):
+        return "simple"
+    if mode == "convdot":
+        ok = bd >= ks and bd % ks == 0 and d % bd == 0
+    elif mode == "i8dot":
+        ok = d % ks == 0
+    else:
+        ok = (gdp >= ks // 2 and (2 * gdp) % ks == 0 and groups >= 1
+              and d % (2 * gdp * groups) == 0)
+    return "wgmma" if ok else "simple"
+
+
 def _launch(mode: str, x: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
             bd: int = 0, gdp: int = 0, groups: int = 0) -> torch.Tensor:
     b, d = x.shape
@@ -170,6 +215,51 @@ def _launch(mode: str, x: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("probe_stream", err, f"probe {mode} launch")
     return out
+
+
+def _wgmma(mode: str, x: torch.Tensor, w: torch.Tensor, bd: int = 0,
+           gdp: int = 0, groups: int = 0) -> torch.Tensor:
+    """One call of the Hopper body: for i8dot and unpack a pre-pass makes
+    int8 x into scratch made here, then the body runs; convdot reads x as
+    it is (one launch)."""
+    b, d = x.shape
+    f = w.shape[1]
+    out = torch.empty((b, f), dtype=torch.bfloat16, device=x.device)
+    xq = None if mode == "convdot" else torch.empty(
+        (b, d), dtype=torch.int8, device=x.device)
+    lib = _build.library("probe_stream")
+    err = lib.probe_stream_wgmma_fwd(
+        _MODES[mode], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        xq.data_ptr() if xq is not None else None, b, d, f, bd, gdp, groups,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("probe_stream", err, f"probe {mode} launch (wgmma)")
+    return out
+
+
+def simple_body(mode: str, x: torch.Tensor, w: torch.Tensor, bd: int = BD,
+                gdp: int = GDP, groups: int = GROUPS) -> torch.Tensor:
+    """The mma.sync body of convdot, i8dot, unpack8 or unpack32 on CUDA
+    tensors (a [tiles, B, F] workspace made here, then two launches),
+    whatever the layout; the wrappers run it where :func:`probe_body` says
+    ``"simple"``. Counts nothing itself."""
+    tile = 2 * gdp * groups if mode.startswith("unpack") else bd
+    tiles = _tiles(x.shape[1], tile)
+    _kstep(mode, 2 * gdp if mode.startswith("unpack") else bd)
+    ws = torch.empty((tiles, x.shape[0], w.shape[1]),
+                     dtype=torch.int32 if mode == "i8dot" else torch.float32,
+                     device=x.device)
+    if mode.startswith("unpack"):
+        return _launch(mode, x, w, ws, gdp=gdp, groups=groups)
+    return _launch(mode, x, w, ws, bd=bd)
+
+
+def _run(mode: str, x: torch.Tensor, w: torch.Tensor, bd: int = BD,
+         gdp: int = GDP, groups: int = GROUPS) -> tuple[torch.Tensor, str]:
+    body = probe_body(mode, x.shape[0], x.shape[1], w.shape[1], bd, gdp,
+                      groups)
+    if body == "wgmma":
+        return _wgmma(mode, x, w, bd, gdp, groups), body
+    return simple_body(mode, x, w, bd, gdp, groups), body
 
 
 def _on_card(x: torch.Tensor, name: str) -> None:
@@ -206,12 +296,10 @@ def probe_convdot(x: torch.Tensor, w: torch.Tensor,
         return convdot_ref(x, w, bd)
     _on_card(x, "convdot")
     _check(x, w, x.shape[1])
-    tiles = _tiles(x.shape[1], bd)
-    _kstep("convdot", bd)
-    ws = torch.empty((tiles, x.shape[0], w.shape[1]), dtype=torch.float32,
-                     device=x.device)
-    out = _launch("convdot", x, w, ws, bd=bd)
+    _tiles(x.shape[1], bd)
+    out, body = _run("convdot", x, w, bd=bd)
     probe_convdot.launches += 1
+    probe_convdot.launches_by_body[body] += 1
     return out
 
 
@@ -224,12 +312,10 @@ def probe_i8dot(x: torch.Tensor, w: torch.Tensor,
         return i8dot_ref(x, w)
     _on_card(x, "i8dot")
     _check(x, w, x.shape[1])
-    tiles = _tiles(x.shape[1], bd)
-    _kstep("i8dot", bd)
-    ws = torch.empty((tiles, x.shape[0], w.shape[1]), dtype=torch.int32,
-                     device=x.device)
-    out = _launch("i8dot", x, w, ws, bd=bd)
+    _tiles(x.shape[1], bd)
+    out, body = _run("i8dot", x, w, bd=bd)
     probe_i8dot.launches += 1
+    probe_i8dot.launches_by_body[body] += 1
     return out
 
 
@@ -243,13 +329,11 @@ def probe_unpack(x: torch.Tensor, w4: torch.Tensor, widen: bool = False,
         return unpack_ref(x, w4, gdp, groups)
     _on_card(x, "unpack")
     _check_packed(x, w4)
-    tiles = _tiles(w4.shape[0], gdp * groups)
-    _kstep("unpack", 2 * gdp)
-    ws = torch.empty((tiles, x.shape[0], w4.shape[1]), dtype=torch.float32,
-                     device=x.device)
-    out = _launch("unpack32" if widen else "unpack8", x, w4, ws, gdp=gdp,
-                  groups=groups)
+    _tiles(w4.shape[0], gdp * groups)
+    out, body = _run("unpack32" if widen else "unpack8", x, w4, gdp=gdp,
+                     groups=groups)
     probe_unpack.launches += 1
+    probe_unpack.launches_by_body[body] += 1
     return out
 
 
@@ -258,3 +342,7 @@ probe_dma.launches = 0
 probe_convdot.launches = 0
 probe_i8dot.launches = 0
 probe_unpack.launches = 0
+#: launches by body (:func:`probe_body`); they sum to ``launches``
+probe_convdot.launches_by_body = dict.fromkeys(P_BODIES, 0)
+probe_i8dot.launches_by_body = dict.fromkeys(P_BODIES, 0)
+probe_unpack.launches_by_body = dict.fromkeys(P_BODIES, 0)
