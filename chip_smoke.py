@@ -46,7 +46,10 @@ non-zero before the last line:
    by relative L2 error;
 5. serve   — ``CUDASummarizer.summarize_batch`` on 8 threads (two
    admission waves, 64 new tokens each) with the launch counts reset just
-   before: every kernel of the path must have launched;
+   before: every kernel of the path must have launched, and every sampled
+   logits row must be finite (a check patched into the engine module's
+   ``sample``; the graphs captured under it are dropped after, so that no
+   later phase replays the check);
 6. int8 wave and trace — one 4 x 1024 admission wave of the same engine
    traced by kernel (device ms by kernel and by family, the launches of
    each body), weight-only and then again with ``set_act_quant("a8")``
@@ -54,7 +57,15 @@ non-zero before the last line:
    stream body, 32 of K1); then the engine's steady decode with all four
    slots busy, timed on the host clock and then traced by
    ``torch.profiler``: device busy time, idle share and device time by
-   kernel and by family;
+   kernel and by family. Every decode dispatch of the serve and trace
+   phases replays the engine's CUDA graph for its kv bucket
+   (``engine/graphs.py``), captured at the bucket's first dispatch, but
+   for the engine's first dispatch in each activation-quantization mode,
+   which runs eagerly (the warm-up); the trace measures replays only
+   (single dispatches run first until the next ones land on captured
+   buckets), and splits the device's idle time into the gaps inside each
+   replay and the time between a dispatch's token fetch and the next
+   replay;
 7. kernels, K3 — (run right after phase 3, on a 1024-block pool) the
    paged flash-partial kernel against its plain version at the decode
    (R = 4, a 64-entry table, bf16/f32/fp8 pools, windows 4096 and 100)
@@ -127,9 +138,29 @@ non-zero before the last line:
    modes, 20 distinct layers, 10 warm and 10 timed passes, with the counts
    reset before: each mode must launch 400 times (convdot, i8dot and
    unpack all on ``"wgmma"``), and none may stream faster than 1.05 x 3.35
-   TB/s.
+   TB/s;
+16. graphs — (after phase 6, the serve engine freed) the serve phase's 8
+   threads through two contiguous int8 engines of the same weights, one
+   replaying its decode graphs and one running the same dispatch body
+   eagerly (``cuda_graphs=False``), at windows_per_dispatch 1 and 2, and
+   sampled (top-k, top-p, one seed) at 1: the token streams must be equal
+   and so must the launches by body; the row
+   gives the graphs captured, the seconds spent capturing them, the
+   replays and both engines' decode seconds;
+17. async_serve — ``CUDASummarizer.summarize_async`` on the same 8
+   threads, submitted from two threads, through the summarizer's
+   ``AsyncEngineRunner`` and its supervisor on a contiguous int8 engine
+   (the dispatcher thread admits, captures and replays): every handle must
+   complete with no failure contained, the serve phase's launch checks
+   must hold, and the row counts the summaries that agree with
+   ``summarize_batch``'s;
+18. paged graphs — (after phase 10, the paged engine freed) phase 16 on
+   the paged engine.
 
-Every serve phase counts each kernel's launches by body (K1-K6):
+Launch counts are replay-aware: a graph's capture launches nothing, so each
+graph keeps the counts its capture ticked, takes them back, and adds them on
+every replay — a replayed dispatch counts what the eager body would have
+launched. Every serve phase counts each kernel's launches by body (K1-K6):
 the main path's K1 launches must all be the wgmma body's, its K2 launches
 the stream body's or the wgmma body's (never the GEMV, WMMA or the
 CUDA-core loop; 7 a layer and one for the lm_head a forward pass), its K3
@@ -148,6 +179,7 @@ the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. About
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1628,10 +1660,42 @@ def synthetic_threads(n: int = 8):
         for i in range(n)]
 
 
-def phase_serve(dev, cfg, params, smi):
+@contextlib.contextmanager
+def finite_logits(eng):
+    """Check every logits row ``eng`` samples inside the block for finite
+    values. The check accumulates into a flag on the device (yielded; the
+    caller reads it once, after the block) from a stand-in for the engine
+    module's ``sample``. A decode graph captured meanwhile records the
+    check and the flag's address in its body, so on leaving the block the
+    stand-in is removed and every graph of ``eng`` is dropped: later
+    phases capture, and time, the engine's own body, and no replay writes
+    into the flag's memory once it has been freed."""
     import torch
 
     from copilot_for_consensus_tpu_torch.engine import generation
+
+    finite = torch.ones((), dtype=torch.bool, device=eng.device)
+    plain_sample = generation.sample
+
+    def checked_sample(logits, gen, sampling):
+        finite.logical_and_(torch.isfinite(logits).all())
+        return plain_sample(logits, gen, sampling)
+
+    generation.sample = checked_sample
+    try:
+        yield finite
+    finally:
+        generation.sample = plain_sample
+        torch.cuda.synchronize()
+        eng._graphs.drop(block=False)
+        if len(eng._graphs) or generation.sample is not plain_sample:
+            raise AssertionError("graphs captured under the finite check "
+                                 "outlived it")
+
+
+def phase_serve(dev, cfg, params, smi):
+    import torch
+
     from copilot_for_consensus_tpu_torch.summarization.summarizer import (
         CUDASummarizer,
         build_prompt,
@@ -1642,15 +1706,6 @@ def phase_serve(dev, cfg, params, smi):
                           max_len=4096, max_new_tokens=new_tokens,
                           device=dev)
     eng = summ.engine
-    # every sampled logits row must be finite: the check accumulates on
-    # the device and is read once at the end
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    plain_sample = generation.sample
-
-    def checked_sample(logits, gen, sampling):
-        finite.logical_and_(torch.isfinite(logits).all())
-        return plain_sample(logits, gen, sampling)
-
     comps = []
     plain_generate = eng.generate
 
@@ -1658,17 +1713,18 @@ def phase_serve(dev, cfg, params, smi):
         comps.extend(plain_generate(prompts, max_new_tokens, **kw))
         return comps
 
-    generation.sample = checked_sample
     eng.generate = recording_generate
     threads = synthetic_threads(8)
     reset_launches()
-    t0 = time.monotonic()
-    summaries = summ.summarize_batch(threads)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = read_launches()
-    bodies = read_bodies()
-    generation.sample = plain_sample
+    # every sampled logits row must be finite
+    with finite_logits(eng) as finite:
+        t0 = time.monotonic()
+        summaries = summ.summarize_batch(threads)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        bodies = read_bodies()
+        stats = eng.graph_stats()
 
     prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
                for t in threads]
@@ -1678,8 +1734,8 @@ def phase_serve(dev, cfg, params, smi):
         if s.thread_id != t.thread_id or c.prompt_len != min(
                 len(p), eng.prompt_limit):
             raise AssertionError(f"wrong prompt length for {t.thread_id}")
-        # "length" is the token limit, or the cache's end one window away
-        cache_end = (c.prompt_len + len(c.tokens) + 2 * eng.decode_window
+        # "length" is the token limit, or the cache's end one dispatch away
+        cache_end = (c.prompt_len + len(c.tokens) + 2 * eng._dispatch_steps
                      > eng.max_len - 1)
         if (c.finish_reason == "length" and len(c.tokens) != new_tokens
                 and not cache_end):
@@ -1699,8 +1755,185 @@ def phase_serve(dev, cfg, params, smi):
           "decode_s": eng.decode_s, "decode_tokens": eng.decode_tokens,
           "decode_tok_per_s": eng.decode_tokens / eng.decode_s,
           "ttft_s": [c.ttft_s for c in comps], "launches": launches,
-          "launches_by_body": bodies, "device": smi})
-    return launches, bodies, prompts, eng
+          "launches_by_body": bodies, "graphs": stats, "device": smi})
+    return launches, bodies, prompts, eng, summaries
+
+
+def phase_graphs(dev, cfg, params, smi, *, paged: bool):
+    """Decode through graph replays against the eager body, on the card:
+    the serve phase's 8 threads (64 new tokens each) through two engines of
+    the same weights and configuration, one replaying a CUDA graph per kv
+    bucket (``cuda_graphs=True``, the default) and one running the same
+    dispatch body eagerly (``cuda_graphs=False``), at windows_per_dispatch
+    1 and 2. Both admit the same waves and launch the same kernels, so
+    their greedy token streams must be equal, and so must their launches
+    by body: the replayed engine's counts are its captures' deltas added
+    once a replay. A third pair samples (temperature 0.8, top-k 50, top-p
+    0.9, both engines from seed 0) at one window a dispatch: the replayed
+    engine's graphs are registered with its generator, so each replay
+    advances the generator's offset as the eager body's draws do, and the
+    sampled streams must be equal too. Each row gives the graphs captured,
+    the seconds spent capturing, the replays and the decode seconds of
+    both engines. ``paged``: the paged engine (8 slots, 1024 blocks of 64,
+    prefix cache on), else the contiguous one (4 slots)."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.sampling import (
+        SamplingConfig,
+    )
+    from copilot_for_consensus_tpu_torch.engine.tokenizer import (
+        ByteTokenizer,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        build_prompt,
+    )
+
+    tok = ByteTokenizer(max(259, cfg.vocab_size))
+    prompts = [tok.encode(build_prompt(t), add_bos=True)
+               for t in synthetic_threads(8)]
+    kw = dict(num_slots=8, prefill_chunk=64, kv_pool_blocks=1024,
+              prefix_cache_blocks=1) if paged else dict(num_slots=4)
+    label = "paged_graphs" if paged else "graphs"
+    used = ("K1", "K2", "K3") if paged else ("K1", "K2")
+    sampled = SamplingConfig(temperature=0.8, top_k=50, top_p=0.9)
+    rows = []
+    for n_windows, sampling in ((1, SamplingConfig()),
+                                (2, SamplingConfig()), (1, sampled)):
+        runs = {}
+        for graphs in (True, False):
+            eng = GenerationEngine(cfg, params, max_len=4096,
+                                   quantize="int8", device=dev,
+                                   windows_per_dispatch=n_windows,
+                                   sampling=sampling, seed=0,
+                                   cuda_graphs=graphs, **kw)
+            reset_launches()
+            t0 = time.monotonic()
+            comps = eng.generate(prompts, max_new_tokens=64)
+            torch.cuda.synchronize()
+            runs[graphs] = {
+                "tokens": [c.tokens for c in comps],
+                "launches": read_launches(), "bodies": read_bodies(),
+                "stats": eng.graph_stats(), "wall_s": time.monotonic() - t0,
+                "decode_s": eng.decode_s, "decode_tokens": eng.decode_tokens}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        g, e = runs[True], runs[False]
+        equal = [a == b for a, b in zip(g["tokens"], e["tokens"])]
+        row = {"phase": label, "config": cfg.name,
+               "windows_per_dispatch": n_windows,
+               "sampling": {"temperature": sampling.temperature,
+                            "top_k": sampling.top_k,
+                            "top_p": sampling.top_p},
+               "threads": len(prompts),
+               "streams_equal": sum(equal), "graphs": g["stats"],
+               "launches": g["launches"], "launches_by_body": g["bodies"],
+               "launches_equal": (g["launches"], g["bodies"])
+               == (e["launches"], e["bodies"]),
+               "wall_s": {"replay": g["wall_s"], "eager": e["wall_s"]},
+               "decode_s": {"replay": g["decode_s"], "eager": e["decode_s"]},
+               "decode_tokens": g["decode_tokens"], "device": smi}
+        emit(row)
+        if not all(equal):
+            raise AssertionError(f"{label}: replayed decode differs from the "
+                                 f"eager body: {equal}")
+        if not row["launches_equal"]:
+            raise AssertionError(f"{label}: launches under replay "
+                                 f"{g['bodies']} != eager {e['bodies']}")
+        if not g["stats"]["replays"] or not g["stats"]["captured"] \
+                or e["stats"]["replays"]:
+            raise AssertionError(f"{label}: graphs {g['stats']} / eager "
+                                 f"{e['stats']}")
+        check_path(label, g["launches"], used)
+        check_bodies(label, g["bodies"])
+        check_k2_passes(label, g["launches"], g["bodies"], cfg.n_layers)
+        rows.append(row)
+    return rows
+
+
+def phase_async_serve(dev, cfg, params, smi, batch_tokens):
+    """``CUDASummarizer.summarize_async`` on the serve phase's 8 threads,
+    submitted from two threads (4 each), through the summarizer's
+    ``AsyncEngineRunner`` and its supervisor on a contiguous int8 engine
+    like the serve phase's: its dispatcher thread owns the engine, admits
+    the waves, captures and replays the decode graphs. Every handle must
+    complete, the launch checks of the serve phase must hold, and no
+    failure may have been contained; the row counts how many of the 8
+    summaries (token count and text) agree with ``summarize_batch``'s
+    (``batch_tokens``: the serve phase's summaries) — the runner may admit
+    them in other waves, so bf16 equality is not required."""
+    import threading
+
+    import torch
+
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+
+    summ = CUDASummarizer(cfg.name, params=params, num_slots=4,
+                          max_len=4096, max_new_tokens=64, supervisor=True,
+                          device=dev)
+    threads = synthetic_threads(8)
+    waits: list = [None] * len(threads)
+    errors: list = []
+
+    def submit(idx):
+        try:
+            for i in idx:
+                waits[i] = summ.summarize_async(threads[i],
+                                                correlation_id=f"event-{i}")
+        except Exception as exc:    # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    reset_launches()
+    t0 = time.monotonic()
+    subs = [threading.Thread(target=submit, args=(range(k, 8, 2),))
+            for k in (0, 1)]
+    for t in subs:
+        t.start()
+    for t in subs:
+        t.join(60)
+    if errors or any(w is None for w in waits):
+        raise AssertionError(f"async_serve: submits failed: {errors}")
+    summaries = [w(600) for w in waits]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, bodies = read_launches(), read_bodies()
+    runner = summ._runner
+    recovery = runner.recovery_stats()
+    completed = runner.completed
+    stats = summ.engine.graph_stats()
+    drained = summ.drain(60)
+    agree = sum(1 for s, b in zip(summaries, batch_tokens)
+                if (s.completion_tokens, s.summary_text)
+                == (b.completion_tokens, b.summary_text))
+    row = {"phase": "async_serve", "config": cfg.name,
+           "threads": len(threads), "submitters": len(subs),
+           "completed": completed, "drained": drained,
+           "agree_with_batch": agree, "wall_s": wall,
+           "completion_tokens": [s.completion_tokens for s in summaries],
+           "prefill_s": summ.engine.admitted_s,
+           "decode_s": summ.engine.decode_s,
+           "decode_tokens": summ.engine.decode_tokens,
+           "graphs": stats, "recovery": recovery, "launches": launches,
+           "launches_by_body": bodies, "device": smi}
+    emit(row)
+    if completed != len(threads) or not drained or \
+            [s.thread_id for s in summaries] != [t.thread_id
+                                                 for t in threads]:
+        raise AssertionError(f"async_serve: {completed} of {len(threads)} "
+                             f"handles completed")
+    if recovery["containments"] or recovery["replayed"]:
+        raise AssertionError(f"async_serve: failures contained: {recovery}")
+    if not stats["replays"]:
+        raise AssertionError(f"async_serve: no graph replayed: {stats}")
+    check_path("async_serve", launches, ("K1", "K2"))
+    check_bodies("async_serve", bodies)
+    check_k2_passes("async_serve", launches, bodies, cfg.n_layers)
+    return row
 
 
 def phase_paged_model(dev, cfg, eng):
@@ -1802,7 +2035,6 @@ def phase_paged_serve(dev, cfg, eng, smi):
     ``expected_hit`` over the prompts the engine was given."""
     import torch
 
-    from copilot_for_consensus_tpu_torch.engine import generation
     from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
     from copilot_for_consensus_tpu_torch.summarization.summarizer import (
         CUDASummarizer,
@@ -1812,13 +2044,6 @@ def phase_paged_serve(dev, cfg, eng, smi):
     new_tokens = 64
     summ = CUDASummarizer(cfg.name, engine=eng, max_new_tokens=new_tokens)
     blk = eng._pool.block
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    plain_sample = generation.sample
-
-    def checked_sample(logits, gen, sampling):
-        finite.logical_and_(torch.isfinite(logits).all())
-        return plain_sample(logits, gen, sampling)
-
     comps: list = []
     plain_generate = eng.generate
 
@@ -1848,7 +2073,6 @@ def phase_paged_serve(dev, cfg, eng, smi):
     eng._admit = counted("admit", eng._admit)
     eng._decode_once = counted("decode", eng._decode_once)
     eng.generate = recording_generate
-    generation.sample = checked_sample
     rounds = [("round1", synthetic_threads(8)),
               ("round2", synthetic_threads(8)),
               ("round3", synthetic_threads(16)[8:])]
@@ -1856,7 +2080,7 @@ def phase_paged_serve(dev, cfg, eng, smi):
     published: list[list[int]] = []
     expect_saved = expect_hits = 0
     rows = []
-    try:
+    with finite_logits(eng) as finite:
         for label, threads in rounds:
             prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
                        [-eng.prompt_limit:] for t in threads]
@@ -1907,8 +2131,6 @@ def phase_paged_serve(dev, cfg, eng, smi):
                    "finish": [c.finish_reason for c in rc]}
             emit(row)
             rows.append(row)
-    finally:
-        generation.sample = plain_sample
     launches = read_launches()
     bodies = read_bodies()
     st, ps = eng.kv_pool_stats(), eng.prefix_stats()
@@ -2014,13 +2236,6 @@ def phase_int4_serve(dev, cfg, smi):
     threads = long_threads(summ.tokenizer, 32, 2000, 2816)
     prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
                for t in threads]
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    plain_sample = generation.sample
-
-    def checked_sample(logits, gen, sampling):
-        finite.logical_and_(torch.isfinite(logits).all())
-        return plain_sample(logits, gen, sampling)
-
     passes = {"waves": 0, "dispatches": 0}
 
     def counted(kind, fn):
@@ -2057,7 +2272,7 @@ def phase_int4_serve(dev, cfg, smi):
         rc = comps[n0:]
         waves = passes["waves"] - before["waves"]
         steps = (passes["dispatches"] - before["dispatches"]) \
-            * eng.decode_window
+            * eng._dispatch_steps
         dec_s = eng.decode_s - before["decode_s"]
         dec_t = eng.decode_tokens - before["decode_tokens"]
         row = {"phase": "int4_serve", "round": label, "act_quant": mode,
@@ -2070,8 +2285,8 @@ def phase_int4_serve(dev, cfg, smi):
                "decode_s": dec_s, "decode_tokens": dec_t,
                "decode_tok_per_s": dec_t / dec_s if dec_s else None,
                "ms_per_step": dec_s / steps * 1e3 if steps else None,
-               "wall_s": wall, "launches": launches,
-               "launches_by_body": bodies,
+               "wall_s": wall, "graphs": eng.graph_stats(),
+               "launches": launches, "launches_by_body": bodies,
                "expected": per_pass * (waves + steps), "device": smi}
         emit(row)
         if [s.thread_id for s in summaries] != \
@@ -2098,13 +2313,12 @@ def phase_int4_serve(dev, cfg, smi):
                          row["expected"] - wg)
         return launches, bodies
 
-    generation.sample = checked_sample
-    try:
-        wo = serve_round("weight_only", threads, "weight_only")
-        a8 = serve_round("a8", threads[:8], "a8")
-    finally:
-        quant.set_act_quant("weight_only")
-        generation.sample = plain_sample
+    with finite_logits(eng) as finite:
+        try:
+            wo = serve_round("weight_only", threads, "weight_only")
+            a8 = serve_round("a8", threads[:8], "a8")
+        finally:
+            quant.set_act_quant("weight_only")
     if not bool(finite):
         raise AssertionError("non-finite logits while serving int4")
     return eng, prompts, wo, a8
@@ -2190,6 +2404,68 @@ def busy_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+@contextlib.contextmanager
+def replay_spans():
+    """Device ms of each CUDA graph replay inside the block, untraced: a
+    pair of CUDA events recorded on the replaying stream just before and
+    just after each replay call. Yields the list of pairs; the caller
+    reads their times after a synchronize."""
+    import torch
+
+    plain_replay = torch.cuda.CUDAGraph.replay
+    pairs: list = []
+
+    def timed(graph):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain_replay(graph)
+        b.record()
+        pairs.append((a, b))
+
+    torch.cuda.CUDAGraph.replay = timed
+    try:
+        yield pairs
+    finally:
+        torch.cuda.CUDAGraph.replay = plain_replay
+
+
+def dispatch_split(events, n: int) -> dict:
+    """Where the device idles in ``n`` traced decode dispatches, from the
+    trace's device events alone. Each dispatch ends with one device-to-host
+    copy, the fetch of its tokens; its replay starts at the first device
+    event after the previous fetch that is not a host-to-device copy (the
+    host's fill of the static buffers). In replay: its span from that start
+    to the fetch's end, the union of its device intervals, and the gaps
+    between them (``in_replay_gap_us``, summed over the dispatches).
+    Between dispatches: from a fetch's end to the next replay's start,
+    averaged over the n - 1 boundaries. Only the count of fetches unless
+    the trace holds exactly n. The profiler's own cost stays in both parts,
+    most of it between the dispatches: ``replay_spans`` measures the
+    untraced split."""
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events)
+    fetch_ends = [end for _, end, name in evs if "DtoH" in name]
+    if len(fetch_ends) != n:
+        return {"fetches": len(fetch_ends)}
+    starts, spans, busy = [], [], []
+    prev = float("-inf")
+    for end in fetch_ends:
+        inside = [(a, b) for a, b, name in evs
+                  if a >= prev and b <= end and "HtoD" not in name]
+        start = min(a for a, _ in inside)
+        starts.append(start)
+        spans.append(end - start)
+        busy.append(busy_us(inside))
+        prev = end
+    between = [s - e for s, e in zip(starts[1:], fetch_ends[:-1])]
+    return {"fetches": n, "replay_span_us": spans, "replay_busy_us": busy,
+            "in_replay_gap_us": sum(spans) - sum(busy),
+            "between_us": between,
+            "between_us_per_dispatch": sum(between) / len(between)
+            if between else None}
 
 
 def device_us_by_kernel(prof) -> tuple[list, dict]:
@@ -2320,8 +2596,12 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     needs (one dispatch after each); after the last, ``n`` dispatches run
     on the host clock alone and the next ``n`` under ``torch.profiler``
     tracing the card's activity. Idle share = 1 - (union of the traced
-    device intervals) / (host wall time of the n steps). The engine is left
-    with its slots busy: the caller discards it."""
+    device intervals) / (host wall time of the n steps). The measured
+    dispatches are graph replays: before each run of ``n``, single
+    dispatches run (``warm_dispatches``, at most n + 1) until each of the
+    next ``n`` lands on a kv bucket whose graph is captured, and the slots'
+    prompts are cut to leave room for them. The engine is left with its
+    slots busy: the caller discards it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2330,16 +2610,17 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     )
     from copilot_for_consensus_tpu_torch.models import quant
 
-    window = eng.decode_window
+    window = eng._dispatch_steps
     chosen = sorted(prompts, key=len)[-eng.num_slots:]
     bucket = _next_bucket(min(len(chosen[-1]), eng.prompt_limit),
                           eng.buckets)
     per_wave = max(1, min(128, eng.admission_token_budget // bucket))
     waves = -(-len(chosen) // per_wave)
-    # a slot of the first wave sees every admission dispatch and the 2n
-    # measured ones: its prompt tail and token budget leave room for them
-    # and one window more, so no slot finishes inside the measurement
-    dispatches = waves + 2 * n
+    # a slot of the first wave sees every admission dispatch, up to 2(n + 1)
+    # warm ones and the 2n measured ones: its prompt tail and token budget
+    # leave room for them and one dispatch more, so no slot finishes inside
+    # the measurement
+    dispatches = waves + 2 * n + 2 * (n + 1)
     room = eng.max_len - 1 - window * (dispatches + 1)
     ids = [eng.submit(p[-room:], max_new_tokens=1 + window * (dispatches + 1))
            for p in chosen]
@@ -2353,21 +2634,55 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     if eng._queue or len(eng._active) != len(ids):
         raise AssertionError(f"{label}: slots not filled in {waves} waves")
 
+    def ahead():
+        """The kv buckets of the next n dispatches."""
+        hi = max(int(eng._positions[s]) for s in eng._active)
+        return [eng._kv_extent(hi + k * window) for k in range(n)]
+
+    def warm_up():
+        """Single dispatches until the next n land on captured buckets."""
+        for _ in range(n + 1):
+            if all(eng._graph_key(b) in eng._graphs for b in ahead()):
+                break
+            step()
+            warm.append(1)
+        if not all(eng._graph_key(b) in eng._graphs for b in ahead()):
+            raise AssertionError(f"{label}: buckets {ahead()} not captured")
+
     def steps():
+        """Host seconds of n dispatches, each a graph replay."""
+        st0 = eng.graph_stats()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+        st1 = eng.graph_stats()
+        if (st1["eager"], st1["captured"]) != (st0["eager"], st0["captured"]):
+            raise AssertionError(f"{label}: a measured dispatch ran eagerly "
+                                 f"or was captured: {st0} -> {st1}")
         return time.monotonic() - t0
 
-    plain_s = steps()
+    warm: list[int] = []
+    warm_up()
+    with replay_spans() as pairs:
+        plain_s = steps()
+    spans = [a.elapsed_time(b) for a, b in pairs]
+    if len(spans) != n:
+        raise AssertionError(f"{label}: {len(spans)} replays timed, not {n}")
+    warm_up()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_s = steps()
     if done:
         raise AssertionError("a slot finished inside the measured decode")
     kernels, by_name = device_us_by_kernel(prof)
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    split = dispatch_split(kernels, n)
+    split_ok = split.get("between_us_per_dispatch") is not None
+    # the untraced split: each replay's device span against the host's
+    # wall per dispatch, and against the traced busy time a dispatch
+    replay_ms = sum(spans) / n
+    host_ms = plain_s / n * 1e3
     top = list(by_name.items())[:12]
     families = device_ms_by_family(by_name)
     n_steps = n * window
@@ -2375,6 +2690,9 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
            "kv": "paged" if eng.paged else "contiguous",
            "quantize": eng.quant_mode, "act_quant": quant.act_quant_mode(),
            "admission_waves": waves, "dispatches": n,
+           "warm_dispatches": len(warm),
+           "windows_per_dispatch": eng.windows_per_dispatch,
+           "graphs": eng.graph_stats(),
            "steps": n_steps, "step_ms": plain_s / n_steps * 1e3,
            "traced_step_ms": traced_s / n_steps * 1e3,
            "device_events": len(kernels),
@@ -2383,6 +2701,18 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
            else None,
            "idle_share": (1.0 - busy / (traced_s * 1e6)) if kernels
            else None,
+           "replay_ms": spans,
+           "untraced_split_ms_per_step": {
+               "replay": replay_ms / window,
+               "inside_replay_idle": (replay_ms - busy / 1e3 / n) / window
+               if kernels else None,
+               "between_dispatches": (host_ms - replay_ms) / window},
+           "traced_split": split,
+           "traced_split_ms_per_step": {
+               "inside_replay_idle": split["in_replay_gap_us"] / 1e3
+               / n_steps,
+               "between_dispatches": split["between_us_per_dispatch"]
+               / 1e3 / window} if split_ok else None,
            "device_ms_by_family": families,
            "device_ms_per_step_by_family": {k: v / n_steps
                                             for k, v in families.items()},
@@ -2487,11 +2817,16 @@ def main() -> int:
           "seconds": time.monotonic() - t0})
     phase_model(dev, cfg, params)
     a8_launches, a8_bodies = phase_a8_model(dev, cfg, params)
-    launches, bodies, prompts, eng = phase_serve(dev, cfg, params, smi)
+    launches, bodies, prompts, eng, batch = phase_serve(dev, cfg, params,
+                                                        smi)
     phase_int8_wave(cfg, eng, smi)
     phase_trace(cfg, eng, prompts, smi)
-    # the contiguous engine's cache goes before the paged pool comes
+    # the contiguous engine's cache goes before the next engines come
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graphs(dev, cfg, params, smi, paged=False)
+    phase_async_serve(dev, cfg, params, smi, batch)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2506,8 +2841,12 @@ def main() -> int:
     paged_launches, paged_bodies, _ = phase_paged_serve(dev, cfg, paged,
                                                          smi)
     phase_trace(cfg, paged, prompts, smi, label="paged_trace")
-    # the paged pool and the int8 weights go before the int4 engine comes
-    del paged, params
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graphs(dev, cfg, params, smi, paged=True)
+    # the int8 weights go before the int4 engine comes
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     int4, int4_prompts, (int4_launches, int4_bodies), \

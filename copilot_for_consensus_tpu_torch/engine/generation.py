@@ -9,9 +9,26 @@ ported to PyTorch.
   the next prefill bucket (rows to a power of two), under an
   ``admission_token_budget``; their KV is inserted and the first token
   sampled — one host sync per wave.
-* **Windowed decode.** One dispatch runs ``decode_window`` steps; fresh KV
-  goes to small window buffers and is written into the cache once per
-  dispatch, so the cache is read-only during the window.
+* **Windowed decode.** One dispatch runs ``windows_per_dispatch``
+  windows of ``decode_window`` steps; fresh KV goes to small window
+  buffers (the completed windows ride along as a fourth attention piece)
+  and is written into the cache once per dispatch, so the cache is
+  read-only during the dispatch.
+* **One CUDA graph per kv bucket.** The dispatch body reads only static
+  buffers the host fills before each dispatch (tokens, positions, block
+  tables, write maps) and writes the window buffers, the cache or pool,
+  and a static output of tokens. On the card it is captured once per kv
+  bucket (``engine/graphs.py``, the counterpart of the JAX engine's
+  ``jit`` per bucket; the engine's first dispatch in each
+  activation-quantization mode runs eagerly as the warm-up) and
+  replayed; on the CPU the same body runs eagerly. Each dispatch ends with one device-to-host fetch of its
+  tokens. All of the engine's device work runs on its own CUDA stream.
+* **Supervisor hooks.** Every admission wave and decode dispatch runs
+  under ``_dispatch_boundary``: the fault plane's injection point
+  (``faults=``, ``engine/faults.py``) and the supervisor's watchdog and
+  outcome surface (``engine/supervisor.py``, attached by
+  ``engine/async_runner.py``). A failed wave puts its requests back at
+  the head of the queue; a failed dispatch drops the decode graphs.
 
 Two KV layouts:
 
@@ -34,14 +51,14 @@ Two KV layouts:
   the same.
 
 Where the JAX engine builds new arrays, this one updates the cache and the
-pool in place (no second allocation). It has no telemetry, journal, fault
-injection, scheduler, speculative decoding, chunked prefill or
-disaggregated roles, and no gather-based reference route for the paged
-layout.
+pool in place (no second allocation). It has no telemetry, journal,
+scheduler, speculative decoding, chunked prefill or disaggregated roles,
+and no gather-based reference route for the paged layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -50,6 +67,8 @@ import torch
 
 from copilot_for_consensus_tpu_torch.device import resolve_device, \
     resolve_dtype
+from copilot_for_consensus_tpu_torch.engine.faults import resolve_faults
+from copilot_for_consensus_tpu_torch.engine.graphs import DecodeGraphs
 from copilot_for_consensus_tpu_torch.engine.kv_pool import (
     BLOCK_TABLE_DTYPE,
     BlockPool,
@@ -84,6 +103,8 @@ class Request:
     decode_started_at: float = 0.0
     #: the prompt's block digests, computed once (``_req_digests``)
     block_digests: list | None = None
+    #: the pipeline event that caused the request (error reports name it)
+    correlation_id: str = ""
 
 
 @dataclass
@@ -127,13 +148,24 @@ class GenerationEngine:
         dtype: str | torch.dtype = torch.bfloat16,
         quantize: bool | str = False,
         decode_window: int = 8,
+        windows_per_dispatch: int = 1,
         admission_token_budget: int = 16384,
         prefill_chunk: int = 64,
         kv_pool_blocks: int = 0,
         prefix_cache_blocks: int = 0,
+        faults=None,
+        cuda_graphs: bool = True,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
+        # Resilience hooks (the JAX engine's): ``faults`` installs the
+        # seeded fault injector at every dispatch boundary; a supervisor
+        # (attached by EngineSupervisor) gets watchdog and outcome
+        # callbacks there and may lower ``_slot_cap``.
+        self.faults = resolve_faults(faults)
+        self.supervisor = None
+        self._last_failed_kind = ""
+        self._slot_cap = num_slots
         self.dtype = resolve_dtype(dtype)
         self.cfg = cfg
         self.num_slots = num_slots
@@ -145,14 +177,19 @@ class GenerationEngine:
             else [int(eos_id)]
         self.eos_id = int(eos_list[0])
         self._eos_set = frozenset(int(e) for e in eos_list)
-        # one window per dispatch: the JAX engine's windows_per_dispatch=1
         self.decode_window = max(1, decode_window)
+        # How many windows one dispatch chains: more amortizes the host
+        # sync over more steps at the cost of coarser retirement and
+        # admission (the JAX engine's knob, default 1).
+        self.windows_per_dispatch = max(1, windows_per_dispatch)
         # Prompt tokens one admission wave may prefill (rows × bucket).
         self.admission_token_budget = admission_token_budget
-        if self.max_len - self.decode_window < 1:
+        self._dispatch_steps = self.decode_window * self.windows_per_dispatch
+        if self.max_len - self._dispatch_steps < 1:
             raise ValueError(
-                f"decode_window {self.decode_window} leaves no prompt "
-                f"room in max_len {self.max_len}")
+                f"decode_window {self.decode_window} x "
+                f"{self.windows_per_dispatch} windows/dispatch leaves no "
+                f"prompt room in max_len {self.max_len}")
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
         # quantize: False | True ("int8") | "int8" | "int4" (packed
@@ -216,7 +253,7 @@ class GenerationEngine:
             self._block = block
             self._max_blocks = self.max_len // block
             #: furthest a dispatch writes past a slot's committed length
-            self._write_margin = max(self.decode_window, _VERIFY_MARGIN)
+            self._write_margin = max(self._dispatch_steps, _VERIFY_MARGIN)
             if kv_pool_blocks < self._max_blocks + 1:
                 raise ValueError(
                     f"kv_pool_blocks={kv_pool_blocks} cannot hold even "
@@ -269,22 +306,35 @@ class GenerationEngine:
         self.decode_s = 0.0
         self.decode_tokens = 0
 
+        # ---- the decode dispatch's static buffers and its graphs --------
+        # One CUDA stream carries every device op of the engine: eager
+        # waves, warm-ups, captures and replays run on it in order.
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        self._static = self._static_buffers()
+        self._graphs = DecodeGraphs(
+            self.device, enabled=cuda_graphs, stream=self._stream,
+            generators=(self._gen,) if sampling.temperature > 0 else ())
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
     @property
     def prompt_limit(self) -> int:
-        """Longest prompt served without tail-truncation (one decode
-        window of cache headroom, capped by the largest prefill bucket)."""
-        return min(self.max_len - self.decode_window, self.buckets[-1])
+        """Longest prompt served without tail-truncation (one dispatch of
+        cache headroom, capped by the largest prefill bucket)."""
+        return min(self.max_len - self._dispatch_steps, self.buckets[-1])
 
     def submit(self, prompt: list[int], max_new_tokens: int = 256, *,
-               cache_eligible_tokens: int | None = None) -> int:
+               cache_eligible_tokens: int | None = None,
+               correlation_id: str = "") -> int:
         """Enqueue a tokenized prompt; returns a request id.
         ``cache_eligible_tokens`` caps how many leading prompt tokens the
         prefix cache may publish when the request retires (None: the
-        whole block-aligned prompt)."""
+        whole block-aligned prompt). ``correlation_id`` names the
+        pipeline event behind the request (the async runner's error
+        reports and replays carry it)."""
         if not prompt:
             raise ValueError("empty prompt")
         limit = self.prompt_limit
@@ -297,17 +347,19 @@ class GenerationEngine:
         rid = self._next_id
         self._next_id += 1
         self._queue.append(Request(rid, list(prompt), max_new_tokens,
-                                   cache_eligible_tokens))
+                                   cache_eligible_tokens,
+                                   correlation_id=correlation_id))
         return rid
 
     def step(self) -> list[Completion]:
         """Admit queued requests into free slots, run one decode dispatch
         for all active slots, retire finished ones. Returns completions."""
-        self._admit()
-        if self.paged:
-            self.peak_active = max(self.peak_active, len(self._active))
-        if self._active:
-            self._decode_once()
+        with self._on_stream():
+            self._admit()
+            if self.paged:
+                self.peak_active = max(self.peak_active, len(self._active))
+            if self._active:
+                self._decode_once()
         return self._drain_done()
 
     def generate(self, prompts: list[list[int]],
@@ -392,8 +444,10 @@ class GenerationEngine:
         longest = 0
         headroom = self._block_headroom() if self.paged else 0
         # Cap a wave at 128 rows AND the prompt-token budget: prefill
-        # scratch and activations scale with rows × bucket.
-        while self._queue and self._free and len(batch) < 128:
+        # scratch and activations scale with rows × bucket; and the slots
+        # in use at the occupancy cap the resource breaker may lower.
+        while (self._queue and self._free and len(batch) < 128
+               and len(self._active) + len(batch) < self._slot_cap):
             head = self._queue[0]
             match_len = 0
             if self.paged:
@@ -431,17 +485,35 @@ class GenerationEngine:
         n = 1
         while n < len(batch):
             n *= 2
-        if self.paged:
-            first = self._admit_wave_paged(batch, matches, suffix_lens,
-                                           bucket, n)
-        else:
-            tokens = np.zeros((n, bucket), dtype=np.int64)
-            lengths = np.ones((n,), dtype=np.int64)
-            for i, (_slot, req) in enumerate(batch):
-                tokens[i, :plens[i]] = req.prompt
-                lengths[i] = plens[i]
-            first = self._admit_wave(tokens, lengths,
-                                     [slot for slot, _ in batch])
+        kind = "prefill_seeded" if any(matches) else "prefill"
+        try:
+            with self._dispatch_boundary(kind):
+                if self.paged:
+                    first = self._admit_wave_paged(batch, matches,
+                                                   suffix_lens, bucket, n)
+                else:
+                    tokens = np.zeros((n, bucket), dtype=np.int64)
+                    lengths = np.ones((n,), dtype=np.int64)
+                    for i, (_slot, req) in enumerate(batch):
+                        tokens[i, :plens[i]] = req.prompt
+                        lengths[i] = plens[i]
+                    first = self._admit_wave(tokens, lengths,
+                                             [slot for slot, _ in batch])
+        except Exception:
+            # Lossless unwind (the JAX engine's): the wave's requests were
+            # taken off the queue and the free list but never activated —
+            # they go back to the queue's head in order, their slots and
+            # freshly allocated blocks back to the free lists, their
+            # lookup pins back to the trie. A failed wave costs a retry,
+            # never a request.
+            for i, (slot, _req) in enumerate(batch):
+                self._free.append(slot)
+                if self.paged:
+                    self._paged_release_slot(slot)
+                if matches[i] is not None:
+                    self._prefix.release(matches[i])
+            self._queue[0:0] = [req for _slot, req in batch]
+            raise
         prefill_s = time.monotonic() - t0
         self.admitted_s += prefill_s
         self.prefill_tokens += sum(suffix_lens)
@@ -646,6 +718,11 @@ class GenerationEngine:
         in the window buffers until the write, so the extent covers only
         what was in the cache BEFORE the dispatch."""
         hi = max([int(self._positions[s]) for s in self._active] + [0])
+        return self._kv_extent(hi)
+
+    def _kv_extent(self, hi: int) -> int:
+        """The kv bucket of an occupied extent ``hi``: rounded up to 128,
+        snapped to the whole cache near it (one graph per bucket)."""
         if hi == 0:
             return min(128, self.max_len)
         bucket = min(-(-(hi + 1) // 128) * 128, self.max_len)
@@ -655,33 +732,55 @@ class GenerationEngine:
             return self.max_len
         return bucket
 
-    @torch.inference_mode()
-    def _decode_dispatch(self, kv_len: int) -> np.ndarray:
-        """``decode_window`` steps — decode → sample → feed back — then
-        one write of the window's KV into the cache or the pool. Returns
-        the sampled tokens [window, slots] on the host.
-
-        Paged: each step scores the committed blocks of
-        ``tables[:, :kv_len // block]`` in place with K3 (window =
-        the model's sliding window), and the window's KV is scattered into
-        the slots' blocks once, at the end."""
-        cfg, w_sz = self.cfg, self.decode_window
-        b = self.num_slots
-        shape = (cfg.n_layers, b, cfg.n_kv_heads, w_sz, cfg.head_dim)
-        k_win = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
-        v_win = torch.zeros(shape, dtype=self.kv_dtype, device=self.device)
-        tok = torch.from_numpy(self._next_tok).to(self.device)
+    def _static_buffers(self) -> dict:
+        """The decode dispatch's static buffers, made once: its inputs
+        (``tok``, ``pos`` — int32 on the paged engine, as K3 takes it — and,
+        paged, one flat ``tables`` buffer viewed [slots, nb] per bucket,
+        the write maps ``wbids``/``woffs`` and the write-back position
+        ``back``), the window buffers [L, slots, Hkv, steps, Dh] and the
+        output tokens [steps, slots]. A graph captured at a bucket keeps
+        their addresses, so they live as long as the engine."""
+        cfg, b, steps = self.cfg, self.num_slots, self._dispatch_steps
+        dev = self.device
+        win = (cfg.n_layers, b, cfg.n_kv_heads, steps, cfg.head_dim)
+        i32 = dict(dtype=torch.int32, device=dev)
+        st = {"tok": torch.zeros(b, dtype=torch.int64, device=dev),
+              "pos": torch.zeros(b, dtype=torch.int32 if self.paged
+                                 else torch.int64, device=dev),
+              "k_win": torch.zeros(win, dtype=self.kv_dtype, device=dev),
+              "v_win": torch.zeros(win, dtype=self.kv_dtype, device=dev),
+              "out": torch.zeros((steps, b), dtype=torch.int64, device=dev)}
         if self.paged:
-            # int32, as K3 takes lengths and q_pos: built once a dispatch
-            positions = torch.from_numpy(
-                self._positions.astype(np.int32)).to(self.device)
-            for slot in self._active:
-                self._ensure_blocks(slot, int(self._positions[slot]) + w_sz)
-            rows = [(s, self._tables[s], int(self._positions[s]), w_sz)
-                    for s in self._active]
-            sbids, soffs = self._write_maps(rows, w_sz, b)
-            tables = torch.from_numpy(self._gather_bids(kv_len)).to(
-                self.device)
+            st.update(tables=torch.zeros(b * self._max_blocks, **i32),
+                      wbids=torch.zeros((b, steps), **i32),
+                      woffs=torch.zeros((b, steps), **i32),
+                      back=torch.zeros(2, **i32))
+        return st
+
+    @torch.inference_mode()
+    def _decode_body(self, kv_len: int) -> None:
+        """The decode dispatch a graph holds: ``windows_per_dispatch``
+        windows of ``decode_window`` steps — decode → sample → feed back —
+        then one write of the dispatch's KV into the cache or the pool.
+
+        It reads only the static buffers and writes the window buffers,
+        the output tokens and the cache or pool; nothing it allocates
+        outlives it and nothing reaches the host. The window buffers are
+        zeroed first, so the current window's unwritten columns are zero,
+        as in the JAX engine's fresh window; the completed windows of the
+        dispatch ride as the done piece. Paged: every step scores
+        ``tables[:, :kv_len // block]`` in place with K3 (window = the
+        model's sliding window), and the pool write drops the maps'
+        sentinel on the device (``BlockPool.scatter_static``)."""
+        cfg, st, w_sz = self.cfg, self._static, self.decode_window
+        k_all, v_all = st["k_win"], st["v_win"]
+        k_all.zero_()
+        v_all.zero_()
+        positions = st["pos"]
+        if self.paged:
+            nb = kv_len // self._block
+            tables = st["tables"][:self.num_slots * nb].view(
+                self.num_slots, nb)
             pool = self._pool
 
             def partial_fn(li, q_rows, lengths, q_pos):
@@ -689,36 +788,94 @@ class GenerationEngine:
                     q_rows, pool.k, pool.v, li, tables, lengths, q_pos,
                     window=cfg.sliding_window)
 
-            def step(w):
+            def step(tok, w, k_win, v_win, k_done, v_done):
                 return decoder.decode_step_windowed_paged(
                     self.params, tok, positions, w, cfg, partial_fn, k_win,
-                    v_win)
+                    v_win, k_done=k_done, v_done=v_done)
         else:
-            positions = torch.from_numpy(self._positions).to(self.device)
-
-            def step(w):
+            def step(tok, w, k_win, v_win, k_done, v_done):
                 return decoder.decode_step_windowed(
                     self.params, tok, positions, w, cfg, self._cache, k_win,
-                    v_win, kv_len=kv_len)
-        out = []
-        for w in range(w_sz):
-            logits, k_cols, v_cols = step(w)
-            k_win[:, :, :, w] = k_cols
-            v_win[:, :, :, w] = v_cols
-            tok = sample(logits, self._gen, self.sampling)
-            out.append(tok)
+                    v_win, kv_len=kv_len, k_done=k_done, v_done=v_done)
+        tok = st["tok"]
+        for widx in range(self.windows_per_dispatch):
+            off = widx * w_sz
+            k_win = k_all[:, :, :, off:off + w_sz]
+            v_win = v_all[:, :, :, off:off + w_sz]
+            done = (k_all[:, :, :, :off], v_all[:, :, :, :off]) if off \
+                else (None, None)
+            for w in range(w_sz):
+                logits, k_cols, v_cols = step(tok, w, k_win, v_win, *done)
+                k_win[:, :, :, w] = k_cols
+                v_win[:, :, :, w] = v_cols
+                tok = sample(logits, self._gen, self.sampling)
+                st["out"][off + w] = tok
         if self.paged:
-            self._pool.scatter(k_win, v_win, sbids, soffs)
+            pool.scatter_static(k_all, v_all, st["wbids"], st["woffs"],
+                                st["back"])
         else:
-            decoder.merge_window(self._cache, k_win, v_win, positions,
-                                 steps=w_sz)
-        return torch.stack(out).cpu().numpy()
+            decoder.merge_window(self._cache, k_all, v_all, positions,
+                                 steps=self._dispatch_steps)
+
+    def _write_back(self) -> np.ndarray:
+        """Where the paged dispatch's pool write sends (and writes back)
+        its dropped entries: an active slot's last committed position,
+        below every position the dispatch writes."""
+        slot = next(iter(self._active))
+        p = int(self._positions[slot]) - 1
+        return np.array([self._tables[slot][p // self._block],
+                         p % self._block], dtype=np.int32)
+
+    def _decode_dispatch(self, kv_len: int) -> np.ndarray:
+        """One decode dispatch at bucket ``kv_len``: the host copies the
+        dispatch's inputs into the static buffers, the body runs (on the
+        card, a replay of the bucket's graph once it was captured), and
+        one device-to-host fetch brings its tokens back: [steps, slots]."""
+        st, steps = self._static, self._dispatch_steps
+        st["tok"].copy_(torch.from_numpy(self._next_tok))
+        if self.paged:
+            st["pos"].copy_(torch.from_numpy(
+                self._positions.astype(np.int32)))
+            for slot in self._active:
+                self._ensure_blocks(slot, int(self._positions[slot]) + steps)
+            rows = [(s, self._tables[s], int(self._positions[s]), steps)
+                    for s in self._active]
+            sbids, soffs = self._write_maps(rows, steps, self.num_slots)
+            st["wbids"].copy_(torch.from_numpy(sbids))
+            st["woffs"].copy_(torch.from_numpy(soffs))
+            st["back"].copy_(torch.from_numpy(self._write_back()))
+            # K3 reads the first kv_len // block entries of each row (the
+            # JAX engine's kernel route slices its wider gather so too)
+            nb = kv_len // self._block
+            st["tables"][:self.num_slots * nb].copy_(
+                torch.from_numpy(self._gather_bids(kv_len).reshape(-1)))
+        else:
+            st["pos"].copy_(torch.from_numpy(self._positions))
+        key = self._graph_key(kv_len)
+        self._graphs.run(key, lambda: self._decode_body(kv_len),
+                         family=key[1])
+        return st["out"].cpu().numpy()
+
+    def _graph_key(self, kv_len: int) -> tuple:
+        """What a decode graph is captured for: the kv bucket, and the
+        activation-quantization mode (``quant.set_act_quant``), which
+        picks each matmul's kernel when the body is captured — the
+        family one eager warm-up covers."""
+        return kv_len, quant.act_quant_mode()
 
     def _decode_once(self) -> None:
-        window = self.decode_window
+        window = self._dispatch_steps
         active_before = list(self._active.items())
         t0 = time.monotonic()
-        toks = self._decode_dispatch(self._kv_bucket())   # [steps, slots]
+        try:
+            with self._dispatch_boundary("decode"):
+                toks = self._decode_dispatch(self._kv_bucket())
+        except Exception:
+            # A failed dispatch leaves nothing a graph can trust: drop
+            # them all. With a supervisor attached, capture again only
+            # once it has repaired the engine (``on_repaired``).
+            self._graphs.drop(block=self.supervisor is not None)
+            raise
         self.decode_s += time.monotonic() - t0
         for slot, req in active_before:
             gen = self._generated[slot]
@@ -736,8 +893,8 @@ class GenerationEngine:
             self.decode_tokens += len(gen) - harvested0
             self._positions[slot] += window
             self._next_tok[slot] = int(toks[window - 1, slot])
-            # Keep a full window of cache headroom: the next window writes
-            # positions [pos, pos+window).
+            # Keep a full dispatch of cache headroom: the next dispatch
+            # writes positions [pos, pos+steps).
             if (finished is None
                     and self._positions[slot] + window > self.max_len - 1):
                 finished = "length"
@@ -784,3 +941,65 @@ class GenerationEngine:
         out = list(self._done.values())
         self._done.clear()
         return out
+
+    # ------------------------------------------------------------------
+    # supervisor hooks, streams, graphs
+    # ------------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _dispatch_boundary(self, kind: str):
+        """The host-side boundary every admission wave and decode dispatch
+        runs under (the JAX engine's): the fault plane's injection point,
+        strictly before any device work, and the supervisor's watchdog and
+        outcome surface. A failure records its kind, so containment can
+        classify it without parsing tracebacks."""
+        sup = self.supervisor
+        if sup is not None:
+            sup.begin_dispatch(kind)
+        try:
+            if self.faults is not None:
+                self.faults.check(kind)
+            yield
+            if sup is not None:
+                sup.on_dispatch_ok(kind)
+        except Exception as exc:
+            self._last_failed_kind = kind
+            if sup is not None:
+                sup.on_dispatch_error(kind, exc)
+            raise
+        finally:
+            if sup is not None:
+                sup.end_dispatch(kind)
+
+    def set_slot_cap(self, cap: int) -> None:
+        """Occupancy cap (≤ num_slots): admission stops filling slots past
+        it. The supervisor's resource breaker lowers it after repeated
+        device resource exhaustion and raises it again by half-open
+        probes; active slots above a lowered cap drain naturally."""
+        self._slot_cap = max(1, min(self.num_slots, int(cap)))
+
+    def on_repaired(self) -> None:
+        """The supervisor repaired the engine's host state (a repairing
+        audit): the decode graphs dropped after a failed dispatch may be
+        captured again."""
+        self._graphs.release()
+
+    def graph_stats(self) -> dict:
+        """The decode graphs' counters: graphs held, captured, seconds
+        spent capturing, replays, and dispatches that ran eagerly."""
+        return self._graphs.stats()
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Run the enclosed device work on the engine's stream, after what
+        the caller's stream holds and before what it enqueues next."""
+        if self._stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._stream):
+                yield
+        finally:
+            caller.wait_stream(self._stream)

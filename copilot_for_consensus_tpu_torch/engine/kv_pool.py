@@ -197,3 +197,23 @@ class BlockPool:
         # [N, L, Hkv, Dh] on both sides
         for pool, new in ((self.k, k_new), (self.v, v_new)):
             pool[:, bids, :, offs, :] = new[:, r, :, c, :].to(pool.dtype)
+
+    def scatter_static(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                       bids: torch.Tensor, offs: torch.Tensor,
+                       back: torch.Tensor) -> None:
+        """:meth:`scatter` with a static shape, for the decode dispatch a
+        CUDA graph holds: the maps are device tensors ``[R, S]`` (int32)
+        and the sentinel is dropped on the device. A dropped entry is
+        redirected to ``back`` (a device ``[2]`` tensor: block id, offset)
+        and the value held there is written back. The caller picks for
+        ``back`` a committed position that no kept entry of this write
+        touches — a slot's position just below where the dispatch started
+        — so the pool ends as :meth:`scatter` leaves it."""
+        keep = bids < self.num_blocks
+        b = torch.where(keep, bids, back[0]).long()
+        o = torch.where(keep, offs, back[1]).long()
+        keep = keep[:, :, None, None, None]
+        for pool, new in ((self.k, k_new), (self.v, v_new)):
+            # [R, S, L, Hkv, Dh] on both sides, as in scatter
+            upd = new.permute(1, 3, 0, 2, 4).to(pool.dtype)
+            pool[:, b, :, o, :] = torch.where(keep, upd, pool[:, b, :, o, :])

@@ -116,18 +116,24 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
                          positions0: torch.Tensor, w: int,
                          cfg: DecoderConfig, cache: Params,
                          k_win: torch.Tensor, v_win: torch.Tensor,
-                         kv_len: int | None = None
+                         kv_len: int | None = None,
+                         k_done: torch.Tensor | None = None,
+                         v_done: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """One decode step that never writes the big cache.
 
     Fresh KV lives in the per-window buffers ``k_win``/``v_win``
     [L, B, Hkv, W, Dh] (the caller fills column ``w`` with this step's
-    result) and reaches the cache once per window (``merge_window``).
+    result) and reaches the cache once per dispatch (``merge_window``). A
+    dispatch of several windows passes the completed ones as
+    ``k_done``/``v_done`` [L, B, Hkv, Wd, Dh], a fourth attention piece,
+    instead of merging them.
 
     tokens: [B]; positions0: [B] dispatch-start positions; ``w``: step
-    index in the window; ``kv_len`` bounds the cache prefix attention
-    reads. Returns ([B, V] f32 logits, k_cols, v_cols [L, B, Hkv, Dh])."""
+    index in the current window; ``kv_len`` bounds the cache prefix
+    attention reads. Returns ([B, V] f32 logits, k_cols, v_cols
+    [L, B, Hkv, Dh])."""
     x = params["tok_emb"][tokens.long()][:, None, :]        # [B, 1, D]
     k_pref, v_pref = cache["k"], cache["v"]
     if kv_len is not None and kv_len < k_pref.shape[3]:
@@ -139,7 +145,9 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
         h, k_cur, v_cur = L.attn_decode_windowed(
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps),
             layer, cfg, positions0, w, k_pref[li], v_pref[li],
-            k_win[li], v_win[li])
+            k_win[li], v_win[li],
+            k_done_l=None if k_done is None else k_done[li],
+            v_done_l=None if v_done is None else v_done[li])
         x = x + h
         x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
                          layer)
@@ -152,28 +160,34 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
 def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
                                positions0: torch.Tensor, w: int,
                                cfg: DecoderConfig, partial_fn,
-                               k_win: torch.Tensor, v_win: torch.Tensor
+                               k_win: torch.Tensor, v_win: torch.Tensor,
+                               k_done: torch.Tensor | None = None,
+                               v_done: torch.Tensor | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Paged twin of :func:`decode_step_windowed`: the committed KV is
     never an array here — ``partial_fn(li, qg, lengths, q_pos)`` scores
     the slot's pool blocks of layer ``li`` in place, and the window
-    buffers carry the dispatch's fresh KV until the caller's one pool
-    scatter. Returns ([B, V] f32 logits, k_cols, v_cols [L, B, Hkv, Dh]).
+    buffers (completed windows as ``k_done``/``v_done``) carry the
+    dispatch's fresh KV until the caller's one pool scatter. Returns
+    ([B, V] f32 logits, k_cols, v_cols [L, B, Hkv, Dh]).
 
     K3 takes int32 lengths and query positions: they are built here once
     a step (the engine passes int32 ``positions0``, so only the add runs),
     not in every layer."""
     x = params["tok_emb"][tokens.long()][:, None, :]        # [B, 1, D]
     positions0 = positions0.to(torch.int32)
-    q_pos = positions0 + w
+    n_done = 0 if k_done is None else k_done.shape[3]
+    q_pos = positions0 + (n_done + w)
     k_cols, v_cols = [], []
     for li in range(cfg.n_layers):
         layer = layer_params(params, li)
         h, k_cur, v_cur = L.attn_decode_windowed_paged(
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             positions0, w, q_pos, functools.partial(partial_fn, li),
-            k_win[li], v_win[li])
+            k_win[li], v_win[li],
+            k_done_l=None if k_done is None else k_done[li],
+            v_done_l=None if v_done is None else v_done[li])
         x = x + h
         x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
                          layer)
@@ -215,23 +229,33 @@ def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
 
 def merge_window(cache: Params, k_win: torch.Tensor, v_win: torch.Tensor,
                  positions0: torch.Tensor, steps: int) -> Params:
-    """Scatter a decode window's KV into the big cache, once, in place.
+    """Scatter a dispatch's window KV into the big cache, once, in place.
 
     k_win/v_win: [L, B, Hkv, W, Dh]; slot b's window columns land at
     cache positions ``positions0[b] + [0, steps)``. Columns at or past
-    the cache extent are dropped (parked slots sit there)."""
+    the cache extent are dropped (parked slots sit there). The write has
+    a static shape — no host sync, so a CUDA graph can hold it: a dropped
+    column is redirected to the slot's column ``min(positions0[b],
+    extent) - 1``, whose own value is written back. No kept column of the
+    slot lands there (they start at ``positions0[b]``), and every slot
+    writes only its own row, so the cache ends as if the dropped columns
+    were never written."""
     b, w = k_win.shape[1], k_win.shape[3]
     steps = min(steps, w)
     s_max = cache["k"].shape[3]
     dev = cache["k"].device
+    p0 = positions0.to(dev).long()
+    pidx = p0[:, None] + torch.arange(steps, device=dev)[None, :]
+    keep = pidx < s_max                                      # [B, steps]
+    back = (p0.clamp(max=s_max) - 1).clamp(min=0)[:, None]
+    pidx = torch.where(keep, pidx, back)
     bidx = torch.arange(b, device=dev)[:, None].expand(b, steps)
-    pidx = positions0.to(dev).long()[:, None] + torch.arange(
-        steps, device=dev)[None, :]
-    keep = pidx < s_max
-    bidx, pidx = bidx[keep], pidx[keep]
+    keep = keep[:, :, None, None, None]
     for name, win in (("k", k_win), ("v", v_win)):
-        # advanced indices on axes 1 and 3 put the [N] index axis first:
-        # update shape [N, L, Hkv, Dh]
-        upd = win[:, :, :, :steps].permute(1, 3, 0, 2, 4)[keep]
-        cache[name][:, bidx, :, pidx, :] = upd.to(cache[name].dtype)
+        c = cache[name]
+        # advanced indices on axes 1 and 3 put the [B, steps] index axes
+        # first: [B, steps, L, Hkv, Dh] on both sides
+        upd = win[:, :, :, :steps].permute(1, 3, 0, 2, 4).to(c.dtype)
+        c[:, bidx, :, pidx, :] = torch.where(keep, upd,
+                                             c[:, bidx, :, pidx, :])
     return cache

@@ -137,22 +137,29 @@ def attn_decode_windowed(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
                          positions0: torch.Tensor, w: int,
                          k_pref_l: torch.Tensor, v_pref_l: torch.Tensor,
                          k_win_l: torch.Tensor, v_win_l: torch.Tensor,
-                         kv_len: int | None = None):
+                         kv_len: int | None = None,
+                         k_done_l: torch.Tensor | None = None,
+                         v_done_l: torch.Tensor | None = None):
     """Decode attention for one layer against (read-only prefix cache,
-    current window buffer, self). Returns (out, k_cur, v_cur); the caller
-    stacks the per-layer k/v columns into the window buffer.
+    completed windows of the dispatch, current window buffer, self).
+    Returns (out, k_cur, v_cur); the caller stacks the per-layer k/v
+    columns into the window buffer.
 
     positions0: [B] dispatch-start positions; ``w``: step index within
-    the window (absolute position = positions0 + w)."""
+    the current window; ``k_done_l`` [B, Hkv, Wd, Dh] holds the dispatch's
+    completed windows (absolute position = positions0 + Wd + w, for RoPE
+    and the sliding-window mask)."""
     b = x.shape[0]
-    pos = (positions0 + w)[:, None]
+    n_done = 0 if k_done_l is None else k_done_l.shape[2]
+    pos = (positions0 + n_done + w)[:, None]
     q, k, v = _project_qkv(x, layer, cfg, pos)
     k_cur = k[:, :, 0, :]
     v_cur = v[:, :, 0, :]
     o = decode_attention_prefix_window(
         q[:, :, 0, :], k_pref_l, v_pref_l, k_win_l, v_win_l,
         k_cur, v_cur, prefix_lengths=positions0, w=w,
-        window=cfg.sliding_window, kv_len=kv_len)            # [B, Hq, Dh]
+        window=cfg.sliding_window, kv_len=kv_len, k_done=k_done_l,
+        v_done=v_done_l)                                     # [B, Hq, Dh]
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return qmatmul(o, layer["wo"]), k_cur, v_cur
 
@@ -160,13 +167,16 @@ def attn_decode_windowed(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
 def attn_decode_windowed_paged(x: torch.Tensor, layer: dict,
                                cfg: DecoderConfig, positions0: torch.Tensor,
                                w: int, q_pos: torch.Tensor, partial_fn,
-                               k_win_l: torch.Tensor, v_win_l: torch.Tensor):
+                               k_win_l: torch.Tensor, v_win_l: torch.Tensor,
+                               k_done_l: torch.Tensor | None = None,
+                               v_done_l: torch.Tensor | None = None):
     """Paged twin of :func:`attn_decode_windowed`: the committed prefix is
     never materialized — ``partial_fn(qg, lengths, q_pos)`` returns its
-    flash (acc, m, l) straight off the block pool (K3), and the current
-    window and the token itself fold in through one ``combine_partials``.
-    Projections, RoPE and the output matmul are the contiguous twin's.
-    ``q_pos`` = ``positions0 + w``, built once a step by the caller."""
+    flash (acc, m, l) straight off the block pool (K3), and the dispatch's
+    local pieces (completed windows, current window, the token itself)
+    fold in through one ``combine_partials``. Projections, RoPE and the
+    output matmul are the contiguous twin's. ``q_pos`` = ``positions0 +
+    Wd + w``, built once a step by the caller."""
     b = x.shape[0]
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(x, layer, cfg, q_pos[:, None])
@@ -176,7 +186,7 @@ def attn_decode_windowed_paged(x: torch.Tensor, layer: dict,
     pool_part = partial_fn(qg, positions0, q_pos)
     local_part = decode_window_partial(
         qg, k_win_l, v_win_l, k_cur, v_cur, positions0, w,
-        window=cfg.sliding_window)
+        window=cfg.sliding_window, k_done=k_done_l, v_done=v_done_l)
     o = combine_partials([pool_part, local_part], x.dtype)
     o = o.reshape(b, 1, cfg.n_heads * dh)
     return qmatmul(o, layer["wo"]), k_cur, v_cur

@@ -124,17 +124,22 @@ def decode_attention_prefix_window(
     w: int,
     window: int = 0,
     kv_len: int | None = None,
+    k_done: torch.Tensor | None = None,
+    v_done: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Decode attention over three KV pieces with one joint softmax: the
-    read-only prefix cache (``k_pref`` [B, Hkv, S_max, D], valid below
-    ``prefix_lengths``), the current window's fresh KV (``k_win``
-    [B, Hkv, W, D], valid columns [0, w)), and the current token's own KV
-    (``k_cur`` [B, Hkv, D]). Numerically the attention over one
-    contiguous cache holding the pieces back to back.
+    """Decode attention over up to four KV pieces with one joint softmax:
+    the read-only prefix cache (``k_pref`` [B, Hkv, S_max, D], valid below
+    ``prefix_lengths``), the completed windows of this dispatch
+    (``k_done`` [B, Hkv, Wd, D], every column valid: they are kept out of
+    the cache until the dispatch's one write), the current window's fresh
+    KV (``k_win`` [B, Hkv, W, D], valid columns [0, w)), and the current
+    token's own KV (``k_cur`` [B, Hkv, D]). Numerically the attention over
+    one contiguous cache holding the pieces back to back.
 
-    q: [B, Hq, D]; prefix_lengths: [B] — where this dispatch started;
-    ``w``: the step index inside the window; ``window``: sliding-window
-    size (0 = full)."""
+    q: [B, Hq, D]; prefix_lengths: [B] — where this dispatch started (done
+    columns sit at +[0, Wd), window column i at +Wd+i, the token at
+    +Wd+w); ``w``: the step index inside the current window; ``window``:
+    sliding-window size (0 = full), which masks the done piece too."""
     if kv_len is not None and kv_len < k_pref.shape[2]:
         k_pref = k_pref[:, :, :kv_len]
         v_pref = v_pref[:, :, :kv_len]
@@ -145,6 +150,7 @@ def decode_attention_prefix_window(
     b, hq, d = q.shape
     hkv, s_max = k_pref.shape[1], k_pref.shape[2]
     n_win = k_win.shape[2]
+    n_done = 0 if k_done is None else k_done.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)
 
     lp = _grouped_scores(qg, k_pref)
@@ -152,21 +158,36 @@ def decode_attention_prefix_window(
     lc = torch.einsum("bhgd,bhd->bhg", qg.float(),
                       k_cur.float())[..., None] * (d ** -0.5)
 
-    # The dispatch's own columns start at prefix_lengths: window column i
-    # at +i; the token itself sits at +w.
+    # The dispatch's own columns start at prefix_lengths: done columns at
+    # +[0, n_done), window column i at +n_done+i; the token itself sits at
+    # +n_done+w. Every piece runs the same mask rule against that timeline.
     pl = prefix_lengths.to(q.device)[:, None, None, None]
-    cur_pos = pl + w
+    cur_pos = pl + n_done + w
     pos_p = torch.arange(s_max, device=q.device)[None, None, None, :]
     mask_p = _piece_mask(pos_p, pl, cur_pos, window)
-    pos_w = pl + torch.arange(n_win, device=q.device)[None, None, None, :]
+    pos_w = pl + n_done + torch.arange(n_win, device=q.device)[
+        None, None, None, :]
     mask_w = _piece_mask(pos_w, cur_pos, cur_pos, window)
     lp = lp.masked_fill(~mask_p, float("-inf"))
     lw = lw.masked_fill(~mask_w, float("-inf"))
+    pieces = [lp]
+    if n_done:
+        ld = _grouped_scores(qg, k_done.to(dt))
+        pos_dn = pl + torch.arange(n_done, device=q.device)[
+            None, None, None, :]
+        # done columns are all committed (below cur_pos): only the
+        # sliding window can mask them
+        pieces.append(ld.masked_fill(
+            ~_piece_mask(pos_dn, cur_pos, cur_pos, window), float("-inf")))
+    pieces += [lw, lc]
 
-    pp, pw, pc = _joint_probs([lp, lw, lc])
-    out = torch.einsum("bhgs,bhsd->bhgd", pp.to(dt), v_pref)
-    out = out + torch.einsum("bhgw,bhwd->bhgd", pw.to(dt), v_win)
-    out = out + pc.to(dt) * v_cur[:, :, None, :]
+    parts = _joint_probs(pieces)
+    out = torch.einsum("bhgs,bhsd->bhgd", parts[0].to(dt), v_pref)
+    if n_done:
+        out = out + torch.einsum("bhgw,bhwd->bhgd", parts[1].to(dt),
+                                 v_done.to(dt))
+    out = out + torch.einsum("bhgw,bhwd->bhgd", parts[-2].to(dt), v_win)
+    out = out + parts[-1].to(dt) * v_cur[:, :, None, :]
     return out.reshape(b, hq, d)
 
 

@@ -3,13 +3,17 @@
 Port of the JAX package's ``summarization/tpu_summarizer.py``
 (``TPUSummarizer`` → ``CUDASummarizer``): the same template,
 ``build_prompt``, ``shared_template_head``, ``cache_scope``,
-``summarize`` and ``summarize_batch``, served by the port's
+``summarize``, ``summarize_batch`` and the async front end
+(``summarize_async``, ``drain``, ``close``: the engine behind an
+``AsyncEngineRunner`` and its supervisor), served by the port's
 ``GenerationEngine`` (a paged one with a prefix cache comes in through
 ``engine=``). Prompts longer than the engine's ``prompt_limit`` keep their
 tail (there is no long-context engine here).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -99,9 +103,21 @@ class CUDASummarizer(Summarizer):
                  max_len: int = 4096, params: dict | None = None,
                  dtype: str | torch.dtype | None = None,
                  quantize: bool | str = "int8", seed: int = 0,
-                 cache_scope: str = "full",
+                 cache_scope: str = "full", supervisor=None,
                  device: str | torch.device | None = None):
         self._model = model
+        #: resilience (engine/supervisor.py): True / a SupervisorConfig
+        #: wires the watchdog, containment, request replay and breakers
+        #: into the runner ``summarize_async`` builds; None (the JAX
+        #: package's default) leaves the runner's fail-all containment
+        self.supervisor = supervisor
+        #: obs reporter for engine dispatch failures, set by the owning
+        #: service; the runner reports through it
+        self.error_reporter = None
+        self._runner = None
+        # two threads submitting the first requests at once must not each
+        # start a runner: two dispatchers would drive one engine
+        self._runner_lock = threading.Lock()
         self.max_new_tokens = max_new_tokens
         self.template = template
         self.system = system
@@ -134,24 +150,96 @@ class CUDASummarizer(Summarizer):
     def summarize(self, thread: ThreadContext) -> Summary:
         return self.summarize_batch([thread])[0]
 
+    def _summary(self, thread: ThreadContext, comp) -> Summary:
+        return Summary(
+            thread_id=thread.thread_id,
+            summary_text=self.tokenizer.decode(comp.tokens).strip(),
+            citations=citations_from_chunks(thread.chunks),
+            model=f"cuda:{self._model}",
+            prompt_tokens=comp.prompt_len,
+            completion_tokens=len(comp.tokens),
+        )
+
+    def _prompt(self, thread: ThreadContext) -> list[int]:
+        return self.tokenizer.encode(
+            build_prompt(thread, self.template, self.system), add_bos=True)
+
+    def _engine_generate(self, prompts: list[list[int]]) -> list:
+        """All generation funnels through here so that the engine keeps a
+        single owner: once ``summarize_async`` has started the runner's
+        dispatcher thread, it owns the engine (and its CUDA graphs), and
+        a synchronous caller goes through it rather than racing it."""
+        if self._runner is None:
+            return self.engine.generate(
+                prompts, self.max_new_tokens,
+                cache_eligible_tokens=self._cache_eligible)
+        handles = [self._runner.submit(
+            p, self.max_new_tokens,
+            cache_eligible_tokens=self._cache_eligible) for p in prompts]
+        return [h.result(timeout=600.0) for h in handles]
+
     def summarize_batch(self, threads: list[ThreadContext]) -> list[Summary]:
         """Continuous batching: all threads share the decode batch."""
-        prompts = [
-            self.tokenizer.encode(
-                build_prompt(t, self.template, self.system), add_bos=True)
-            for t in threads
-        ]
-        comps = self.engine.generate(
-            prompts, self.max_new_tokens,
-            cache_eligible_tokens=self._cache_eligible)
-        return [
-            Summary(
-                thread_id=thread.thread_id,
-                summary_text=self.tokenizer.decode(comp.tokens).strip(),
-                citations=citations_from_chunks(thread.chunks),
-                model=f"cuda:{self._model}",
-                prompt_tokens=comp.prompt_len,
-                completion_tokens=len(comp.tokens),
-            )
-            for thread, comp in zip(threads, comps)
-        ]
+        comps = self._engine_generate([self._prompt(t) for t in threads])
+        return [self._summary(t, c) for t, c in zip(threads, comps)]
+
+    def summarize_async(self, thread: ThreadContext, *,
+                        correlation_id: str = ""):
+        """Submit one thread into the continuous batch without waiting:
+        returns a callable ``wait(timeout=600.0)`` that blocks for the
+        Summary. Many submissions in flight share the decode batch —
+        what fills the engine's slots when a service receives work one
+        event at a time. The first call starts an ``AsyncEngineRunner``
+        (with the summarizer's ``supervisor``), whose dispatcher thread
+        owns the engine from then on. ``correlation_id`` (the pipeline
+        event id) tags the request, so an engine error report or a
+        replay names it.
+
+        Left out against the JAX package's ``TPUSummarizer``: the
+        long-context route (prompts over ``prompt_limit`` keep their
+        tail) and the scheduler's tenant, priority and deadline, which
+        the port does not have yet."""
+        from copilot_for_consensus_tpu_torch.engine.async_runner import (
+            AsyncEngineRunner,
+        )
+
+        fi = getattr(self.engine, "faults", None)
+        if fi is not None:
+            # tokenization is a host boundary of the serving path too
+            fi.check("tokenize")
+        prompt = self._prompt(thread)
+        with self._runner_lock:
+            if self._runner is None:
+                self._runner = AsyncEngineRunner(
+                    self.engine, error_reporter=self.error_reporter,
+                    supervisor=self.supervisor).start()
+            runner = self._runner
+        handle = runner.submit(
+            prompt, self.max_new_tokens,
+            cache_eligible_tokens=self._cache_eligible,
+            correlation_id=correlation_id)
+
+        def wait(timeout: float | None = 600.0) -> Summary:
+            return self._summary(thread, handle.result(timeout))
+
+        return wait
+
+    def drain(self, deadline_s: float = 30.0) -> bool:
+        """Graceful drain: wait up to ``deadline_s`` for the runner to
+        finish its queued and active work, then stop it. True when the
+        engine fully drained (and when no runner was started)."""
+        with self._runner_lock:
+            runner, self._runner = self._runner, None
+        if runner is None:
+            return True
+        drained = runner.drain(deadline_s)
+        runner.stop()
+        return drained
+
+    def close(self) -> None:
+        """Stop the runner, if one was started; outstanding handles fail
+        with "runner stopped"."""
+        with self._runner_lock:
+            runner, self._runner = self._runner, None
+        if runner is not None:
+            runner.stop()
