@@ -155,7 +155,21 @@ non-zero before the last line:
    must hold, and the row counts the summaries that agree with
    ``summarize_batch``'s;
 18. paged graphs — (after phase 10, the paged engine freed) phase 16 on
-   the paged engine.
+   the paged engine;
+19. pipeline — (after phase 17) the pipeline entry: the seed-0 int8
+   weights written as a native checkpoint (``save_native``, bytes and
+   seconds) under ``build/`` and read back (``load_checkpoint``, seconds
+   and GB/s; every leaf equal, ``q`` int8); a ``CUDASummarizer`` over the
+   checkpoint and one over the weights in memory give equal greedy token
+   streams on one synthetic thread; then ``build_pipeline`` with the cuda
+   driver over the checkpoint turns ``tests/fixtures/ietf-sample.mbox``
+   into cited reports, synchronous and pipelined: one archive, summaries
+   = reports = threads >= 3, every citation a stored chunk, K1 and K2 the
+   only kernels launched (K1's wgmma body, K2's stream and wgmma bodies),
+   no plain version called, the same threads and citations in both modes
+   (equal summary texts counted, not gated); the row gives each mode's
+   wall time, summaries per second and the pipeline's
+   ``summarization_latency_seconds``. The checkpoint is deleted after.
 
 Launch counts are replay-aware: a graph's capture launches nothing, so each
 graph keeps the counts its capture ticked, takes them back, and adds them on
@@ -172,9 +186,11 @@ the kernel table (K1-K6; K2's stream and wgmma bodies, K3's decode and
 seeded bodies, and K5's and K6's stream and tiled bodies as two rows
 each; K4's wgmma body with the mma.sync tiling's time beside it; and
 P's five modes, each with its launches on every path, the four on the
-wgmma body with the mma.sync body's time beside them) as one JSON line,
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. About
-5-7 minutes on one H100 (the host's speed varies), the build included.
+wgmma body with the mma.sync body's time beside them) as one JSON line —
+each row's ``launches`` from its main path, the pipeline phase's
+synchronous run for K1 and K2 — the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. About 8 minutes on one H100 (the
+host's speed varies), the build included.
 """
 
 from __future__ import annotations
@@ -1693,6 +1709,20 @@ def finite_logits(eng):
                                  "outlived it")
 
 
+def _recorded(summ) -> list:
+    """The completions ``summ``'s engine returns, in order."""
+    eng = summ.engine
+    comps, plain_generate = [], eng.generate
+
+    def recording_generate(prompts, max_new_tokens, **kw):
+        out = plain_generate(prompts, max_new_tokens, **kw)
+        comps.extend(out)
+        return out
+
+    eng.generate = recording_generate
+    return comps
+
+
 def phase_serve(dev, cfg, params, smi):
     import torch
 
@@ -1706,14 +1736,7 @@ def phase_serve(dev, cfg, params, smi):
                           max_len=4096, max_new_tokens=new_tokens,
                           device=dev)
     eng = summ.engine
-    comps = []
-    plain_generate = eng.generate
-
-    def recording_generate(prompts, max_new_tokens, **kw):
-        comps.extend(plain_generate(prompts, max_new_tokens, **kw))
-        return comps
-
-    eng.generate = recording_generate
+    comps = _recorded(summ)
     threads = synthetic_threads(8)
     reset_launches()
     # every sampled logits row must be finite
@@ -1934,6 +1957,248 @@ def phase_async_serve(dev, cfg, params, smi, batch_tokens):
     check_bodies("async_serve", bodies)
     check_k2_passes("async_serve", launches, bodies, cfg.n_layers)
     return row
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every kernel's plain version inside the block
+    (yielded: name → calls). A wrapper runs its plain version only for CPU
+    tensors, so on the card the counts must stay 0."""
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    calls: dict = {}
+    saved = []
+    for mod in (fa, pa, qm):
+        for name in [n for n in vars(mod) if n.endswith("_ref")]:
+            fn = getattr(mod, name)
+            if not callable(fn):
+                continue
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path) -> dict:
+    """``build_pipeline`` with the cuda driver over ``ckpt`` on the
+    fixture mbox; the launches, bodies and plain-version calls of its
+    run, and what it stored."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.services.runner import (
+        build_pipeline,
+    )
+
+    t0 = time.monotonic()
+    p = build_pipeline({"llm": {"driver": "cuda", "model": "mistral-7b",
+                                "checkpoint": str(ckpt),
+                                "max_new_tokens": 64, "num_slots": 4,
+                                "pipelined": pipelined},
+                        "embedding": {"driver": "mock"}})
+    build_s = time.monotonic() - t0
+    summ = p.summarization.summarizer
+    p.ingestion.create_source({"source_id": "ietf", "name": "ietf",
+                               "fetcher": "local", "location": str(mbox)})
+    reset_launches()
+    with plain_calls() as plain:
+        t0 = time.monotonic()
+        stats = p.ingest_and_run("ietf")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches, bodies = read_launches(), read_bodies()
+    reports = p.store.query_documents("reports", {})
+    summaries = p.store.query_documents("summaries", {})
+    latency = [0.0, 0]
+    for e in p.metrics.snapshot()["histograms"].get(
+            "summarization_latency_seconds", {}).values():
+        latency[0] += e[0]
+        latency[1] += e[1]
+    run = {
+        "stats": stats, "wall_s": wall, "build_s": build_s,
+        "device": str(summ.engine.device), "pipelined":
+        p.summarization.pipelined, "launches": launches, "bodies": bodies,
+        "plain_calls": dict(plain), "graphs": summ.engine.graph_stats(),
+        "in_flight": p.summarization.in_flight,
+        "latency_s": {"sum": latency[0], "count": latency[1]},
+        "missing_chunks": sum(
+            p.store.get_document("chunks", c["chunk_id"]) is None
+            for r in reports for c in r["citations"]),
+        "citations": {r["thread_id"]: sorted(c["chunk_id"]
+                                             for c in r["citations"])
+                      for r in reports},
+        "texts": {s["thread_id"]: s["summary_text"] for s in summaries},
+        "threads": sorted(t["thread_id"]
+                          for t in p.store.query_documents("threads", {}))}
+    summ.close()
+    return run
+
+
+def _check_pipeline(label: str, run: dict, cfg) -> None:
+    stats = run["stats"]
+    if stats["archives"] != 1 or not (
+            stats["summaries"] == stats["reports"] == stats["threads"] >= 3):
+        raise AssertionError(f"{label}: stats {stats}")
+    if sorted(run["citations"]) != run["threads"] or run["missing_chunks"] \
+            or not all(run["citations"].values()):
+        raise AssertionError(f"{label}: reports {run['citations']} do not "
+                             f"cite stored chunks of every thread "
+                             f"{run['threads']}")
+    if not run["device"].startswith("cuda") or run["in_flight"]:
+        raise AssertionError(f"{label}: engine on {run['device']}, "
+                             f"{run['in_flight']} in flight")
+    if any(run["plain_calls"].values()):
+        raise AssertionError(f"{label}: plain versions ran: "
+                             f"{run['plain_calls']}")
+    launches, bodies = run["launches"], run["bodies"]
+    check_path(label, launches, ("K1", "K2"))
+    check_bodies(label, bodies)
+    check_k2_passes(label, launches, bodies, cfg.n_layers)
+    if not (bodies["K1"]["wgmma"] and bodies["K2"]["stream"]
+            and bodies["K2"]["wgmma"]):
+        raise AssertionError(f"{label}: K1 wgmma, K2 stream and K2 wgmma "
+                             f"must all launch: {bodies}")
+
+
+def phase_pipeline(dev, cfg, params, smi):
+    """The pipeline entry on the card: the seed-0 int8 weights written as a
+    native checkpoint with ``save_native`` (and a byte-level
+    ``tokenizer.json``) into ``build/``, read back with
+    ``load_checkpoint`` (every leaf equal, ``q`` int8), then a
+    ``CUDASummarizer(checkpoint=)`` and one over the in-memory weights on
+    one synthetic thread (equal greedy token streams), then
+    ``build_pipeline`` with the cuda driver over the checkpoint on the
+    fixture mbox, synchronous and pipelined (``summarize_async`` and the
+    runner): one archive, a cited report a thread (≥ 3), every citation a
+    stored chunk, the engine on the card, K1 and K2 the only kernels
+    launched (K1's wgmma body, K2's stream and wgmma bodies) and no plain
+    version called. The two modes must report the same threads with the
+    same citations; how many summary texts agree is printed, not gated
+    (the waves differ, and bf16 decoding is not bit-stable across waves).
+    The checkpoint is deleted when the phase ends, passed or failed."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.checkpoint import (
+        load_checkpoint,
+        save_native,
+    )
+    from copilot_for_consensus_tpu_torch.checkpoint.bridge import (
+        params_from_numpy,
+    )
+    from copilot_for_consensus_tpu_torch.checkpoint.native import (
+        _flatten,
+        save_byte_tokenizer,
+    )
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+
+    here = Path(__file__).resolve().parent
+    mbox = here / "tests" / "fixtures" / "ietf-sample.mbox"
+    ckpt = here / "build" / "pipeline_checkpoint"
+    nbytes = quant.param_bytes(params)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ckpt.parent).free
+    if free < 1.2 * nbytes:
+        raise RuntimeError(f"pipeline: {free} bytes free under "
+                           f"{ckpt.parent}, the checkpoint needs {nbytes}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        written = save_native(ckpt, cfg, params)
+        write_s = time.monotonic() - t0
+        save_byte_tokenizer(ckpt)
+
+        t0 = time.monotonic()
+        rcfg, host, meta = load_checkpoint(ckpt)
+        read = params_from_numpy(host, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        read_s = time.monotonic() - t0
+        got, want = _flatten(read), _flatten(params)
+        unequal = sorted(k for k in want if k not in got
+                         or got[k].dtype != want[k].dtype
+                         or not torch.equal(got[k], want[k]))
+        if rcfg != cfg or meta["quantized"] != "int8" or unequal \
+                or set(got) != set(want) or any(
+                    got[k].dtype != torch.int8 for k in got
+                    if k.endswith("/q")):
+            raise AssertionError(f"pipeline: checkpoint read back unequal: "
+                                 f"{unequal[:8]}, meta {meta['quantized']}")
+        del read, host, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one thread through a summarizer over the checkpoint and one over
+        # the weights in memory: equal greedy streams
+        thread = synthetic_threads(1)[0]
+        streams = []
+        from_ckpt = CUDASummarizer(checkpoint=str(ckpt), num_slots=4,
+                                   max_len=4096, max_new_tokens=64,
+                                   device=dev)
+        for summ in (from_ckpt, CUDASummarizer(
+                cfg.name, params=params, tokenizer=from_ckpt.tokenizer,
+                num_slots=4, max_len=4096, max_new_tokens=64, device=dev)):
+            comps = _recorded(summ)
+            summ.summarize(thread)
+            streams.append(comps[0].tokens)
+            del summ, comps
+        del from_ckpt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if streams[0] != streams[1] or not streams[0]:
+            raise AssertionError(f"pipeline: checkpoint stream "
+                                 f"{streams[0][:16]} != in-memory "
+                                 f"{streams[1][:16]}")
+
+        runs = {}
+        for mode in ("sync", "pipelined"):
+            runs[mode] = _pipeline_run(ckpt, mode == "pipelined", mbox)
+            gc.collect()
+            torch.cuda.empty_cache()
+        sync, piped = runs["sync"], runs["pipelined"]
+        same_texts = sum(sync["texts"].get(t) == x
+                         for t, x in piped["texts"].items())
+        emit({"phase": "pipeline", "config": cfg.name,
+              "checkpoint": {"bytes": written, "write_s": write_s,
+                             "write_gb_per_s": written / write_s / 1e9,
+                             "read_s": read_s,
+                             "read_gb_per_s": written / read_s / 1e9},
+              "stream_tokens": len(streams[0]), "streams_equal": True,
+              **{mode: {"stats": r["stats"], "wall_s": r["wall_s"],
+                        "build_s": r["build_s"],
+                        "summaries_per_s": r["stats"]["summaries"]
+                        / r["wall_s"],
+                        "summarization_latency_s": r["latency_s"],
+                        "pipelined": r["pipelined"],
+                        "launches": r["launches"],
+                        "launches_by_body": r["bodies"],
+                        "plain_calls": r["plain_calls"],
+                        "graphs": r["graphs"]}
+                 for mode, r in runs.items()},
+              "texts_equal": same_texts, "device": smi})
+        for mode, r in runs.items():
+            _check_pipeline(f"pipeline_{mode}", r, cfg)
+        if not piped["pipelined"] or sync["pipelined"]:
+            raise AssertionError("pipeline: the modes were not what was "
+                                 "asked for")
+        if sync["citations"] != piped["citations"]:
+            raise AssertionError(f"pipeline: sync reports "
+                                 f"{sync['citations']} != pipelined "
+                                 f"{piped['citations']}")
+        return runs
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def phase_paged_model(dev, cfg, eng):
@@ -2829,6 +3094,7 @@ def main() -> int:
     phase_async_serve(dev, cfg, params, smi, batch)
     gc.collect()
     torch.cuda.empty_cache()
+    pipeline = phase_pipeline(dev, cfg, params, smi)
 
     from copilot_for_consensus_tpu_torch.engine.generation import (
         GenerationEngine,
@@ -2858,10 +3124,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    by_path = {"serve": launches, "paged_serve": paged_launches,
+    by_path = {"pipeline": pipeline["sync"]["launches"],
+               "pipeline_pipelined": pipeline["pipelined"]["launches"],
+               "serve": launches, "paged_serve": paged_launches,
                "a8_model": a8_launches, "int4_serve": int4_launches,
                "int4_serve_a8": int4_a8_launches, "probe": probe_launches}
-    bodies_by_path = {"serve": bodies, "paged_serve": paged_bodies,
+    bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
+                      "pipeline_pipelined": pipeline["pipelined"]["bodies"],
+                      "serve": bodies, "paged_serve": paged_bodies,
                       "a8_model": a8_bodies, "int4_serve": int4_bodies,
                       "int4_serve_a8": int4_a8_bodies}
     table = []
@@ -2869,12 +3139,12 @@ def main() -> int:
     csrc = "copilot_for_consensus_tpu_torch/csrc"
     for name, row, path, tpu in (
             ("flash_attention", rows[("K1", "s1024", "bfloat16")],
-             "paged_serve", "copilot_for_consensus_tpu/ops/"
+             "pipeline", "copilot_for_consensus_tpu/ops/"
              "flash_attention.py:119"),
             ("int8_matmul", rows[("K2", "m4_d4096_f14336", "bfloat16")],
-             "paged_serve", f"{q}:50"),
+             "pipeline", f"{q}:50"),
             ("int8_matmul_tiled",
-             rows[("K2", "m4096_d4096_f14336", "bfloat16")], "serve",
+             rows[("K2", "m4096_d4096_f14336", "bfloat16")], "pipeline",
              f"{q}:50"),
             ("paged_attention", rows[("K3", "decode", "bfloat16")],
              "paged_serve", "copilot_for_consensus_tpu/ops/"

@@ -3,8 +3,15 @@
 A second package beside the JAX one (``copilot_for_consensus_tpu``), which
 stays the numerical reference. The port imports neither JAX nor anything
 of the JAX package: what it needs of that package's JAX-free modules it
-keeps as its own copies (``models/configs.py``, ``engine/tokenizer.py``,
-``summarization/base.py``).
+keeps as its own copies — the host services and what they reach
+(``core/``, ``bus/``, ``storage/``, ``services/``, ``schemas/`` and the
+rest; ``tests/test_torch_copies.py`` lists them and holds each to its
+original).
+
+The system's entry is ``services.runner.build_pipeline``: an mbox becomes
+cited reports through the port's ``cuda`` LLM driver (``summarization/
+factory.py``), served from a checkpoint directory (``checkpoint/``: the
+native format and HF Mistral/Llama, read without ``safetensors``).
 
 Covered today: quantized Mistral-7B summarization serving through
 ``engine.generation.GenerationEngine`` — the contiguous KV cache, or the

@@ -3,10 +3,12 @@
 ``params_from_numpy`` takes a decoder param tree whose leaves are numpy
 arrays — the JAX package's tree after ``np.asarray`` on every leaf,
 quantized leaves included (int8 ``{"q", "scale"}``, packed int4
-``{"q4", "scale"}``) — and returns the port's tree on ``device``: the
+``{"q4", "scale"}``) — or CPU torch tensors (a checkpoint read by
+``checkpoint/native.py``), and returns the port's tree on ``device``: the
 int8 bytes of ``q`` and ``q4`` stay int8, ``scale`` is f32, every other
 leaf is cast to ``dtype``. Layouts are the same in both packages, so the
-same weights drive both.
+same weights drive both. A torch leaf moves to the device before it is
+cast, so a leaf mapped from a file reaches the card with one copy.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ def params_from_numpy(tree: dict[str, Any], device, dtype) -> dict:
     dtype = resolve_dtype(dtype)
 
     def leaf(name: str, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            want = torch.int8 if name in _INT8_LEAVES else \
+                torch.float32 if name == "scale" else dtype
+            return a.to(device).to(want)
         a = np.asarray(a)
         if name in _INT8_LEAVES:
             return torch.from_numpy(a.astype(np.int8)).to(device)

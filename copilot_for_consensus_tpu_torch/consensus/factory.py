@@ -1,0 +1,5 @@
+"""Driver registration shim (registration lives in base.py)."""
+
+from copilot_for_consensus_tpu_torch.consensus.base import (  # noqa: F401
+    create_consensus_detector,
+)

@@ -19,7 +19,7 @@ keeps the chip busy whenever there is work:
 
 True device-side overlap of prefill and decode is not possible on a
 single chip (programs serialize; this backend additionally blocks
-inside the dispatch call — a window-pipelining experiment showed it), so
+inside the dispatch call — the r2 window-pipelining experiment), so
 the steady-state duty cycle is decode_time / (decode_time +
 admission_time) — what ``scripts/bench_poisson.py`` measures against
 the batch bench.
@@ -43,18 +43,6 @@ this is the first-party continuous-batching replacement's front door —
 and the supervisor is its stand-in for the crash isolation the
 reference gets from RabbitMQ redelivery when an inference container
 dies (SURVEY §0).
-
-The port's copy of the JAX package's ``engine/async_runner.py``, over the
-port's engine and supervisor. On the card the dispatcher thread is also
-the thread that captures and replays the engine's decode CUDA graphs
-(``engine/graphs.py``): it is the engine's single owner, so a graph is
-only ever captured, replayed or dropped there, and the engine captures
-in ``thread_local`` mode so that a submitter thread's CUDA calls cannot
-break a capture. The port's engine has no scheduler, telemetry or
-journal yet: every hook of theirs is read with ``getattr``, and a
-request's ``tenant``, ``priority`` and ``deadline_at`` too. Nothing in
-the port opens a pipeline trace span yet, so a handle carries no trace
-parent and a replay annotates no trace.
 """
 
 from __future__ import annotations
@@ -80,6 +68,9 @@ class Handle:
 
     request_id: int = -1
     correlation_id: str = ""
+    #: (trace_id, span_id) of the submitting stage span, captured at
+    #: submit() so the replay path can annotate the pipeline trace
+    trace_parent: tuple | None = None
     created_at: float = field(default_factory=time.monotonic)
     _event: threading.Event = field(default_factory=threading.Event)
     _completion: Completion | None = None
@@ -114,7 +105,7 @@ class Handle:
         This is the GIL-friendly harvest path: a waiter that POLLS
         ``done()`` across many handles wakes the interpreter constantly
         and steals cycles from the dispatch call itself (the measured
-        serving-mode host tax, docs/PERF.md); a callback costs one
+        serving-mode host tax, docs/PERF.md r4); a callback costs one
         invocation per completion and nothing in between."""
         with self._cb_lock:
             if not self._event.is_set():
@@ -397,7 +388,10 @@ class AsyncEngineRunner:
                 tenant=tenant, priority=priority or "interactive",
                 prompt_tokens=len(prompt),
                 correlation_id=correlation_id)
-        h = Handle(correlation_id=correlation_id)
+        from copilot_for_consensus_tpu_torch.obs import trace as _trace
+
+        h = Handle(correlation_id=correlation_id,
+                   trace_parent=_trace.current_ids())
         kw: dict = {}
         if cache_eligible_tokens is not None:
             kw["cache_eligible_tokens"] = cache_eligible_tokens
@@ -721,13 +715,13 @@ class AsyncEngineRunner:
                 kw["cache_eligible_tokens"] = req.cache_eligible_tokens
             if req.correlation_id:
                 kw["correlation_id"] = req.correlation_id
-            if getattr(req, "tenant", ""):
+            if req.tenant:
                 kw["tenant"] = req.tenant
-            if getattr(req, "priority", ""):
+            if req.priority:
                 kw["priority"] = req.priority
-            deadline_at = getattr(req, "deadline_at", float("inf"))
-            if deadline_at != float("inf"):
-                kw["deadline_s"] = max(0.0, deadline_at - time.monotonic())
+            if req.deadline_at != float("inf"):
+                kw["deadline_s"] = max(
+                    0.0, req.deadline_at - time.monotonic())
             j = getattr(self.engine, "journal", None)
             try:
                 # The continuation: everything accepted so far becomes
@@ -770,6 +764,20 @@ class AsyncEngineRunner:
                     max_new_tokens=meta.max_new_tokens,
                     tokens=tokens, attempts=attempts)
             self.replayed += 1
+            if h.trace_parent is not None:
+                # annotate the pipeline trace: the replay is a child of
+                # the stage span that submitted the request, numbered
+                # by attempt — at-least-once recovery shows up as an
+                # annotated retry, never an orphan trace fragment
+                from copilot_for_consensus_tpu_torch.obs import trace
+
+                with trace.span("engine_replay", kind="engine_replay",
+                                service="engine",
+                                correlation_id=req.correlation_id,
+                                attempt=attempts,
+                                parent=h.trace_parent,
+                                request_id=new_rid):
+                    pass
             if tele is not None:
                 tele.on_replay()
         if sup.unhealthy:

@@ -37,10 +37,6 @@ own (``prefill``/``prefill_seeded``/``prefill_chunk``/``decode``/
 ``verify``/``piggyback``/``embed``) plus the host boundaries
 ``tokenize`` and ``prefix_publish``. Everything here is import-light
 host code (no jax).
-
-The port's copy of the JAX package's ``engine/faults.py``: the port's
-engine fires it at its admission waves and decode dispatches (before a
-graph replays), and ``engine/supervisor.py`` imports it from here.
 """
 
 from __future__ import annotations

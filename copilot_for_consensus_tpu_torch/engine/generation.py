@@ -105,6 +105,12 @@ class Request:
     block_digests: list | None = None
     #: the pipeline event that caused the request (error reports name it)
     correlation_id: str = ""
+    #: the scheduler's keys (``engine/scheduler.py``), which the async
+    #: runner carries into a replayed continuation; the port's engine
+    #: has no scheduler yet, so they keep their defaults
+    tenant: str = ""
+    priority: str = ""
+    deadline_at: float = float("inf")
 
 
 @dataclass
@@ -319,6 +325,33 @@ class GenerationEngine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, path, *, dtype: str | torch.dtype =
+                        torch.bfloat16, device: str | torch.device | None =
+                        None, **engine_kw) -> "GenerationEngine":
+        """An engine over a checkpoint directory: native (quantized
+        offline, mapped) or HF safetensors (converted in memory). The
+        quantize mode comes from the checkpoint's metadata ("int8",
+        "int4" or none; True means int8), as do the EOS ids. Leaves go
+        to ``device`` (None → the card) by ``params_from_numpy``'s rules:
+        ``q`` and ``q4`` stay int8, ``scale`` f32, the rest ``dtype``."""
+        from copilot_for_consensus_tpu_torch.checkpoint import (
+            load_checkpoint,
+        )
+        from copilot_for_consensus_tpu_torch.checkpoint.bridge import (
+            params_from_numpy,
+        )
+
+        dtype = resolve_dtype(dtype)
+        device = resolve_device(device)
+        cfg, params, meta = load_checkpoint(
+            path, dtype=str(dtype).removeprefix("torch."))
+        engine_kw.setdefault("eos_id", meta.get("eos_ids",
+                                                meta.get("eos_id", 2)))
+        return cls(cfg, params_from_numpy(params, device, dtype),
+                   dtype=dtype, device=device,
+                   quantize=meta.get("quantized") or False, **engine_kw)
 
     @property
     def prompt_limit(self) -> int:

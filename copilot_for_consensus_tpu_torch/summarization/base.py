@@ -1,7 +1,11 @@
-"""Summarizer ABC and domain models (the port's own copy).
+"""Summarizer ABC + domain models + mock driver.
 
-Copied from the JAX package's ``summarization/base.py``. Citations are
-derived from the retrieved chunks, not parsed out of LLM output.
+Models mirror the reference's ``copilot_summarization/models.py:10-65``
+(Citation / Thread / Summary) and the ABC mirrors
+``summarizer.py:11-32`` (``summarize(Thread) -> Summary``). Citations are
+derived from the retrieved chunks, not parsed out of LLM output — the
+reference's deliberate choice (``summarization/app/service.py:291-307``)
+kept here.
 """
 
 from __future__ import annotations
@@ -10,6 +14,19 @@ import abc
 import time
 from dataclasses import dataclass, field
 from typing import Any
+
+
+class SummarizationError(Exception):
+    pass
+
+
+class RateLimitError(SummarizationError):
+    """Backend asked us to slow down (reference
+    ``openai_summarizer.py:23,46``); the service retry loop waits."""
+
+    def __init__(self, message: str = "", retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
 
 
 @dataclass
@@ -63,3 +80,27 @@ def citations_from_chunks(chunks: list[dict[str, Any]],
         )
         for c in chunks
     ]
+
+
+class MockSummarizer(Summarizer):
+    """Extractive mock: first sentences of the top chunks. Deterministic,
+    dependency-free — the test backbone, like the reference's
+    ``MockSummarizer`` (``mock_summarizer.py:17``)."""
+
+    def __init__(self, max_sentences: int = 3):
+        self.max_sentences = max_sentences
+
+    def summarize(self, thread: ThreadContext) -> Summary:
+        sentences: list[str] = []
+        for chunk in thread.chunks[: self.max_sentences]:
+            text = (chunk.get("text") or "").strip().replace("\n", " ")
+            if text:
+                sentences.append(text.split(". ")[0][:200].strip())
+        body = ". ".join(sentences) if sentences else "(no content)"
+        return Summary(
+            thread_id=thread.thread_id,
+            summary_text=f"Thread '{thread.subject}' with "
+                         f"{thread.message_count} message(s): {body}",
+            citations=citations_from_chunks(thread.chunks),
+            model="mock",
+        )

@@ -17,6 +17,9 @@ import threading
 
 import torch
 
+from copilot_for_consensus_tpu_torch.checkpoint.native import (
+    load_tokenizer,
+)
 from copilot_for_consensus_tpu_torch.device import resolve_device
 from copilot_for_consensus_tpu_torch.engine.generation import (
     GenerationEngine,
@@ -85,8 +88,11 @@ def shared_template_head(template: str = DEFAULT_TEMPLATE,
 
 class CUDASummarizer(Summarizer):
     """Summaries from the port's engine. With no ``engine`` given it
-    builds one for ``model`` with random weights from ``seed``, int8 by
-    default (``quantize``), on ``device`` (None → the card).
+    builds one on ``device`` (None → the card): from ``checkpoint`` (a
+    native or HF directory, whose metadata gives the quantize mode and
+    whose ``tokenizer.json`` the tokenizer, unless ``tokenizer`` is
+    given), else for ``model`` with random weights from ``seed``, int8 by
+    default (``quantize``).
 
     ``cache_scope`` is how much of each prompt the engine's prefix cache
     may publish (``GenerationEngine.submit``'s ``cache_eligible_tokens``):
@@ -101,6 +107,7 @@ class CUDASummarizer(Summarizer):
                  template: str = DEFAULT_TEMPLATE,
                  system: str = DEFAULT_SYSTEM, num_slots: int = 4,
                  max_len: int = 4096, params: dict | None = None,
+                 checkpoint: str | None = None,
                  dtype: str | torch.dtype | None = None,
                  quantize: bool | str = "int8", seed: int = 0,
                  cache_scope: str = "full", supervisor=None,
@@ -121,7 +128,22 @@ class CUDASummarizer(Summarizer):
         self.max_new_tokens = max_new_tokens
         self.template = template
         self.system = system
-        if engine is None:
+        if engine is None and checkpoint is not None:
+            if tokenizer is None:
+                # before the weights load: a byte-level fallback against
+                # a BPE-trained model yields garbage, so refuse loudly
+                tokenizer = load_tokenizer(checkpoint)
+                if tokenizer is None:
+                    raise ValueError(
+                        f"checkpoint {checkpoint} has no "
+                        "tokenizer.json; pass tokenizer= explicitly")
+            # real weights: the quantize mode is the checkpoint's own
+            engine = GenerationEngine.from_checkpoint(
+                checkpoint, num_slots=num_slots, max_len=max_len,
+                seed=seed, dtype=dtype if dtype is not None
+                else torch.bfloat16, device=device)
+            self._model = f"checkpoint:{checkpoint}"
+        elif engine is None:
             cfg = decoder_config(model)
             engine = GenerationEngine(
                 cfg, params, num_slots=num_slots,

@@ -1,0 +1,156 @@
+# The port's copies of the JAX package's host modules stay copies. A copy
+# is the JAX file with "copilot_for_consensus_tpu" replaced by
+# "copilot_for_consensus_tpu_torch" everywhere, strings included; a cut copy
+# is a stated line range of it; a swapped copy imports one module under the
+# name of its port. Every other module of the port is on the
+# list of ported modules, with the reason it is not a copy. A reviewer can
+# then trust the ~80 copied files without reading them.
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+REF = ROOT / "copilot_for_consensus_tpu"
+PORT = ROOT / "copilot_for_consensus_tpu_torch"
+
+COPIES = """
+archive/__init__.py archive/azure_blob.py archive/base.py archive/factory.py
+bus/__init__.py bus/azure_servicebus.py bus/base.py bus/broker.py
+bus/factory.py bus/faults.py bus/inproc.py bus/validating.py
+consensus/__init__.py consensus/base.py consensus/factory.py
+core/__init__.py core/config.py core/events.py core/factory.py core/ids.py
+core/openai_compat.py core/retry.py core/startup.py core/validation.py
+embedding/__init__.py embedding/openai_provider.py
+engine/async_runner.py engine/faults.py engine/telemetry.py
+engine/tokenizer.py
+fetch/__init__.py fetch/base.py fetch/factory.py
+obs/__init__.py obs/azure_monitor.py obs/errors.py obs/factory.py
+obs/logging.py obs/metrics.py obs/trace.py
+security/__init__.py security/factory.py security/secrets.py
+services/__init__.py services/base.py services/chunking.py
+services/embedding.py services/ingestion.py services/orchestrator.py
+services/parsing.py services/pool.py services/reporting.py
+services/runner.py services/summarization.py
+storage/__init__.py storage/azure_cosmos.py storage/base.py
+storage/factory.py storage/memory.py storage/registry.py storage/sqlite.py
+storage/validating.py
+summarization/__init__.py summarization/base.py
+text/__init__.py text/chunkers.py text/drafts.py text/factory.py
+text/mbox.py text/normalizer.py text/threads.py
+tools/__init__.py tools/retry_job.py
+vectorstore/__init__.py vectorstore/_inverted.py
+vectorstore/azure_ai_search.py vectorstore/base.py vectorstore/memory.py
+""".split()
+
+#: copies that import one module under the name of its port: (JAX
+#: module, port module), both relative to the package
+SWAPS = {
+    # the prompt template comes from TPUSummarizer's port
+    "summarization/openai_summarizer.py": ("summarization.tpu_summarizer",
+                                           "summarization.summarizer"),
+}
+
+#: cut copies: the JAX file's lines [first, last] (1-based, inclusive)
+CUTS = {
+    # without the shardcheck contract block (:689-753), which imports
+    # analysis.contracts and JAX
+    "engine/scheduler.py": (1, 686),
+    # without TPUEmbeddingProvider (:79-118), the JAX encoder engine's
+    # driver (ROADMAP Queue 1 item 2)
+    "embedding/base.py": (1, 76),
+}
+
+#: modules written for the port, not copied, and why
+PORTED = {
+    "__init__.py": "the port's own package docstring",
+    "device.py": "the port's device resolution (None → the card)",
+    "checkpoint/__init__.py": "re-exports the ported hf and native "
+                              "halves, not train_state (item 6)",
+    "checkpoint/bridge.py": "numpy or mapped trees to torch leaves on a "
+                            "device; the JAX package has no counterpart",
+    "checkpoint/safetensors.py": "stands in for the safetensors package "
+                                 "and ml_dtypes",
+    "checkpoint/hf.py": "torch leaves over the port's safetensors reader; "
+                        "the decoder half only",
+    "checkpoint/native.py": "torch leaves over the port's safetensors "
+                            "reader and writer",
+    "embedding/factory.py": "the tpu driver refused until item 2",
+    "vectorstore/factory.py": "the tpu and native drivers refused until "
+                              "item 3",
+    "summarization/factory.py": "the cuda driver; tpu and the options the "
+                                "port does not serve refused",
+    "summarization/summarizer.py": "CUDASummarizer, TPUSummarizer's port",
+    "engine/__init__.py": "the JAX one imports the journal (item 4)",
+    "engine/generation.py": "the engine, in PyTorch",
+    "engine/graphs.py": "CUDA graphs of the decode dispatch; no JAX "
+                        "counterpart (jit per bucket)",
+    "engine/kv_pool.py": "the paged pool, in PyTorch",
+    "engine/prefix_cache.py": "the shared-pool trie, in PyTorch",
+    "engine/sampling.py": "sampling, in PyTorch",
+    "engine/supervisor.py": "reads the engine members of features the port "
+                            "lacks with getattr, and calls on_repaired",
+    "models/__init__.py": "the port's decoder exports",
+    "models/configs.py": "the decoder configs the port serves; the "
+                         "encoder and MoE configs come with items 2 and 6",
+    "models/decoder.py": "the decoder, in PyTorch",
+    "models/layers.py": "the layers, in PyTorch",
+    "models/quant.py": "quantization, in PyTorch",
+    "ops/__init__.py": "the port's kernel wrappers",
+    "ops/_build.py": "builds the CUDA sources with nvcc",
+    "ops/attention.py": "attention, in PyTorch",
+    "ops/flash_attention.py": "K1's wrapper and plain version",
+    "ops/paged_attention.py": "K3's wrapper and plain version",
+    "ops/probe_stream.py": "P's wrappers and plain versions",
+    "ops/quant_matmul.py": "K2, K4, K5, K6's wrappers and plain versions",
+    "scripts/__init__.py": "the port's scripts package",
+    "scripts/probe_stream.py": "the weight-stream probe's driver on the "
+                               "card",
+}
+
+
+def _renamed(text: str) -> str:
+    return text.replace("copilot_for_consensus_tpu",
+                        "copilot_for_consensus_tpu_torch")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_equals_the_jax_file(rel):
+    assert (PORT / rel).read_text() == _renamed((REF / rel).read_text()), \
+        f"{rel} drifted from the JAX package's file"
+
+
+@pytest.mark.parametrize("rel", sorted(SWAPS))
+def test_swapped_copy_equals_the_jax_file(rel):
+    old, new = (_renamed(f"copilot_for_consensus_tpu.{m}")
+                for m in SWAPS[rel])
+    text = _renamed((REF / rel).read_text())
+    assert old in text
+    assert (PORT / rel).read_text() == text.replace(old, new)
+
+
+@pytest.mark.parametrize("rel", sorted(CUTS))
+def test_cut_copy_equals_its_line_range(rel):
+    first, last = CUTS[rel]
+    lines = (REF / rel).read_text().splitlines(keepends=True)
+    assert (PORT / rel).read_text() == _renamed(
+        "".join(lines[first - 1:last]))
+
+
+def test_every_port_module_is_listed_once():
+    files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    lists = [set(COPIES), set(SWAPS), set(CUTS), set(PORTED)]
+    assert sum(len(s) for s in lists) == len(set().union(*lists)), \
+        "a module is on two lists"
+    assert files == set().union(*lists)
+    assert all(reason for reason in PORTED.values())
+
+
+def test_schemas_are_copies_plus_the_cuda_driver():
+    ref = {str(p.relative_to(REF / "schemas")): p
+           for p in (REF / "schemas").rglob("*.json")}
+    port = {str(p.relative_to(PORT / "schemas")): p
+            for p in (PORT / "schemas").rglob("*.json")}
+    cuda = "configs/adapters/llm_backend/cuda.schema.json"
+    assert set(port) == set(ref) | {cuda}
+    for rel, p in ref.items():
+        assert port[rel].read_text() == _renamed(p.read_text()), rel

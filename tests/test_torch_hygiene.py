@@ -58,6 +58,34 @@ def test_no_jax_imports_in_source(path):
             f"{path.name} imports {name}"
 
 
+def _module_level_imports(path):
+    """Imports that run when the module is imported: everywhere but inside
+    a function body."""
+    todo = list(ast.parse(path.read_text(), filename=str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_module_level_import_of_optional_packages(path):
+    # the card's machine need not have these: the port reads checkpoints
+    # with its own safetensors module and imports tokenizers only where an
+    # HF tokenizer is loaded
+    for name in _module_level_imports(path):
+        assert name.split(".")[0] not in (
+            "safetensors", "ml_dtypes", "tokenizers", "yaml"), \
+            f"{path.name} imports {name} when it is imported"
+
+
 @pytest.mark.parametrize("name,replaces", [
     ("flash_attention", "copilot_for_consensus_tpu/ops/flash_attention.py"),
     ("int8_matmul", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
