@@ -169,26 +169,57 @@ non-zero before the last line:
    no plain version called, the same threads and citations in both modes
    (equal summary texts counted, not gated); the row gives each mode's
    wall time, summaries per second and the pipeline's
-   ``summarization_latency_seconds``. The checkpoint is deleted after.
+   ``summarization_latency_seconds``. Then a third run, ``retrieval``:
+   the synchronous run with the port's ``cuda`` embedding driver
+   (``minilm-l6`` at full width, seed-0 weights) and ``cuda`` vector
+   store (flat, on the card): the same threads, a cited report each, K1's
+   wgmma body (the decoder's waves: as many launches as in the
+   synchronous run) and CUDA-core body (the encoder: exactly 6 launches
+   for each dispatch in the embedding engine's telemetry) and K2, no
+   plain version; the row adds the embed and query seconds the
+   pipeline's collector records. The checkpoint is deleted after;
+20. encoder — (after phase 19) ``EmbeddingEngine.embed_batch`` on
+   ``minilm-l6`` at full size, seed-0 weights, bf16: 512 texts of 8-512
+   tokens (the seed's draw), with the counts reset before: every K1
+   launch on the CUDA-core body (head dim 32), 6 a dispatch, no plain
+   version; vectors against the same engine on K1's plain version
+   (cosine >= 0.999 a row, norms 1 ± 1e-3, finite); texts/s, tokens/s,
+   tiles by bucket;
+21. vectorstore — the repo's ANN preset uncut (``bench.py``'s
+   ``ann_retrieval``: 1,000,000 vectors of dim 64 in 1,024 clusters, 256
+   queries in batches of 64, top 10, nprobe 16, seed 0) in a flat and an
+   IVF ``CUDAVectorStore`` on the card: the flat route's ids equal an
+   exact f32 scan's for 16 queries, ties aside; IVF recall@10 against the
+   flat route >= 0.95 while scanning <= 15% of the lists; ingest s, index
+   build s, QPS, p50/p95 ms a route.
+
+K1's cases in phase 3 include the encoder's, non-causal: ``enc_s512``
+(B 64, 12 heads of 32, S 512, lengths over 1-512) on the CUDA-core body,
+timed beside its bound and SDPA, and the same mask at D 128 on the wgmma
+body.
 
 Launch counts are replay-aware: a graph's capture launches nothing, so each
 graph keeps the counts its capture ticked, takes them back, and adds them on
 every replay — a replayed dispatch counts what the eager body would have
 launched. Every serve phase counts each kernel's launches by body (K1-K6):
-the main path's K1 launches must all be the wgmma body's, its K2 launches
+the main path's K1 launches must all be the wgmma body's (the CUDA-core
+body's too on the paths that run the encoder), its K2 launches
 the stream body's or the wgmma body's (never the GEMV, WMMA or the
 CUDA-core loop; 7 a layer and one for the lm_head a forward pass), its K3
 launches the decode or seeded body's, and no K4, K5 or K6 launch may take
 the split qgemm or the mma.sync (or K5's CUDA-core) tiled bodies (on the
 int4 path each kernel's wgmma body makes 4 launches a layer a wave, its
 stream body the rest; K4's 224 a wave all go to its wgmma body). Then
-the kernel table (K1-K6; K2's stream and wgmma bodies, K3's decode and
+the kernel table (K1-K6; K1's wgmma and CUDA-core bodies, K2's stream
+and wgmma bodies, K3's decode and
 seeded bodies, and K5's and K6's stream and tiled bodies as two rows
 each; K4's wgmma body with the mma.sync tiling's time beside it; and
 P's five modes, each with its launches on every path, the four on the
 wgmma body with the mma.sync body's time beside them) as one JSON line —
 each row's ``launches`` from its main path, the pipeline phase's
-synchronous run for K1 and K2 — the nvidia-smi line, and last
+synchronous run for K1's wgmma body and K2, its retrieval run for K1's
+CUDA-core body (its own row), every path's count beside it — the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. About 8 minutes on one H100 (the
 host's speed varies), the build included.
 """
@@ -586,27 +617,49 @@ def phase_build_info():
                                      f"ptxas note: {info}")
 
 
+#: the encoder's K1 case: minilm-l6's attention (12 heads of 32, no kv
+#: groups) over 64 texts of one 512-token tile, non-causal, each text's
+#: length spread over 1-512 (the seed's draw) — the embedding engine's
+#: largest dispatch
+ENC_B, ENC_H, ENC_S = 64, 12, 512
+
+
+def enc_lengths() -> list[int]:
+    import numpy as np
+
+    return np.random.default_rng(0).integers(
+        1, ENC_S + 1, size=ENC_B).tolist()
+
+
 def k1_cases():
     """(label, B, Hq, Hkv, Sq, Skv, D, window, kv_lengths, q_offsets,
-    kv_begins, timed), causal. The Mistral prefill shapes (Hq 32, Hkv 8,
-    D 128, window 4096): the contiguous int8 waves (B4 S512 and S1024),
-    the paged miss waves' offsets and begins, the int4 wave (B2 S2816, the
-    cap3072 deployment), and a window of 256 that bites (the main path's
-    4096 never does). Then D 64 (the wgmma body's other head dim) and D 32
-    (the CUDA-core body's at bf16)."""
+    kv_begins, timed, causal). The Mistral prefill shapes (Hq 32, Hkv 8,
+    D 128, window 4096), causal: the contiguous int8 waves (B4 S512 and
+    S1024), the paged miss waves' offsets and begins, the int4 wave (B2
+    S2816, the cap3072 deployment), and a window of 256 that bites (the
+    main path's 4096 never does). Then D 64 (the wgmma body's other head
+    dim) and D 32 (the CUDA-core body's at bf16). Then the encoder's,
+    non-causal: ``enc_s512`` (the CUDA-core body at D 32, timed) and the
+    same mask at D 128 on the wgmma body."""
     return [
         ("s512", 4, 32, 8, 512, 512, 128, 4096, [512, 300, 1, 0], None,
-         None, False),
+         None, False, True),
         ("s1024", 4, 32, 8, 1024, 1024, 128, 4096, [1024, 700, 33, 1000],
-         None, None, True),
+         None, None, True, True),
         ("offsets_begins", 4, 32, 8, 256, 1024, 128, 4096,
-         [1024, 256, 356, 0], [768, 0, 100, 0], [0, 0, 50, 0], False),
+         [1024, 256, 356, 0], [768, 0, 100, 0], [0, 0, 50, 0], False, True),
         ("s2816", 2, 32, 8, 2816, 2816, 128, 4096, [2816, 2000], None, None,
-         True),
+         True, True),
         ("w256", 2, 32, 8, 1024, 1024, 128, 256, [1024, 900], None, None,
+         True, True),
+        ("d64", 2, 8, 2, 300, 300, 64, 4096, [300, 157], None, None, False,
          True),
-        ("d64", 2, 8, 2, 300, 300, 64, 4096, [300, 157], None, None, False),
-        ("d32", 2, 8, 2, 300, 300, 32, 4096, [300, 157], None, None, False),
+        ("d32", 2, 8, 2, 300, 300, 32, 4096, [300, 157], None, None, False,
+         True),
+        ("enc_s512", ENC_B, ENC_H, ENC_H, ENC_S, ENC_S, 32, 0,
+         enc_lengths(), None, None, True, False),
+        ("noncausal_d128", 4, 32, 8, 512, 512, 128, 0, [512, 300, 77, 1],
+         None, None, False, False),
     ]
 
 
@@ -622,7 +675,7 @@ def phase_kernels(dev, flush):
     for dt_name, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
         for (label, b, hq, hkv, s_q, s_kv, d, window, lens, offs, begins,
-             timed) in k1_cases():
+             timed, causal) in k1_cases():
             q = torch.randn(b, hq, s_q, d, generator=g, device=dev).to(dt)
             k = torch.randn(b, hkv, s_kv, d, generator=g, device=dev).to(dt)
             v = torch.randn(b, hkv, s_kv, d, generator=g, device=dev).to(dt)
@@ -630,25 +683,28 @@ def phase_kernels(dev, flush):
             def ivec(x):
                 return None if x is None else torch.tensor(
                     x, dtype=torch.int32, device=dev)
-            kw = dict(causal=True, window=window, kv_lengths=ivec(lens),
+            kw = dict(causal=causal, window=window, kv_lengths=ivec(lens),
                       q_offsets=ivec(offs), kv_begins=ivec(begins))
             out = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ref = fa.flash_attention_ref(q, k, v, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             ok = bool(torch.isfinite(out).all()) and err <= K1_ATOL[dt_name]
-            # work this input needs: the attended (query, key) pairs
+            # work this input needs: the attended (query, key) pairs, and
+            # the K and V rows some query attends (each read once)
             lv, ov, bv = fa._row_params(b, s_kv, kw["kv_lengths"],
                                         kw["q_offsets"], kw["kv_begins"],
                                         dev)
-            mask = fa._mask(b, s_q, s_kv, lv, ov, bv, causal=True,
+            mask = fa._mask(b, s_q, s_kv, lv, ov, bv, causal=causal,
                             window=window, device=dev)
             pairs = int(mask.sum()) * hq
-            bnd, by = bound_ms(nbytes(q, k, v, out) + 3 * 4 * b,
+            kv_rows = int(mask.any(dim=1).sum())
+            kv_bytes = 2 * hkv * d * k.element_size() * kv_rows
+            bnd, by = bound_ms(nbytes(q, out) + kv_bytes + 3 * 4 * b,
                                4.0 * d * pairs, dt_name)
             row = {"kernel": "K1", "case": label, "dtype": dt_name,
                    "shape": [b, hq, hkv, s_q, s_kv, d], "window": window,
-                   "body": fa.flash_body(dt, d),
+                   "causal": causal, "body": fa.flash_body(dt, d),
                    "max_abs_err": err, "tol": K1_ATOL[dt_name]}
             # the bf16 serving cases, and s1024 at f32 as before
             if timed and (dt_name == "bfloat16" or label == "s1024"):
@@ -1989,10 +2045,29 @@ def plain_calls():
             setattr(mod, name, fn)
 
 
-def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path) -> dict:
+#: the retrieval run's drivers: the port's encoder (minilm-l6 at full
+#: width, seed-0 weights, bf16) and the flat store on the card
+RETRIEVAL = {"embedding": {"driver": "cuda", "model": "minilm-l6"},
+             "vector_store": {"driver": "cuda"}}
+
+
+def _histogram(p, name: str) -> dict:
+    """Sum and count of a histogram the pipeline's collector holds, over
+    its label sets."""
+    total = [0.0, 0]
+    for e in p.metrics.snapshot()["histograms"].get(name, {}).values():
+        total[0] += e[0]
+        total[1] += e[1]
+    return {"sum": total[0], "count": total[1]}
+
+
+def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path,
+                  retrieval: bool = False) -> dict:
     """``build_pipeline`` with the cuda driver over ``ckpt`` on the
-    fixture mbox; the launches, bodies and plain-version calls of its
-    run, and what it stored."""
+    fixture mbox (with the port's cuda embedding and vector-store drivers
+    where ``retrieval``, else the mock embedder and the memory store); the
+    launches, bodies and plain-version calls of its run, and what it
+    stored."""
     import torch
 
     from copilot_for_consensus_tpu_torch.services.runner import (
@@ -2004,32 +2079,40 @@ def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path) -> dict:
                                 "checkpoint": str(ckpt),
                                 "max_new_tokens": 64, "num_slots": 4,
                                 "pipelined": pipelined},
-                        "embedding": {"driver": "mock"}})
+                        **(RETRIEVAL if retrieval else
+                           {"embedding": {"driver": "mock"}})})
     build_s = time.monotonic() - t0
     summ = p.summarization.summarizer
     p.ingestion.create_source({"source_id": "ietf", "name": "ietf",
                                "fetcher": "local", "location": str(mbox)})
+    # the embedding engine's dispatches of this run are its telemetry
+    # records after this step id
+    embed_tel = p.embedding.provider.engine.telemetry if retrieval else None
+    seq0 = max((r.seq for r in embed_tel.recorder.records()), default=0) \
+        if retrieval else 0
     reset_launches()
     with plain_calls() as plain:
         t0 = time.monotonic()
         stats = p.ingest_and_run("ietf")
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        # the reporting service's semantic search: an unfiltered query,
+        # so the store's device route answers it (the orchestrator's
+        # thread-filtered queries are few rows: the host route)
+        search = p.reporting.search_reports("consensus") if retrieval \
+            else None
     launches, bodies = read_launches(), read_bodies()
     reports = p.store.query_documents("reports", {})
     summaries = p.store.query_documents("summaries", {})
-    latency = [0.0, 0]
-    for e in p.metrics.snapshot()["histograms"].get(
-            "summarization_latency_seconds", {}).values():
-        latency[0] += e[0]
-        latency[1] += e[1]
     run = {
         "stats": stats, "wall_s": wall, "build_s": build_s,
         "device": str(summ.engine.device), "pipelined":
         p.summarization.pipelined, "launches": launches, "bodies": bodies,
         "plain_calls": dict(plain), "graphs": summ.engine.graph_stats(),
         "in_flight": p.summarization.in_flight,
-        "latency_s": {"sum": latency[0], "count": latency[1]},
+        "latency_s": _histogram(p, "summarization_latency_seconds"),
+        "embed_s": _histogram(p, "embedding_batch_seconds"),
+        "query_s": _histogram(p, "vectorstore_query_seconds"),
         "missing_chunks": sum(
             p.store.get_document("chunks", c["chunk_id"]) is None
             for r in reports for c in r["citations"]),
@@ -2039,11 +2122,36 @@ def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path) -> dict:
         "texts": {s["thread_id"]: s["summary_text"] for s in summaries},
         "threads": sorted(t["thread_id"]
                           for t in p.store.query_documents("threads", {}))}
+    if retrieval:
+        store = p.vector_store
+        while hasattr(store, "inner"):
+            store = store.inner
+        provider = p.embedding.provider
+        run["retrieval"] = {
+            "store": type(store).__name__, "store_device": str(store.device),
+            "vectors": store.count(), "dimension": store.dimension,
+            "queries_by_route": {
+                "flat": p.metrics.counter_value(
+                    "vectorstore_queries_total", {"route": "flat"}),
+                "host": p.metrics.counter_value(
+                    "vectorstore_queries_total", {"route": "host"})},
+            "last_query": store.last_query_stats,
+            "provider": provider.model_name,
+            "embed_device": str(provider.engine.device),
+            "embed_dispatches": sum(
+                r.kind == "embed" and r.seq > seq0
+                for r in embed_tel.recorder.records()),
+            "search_threads": sorted(r["thread_id"] for r in search)}
     summ.close()
     return run
 
 
-def _check_pipeline(label: str, run: dict, cfg) -> None:
+def _check_pipeline(label: str, run: dict, cfg,
+                    k1_wgmma: int | None = None) -> None:
+    """The run's reports, device, kernels and bodies; for the retrieval
+    run, K1's wgmma launches must be ``k1_wgmma`` (the synchronous run's:
+    the same decoder waves) and its CUDA-core launches exactly the
+    encoder's, 6 a dispatch of the embedding engine."""
     stats = run["stats"]
     if stats["archives"] != 1 or not (
             stats["summaries"] == stats["reports"] == stats["threads"] >= 3):
@@ -2061,12 +2169,37 @@ def _check_pipeline(label: str, run: dict, cfg) -> None:
                              f"{run['plain_calls']}")
     launches, bodies = run["launches"], run["bodies"]
     check_path(label, launches, ("K1", "K2"))
+    retrieval = run.get("retrieval")
+    if retrieval:
+        # the encoder's attention: K1's CUDA-core body, one launch a layer
+        # a dispatch, and the decoder's waves on the wgmma body as in the
+        # synchronous run; then the other bodies as on every path
+        k1 = bodies["K1"]
+        if (not retrieval["embed_dispatches"]
+                or k1["simt"] != 6 * retrieval["embed_dispatches"]
+                or k1["wgmma"] != k1_wgmma):
+            raise AssertionError(
+                f"{label}: K1 {k1} over {retrieval['embed_dispatches']} "
+                f"embedding dispatches; want simt 6 a dispatch and wgmma "
+                f"{k1_wgmma} (the synchronous run's)")
+        bodies = {**bodies, "K1": {**k1, "simt": 0}}
     check_bodies(label, bodies)
     check_k2_passes(label, launches, bodies, cfg.n_layers)
     if not (bodies["K1"]["wgmma"] and bodies["K2"]["stream"]
             and bodies["K2"]["wgmma"]):
         raise AssertionError(f"{label}: K1 wgmma, K2 stream and K2 wgmma "
                              f"must all launch: {bodies}")
+    if retrieval:
+        # every chunk embedded and stored on the card
+        if (retrieval["store"] != "CUDAVectorStore"
+                or not retrieval["store_device"].startswith("cuda")
+                or not retrieval["embed_device"].startswith("cuda")
+                or retrieval["vectors"] != run["stats"]["chunks"]
+                or retrieval["dimension"] != 384
+                or not retrieval["queries_by_route"]["flat"]
+                or not retrieval["search_threads"]):
+            raise AssertionError(f"{label}: retrieval {retrieval}, "
+                                 f"queries {run['query_s']}")
 
 
 def phase_pipeline(dev, cfg, params, smi):
@@ -2084,6 +2217,11 @@ def phase_pipeline(dev, cfg, params, smi):
     version called. The two modes must report the same threads with the
     same citations; how many summary texts agree is printed, not gated
     (the waves differ, and bf16 decoding is not bit-stable across waves).
+    Then ``retrieval``: the synchronous run with the port's ``cuda``
+    embedding (``minilm-l6``) and vector-store drivers, and one semantic
+    search of the reports after it: the same threads, K1 on both bodies
+    (the encoder's 6 CUDA-core launches a dispatch), the chunks stored on
+    the card, and the search answered by the store's device route.
     The checkpoint is deleted when the phase ends, passed or failed."""
     import torch
 
@@ -2162,8 +2300,9 @@ def phase_pipeline(dev, cfg, params, smi):
                                  f"{streams[1][:16]}")
 
         runs = {}
-        for mode in ("sync", "pipelined"):
-            runs[mode] = _pipeline_run(ckpt, mode == "pipelined", mbox)
+        for mode in ("sync", "pipelined", "retrieval"):
+            runs[mode] = _pipeline_run(ckpt, mode == "pipelined", mbox,
+                                       retrieval=mode == "retrieval")
             gc.collect()
             torch.cuda.empty_cache()
         sync, piped = runs["sync"], runs["pipelined"]
@@ -2180,6 +2319,9 @@ def phase_pipeline(dev, cfg, params, smi):
                         "summaries_per_s": r["stats"]["summaries"]
                         / r["wall_s"],
                         "summarization_latency_s": r["latency_s"],
+                        "embed_s": r["embed_s"], "query_s": r["query_s"],
+                        **({"retrieval": r["retrieval"]}
+                           if "retrieval" in r else {}),
                         "pipelined": r["pipelined"],
                         "launches": r["launches"],
                         "launches_by_body": r["bodies"],
@@ -2188,7 +2330,8 @@ def phase_pipeline(dev, cfg, params, smi):
                  for mode, r in runs.items()},
               "texts_equal": same_texts, "device": smi})
         for mode, r in runs.items():
-            _check_pipeline(f"pipeline_{mode}", r, cfg)
+            _check_pipeline(f"pipeline_{mode}", r, cfg,
+                            k1_wgmma=sync["bodies"]["K1"]["wgmma"])
         if not piped["pipelined"] or sync["pipelined"]:
             raise AssertionError("pipeline: the modes were not what was "
                                  "asked for")
@@ -2196,9 +2339,242 @@ def phase_pipeline(dev, cfg, params, smi):
             raise AssertionError(f"pipeline: sync reports "
                                  f"{sync['citations']} != pipelined "
                                  f"{piped['citations']}")
+        if runs["retrieval"]["threads"] != sync["threads"]:
+            raise AssertionError(f"pipeline: the retrieval run's threads "
+                                 f"{runs['retrieval']['threads']} != "
+                                 f"{sync['threads']}")
         return runs
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+#: the encoder phase: cosine of each vector against the same encoder with
+#: K1's plain version (bf16 activations through six layers: the kernel and
+#: the plain version differ by f32 sums in another order, then one bf16
+#: rounding of each attention output), and the norm of each vector
+ENC_MIN_COS = 0.999
+ENC_NORM_TOL = 1e-3
+#: texts, and their token lengths' range, in the encoder phase
+ENC_TEXTS, ENC_MIN_LEN = 512, 8
+
+
+def phase_encoder(dev, smi):
+    """``minilm-l6`` at full size (6 layers, d 384, 12 heads of 32, d_ff
+    1536, vocab 30,522, 512 positions), seed-0 weights, bf16, behind
+    ``EmbeddingEngine.embed_batch``: 512 texts whose lengths the seed draws
+    over 8-512 tokens, one warm call first, then the counts reset and the
+    timed call. Every K1 launch must be the CUDA-core body's (head dim
+    32), 6 a dispatch, with no plain version called; the vectors are held
+    against the same engine with K1's plain version (``attn_impl=
+    "plain"``, same weights): cosine >= 0.999 a row, norms 1 ± 1e-3, no
+    NaN."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.embedding import (
+        EmbeddingEngine,
+    )
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        encoder_config,
+    )
+
+    cfg = encoder_config("minilm-l6")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(ENC_MIN_LEN, cfg.max_positions + 1,
+                           size=ENC_TEXTS)
+    texts = [" ".join(f"w{rng.integers(0, 1 << 30)}" for _ in range(n))
+             for n in lengths]
+    t0 = time.monotonic()
+    eng = EmbeddingEngine(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    eng.embed_batch(texts[:64])                       # warm-up
+    n_warm = len(eng.telemetry.recorder.records())
+    reset_launches()
+    with plain_calls() as plain:
+        t0 = time.monotonic()
+        vecs = eng.embed_batch(texts)
+        wall = time.monotonic() - t0
+    launches, bodies = read_launches(), read_bodies()
+    recs = eng.telemetry.recorder.records()[n_warm:]
+    tiles: dict = {}
+    for r in recs:
+        bucket = r.padded_tokens // r.batch
+        tiles.setdefault(str(bucket), []).append(r.batch)
+    t0 = time.monotonic()
+    for t in texts:
+        eng.tokenizer.encode(t)
+    tokenize_s = time.monotonic() - t0
+    plain_eng = EmbeddingEngine(cfg, eng.params, dtype=torch.bfloat16,
+                                attn_impl="plain", device=dev)
+    want = plain_eng.embed_batch(texts)
+    cos = (vecs * want).sum(1) / (np.linalg.norm(vecs, axis=1)
+                                  * np.linalg.norm(want, axis=1))
+    norms = np.linalg.norm(vecs, axis=1)
+    tokens = int(sum(min(n, cfg.max_positions) for n in lengths))
+    row = {"phase": "encoder", "config": cfg.name, "texts": ENC_TEXTS,
+           "tokens": tokens, "build_s": build_s, "wall_s": wall,
+           "texts_per_s": ENC_TEXTS / wall, "tokens_per_s": tokens / wall,
+           # the host's hashing of the words, timed again alone, and the
+           # dispatches' walls (the encode and its copy to the host)
+           "tokenize_s": tokenize_s,
+           "dispatch_s": sum(r.duration_s for r in recs),
+           "dispatches": len(recs),
+           "padded_tokens": sum(r.padded_tokens for r in recs),
+           "tiles_by_bucket": tiles, "launches": launches,
+           "launches_by_body": bodies, "plain_calls": dict(plain),
+           "min_cos": float(cos.min()),
+           "max_norm_err": float(np.abs(norms - 1).max()),
+           "finite": bool(np.isfinite(vecs).all()), "device": smi}
+    emit(row)
+    check_path("encoder", launches, ("K1",))
+    if (bodies["K1"]["wgmma"] or bodies["K1"]["simt"] != 6 * len(recs)
+            or any(plain.values())):
+        raise AssertionError(f"encoder: K1 {bodies['K1']} over "
+                             f"{len(recs)} dispatches, plain {plain}")
+    if not (row["finite"] and row["min_cos"] >= ENC_MIN_COS
+            and row["max_norm_err"] <= ENC_NORM_TOL):
+        raise AssertionError(f"encoder: vectors off the plain version's: "
+                             f"{row}")
+    del eng, plain_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, bodies
+
+
+#: the repo's ANN preset (bench.py ``PRESETS["ann_retrieval"]``), uncut
+ANN = {"n": 1_000_000, "dim": 64, "clusters": 1024, "noise": 0.15,
+       "queries": 256, "batch": 64, "top_k": 10, "nprobe": 16, "seed": 0}
+#: IVF's gate against the flat route (bench.py ``ann_columns``)
+ANN_MIN_RECALL, ANN_MAX_LISTS_FRAC = 0.95, 0.15
+#: queries the flat route is held against an exact f32 scan for
+ANN_EXACT_QUERIES = 16
+#: "ties aside" for that check: the flat route scores a bf16 product
+#: rounded to bf16 (bf16 query and matrix, each element within 2**-9, and
+#: the score rounded within 2**-9 of a value <= 1), so an id may trade
+#: places with one whose exact f32 score lies within 2**-7 of the exact
+#: k-th score, and no other
+ANN_TIE = 2.0 ** -7
+
+
+def _route_run(store, queries, batch: int, top_k: int) -> dict:
+    """The bench preset's measurement of one route: a warm batch outside
+    the timed window (on the IVF route it trains the quantizer), the
+    queries in batches, then 64 single queries for latency."""
+    t0 = time.perf_counter()
+    store.query_batch(list(queries[:batch]), top_k=top_k)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = []
+    for s in range(0, len(queries), batch):
+        results.extend(store.query_batch(list(queries[s:s + batch]),
+                                         top_k=top_k))
+    qps = len(queries) / (time.perf_counter() - t0)
+    lat = []
+    for q in queries[:64]:
+        t1 = time.perf_counter()
+        store.query(q, top_k=top_k)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    lat.sort()
+    return {"ids": [[h.id for h in hits] for hits in results],
+            "qps": qps, "warm_s": warm_s, "p50_ms": lat[len(lat) // 2],
+            "p95_ms": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "stats": dict(store.last_query_stats or {})}
+
+
+def phase_vectorstore(dev, smi):
+    """The repo's ANN preset uncut on the card: 1,000,000 vectors of dim 64
+    in 1,024 clusters (noise 0.15), 256 queries in batches of 64, top 10,
+    nprobe 16, seed 0, ingested into a flat and an IVF ``CUDAVectorStore``
+    (bf16 matrices on the card). The flat route's ids must equal an exact
+    f32 scan's for 16 queries, ties aside (``ANN_TIE``); IVF recall@10
+    against the flat route must be >= 0.95 while scanning <= 15% of the
+    lists. Ingest s, index build s (the first IVF query), QPS and p50/p95
+    ms a route."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.vectorstore.cuda import (
+        CUDAVectorStore,
+    )
+
+    a = ANN
+    rng = np.random.default_rng(a["seed"])
+    centers = rng.standard_normal((a["clusters"], a["dim"])).astype(
+        np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+
+    def draw(count: int) -> np.ndarray:
+        which = rng.integers(0, a["clusters"], size=count)
+        return centers[which] + a["noise"] * rng.standard_normal(
+            (count, a["dim"]), dtype=np.float32)
+
+    corpus = draw(a["n"])
+    queries = draw(a["queries"])
+    routes, stores = {}, {}
+    for kind in ("flat", "ivf"):
+        cfg = {"dimension": a["dim"], "index": kind, "device": str(dev)}
+        if kind == "ivf":
+            cfg["ivf_nprobe"] = a["nprobe"]
+        store = CUDAVectorStore(cfg)
+        t0 = time.perf_counter()
+        store.add_embeddings((str(i), corpus[i], None)
+                             for i in range(a["n"]))
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        run = _route_run(store, queries, a["batch"], a["top_k"])
+        run["ingest_s"] = ingest_s
+        if kind == "ivf":
+            ivf = store._ivf
+            run.update(nlist=ivf.nlist, pad=ivf.pad,
+                       spill=ivf._spill_live, build_s=run["warm_s"])
+        routes[kind], stores[kind] = run, store
+    flat, ivf = routes["flat"], routes["ivf"]
+    recall = float(np.mean([len(set(x) & set(y)) / len(y)
+                            for x, y in zip(ivf["ids"], flat["ids"])]))
+    # the flat route against an exact f32 scan of the host master
+    master = torch.from_numpy(stores["flat"]._host[:a["n"]]).to(dev)
+    qn = queries[:ANN_EXACT_QUERIES]
+    qn = qn / np.linalg.norm(qn, axis=1, keepdims=True)
+    exact = (torch.from_numpy(qn).to(dev) @ master.T)
+    ex_vals, ex_idx = torch.topk(exact, a["top_k"], dim=1)
+    ex_vals, ex_idx = ex_vals.cpu().numpy(), ex_idx.cpu().numpy()
+    exact = exact.cpu().numpy()
+    equal, off_tie = 0, []
+    for qi in range(ANN_EXACT_QUERIES):
+        got = [int(i) for i in flat["ids"][qi]]
+        want = ex_idx[qi].tolist()
+        equal += got == want
+        kth = ex_vals[qi, -1]
+        for i in set(got) ^ set(want):
+            gap = abs(float(exact[qi, i]) - float(kth))
+            if gap > ANN_TIE:
+                off_tie.append((qi, i, gap))
+    del master
+    row = {"phase": "vectorstore", "preset": "ann_retrieval", **ANN,
+           "recall_at_10": recall,
+           "lists_scanned_frac": ivf["stats"].get("lists_scanned_frac"),
+           "spill_fraction": ivf["stats"].get("spill_fraction"),
+           "exact_queries": ANN_EXACT_QUERIES, "exact_equal": equal,
+           "exact_off_tie": off_tie[:8], "tie": ANN_TIE,
+           **{kind: {k: v for k, v in r.items() if k != "ids"}
+              for kind, r in routes.items()},
+           "device": smi}
+    emit(row)
+    if off_tie:
+        raise AssertionError(f"vectorstore: the flat route's ids leave the "
+                             f"exact scan's beyond ties: {off_tie[:8]}")
+    if ivf["stats"].get("route") != "ivf" or flat["stats"].get(
+            "route") != "flat":
+        raise AssertionError(f"vectorstore: routes {flat['stats']}, "
+                             f"{ivf['stats']}")
+    if not (recall >= ANN_MIN_RECALL
+            and row["lists_scanned_frac"] <= ANN_MAX_LISTS_FRAC):
+        raise AssertionError(f"vectorstore: recall@10 {recall}, lists "
+                             f"scanned {row['lists_scanned_frac']}")
+    del stores
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_paged_model(dev, cfg, eng):
@@ -3095,6 +3471,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipeline = phase_pipeline(dev, cfg, params, smi)
+    encoder_launches, encoder_bodies = phase_encoder(dev, smi)
+    phase_vectorstore(dev, smi)
 
     from copilot_for_consensus_tpu_torch.engine.generation import (
         GenerationEngine,
@@ -3126,11 +3504,15 @@ def main() -> int:
 
     by_path = {"pipeline": pipeline["sync"]["launches"],
                "pipeline_pipelined": pipeline["pipelined"]["launches"],
+               "pipeline_retrieval": pipeline["retrieval"]["launches"],
+               "encoder": encoder_launches,
                "serve": launches, "paged_serve": paged_launches,
                "a8_model": a8_launches, "int4_serve": int4_launches,
                "int4_serve_a8": int4_a8_launches, "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
                       "pipeline_pipelined": pipeline["pipelined"]["bodies"],
+                      "pipeline_retrieval": pipeline["retrieval"]["bodies"],
+                      "encoder": encoder_bodies,
                       "serve": bodies, "paged_serve": paged_bodies,
                       "a8_model": a8_bodies, "int4_serve": int4_bodies,
                       "int4_serve_a8": int4_a8_bodies}
@@ -3140,6 +3522,9 @@ def main() -> int:
     for name, row, path, tpu in (
             ("flash_attention", rows[("K1", "s1024", "bfloat16")],
              "pipeline", "copilot_for_consensus_tpu/ops/"
+             "flash_attention.py:119"),
+            ("flash_attention_simt", rows[("K1", "enc_s512", "bfloat16")],
+             "pipeline_retrieval", "copilot_for_consensus_tpu/ops/"
              "flash_attention.py:119"),
             ("int8_matmul", rows[("K2", "m4_d4096_f14336", "bfloat16")],
              "pipeline", f"{q}:50"),
@@ -3170,6 +3555,7 @@ def main() -> int:
         # body's launches on every path
         body, src = {
             "flash_attention": ("wgmma", "flash_wgmma.cuh"),
+            "flash_attention_simt": ("simt", "flash_attention.cu"),
             "int8_matmul": ("stream", "int8_stream.cuh"),
             "int8_matmul_tiled": ("wgmma", "int8_wgmma.cuh"),
             "paged_attention": ("decode", "paged_decode.cuh"),

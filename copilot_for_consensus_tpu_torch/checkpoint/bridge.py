@@ -1,10 +1,11 @@
 """Param trees from numpy: the bridge between the two packages' weights.
 
-``params_from_numpy`` takes a decoder param tree whose leaves are numpy
-arrays — the JAX package's tree after ``np.asarray`` on every leaf,
-quantized leaves included (int8 ``{"q", "scale"}``, packed int4
+``params_from_numpy`` takes a decoder or encoder param tree whose leaves
+are numpy arrays — the JAX package's tree after ``np.asarray`` on every
+leaf, quantized leaves included (int8 ``{"q", "scale"}``, packed int4
 ``{"q4", "scale"}``) — or CPU torch tensors (a checkpoint read by
-``checkpoint/native.py``), and returns the port's tree on ``device``: the
+``checkpoint/native.py`` or ``checkpoint/hf.py``), and returns the port's
+tree on ``device``: the
 int8 bytes of ``q`` and ``q4`` stay int8, ``scale`` is f32, every other
 leaf is cast to ``dtype``. Layouts are the same in both packages, so the
 same weights drive both. A torch leaf moves to the device before it is
@@ -23,7 +24,8 @@ from copilot_for_consensus_tpu_torch.device import resolve_device, \
 
 
 #: leaves that hold int8 bytes: cast to the activation dtype, packed
-#: nibbles would be destroyed
+#: nibbles would be destroyed. No encoder leaf bears one of these names
+#: (nor "scale"), so an encoder tree is cast to ``dtype`` whole.
 _INT8_LEAVES = ("q", "q4")
 
 

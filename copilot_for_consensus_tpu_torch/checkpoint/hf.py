@@ -1,9 +1,10 @@
-"""HuggingFace checkpoint import: safetensors → decoder tree (port of the
-JAX package's ``checkpoint/hf.py``, its decoder half).
+"""HuggingFace checkpoint import: safetensors → decoder and encoder trees
+(port of the JAX package's ``checkpoint/hf.py``).
 
 Loads Mistral/Llama-family HF checkpoints into the port's stacked-layer
-decoder tree, leaves as CPU ``torch`` tensors (``GenerationEngine
-.from_checkpoint`` moves them to the card). The files are read by the
+decoder tree, and BERT/MiniLM-family ones into the encoder tree, leaves as
+CPU ``torch`` tensors (``GenerationEngine.from_checkpoint`` and
+``EmbeddingEngine.from_checkpoint`` move them to the card). The files are read by the
 port's own ``checkpoint/safetensors.py``, not the ``safetensors``
 package, and bfloat16 is torch's, not ``ml_dtypes``'.
 
@@ -16,8 +17,7 @@ Layout notes:
   permutation.
 
 Mixtral (MoE) checkpoints map to a config but do not load: the port has
-no MoE decoder yet (ROADMAP Queue 1 item 6). The encoder half of the JAX
-module (BERT/MiniLM) comes with the embedding encoder (item 2).
+no MoE decoder yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -31,7 +31,10 @@ import torch
 from copilot_for_consensus_tpu_torch.checkpoint.safetensors import (
     SafetensorsFile,
 )
-from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
+from copilot_for_consensus_tpu_torch.models.configs import (
+    DecoderConfig,
+    EncoderConfig,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -196,3 +199,97 @@ def load_hf_checkpoint(path: str | pathlib.Path, dtype: str = "bfloat16"
                        ) -> tuple[DecoderConfig, dict[str, Any]]:
     cfg = config_from_hf(read_hf_config(path))
     return cfg, load_hf_params(path, cfg, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder (BERT/MiniLM family) import — the weights behind the reference's
+# default embedder all-MiniLM-L6-v2.
+# ---------------------------------------------------------------------------
+
+
+def encoder_config_from_hf(hf: dict) -> EncoderConfig:
+    if hf.get("model_type") != "bert":
+        raise CheckpointError(
+            f"unsupported encoder model_type {hf.get('model_type')!r} "
+            "(bert family only)")
+    act = hf.get("hidden_act", "gelu")
+    if act != "gelu":
+        raise CheckpointError(f"unsupported hidden_act {act!r}")
+    pos_type = hf.get("position_embedding_type", "absolute")
+    if pos_type != "absolute":
+        # a relative-position BERT loaded as absolute would serve wrong
+        # vectors without a word
+        raise CheckpointError(
+            f"unsupported position_embedding_type {pos_type!r}")
+    return EncoderConfig(
+        name=hf.get("_name_or_path") or "bert",
+        vocab_size=hf["vocab_size"],
+        d_model=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=hf["num_attention_heads"],
+        d_ff=hf["intermediate_size"],
+        max_positions=hf.get("max_position_embeddings", 512),
+        norm_eps=float(hf.get("layer_norm_eps", 1e-12)),
+    )
+
+
+def load_hf_encoder_params(path: str | pathlib.Path, cfg: EncoderConfig,
+                           dtype: str = "float32") -> dict[str, Any]:
+    """BERT-family safetensors → encoder tree (CPU torch leaves).
+    Single-segment serving: the type-0 segment embedding is a constant
+    addend at every position, so it folds into ``pos_emb`` (summed in
+    f32) and token_type_ids disappear."""
+    torch_dtype = _DTYPES.get(dtype)
+    if torch_dtype is None:
+        raise CheckpointError(f"unsupported dtype {dtype!r}")
+    reader = _LazyReader(pathlib.Path(path))
+    # BertModel saves bare names; BertFor* task models prefix "bert."
+    prefix = "" if "embeddings.word_embeddings.weight" in reader else "bert."
+    if f"{prefix}embeddings.word_embeddings.weight" not in reader:
+        raise CheckpointError("no BERT embedding tensors in checkpoint")
+
+    def g(name: str) -> torch.Tensor:
+        return reader.get(prefix + name)
+
+    def lname(stem: str, leaf: str = "weight") -> Callable[[int], str]:
+        return lambda i: f"{prefix}encoder.layer.{i}.{stem}.{leaf}"
+
+    def stack(stem: str, leaf: str = "weight",
+              transform=lambda x: x) -> torch.Tensor:
+        return _stacked(reader, cfg.n_layers, torch_dtype,
+                        lname(stem, leaf), transform)
+
+    pos = g("embeddings.position_embeddings.weight").float() \
+        + g("embeddings.token_type_embeddings.weight")[0].float()
+    return {
+        "tok_emb": _cast(g("embeddings.word_embeddings.weight"),
+                         torch_dtype),
+        "pos_emb": _cast(pos, torch_dtype),
+        "emb_norm_w": _cast(g("embeddings.LayerNorm.weight"), torch_dtype),
+        "emb_norm_b": _cast(g("embeddings.LayerNorm.bias"), torch_dtype),
+        "layers": {
+            "wq": stack("attention.self.query", transform=_t),
+            "wk": stack("attention.self.key", transform=_t),
+            "wv": stack("attention.self.value", transform=_t),
+            "wo": stack("attention.output.dense", transform=_t),
+            "wq_b": stack("attention.self.query", "bias"),
+            "wk_b": stack("attention.self.key", "bias"),
+            "wv_b": stack("attention.self.value", "bias"),
+            "wo_b": stack("attention.output.dense", "bias"),
+            "attn_norm_w": stack("attention.output.LayerNorm"),
+            "attn_norm_b": stack("attention.output.LayerNorm", "bias"),
+            "w_in": stack("intermediate.dense", transform=_t),
+            "b_in": stack("intermediate.dense", "bias"),
+            "w_out": stack("output.dense", transform=_t),
+            "b_out": stack("output.dense", "bias"),
+            "ffn_norm_w": stack("output.LayerNorm"),
+            "ffn_norm_b": stack("output.LayerNorm", "bias"),
+        },
+    }
+
+
+def load_hf_encoder_checkpoint(path: str | pathlib.Path,
+                               dtype: str = "float32"
+                               ) -> tuple[EncoderConfig, dict[str, Any]]:
+    cfg = encoder_config_from_hf(read_hf_config(path))
+    return cfg, load_hf_encoder_params(path, cfg, dtype)

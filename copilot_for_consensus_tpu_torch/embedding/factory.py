@@ -1,10 +1,10 @@
 """Embedding driver registry + factory (port of the JAX package's
 ``embedding/factory.py``).
 
-Drivers: ``mock`` (deterministic hash vectors), ``openai`` and
-``azure_openai``. The JAX package's ``tpu`` driver (its encoder engine)
-is refused until the port's embedding encoder lands (ROADMAP Queue 1
-item 2).
+Drivers: ``mock`` (deterministic hash vectors), ``cuda`` (the port's
+encoder engine, ``CUDAEmbeddingProvider``; ``device`` from the config,
+None meaning the card), ``openai`` and ``azure_openai``. The JAX
+package's ``tpu`` driver is refused with a pointer to ``cuda``.
 """
 
 from __future__ import annotations
@@ -35,10 +35,19 @@ def create_embedding_provider(config: Any = None) -> EmbeddingProvider:
         return MockEmbeddingProvider(
             dimension=int(_cfg_get(config, "dimension", 32)))
     if driver == "tpu":
-        raise NotImplementedError(
-            "embedding driver 'tpu' (the encoder engine) is not ported "
-            "yet: ROADMAP Queue 1 item 2 (models/encoder.py, "
-            "engine/embedding.py)")
+        raise ValueError(
+            "embedding driver 'tpu' is the JAX package's; the port's "
+            "encoder-backed driver is 'cuda'")
+    if driver == "cuda":
+        from copilot_for_consensus_tpu_torch.embedding.cuda_provider import (
+            CUDAEmbeddingProvider,
+        )
+
+        return CUDAEmbeddingProvider(
+            model=_cfg_get(config, "model", "minilm-l6"),
+            checkpoint=_cfg_get(config, "checkpoint") or None,
+            batch_size=int(_cfg_get(config, "batch_size", 64)),
+            device=_cfg_get(config, "device"))
     if driver in ("openai", "azure_openai"):
         from copilot_for_consensus_tpu_torch.embedding.openai_provider import (
             OpenAIEmbeddingProvider,
@@ -56,6 +65,7 @@ def create_embedding_provider(config: Any = None) -> EmbeddingProvider:
 
 
 register_driver("embedding_backend", "mock", create_embedding_provider)
+register_driver("embedding_backend", "cuda", create_embedding_provider)
 register_driver("embedding_backend", "openai", create_embedding_provider)
 register_driver("embedding_backend", "azure_openai",
                 create_embedding_provider)

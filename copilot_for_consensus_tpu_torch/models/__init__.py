@@ -1,9 +1,14 @@
-"""Decoder model: configs, int8 quantization, layers, decoder passes."""
+"""Models: configs, int8 quantization, layers, the decoder and the
+sentence encoder."""
 
 from copilot_for_consensus_tpu_torch.models.configs import (
     DECODER_CONFIGS,
+    ENCODER_CONFIGS,
     DecoderConfig,
+    EncoderConfig,
     decoder_config,
+    encoder_config,
 )
 
-__all__ = ["DECODER_CONFIGS", "DecoderConfig", "decoder_config"]
+__all__ = ["DECODER_CONFIGS", "ENCODER_CONFIGS", "DecoderConfig",
+           "EncoderConfig", "decoder_config", "encoder_config"]

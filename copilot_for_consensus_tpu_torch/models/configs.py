@@ -1,8 +1,10 @@
-"""Decoder configuration registry (the port's own copy).
+"""Model configuration registry (the port's own copy).
 
 Copied from the JAX package's ``models/configs.py`` — the port imports
-nothing of that package. Holds the serving target of this slice
-(``mistral-7b``) and the two test-scale models that keep its code path.
+nothing of that package. Holds the decoder the port serves
+(``mistral-7b``) with the two test-scale models that keep its code path,
+and the sentence encoder of the embedding engine (``minilm-l6``, the
+reference's default embedder, and ``tiny``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,22 @@ class DecoderConfig:
         return self.n_experts > 0
 
 
+@dataclass(frozen=True)
+class EncoderConfig:
+    name: str = "encoder"
+    vocab_size: int = 30522
+    d_model: int = 384
+    n_layers: int = 6
+    n_heads: int = 12
+    d_ff: int = 1536
+    max_positions: int = 512
+    norm_eps: float = 1e-12
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
 DECODER_CONFIGS: dict[str, DecoderConfig] = {
     # Mistral-7B class: GQA 32/8, SWA 4096.
     "mistral-7b": DecoderConfig(
@@ -59,6 +77,24 @@ DECODER_CONFIGS: dict[str, DecoderConfig] = {
 }
 
 
+ENCODER_CONFIGS: dict[str, EncoderConfig] = {
+    # all-MiniLM-L6-v2 class, dim 384 (head dim 32)
+    "minilm-l6": EncoderConfig(
+        name="minilm-l6", vocab_size=30522, d_model=384, n_layers=6,
+        n_heads=12, d_ff=1536, max_positions=512,
+    ),
+    "tiny": EncoderConfig(
+        name="tiny", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+        d_ff=128, max_positions=128,
+    ),
+}
+
+
 def decoder_config(name: str, **overrides) -> DecoderConfig:
     cfg = DECODER_CONFIGS[name]
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+def encoder_config(name: str, **overrides) -> EncoderConfig:
+    cfg = ENCODER_CONFIGS[name]
     return replace(cfg, **overrides) if overrides else cfg

@@ -1,6 +1,6 @@
 """Transformer building blocks (port of the JAX package's
 ``models/layers.py``, the parts the contiguous and paged serving paths
-run).
+and the sentence encoder run).
 
 Params are plain dicts of tensors; activations flow in the compute dtype
 (bf16 by default) while norms, RoPE and softmax statistics run in f32.
@@ -74,6 +74,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with f32 statistics (the population variance, as
+    ``jnp.var``), the output in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
 
 
 # Rotary position embedding (GPT-NeoX rotate-half convention, as used by
@@ -228,3 +239,12 @@ def swiglu(x: torch.Tensor, layer: dict, impl: str = "auto") -> torch.Tensor:
         gate = F.silu(qmatmul(x, layer["w_gate"], impl).float())
         up = qmatmul(x, layer["w_up"], impl).float()
     return qmatmul((gate * up).to(x.dtype), layer["w_down"], impl)
+
+
+def gelu_mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """BERT-style 2-layer GELU MLP (the encoder's FFN). Exact (erf) GELU,
+    the BERT family's ``hidden_act="gelu"``: the tanh approximation would
+    break checkpoint parity. The GELU runs in f32."""
+    h = F.gelu((x @ layer["w_in"] + layer["b_in"]).float(),
+               approximate="none")
+    return h.to(x.dtype) @ layer["w_out"] + layer["b_out"]

@@ -206,7 +206,8 @@ class CUDASummarizer(Summarizer):
         return [self._summary(t, c) for t, c in zip(threads, comps)]
 
     def summarize_async(self, thread: ThreadContext, *,
-                        correlation_id: str = ""):
+                        correlation_id: str = "", tenant: str = "",
+                        priority: str = ""):
         """Submit one thread into the continuous batch without waiting:
         returns a callable ``wait(timeout=600.0)`` that blocks for the
         Summary. Many submissions in flight share the decode batch —
@@ -220,10 +221,19 @@ class CUDASummarizer(Summarizer):
         Left out against the JAX package's ``TPUSummarizer``: the
         long-context route (prompts over ``prompt_limit`` keep their
         tail) and the scheduler's tenant, priority and deadline, which
-        the port does not have yet."""
+        the port does not have yet. A ``tenant`` or ``priority`` that is
+        not empty is refused with ``NotImplementedError``, so the copied
+        ``SummarizationService`` (which passes them when the call takes
+        them) cannot drop a configured one without a word."""
         from copilot_for_consensus_tpu_torch.engine.async_runner import (
             AsyncEngineRunner,
         )
+
+        if tenant or priority:
+            raise NotImplementedError(
+                f"summarize_async(tenant={tenant!r}, priority={priority!r}):"
+                f" the port's engine has no scheduler to serve a tenant or "
+                f"a priority yet (ROADMAP Queue 1 item 4)")
 
         fi = getattr(self.engine, "faults", None)
         if fi is not None:

@@ -1,7 +1,8 @@
 # The port's driver factories: the summarizer, embedding and vector-store
-# drivers it serves, the ones it refuses (each naming the ROADMAP item that
-# brings it), the cuda driver's schema, and the adapter registry reaching
-# the port's own modules.
+# drivers it serves (the cuda ones on device "cpu" here), the ones it
+# refuses (the JAX package's tpu drivers with a pointer to cuda, unserved
+# options naming the ROADMAP item that brings them), the cuda drivers'
+# schemas, and the adapter registry reaching the port's own modules.
 import json
 import pathlib
 
@@ -16,6 +17,9 @@ from copilot_for_consensus_tpu_torch.core.validation import (
 )
 from copilot_for_consensus_tpu_torch.embedding.base import (
     MockEmbeddingProvider,
+)
+from copilot_for_consensus_tpu_torch.embedding.cuda_provider import (
+    CUDAEmbeddingProvider,
 )
 from copilot_for_consensus_tpu_torch.embedding.factory import (
     create_embedding_provider,
@@ -35,8 +39,14 @@ from copilot_for_consensus_tpu_torch.summarization.summarizer import (
 from copilot_for_consensus_tpu_torch.vectorstore.factory import (
     create_vector_store,
 )
+from copilot_for_consensus_tpu_torch.vectorstore.cuda import (
+    CUDAVectorStore,
+)
 from copilot_for_consensus_tpu_torch.vectorstore.memory import (
     InMemoryVectorStore,
+)
+from copilot_for_consensus_tpu_torch.vectorstore.native import (
+    NativeFlatVectorStore,
 )
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / \
@@ -103,7 +113,7 @@ def test_embedding_drivers():
     assert isinstance(create_embedding_provider({"driver": "mock",
                                                  "dimension": 8}),
                       MockEmbeddingProvider)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="'cuda'"):
         create_embedding_provider({"driver": "tpu"})
     with pytest.raises(ValueError, match="unknown embedding"):
         create_embedding_provider({"driver": "bogus"})
@@ -111,8 +121,53 @@ def test_embedding_drivers():
 
 @pytest.mark.parametrize("driver", ["tpu", "native"])
 def test_vector_store_drivers_not_ported_are_refused(driver):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        create_vector_store({"driver": driver})
+    # the JAX package's tpu driver is refused with a pointer to cuda; the
+    # native driver, refused until the store was ported, is now the copy
+    if driver == "tpu":
+        with pytest.raises(ValueError, match="'cuda'"):
+            create_vector_store({"driver": driver})
+    else:
+        assert isinstance(create_vector_store({"driver": driver}),
+                          NativeFlatVectorStore)
+
+
+def test_cuda_embedding_driver_builds_on_the_cpu():
+    prov = create_embedding_provider({"driver": "cuda", "model": "tiny",
+                                      "batch_size": 4, "device": "cpu"})
+    assert isinstance(prov, CUDAEmbeddingProvider)
+    assert prov.engine.device.type == "cpu"
+    assert prov.engine.batch_size == 4 and prov.dimension == 64
+    assert prov.model_name == "cuda:tiny"
+    vecs = prov.embed_batch(["rough consensus", "running code"])
+    assert len(vecs) == 2 and len(vecs[0]) == 64
+    assert prov.embed("rough consensus") == vecs[0]
+
+
+def test_cuda_vector_store_driver_builds_on_the_cpu():
+    store = create_vector_store({"driver": "cuda", "dimension": 4,
+                                 "index": "ivf", "device": "cpu"})
+    assert isinstance(store, CUDAVectorStore)
+    assert store.device.type == "cpu" and store._index_kind == "ivf"
+    store.add_embedding("a", [1.0, 0.0, 0.0, 0.0])
+    assert [r.id for r in store.query([1.0, 0.1, 0.0, 0.0])] == ["a"]
+
+
+@pytest.mark.parametrize("mesh", [2, 4, "8"])
+def test_cuda_vector_store_refuses_a_mesh_of_several_cards(mesh):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        create_vector_store({"driver": "cuda", "mesh": mesh,
+                             "device": "cpu"})
+
+
+@pytest.mark.parametrize("make", [
+    lambda: create_embedding_provider({"driver": "cuda", "model": "tiny"}),
+    lambda: create_vector_store({"driver": "cuda"})],
+    ids=["embedding", "vector_store"])
+def test_cuda_drivers_without_a_device_need_the_card(make):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
 
 
 def test_vector_store_drivers():
@@ -128,8 +183,8 @@ def test_vector_store_drivers():
 
 @pytest.mark.parametrize("kind,drivers", [
     ("llm_backend", ["azure_openai", "cuda", "mock", "openai"]),
-    ("embedding_backend", ["azure_openai", "mock", "openai"]),
-    ("vector_store", ["azure_ai_search", "memory"])])
+    ("embedding_backend", ["azure_openai", "cuda", "mock", "openai"]),
+    ("vector_store", ["azure_ai_search", "cuda", "memory", "native"])])
 def test_registry_names_the_ports_drivers(kind, drivers):
     assert core_factory.available_drivers(kind) == drivers
 
@@ -147,7 +202,16 @@ def test_registry_kind_modules_are_the_ports():
 
 
 def test_cuda_schema_is_the_tpu_schema_with_a_device():
-    root = PKG / "schemas" / "configs" / "adapters" / "llm_backend"
+    _check_cuda_schema("llm_backend")
+
+
+@pytest.mark.parametrize("kind", ["embedding_backend", "vector_store"])
+def test_cuda_retrieval_schema_is_the_tpu_schema_with_a_device(kind):
+    _check_cuda_schema(kind)
+
+
+def _check_cuda_schema(kind):
+    root = PKG / "schemas" / "configs" / "adapters" / kind
     tpu = json.loads((root / "tpu.schema.json").read_text())
     cuda = json.loads((root / "cuda.schema.json").read_text())
     assert cuda["properties"].pop("device") == {"type": "string",
@@ -168,6 +232,20 @@ def test_cuda_schema_validates_a_cuda_config():
         validate_json({**CUDA, "driver": "tpu"}, name, provider)
     with pytest.raises(SchemaValidationError):
         validate_json({**CUDA, "num_slots": "four"}, name, provider)
+
+
+@pytest.mark.parametrize("kind,config,bad", [
+    ("embedding_backend", {"driver": "cuda", "model": "minilm-l6",
+                           "device": "cpu"}, {"batch_size": "many"}),
+    ("vector_store", {"driver": "cuda", "dtype": "float32",
+                      "device": "cpu"}, {"dimension": "wide"})])
+def test_cuda_retrieval_schemas_validate_a_cuda_config(kind, config, bad):
+    provider = FileSchemaProvider()
+    name = f"configs/adapters/{kind}/cuda"
+    validate_json(config, name, provider)
+    for wrong in ({**config, "driver": "tpu"}, {**config, **bad}):
+        with pytest.raises(SchemaValidationError):
+            validate_json(wrong, name, provider)
 
 
 def test_service_collector_attach_is_a_no_op_without_telemetry():

@@ -40,6 +40,16 @@ def test_port_and_smoke_import_no_jax():
     assert int(out.stdout.split()[-1]) >= 15      # every module imported
 
 
+@pytest.mark.parametrize("rel", [
+    "models/encoder.py", "engine/embedding.py", "embedding/cuda_provider.py",
+    "embedding/eval.py", "vectorstore/cuda.py", "vectorstore/ivf.py",
+    "vectorstore/native.py"])
+def test_the_retrieval_modules_are_among_the_checked_files(rel):
+    # the import checks below run over every file of the package; the
+    # retrieval half's modules are among them
+    assert PKG / rel in PORT_FILES
+
+
 def _imported_names(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

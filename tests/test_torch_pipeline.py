@@ -302,6 +302,60 @@ def test_pipelined_crash_between_ack_and_store_recovers(ckpt):
     summ.summarizer.close()
 
 
+def test_configured_tenant_and_priority_are_refused_in_words(ckpt):
+    """A pipeline's tenancy block reaches summarize_async, which the copied
+    service probes for tenant and priority; the port has no scheduler to
+    serve them yet, so every thread is refused naming ROADMAP Queue 1
+    item 4 (on the failure event and to the error reporter) and no summary
+    or report is written — never a silent drop."""
+    from copilot_for_consensus_tpu_torch.obs.errors import (
+        CollectingErrorReporter,
+    )
+
+    p = trunner.build_pipeline({
+        "llm": _llm("cuda", ckpt, pipelined=True),
+        "embedding": {"driver": "mock"},
+        "tenancy": {"tenant": "ietf", "priority": "batch"}})
+    summ = p.summarization
+    assert {"tenant", "priority"} <= summ._async_kwargs
+    summ.error_reporter = CollectingErrorReporter()
+    failures = []
+    p.broker.bind("summarization.failed", failures.append)
+    p.ingestion.create_source({"source_id": "s", "name": "s",
+                               "fetcher": "local", "location": MBOX})
+    stats = p.ingest_and_run("s")
+    summ.summarizer.close()
+    threads = {t["thread_id"] for t in p.store.query_documents("threads", {})}
+    assert stats["threads"] == len(threads) >= 3
+    assert stats["summaries"] == stats["reports"] == 0
+    assert p.store.count_documents("reports") == 0
+    assert {f["data"]["thread_id"] for f in failures} == threads
+    for f in failures:
+        assert f["data"]["error_type"] == "NotImplementedError"
+        assert "ROADMAP Queue 1 item 4" in f["data"]["error"]
+    reported = summ.error_reporter.reports
+    assert reported and all("Queue 1 item 4" in str(e)
+                            for e, _ in reported)
+
+
+def test_summarize_async_refuses_a_tenant_or_a_priority(ckpt):
+    summ = CUDASummarizer(checkpoint=ckpt, max_new_tokens=4, num_slots=4,
+                          max_len=256, device="cpu")
+    from copilot_for_consensus_tpu_torch.summarization.base import (
+        ThreadContext,
+    )
+
+    thread = ThreadContext(thread_id="t", subject="s", chunks=[])
+    for kw in ({"tenant": "ietf"}, {"priority": "interactive"}):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 4"):
+            summ.summarize_async(thread, **kw)
+    assert summ._runner is None              # nothing was submitted
+    wait = summ.summarize_async(thread, tenant="", priority="")
+    assert wait(60.0).completion_tokens >= 1
+    summ.close()
+
+
 _RUN_ALONE = """
 import sys
 from copilot_for_consensus_tpu_torch.services.runner import build_pipeline
