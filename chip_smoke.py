@@ -18,10 +18,11 @@ non-zero before the last line:
    memory, and the counts of HGMMA, IGMMA, UTMALDG, LDGSTS, HMMA and IMMA
    instructions
    per kernel in the SASS (``cuobjdump -sass``; "absent" without it) — the
-   wgmma bodies must show HGMMA (IGMMA for the int8 ones of K6, K4 and P)
-   and UTMALDG, the stream bodies HMMA (IMMA for K6's int8 one) and
-   UTMALDG, and the bodies of K2, K3, K6, K4, P and the stream bodies must
-   build without spills or a ptxas performance note;
+   wgmma bodies (K1's d32 body too) must show HGMMA (IGMMA for the int8
+   ones of K6, K4 and P) and UTMALDG, the stream bodies HMMA (IMMA for
+   K6's int8 one) and UTMALDG, and the bodies of K2, K3, K6, K4, P, K1's
+   d32 and the stream bodies must build without spills or a ptxas
+   performance note;
 3. kernels — (after one ``timing_floor`` line: what ``time_ms`` gives a
    one-element kernel, L2 flushed) holds K1 (flash attention) and K2
    (int8 matmul) against their plain PyTorch versions at the full
@@ -30,8 +31,9 @@ non-zero before the last line:
    the same function (``library_ms``, a yardstick the port never calls).
    K1's cases: the int8 waves (B4 S512, S1024), the paged miss waves'
    offsets and begins, the int4 wave (B2 S2816), a window of 256 that
-   bites, and D 64 and D 32, at bf16 and f32, so each of K1's two bodies
-   (wgmma for bf16 at D 64/128, CUDA cores for the rest) runs. K2's cases
+   bites, and D 64 and D 32, at bf16 and f32, so each of K1's three
+   bodies (wgmma for bf16 at D 64/128, d32 for bf16 at D 32, CUDA cores
+   for f32) runs, each case asserting its body. K2's cases
    name their body (the stream body at M 4 and 8, wgmma for bf16 waves,
    the GEMV and CUDA cores for f32) and include three few-row waves (M 512
    and 64); four more with small integer x must equal the plain version
@@ -174,14 +176,14 @@ non-zero before the last line:
    (``minilm-l6`` at full width, seed-0 weights) and ``cuda`` vector
    store (flat, on the card): the same threads, a cited report each, K1's
    wgmma body (the decoder's waves: as many launches as in the
-   synchronous run) and CUDA-core body (the encoder: exactly 6 launches
-   for each dispatch in the embedding engine's telemetry) and K2, no
+   synchronous run) and d32 body (the encoder: exactly 6 launches for
+   each dispatch in the embedding engine's telemetry) and K2, no
    plain version; the row adds the embed and query seconds the
    pipeline's collector records. The checkpoint is deleted after;
 20. encoder — (after phase 19) ``EmbeddingEngine.embed_batch`` on
    ``minilm-l6`` at full size, seed-0 weights, bf16: 512 texts of 8-512
    tokens (the seed's draw), with the counts reset before: every K1
-   launch on the CUDA-core body (head dim 32), 6 a dispatch, no plain
+   launch on the d32 body (head dim 32), 6 a dispatch, no plain
    version; vectors against the same engine on K1's plain version
    (cosine >= 0.999 a row, norms 1 ± 1e-3, finite); texts/s, tokens/s,
    tiles by bucket;
@@ -194,23 +196,27 @@ non-zero before the last line:
    build s, QPS, p50/p95 ms a route.
 
 K1's cases in phase 3 include the encoder's, non-causal: ``enc_s512``
-(B 64, 12 heads of 32, S 512, lengths over 1-512) on the CUDA-core body,
-timed beside its bound and SDPA, and the same mask at D 128 on the wgmma
-body.
+(B 64, 12 heads of 32, S 512, lengths over 1-512) on the d32 body, timed
+beside its bound and SDPA, and the same mask at D 128 on the wgmma body;
+then the d32 body's edges, each held to the plain version: the encoder's
+smallest bucket (B 64, S 32, lengths 1-32), a length-1 row, Sq != Skv
+with ``q_offsets`` and ``kv_begins`` (and a row of length 0), and a
+window of 100 that bites.
 
 Launch counts are replay-aware: a graph's capture launches nothing, so each
 graph keeps the counts its capture ticked, takes them back, and adds them on
 every replay — a replayed dispatch counts what the eager body would have
 launched. Every serve phase counts each kernel's launches by body (K1-K6):
-the main path's K1 launches must all be the wgmma body's (the CUDA-core
-body's too on the paths that run the encoder), its K2 launches
+the main path's K1 launches must all be the wgmma body's (the d32
+body's too on the paths that run the encoder; never the CUDA-core
+body's), its K2 launches
 the stream body's or the wgmma body's (never the GEMV, WMMA or the
 CUDA-core loop; 7 a layer and one for the lm_head a forward pass), its K3
 launches the decode or seeded body's, and no K4, K5 or K6 launch may take
 the split qgemm or the mma.sync (or K5's CUDA-core) tiled bodies (on the
 int4 path each kernel's wgmma body makes 4 launches a layer a wave, its
 stream body the rest; K4's 224 a wave all go to its wgmma body). Then
-the kernel table (K1-K6; K1's wgmma and CUDA-core bodies, K2's stream
+the kernel table (K1-K6; K1's wgmma and d32 bodies, K2's stream
 and wgmma bodies, K3's decode and
 seeded bodies, and K5's and K6's stream and tiled bodies as two rows
 each; K4's wgmma body with the mma.sync tiling's time beside it; and
@@ -218,7 +224,7 @@ P's five modes, each with its launches on every path, the four on the
 wgmma body with the mma.sync body's time beside them) as one JSON line —
 each row's ``launches`` from its main path, the pipeline phase's
 synchronous run for K1's wgmma body and K2, its retrieval run for K1's
-CUDA-core body (its own row), every path's count beside it — the
+d32 body (its own row), every path's count beside it — the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. About 8 minutes on one H100 (the
 host's speed varies), the build included.
@@ -453,7 +459,7 @@ def check_bodies(label: str, bodies: dict, k5_wgmma: int | None = None,
 #: show HGMMA and UTMALDG in its SASS) and the prefix of the library's other
 #: new kernels (None where it has none)
 REDESIGNED = {"int4_matmul": ("k5w::int4_wgmma", "k5s::"),
-              "flash_attention": ("fa3::flash_wgmma", None),
+              "flash_attention": ("fa3::flash_wgmma", "fd32::"),
               "int8_matmul": ("k2w::int8_wgmma", "k2s::"),
               "paged_attention": ("k3s::paged_wgmma", "k3d::"),
               "w4a8_matmul": ("k6w::w4a8_wgmma", "k6s::"),
@@ -480,20 +486,25 @@ def wgmma_smem(name: str, lib) -> dict:
         return {"k6w::w4a8_wgmma": lib.w4a8_matmul_wgmma_smem(),
                 **{f"k6s::w4a8_stream<{nt}>": lib.w4a8_matmul_stream_smem(nt)
                    for nt in (1, 2, 3, 4)}}
-    fn = (lib.flash_attention_wgmma_smem if name == "flash_attention"
-          else lib.paged_attention_seeded_smem)
-    return {f"{REDESIGNED[name][0]}<{d}>": fn(d) for d in (64, 128)}
+    if name == "flash_attention":
+        return {**{f"fa3::flash_wgmma<{d}>": lib.flash_attention_wgmma_smem(d)
+                   for d in (64, 128)},
+                "fd32::flash_d32": lib.flash_attention_d32_smem()}
+    return {f"k3s::paged_wgmma<{d}>": lib.paged_attention_seeded_smem(d)
+            for d in (64, 128)}
 
 
 #: the bodies of the last slices: ptxas must report them without spills
 #: and without a performance note (C75xx: serialized wgmma and the like)
 NEW_BODIES = ("k2w::", "k3s::", "k3d::", "k5s::", "k2s::", "k6w::",
-              "k6s::", "k4w::", "pw::")
-#: Hopper bodies on mma.sync (not wgmma), by kernel prefix: the SASS
-#: instructions each of their kernels must show
-MMA_SYNC_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
-                   "k2s::": ("HMMA", "UTMALDG"),
-                   "k6s::": ("IMMA", "UTMALDG")}
+              "k6s::", "k4w::", "pw::", "fd32::")
+#: the Hopper bodies beside a library's first wgmma body, by kernel prefix:
+#: the SASS instructions each of their kernels must show (the stream bodies
+#: on mma.sync, K1's d32 body on wgmma)
+OTHER_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
+                "k2s::": ("HMMA", "UTMALDG"),
+                "k6s::": ("IMMA", "UTMALDG"),
+                "fd32::": ("HGMMA", "UTMALDG")}
 #: (wgmma is HGMMA in the SASS on 16-bit operands, IGMMA on 8-bit integers;
 #: mma.sync is HMMA on 16-bit operands, IMMA on 8-bit integers)
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "HMMA", "IMMA")
@@ -604,7 +615,7 @@ def phase_build_info():
                                      f"HGMMA/IGMMA or UTMALDG: {mine}")
             if others and not any(f.startswith(others) for f in sass):
                 raise AssertionError(f"{name}: no kernel of {others} built")
-            for prefix, ops in MMA_SYNC_BODIES.items():
+            for prefix, ops in OTHER_BODIES.items():
                 for f, c in sass.items():
                     if f.startswith(prefix) and not all(c[o] for o in ops):
                         raise AssertionError(f"{name}: {f}'s SASS lacks one "
@@ -624,11 +635,11 @@ def phase_build_info():
 ENC_B, ENC_H, ENC_S = 64, 12, 512
 
 
-def enc_lengths() -> list[int]:
+def enc_lengths(s: int = ENC_S) -> list[int]:
+    """The seed's draw of ``ENC_B`` text lengths over 1-``s``."""
     import numpy as np
 
-    return np.random.default_rng(0).integers(
-        1, ENC_S + 1, size=ENC_B).tolist()
+    return np.random.default_rng(0).integers(1, s + 1, size=ENC_B).tolist()
 
 
 def k1_cases():
@@ -638,9 +649,13 @@ def k1_cases():
     S1024), the paged miss waves' offsets and begins, the int4 wave (B2
     S2816, the cap3072 deployment), and a window of 256 that bites (the
     main path's 4096 never does). Then D 64 (the wgmma body's other head
-    dim) and D 32 (the CUDA-core body's at bf16). Then the encoder's,
-    non-causal: ``enc_s512`` (the CUDA-core body at D 32, timed) and the
-    same mask at D 128 on the wgmma body."""
+    dim) and D 32 (the d32 body's: causal, GQA 8/2). Then the encoder's,
+    non-causal: ``enc_s512`` (the d32 body, timed) and the same mask at D
+    128 on the wgmma body. Then the d32 body's edges: the encoder's
+    smallest bucket (``enc_s32``: B 64, S 32, lengths over 1-32), a
+    length-1 row, Sq 200 against Skv 700 with ``q_offsets`` and
+    ``kv_begins`` (and a row of length 0, which writes zeros), and a window
+    of 100 that bites. At f32 every case runs the CUDA-core body."""
     return [
         ("s512", 4, 32, 8, 512, 512, 128, 4096, [512, 300, 1, 0], None,
          None, False, True),
@@ -660,6 +675,14 @@ def k1_cases():
          enc_lengths(), None, None, True, False),
         ("noncausal_d128", 4, 32, 8, 512, 512, 128, 0, [512, 300, 77, 1],
          None, None, False, False),
+        ("enc_s32", ENC_B, ENC_H, ENC_H, 32, 32, 32, 0, enc_lengths(32),
+         None, None, False, False),
+        ("d32_len1", 3, ENC_H, ENC_H, 96, 96, 32, 0, [1, 96, 50], None,
+         None, False, False),
+        ("d32_offsets_begins", 4, 8, 2, 200, 700, 32, 4096,
+         [700, 200, 356, 0], [500, 0, 100, 0], [0, 0, 50, 0], False, True),
+        ("d32_w100", 2, 8, 2, 600, 600, 32, 100, [600, 450], None, None,
+         False, True),
     ]
 
 
@@ -685,8 +708,14 @@ def phase_kernels(dev, flush):
                     x, dtype=torch.int32, device=dev)
             kw = dict(causal=causal, window=window, kv_lengths=ivec(lens),
                       q_offsets=ivec(offs), kv_begins=ivec(begins))
+            # bf16: wgmma at D 64/128, d32 at D 32; f32: the CUDA cores
+            want = "simt" if dt_name == "float32" else \
+                "wgmma" if d in fa.WGMMA_HEAD_DIMS else "d32"
+            before = dict(fa.flash_attention.launches_by_body)
             out = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
+            ran = [n for n, c in fa.flash_attention.launches_by_body.items()
+                   if c != before[n]]
             ref = fa.flash_attention_ref(q, k, v, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             ok = bool(torch.isfinite(out).all()) and err <= K1_ATOL[dt_name]
@@ -720,6 +749,9 @@ def phase_kernels(dev, flush):
             emit(row)
             if not ok:
                 raise AssertionError(f"K1 {label} {dt_name}: error {err}")
+            if row["body"] != want or ran != [want]:
+                raise AssertionError(f"K1 {label} {dt_name}: ran {ran}, "
+                                     f"rule {row['body']}, want {want}")
             rows[("K1", label, dt_name)] = row
             del q, k, v, out, ref, mask
     shapes = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
@@ -2150,8 +2182,8 @@ def _check_pipeline(label: str, run: dict, cfg,
                     k1_wgmma: int | None = None) -> None:
     """The run's reports, device, kernels and bodies; for the retrieval
     run, K1's wgmma launches must be ``k1_wgmma`` (the synchronous run's:
-    the same decoder waves) and its CUDA-core launches exactly the
-    encoder's, 6 a dispatch of the embedding engine."""
+    the same decoder waves) and its d32 launches exactly the encoder's, 6
+    a dispatch of the embedding engine."""
     stats = run["stats"]
     if stats["archives"] != 1 or not (
             stats["summaries"] == stats["reports"] == stats["threads"] >= 3):
@@ -2171,18 +2203,20 @@ def _check_pipeline(label: str, run: dict, cfg,
     check_path(label, launches, ("K1", "K2"))
     retrieval = run.get("retrieval")
     if retrieval:
-        # the encoder's attention: K1's CUDA-core body, one launch a layer
-        # a dispatch, and the decoder's waves on the wgmma body as in the
+        # the encoder's attention: K1's d32 body, one launch a layer a
+        # dispatch, and the decoder's waves on the wgmma body as in the
         # synchronous run; then the other bodies as on every path
         k1 = bodies["K1"]
         if (not retrieval["embed_dispatches"]
-                or k1["simt"] != 6 * retrieval["embed_dispatches"]
+                or k1["d32"] != 6 * retrieval["embed_dispatches"]
                 or k1["wgmma"] != k1_wgmma):
             raise AssertionError(
                 f"{label}: K1 {k1} over {retrieval['embed_dispatches']} "
-                f"embedding dispatches; want simt 6 a dispatch and wgmma "
+                f"embedding dispatches; want d32 6 a dispatch and wgmma "
                 f"{k1_wgmma} (the synchronous run's)")
-        bodies = {**bodies, "K1": {**k1, "simt": 0}}
+    elif bodies["K1"]["d32"]:
+        raise AssertionError(f"{label}: K1's d32 body ran without the "
+                             f"encoder: {bodies['K1']}")
     check_bodies(label, bodies)
     check_k2_passes(label, launches, bodies, cfg.n_layers)
     if not (bodies["K1"]["wgmma"] and bodies["K2"]["stream"]
@@ -2219,8 +2253,8 @@ def phase_pipeline(dev, cfg, params, smi):
     (the waves differ, and bf16 decoding is not bit-stable across waves).
     Then ``retrieval``: the synchronous run with the port's ``cuda``
     embedding (``minilm-l6``) and vector-store drivers, and one semantic
-    search of the reports after it: the same threads, K1 on both bodies
-    (the encoder's 6 CUDA-core launches a dispatch), the chunks stored on
+    search of the reports after it: the same threads, K1 on two bodies
+    (the encoder's 6 d32 launches a dispatch), the chunks stored on
     the card, and the search answered by the store's device route.
     The checkpoint is deleted when the phase ends, passed or failed."""
     import torch
@@ -2363,8 +2397,8 @@ def phase_encoder(dev, smi):
     1536, vocab 30,522, 512 positions), seed-0 weights, bf16, behind
     ``EmbeddingEngine.embed_batch``: 512 texts whose lengths the seed draws
     over 8-512 tokens, one warm call first, then the counts reset and the
-    timed call. Every K1 launch must be the CUDA-core body's (head dim
-    32), 6 a dispatch, with no plain version called; the vectors are held
+    timed call. Every K1 launch must be the d32 body's (head dim 32), 6
+    a dispatch, with no plain version called; the vectors are held
     against the same engine with K1's plain version (``attn_impl=
     "plain"``, same weights): cosine >= 0.999 a row, norms 1 ± 1e-3, no
     NaN."""
@@ -2428,7 +2462,8 @@ def phase_encoder(dev, smi):
            "finite": bool(np.isfinite(vecs).all()), "device": smi}
     emit(row)
     check_path("encoder", launches, ("K1",))
-    if (bodies["K1"]["wgmma"] or bodies["K1"]["simt"] != 6 * len(recs)
+    check_bodies("encoder", bodies)
+    if (bodies["K1"]["wgmma"] or bodies["K1"]["d32"] != 6 * len(recs)
             or any(plain.values())):
         raise AssertionError(f"encoder: K1 {bodies['K1']} over "
                              f"{len(recs)} dispatches, plain {plain}")
@@ -3126,6 +3161,7 @@ def device_us_by_kernel(prof) -> tuple[list, dict]:
 #: kernel names; any other kernel is PyTorch's own
 KERNEL_FAMILIES = {
     "K1 wgmma (flash_wgmma)": ("flash_wgmma",),
+    "K1 d32 (flash_d32)": ("flash_d32",),
     "K1 CUDA cores (flash_fwd_kernel)": ("flash_fwd_kernel",),
     "K2 stream (int8_stream)": ("int8_stream",),
     "K2 GEMV (gemv_partial, gemv_reduce)": ("gemv_partial", "gemv_reduce"),
@@ -3523,7 +3559,7 @@ def main() -> int:
             ("flash_attention", rows[("K1", "s1024", "bfloat16")],
              "pipeline", "copilot_for_consensus_tpu/ops/"
              "flash_attention.py:119"),
-            ("flash_attention_simt", rows[("K1", "enc_s512", "bfloat16")],
+            ("flash_attention_d32", rows[("K1", "enc_s512", "bfloat16")],
              "pipeline_retrieval", "copilot_for_consensus_tpu/ops/"
              "flash_attention.py:119"),
             ("int8_matmul", rows[("K2", "m4_d4096_f14336", "bfloat16")],
@@ -3555,7 +3591,7 @@ def main() -> int:
         # body's launches on every path
         body, src = {
             "flash_attention": ("wgmma", "flash_wgmma.cuh"),
-            "flash_attention_simt": ("simt", "flash_attention.cu"),
+            "flash_attention_d32": ("d32", "flash_d32.cuh"),
             "int8_matmul": ("stream", "int8_stream.cuh"),
             "int8_matmul_tiled": ("wgmma", "int8_wgmma.cuh"),
             "paged_attention": ("decode", "paged_decode.cuh"),

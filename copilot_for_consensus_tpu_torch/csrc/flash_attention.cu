@@ -12,21 +12,28 @@
 // accumulator in f32; output in q's dtype; a query row with no attendable
 // key writes zeros.
 //
-// What bounds it on this card: at the serving prefill shapes (Sq = Skv up to
-// 2816, D = 128) the work is ~4·Sq·Skv·D/2 flops per (row, head) against
-// ~4·S·D·2 bytes, well above the H100's ~295 flop/byte ridge, so it is
-// bound by arithmetic. bf16 at D 64 and 128 — every prefill the port serves
-// — runs `flash_attention_wgmma_fwd`, the Hopper body of flash_wgmma.cuh
-// (wgmma tensor-core products fed by TMA through a 2-stage K/V ring; see
-// that header's note). The body below takes what that one does not, by the
-// wrapper's dtype and head-dim rule: f32 (a test dtype) and D = 32. It does
-// its arithmetic with f32 FMAs on the CUDA cores, so its ceiling is the 67
-// TFLOP/s f32 rate.
+// What bounds it on this card depends on the body, and the wrapper picks
+// one of three from dtype and head dim alone:
+//   * bf16 at D 64 and 128 — every prefill the port serves — runs
+//     `flash_attention_wgmma_fwd`, the Hopper body of flash_wgmma.cuh
+//     (wgmma products fed by TMA through a 2-stage K/V ring, 128-byte
+//     swizzle). At the serving prefill shapes (Sq = Skv up to 2816, D = 128)
+//     the work is ~4·Sq·Skv·D/2 flops per (row, head) against ~4·S·D·2
+//     bytes, well above the H100's ~295 flop/byte ridge: bound by
+//     arithmetic.
+//   * bf16 at D 32 — the MiniLM encoder's attention — runs
+//     `flash_attention_d32_fwd`, the Hopper body of flash_d32.cuh (wgmma
+//     fed by TMA through a 3-stage ring on the 64-byte swizzle, one
+//     warpgroup of 64 query rows a CTA). At the encoder's tiles the bytes
+//     of q and out bound it; see that header's note.
+//   * f32 at any head dim (a test dtype) runs `flash_attention_fwd`, the
+//     CUDA-core body below: f32 FMAs, so its ceiling is the 67 TFLOP/s f32
+//     rate.
 //
-// Design of the CUDA-core body. The TPU ran kv tiles as its innermost, sequential grid axis with
-// the running max / denominator / accumulator in VMEM scratch. Here one block
-// owns (b, q-head, 64-row q tile) and loops over the kv tiles itself, so the
-// statistics live in registers:
+// Design of the CUDA-core body. The TPU ran kv tiles as its innermost,
+// sequential grid axis with the running max / denominator / accumulator in
+// VMEM scratch. Here one block owns (b, q-head, 64-row q tile) and loops over
+// the kv tiles itself, so the statistics live in registers:
 //   * 128 threads = 4 warps; a group of 8 lanes owns 4 query rows, and each
 //     lane holds 8 of the tile's 64 score columns and D/8 output columns of
 //     those rows. Row max and row sum are 3-step xor shuffles inside the
@@ -45,6 +52,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_d32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -55,16 +63,9 @@ constexpr int NT = 128;     // threads per block
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 template <int D>
@@ -258,29 +259,22 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// the CUDA-core body: f32 q, k, v at D 32, 64 or 128 (bf16 is the wgmma
+// and d32 bodies')
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o,
                                    const void* kv_lengths,
                                    const void* q_offsets,
                                    const void* kv_begins, int B, int Hq,
                                    int Hkv, int Sq, int Skv, int D,
-                                   int causal, int window, int is_bf16,
-                                   void* stream) {
+                                   int causal, int window, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
-  const int* lens = static_cast<const int*>(kv_lengths);
-  const int* offs = static_cast<const int*>(q_offsets);
-  const int* begins = static_cast<const int*>(kv_begins);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    // bf16 at D 64 and 128 is the wgmma body's (flash_attention_wgmma_fwd)
-    if (D != 32) return (int)cudaErrorInvalidValue;
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, o, lens, offs, begins, B,
-                                          Hq, Hkv, Sq, Skv, causal, window,
-                                          st);
-  }
-  return (int)dispatch_f32(D, q, k, v, o, lens, offs, begins, B, Hq, Hkv, Sq,
-                           Skv, causal, window, st);
+  return (int)dispatch_f32(D, q, k, v, o, static_cast<const int*>(kv_lengths),
+                           static_cast<const int*>(q_offsets),
+                           static_cast<const int*>(kv_begins), B, Hq, Hkv, Sq,
+                           Skv, causal, window,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // the wgmma body: bf16 q, k, v at D 64 or 128
@@ -306,6 +300,27 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
                                 Sq, Skv, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// the d32 body: bf16 q, k, v at D 32
+extern "C" int flash_attention_d32_fwd(const void* q, const void* k,
+                                       const void* v, void* o,
+                                       const void* kv_lengths,
+                                       const void* q_offsets,
+                                       const void* kv_begins, int B, int Hq,
+                                       int Hkv, int Sq, int Skv, int D,
+                                       int causal, int window, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
+      D != 32)
+    return (int)cudaErrorInvalidValue;
+  return (int)fd32::launch(q, k, v, o, static_cast<const int*>(kv_lengths),
+                           static_cast<const int*>(q_offsets),
+                           static_cast<const int*>(kv_begins), B, Hq, Hkv, Sq,
+                           Skv, causal, window,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// the d32 body's dynamic shared memory a CTA, in bytes
+extern "C" int flash_attention_d32_smem() { return (int)fd32::smem_bytes(); }
 
 // the wgmma body's dynamic shared memory a CTA at head dim D, in bytes
 extern "C" int flash_attention_wgmma_smem(int D) {

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma bodies of K5 (int4_wgmma.cuh),
-// K2 (int8_wgmma.cuh), K1 (flash_wgmma.cuh), K3 (paged_wgmma.cuh), K6
-// (w4a8_wgmma.cuh), K4 (w8a8_wgmma.cuh) and P (probe_wgmma.cuh) and by the
+// K2 (int8_wgmma.cuh), K1 (flash_wgmma.cuh, flash_d32.cuh), K3
+// (paged_wgmma.cuh), K6 (w4a8_wgmma.cuh), K4 (w8a8_wgmma.cuh) and P
+// (probe_wgmma.cuh) and by the
 // stream bodies of K5, K2 and K6 (*_stream.cuh): mbarriers, TMA tensor-map
 // loads (P's multicast across a cluster too), ldmatrix, the wgmma
 // shared-memory descriptor and the wgmma instructions they issue, all as
@@ -21,6 +22,13 @@
 //     the bytes between two 64-wide n blocks, SBO = 1024 (the next 8 k
 //     rows); a k16 step advances the start by 16 lines (2048 bytes). The
 //     instruction's transpose bit for B is set.
+// K1's D 32 body (flash_d32.cuh) alone uses the 64-byte swizzle, since its
+// rows are 64 bytes: a tile of 64-byte lines, the 16-byte chunk c of line r
+// at chunk c ^ ((r / 2) % 4); eight lines (512 bytes, 512-byte aligned) form
+// one atom (CU_TENSOR_MAP_SWIZZLE_64B with a 64-byte inner box; descriptor
+// `desc_sw64`). K-major (Q, K): SBO = 512, a k16 step advances the start by
+// 32 bytes of the line. MN-major (V, N = 32 = one line): SBO = 512 (the next
+// 8 k rows), a k16 step advances the start by 16 lines (1024 bytes).
 //
 // The TMA descriptor encoder is a driver-API function. It is fetched once
 // through the runtime (cudaGetDriverEntryPoint), so the libraries link the
@@ -265,6 +273,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   return d;
 }
 
+// ... and with the 64-byte swizzle (layout type 2)
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)2 << 62;
+  return d;
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -445,6 +463,60 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64] with A and B from shared memory
+// (K1's D 32 body: S = Q K^T over a 64-row kv tile) ...
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ... starting from zero
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64_zero(float* d, uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "n"(0), "n"(TB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A from registers (K1's D 32
+// body: O += P V)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
 }

@@ -35,12 +35,17 @@ _I = ctypes.c_int
 SIGNATURES: dict[str, dict[str, list]] = {
     "flash_attention": {
         # q, k, v, out, kv_lengths, q_offsets, kv_begins,
-        # B, Hq, Hkv, Sq, Skv, D, causal, window, is_bf16, stream
-        "flash_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],
-        # the same without is_bf16 (the wgmma body takes bf16 alone)
+        # B, Hq, Hkv, Sq, Skv, D, causal, window, stream (the CUDA-core
+        # body, f32)
+        "flash_attention_fwd": [_P] * 7 + [_I] * 8 + [_P],
+        # the same arguments (the wgmma body, bf16 at D 64 and 128)
         "flash_attention_wgmma_fwd": [_P] * 7 + [_I] * 8 + [_P],
         # head dim -> the wgmma body's dynamic shared memory in bytes
         "flash_attention_wgmma_smem": [_I],
+        # the same arguments (the d32 body, bf16 at D 32)
+        "flash_attention_d32_fwd": [_P] * 7 + [_I] * 8 + [_P],
+        # the d32 body's dynamic shared memory in bytes
+        "flash_attention_d32_smem": [],
     },
     "int8_matmul": {
         # x, q, scale, out, workspace, M, D, F, splits, is_bf16, stream

@@ -10,10 +10,12 @@ statistics and the accumulator are f32; the output is in q's dtype; a
 query row with no attendable key emits zeros.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors — on no other condition. Of the kernel's two
-bodies, :func:`flash_body` picks one from dtype and head dim alone: the
-Hopper wgmma body (``csrc/flash_wgmma.cuh``) for bf16 at D 64 and 128,
-the CUDA-core body for f32 and D 32.
+plain version for CPU tensors — on no other condition. Of the kernel's
+three bodies, :func:`flash_body` picks one from dtype and head dim alone:
+the Hopper wgmma body (``csrc/flash_wgmma.cuh``) for bf16 at D 64 and 128,
+the Hopper d32 body (``csrc/flash_d32.cuh``: wgmma on the 64-byte swizzle)
+for bf16 at D 32 — the MiniLM encoder's attention — and the CUDA-core body
+for f32.
 """
 
 from __future__ import annotations
@@ -27,15 +29,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the wgmma body takes (bf16 only)
 WGMMA_HEAD_DIMS = (64, 128)
 #: K1's bodies, the keys of ``flash_attention.launches_by_body``
-BODIES = ("wgmma", "simt")
+BODIES = ("wgmma", "d32", "simt")
 
 
 def flash_body(dtype: torch.dtype, d: int) -> str:
-    """The body of K1 that a CUDA call runs: ``"wgmma"`` for bf16 at a
-    head dim in ``WGMMA_HEAD_DIMS``, else ``"simt"`` (f32 FMAs on the CUDA
-    cores). Mistral-7B's prefill (bf16, D 128) is ``"wgmma"``."""
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    """The body of K1 that a CUDA call runs: at bf16, ``"wgmma"`` for a
+    head dim in ``WGMMA_HEAD_DIMS`` and ``"d32"`` for head dim 32; at f32,
+    ``"simt"`` (f32 FMAs on the CUDA cores) at every head dim. Mistral-7B's
+    prefill (bf16, D 128) is ``"wgmma"``, minilm-l6's attention (bf16, D
+    32) ``"d32"``."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if d in WGMMA_HEAD_DIMS else "d32"
     return "simt"
 
 
@@ -138,9 +142,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if body == "wgmma":
         err = lib.flash_attention_wgmma_fwd(*args, stream)
+    elif body == "d32":
+        err = lib.flash_attention_d32_fwd(*args, stream)
     else:
-        err = lib.flash_attention_fwd(
-            *args, int(q.dtype == torch.bfloat16), stream)
+        err = lib.flash_attention_fwd(*args, stream)
     _build.check("flash_attention", err, f"flash_attention launch ({body})")
     flash_attention.launches += 1
     flash_attention.launches_by_body[body] += 1

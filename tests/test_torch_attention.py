@@ -3,6 +3,8 @@
 #
 # Tolerances are the JAX package's own for flash vs XLA attention
 # (ops/flash_attention.py:10-11): 1e-5 in float32, 2e-2 in bfloat16.
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,7 +184,7 @@ def test_decode_prefix_window_matches_jax(window, w, kv_len, dtype):
 
 @pytest.mark.parametrize("dtype,d,body", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 32, "d32"), (torch.float32, 128, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 32, "simt")])
 def test_flash_body_rule(dtype, d, body):
     # K1's body is chosen from dtype and head dim alone
@@ -212,3 +214,118 @@ def test_flash_wrapper_on_cpu_counts_no_body():
                                                     window=16))
     assert tfa.flash_attention.launches_by_body == before
     assert sorted(before) == sorted(tfa.BODIES)
+
+
+def test_flash_wrapper_at_d32_on_cpu_counts_no_body():
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as tfa
+
+    # the encoder's call: bf16, head dim 32, non-causal, padded rows
+    assert "d32" in tfa.BODIES and "d32" in tfa.flash_attention.launches_by_body
+    _, (tq, tk, tv) = _both(_qkv(5, b=2, hq=2, hkv=2, s_q=40), "bfloat16")
+    lens = torch.tensor([40, 9], dtype=torch.int32)
+    before = dict(tfa.flash_attention.launches_by_body)
+    launches = tfa.flash_attention.launches
+    got = tfa.flash_attention(tq, tk, tv, causal=False, kv_lengths=lens)
+    assert torch.equal(got, tfa.flash_attention_ref(tq, tk, tv, causal=False,
+                                                    kv_lengths=lens))
+    assert tfa.flash_attention.launches_by_body == before
+    assert tfa.flash_attention.launches == launches
+
+
+def _d32_body_mirror(q, k, v, *, causal, window=0, kv_lengths=None,
+                     q_offsets=None, kv_begins=None, bn=64):
+    """The arithmetic of K1's d32 body (csrc/flash_d32.cuh) in plain
+    PyTorch, where it differs from ``flash_attention_ref``: kv tiles of 64
+    in order with an online softmax, the running max in raw units,
+    probabilities 2^(s c - m c) with c = log2(e) / sqrt(D) folded in, P
+    split into bf16 hi = bf16(P) and lo = bf16(P - hi), each part times the
+    bf16 V summed in f32, O / l at the end (0 for an empty row), rounded
+    to bf16. Dead tiles, which the body skips, change nothing here: a
+    fully masked tile leaves the max, and so the sums, as they were."""
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as tfa
+
+    b, hq, s_q, d = q.shape
+    hkv, s_kv = k.shape[1], k.shape[2]
+    lens, offs, begins = tfa._row_params(b, s_kv, kv_lengths, q_offsets,
+                                         kv_begins, "cpu")
+    mask = tfa._mask(b, s_q, s_kv, lens, offs, begins, causal=causal,
+                     window=window, device="cpu")[:, None]
+    c = torch.tensor(1.4426950408889634 / math.sqrt(d), dtype=torch.float32)
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    vf = v.float().repeat_interleave(hq // hkv, dim=1)
+    m = torch.full((b, hq, s_q), float("-inf"))
+    l_sum = torch.zeros(b, hq, s_q)
+    acc = torch.zeros(b, hq, s_q, d)
+    for kt in range(0, s_kv, bn):
+        s = q.float() @ kf[:, :, kt:kt + bn].transpose(-1, -2)
+        s = s.masked_fill(~mask[..., kt:kt + bn], float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        mu = torch.where(mx == float("-inf"), torch.zeros(()), mx)
+        corr = torch.exp2((m - mu) * c)
+        p = torch.exp2(s * c - (mu * c)[..., None])
+        l_sum = l_sum * corr + p.sum(-1)
+        m = mx
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        acc = acc * corr[..., None] + hi @ vf[:, :, kt:kt + bn] \
+            + lo @ vf[:, :, kt:kt + bn]
+    inv = torch.where(l_sum == 0, torch.zeros(()), 1.0 / l_sum)
+    return (acc * inv[..., None]).to(torch.bfloat16)
+
+
+# the d32 body's cases: the encoder's (non-causal, kv_lengths padding, a
+# length-1 row, its smallest bucket), then the masks it shares with K1's
+# other bodies, at head dim 32
+D32_CASES = [
+    ("encoder", dict(b=3, hq=2, hkv=2, s_q=100), dict(causal=False),
+     dict(kv_lengths=[100, 37, 1])),
+    ("encoder_bucket32", dict(b=4, hq=2, hkv=2, s_q=32), dict(causal=False),
+     dict(kv_lengths=[32, 17, 2, 1])),
+    ("causal_gqa", dict(s_q=150), dict(causal=True), None),
+    ("window", dict(s_q=96), dict(causal=True, window=24), None),
+    ("offsets_begins", dict(b=3, s_q=40, s_kv=130), dict(causal=True),
+     dict(q_offsets=[90, 0, 10], kv_begins=[5, 0, 3],
+          kv_lengths=[130, 40, 0])),
+]
+
+
+@pytest.mark.parametrize("name,shape,mask,rows", D32_CASES,
+                         ids=[c[0] for c in D32_CASES])
+def test_d32_body_mirror_matches_jax_flash(name, shape, mask, rows):
+    # the d32 body's rounding (P as bf16 hi + lo, base-2 exponentials with
+    # the scale folded in, 64-key tiles) against the JAX package's Pallas
+    # kernel, run through its interpreter at bf16: within the bf16
+    # tolerance, and so within it of the port's plain version too
+    arrays = _qkv(len(name) + 32, **shape)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bfloat16")
+    rows = rows or {}
+    jrows = {k: jnp.asarray(v, jnp.int32) for k, v in rows.items()}
+    trows = {k: torch.tensor(v, dtype=torch.int32) for k, v in rows.items()}
+    want = jax_flash(jq, jk, jv, **mask, **jrows, block_q=32, block_kv=32,
+                     interpret=True)
+    got = _d32_body_mirror(tq, tk, tv, **mask, **trows)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, want, "bfloat16")
+    _close(got, flash_attention_ref(tq, tk, tv, **mask, **trows),
+           "bfloat16")
+    if "kv_lengths" in rows and 0 in rows["kv_lengths"]:
+        assert torch.count_nonzero(got[rows["kv_lengths"].index(0)]) == 0
+
+
+def test_d32_split_carries_p_and_widens_by_bits():
+    # hi = bf16(p), lo = bf16(p - hi) carry p to ~2^-16 relative (the
+    # body's reason for two passes); and its widening of a packed bf16x2
+    # word by bit operations (low half << 16, high half & 0xffff0000) is
+    # the bf16 -> f32 conversion, with the first value in the low half as
+    # __floats2bfloat162_rn packs it
+    p = torch.from_numpy(np.random.default_rng(3).random(4096,
+                                                         dtype=np.float32))
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    assert ((hi.float() + lo.float() - p).abs() <= p * 2.0 ** -16).all()
+    words = hi.view(torch.int16).numpy().astype(np.uint16).astype(np.uint32)
+    packed = words[0::2] | (words[1::2] << 16)
+    low = (packed << 16).view(np.float32)
+    high = (packed & 0xFFFF0000).astype(np.uint32).view(np.float32)
+    np.testing.assert_array_equal(low, hi.float().numpy()[0::2])
+    np.testing.assert_array_equal(high, hi.float().numpy()[1::2])

@@ -118,6 +118,9 @@ PORTED = {
     "ops/probe_stream.py": "P's wrappers and plain versions",
     "ops/quant_matmul.py": "K2, K4, K5, K6's wrappers and plain versions",
     "scripts/__init__.py": "the port's scripts package",
+    "scripts/flash_d32_variants.py": "times variants of K1's d32 body on "
+                                     "the card; no JAX counterpart (the "
+                                     "body is the port's own)",
     "scripts/probe_stream.py": "the weight-stream probe's driver on the "
                                "card",
 }

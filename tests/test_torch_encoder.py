@@ -178,6 +178,18 @@ def test_encode_plain_attention_equals_auto_on_the_cpu():
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "d32"),
+                                        (torch.float32, "simt")])
+def test_minilm_attention_takes_the_d32_body_at_bf16(dtype, body):
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as tfa
+
+    # minilm-l6's 12 heads of 32: at bf16 (the embedding engine's dtype)
+    # K1's tensor-core d32 body, at f32 the CUDA-core body
+    head_dim = encoder_config("minilm-l6").head_dim
+    assert head_dim == 32
+    assert tfa.flash_body(dtype, head_dim) == body
+
+
 def test_encode_refuses_more_than_max_positions():
     _, tc, _, tp = _pair("tiny")
     tokens = torch.zeros((1, tc.max_positions + 1), dtype=torch.int32)

@@ -107,6 +107,7 @@ def test_no_module_level_import_of_optional_packages(path):
     # the Hopper bodies, headers of the library that launches them
     ("int4_wgmma.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
     ("flash_wgmma.cuh", "copilot_for_consensus_tpu/ops/flash_attention.py"),
+    ("flash_d32.cuh", "copilot_for_consensus_tpu/ops/flash_attention.py"),
     ("int8_wgmma.cuh", "copilot_for_consensus_tpu/ops/quant_matmul.py"),
     ("paged_decode.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py"),
     ("paged_wgmma.cuh", "copilot_for_consensus_tpu/ops/paged_attention.py"),
