@@ -194,6 +194,36 @@ non-zero before the last line:
    exact f32 scan's for 16 queries, ties aside; IVF recall@10 against the
    flat route >= 0.95 while scanning <= 15% of the lists; ingest s, index
    build s, QPS, p50/p95 ms a route.
+22. deadlines — (after phase 17) a contiguous int8 engine like the serve
+   phase's, graphs warm: a request with ``deadline_s=0`` dropped at the
+   next step with no tokens and no launch; a slot whose deadline passes
+   after the second dispatch retired with partial tokens and
+   ``finish_reason="deadline"``, the other three slots' greedy streams
+   equal to a run without it (same waves, rows and kv buckets);
+23. journal — (after phase 21) the request journal's warm restart through
+   the port's storm driver (``tools/journal_storm.py``) in child
+   processes at mistral-7b's full width (int8 weights from seed 0, bf16,
+   checkpoints every 8 steps): an uninterrupted child, one SIGKILLed
+   after 9 steps, one that resumes on its journal: lost 0, duplicated 0,
+   replayed > 0, final depth 0, each resumed stream starting with its
+   checkpointed tokens (streams equal to the uninterrupted run printed,
+   not gated, at bf16); then the kill in process at f32 on 2 layers of
+   mistral-7b's widths: streams equal, or a divergence only where the
+   top-2 logits are within 1e-5 relative;
+24. paged_fp8 — (after phase 18) the paged serve phase's first two
+   rounds on a paged engine with ``kv_dtype="float8_e4m3fn"``: every K3
+   call asserts the CUDA-core body (the fp8 pool read in place, admission
+   and decode), no plain version; agreement with the bf16 rounds printed;
+25. telemetry_cost — phase 6's trace runs with the engine's telemetry on
+   (its default), then again on the same engine with it off: step ms and
+   busy ms a step side by side.
+
+The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
+llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
+journal under a temporary directory): the ``copilot_engine_*`` series on
+the service's collector count admissions, steps and retirements, and the
+journal ends empty. K3's cases include f16 and fp8 e5m2 pools and an
+fp8 seeded pass on the CUDA-core body, each asserting its body.
 
 K1's cases in phase 3 include the encoder's, non-causal: ``enc_s512``
 (B 64, 12 heads of 32, S 512, lengths over 1-512) on the d32 body, timed
@@ -222,7 +252,8 @@ seeded bodies, and K5's and K6's stream and tiled bodies as two rows
 each; K4's wgmma body with the mma.sync tiling's time beside it; and
 P's five modes, each with its launches on every path, the four on the
 wgmma body with the mma.sync body's time beside them) as one JSON line —
-each row's ``launches`` from its main path, the pipeline phase's
+each row's ``launches`` from its main path (K3's fp8 row, its CUDA-core
+body at the decode shape on an fp8 pool: ``paged_fp8``), the pipeline phase's
 synchronous run for K1's wgmma body and K2, its retrieval run for K1's
 d32 body (its own row), every path's count beside it — the
 nvidia-smi line, and last
@@ -240,6 +271,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -311,7 +343,7 @@ P_BIT_EQUAL = ("i8dot", "unpack8", "unpack32")
 LOGITS_REL_L2 = 5e-2
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
-              "int8": 1979e12}
+              "int8": 1979e12, "float16": 989e12, "float8_e5m2": 1979e12}
 #: the int4 / a8 main path's projections (D, F) of mistral-7b: the fused
 #: q/k/v and gate/up leaves, wo, w_down and the lm_head
 INT4_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
@@ -1458,14 +1490,22 @@ def k3_cases():
     """(label, pool dtype, window, rows R, lengths) at the paged main
     path's shapes: B 8, Hkv 8, D 128, blocks of 64 in a 1024-block pool.
     Decode: R = 4 (the group of Hq 32 / Hkv 8), a 64-entry table. Seeded
-    admission: R = 4·S query rows against prefixes read from the pool."""
+    admission: R = 4·S query rows against prefixes read from the pool.
+    bf16 pools take the decode and seeded bodies; f32, f16 and fp8 pools
+    (e4m3, the fp8 KV cache's, and e5m2) the CUDA-core body."""
     dec = [0, 1, 64, 65, 1000, 4095, 2048, 777]
     return [
         ("decode", "bfloat16", 4096, 4, dec),
         ("decode_w100", "bfloat16", 100, 4, dec),
         ("decode", "float32", 4096, 4, dec),
         ("decode", "float8_e4m3fn", 4096, 4, dec),
+        # the other pool dtypes K3's CUDA-core body converts on load
+        ("decode", "float16", 4096, 4, dec),
+        ("decode", "float8_e5m2", 4096, 4, dec),
         ("seeded_s64", "bfloat16", 0, 4 * 64,
+         [0, 64, 128, 333, 512, 700, 960, 1]),
+        # an fp8 pool's seeded hits (the paged_fp8 phase's admission)
+        ("seeded_s64", "float8_e4m3fn", 0, 4 * 64,
          [0, 64, 128, 333, 512, 700, 960, 1]),
         ("seeded_s1024", "bfloat16", 0, 4 * 1024, [128] * 8),
     ]
@@ -1587,8 +1627,15 @@ def phase_k3(dev, flush):
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         q_pos = lengths + 2
         args = (q, pk, pv, li, tables, lengths, q_pos)
+        body = pa.paged_body(r, qdt, dt, d, blk)
+        before = pa.paged_attention_partial.launches_by_body[body]
         part = pa.paged_attention_partial(*args, window=window)
         torch.cuda.synchronize()
+        want = ("decode" if r <= 16 else "seeded") if pdt == "bfloat16" \
+            else "simt"
+        if body != want or \
+                pa.paged_attention_partial.launches_by_body[body] != before + 1:
+            raise AssertionError(f"K3 {label} {pdt}: ran {body}, not {want}")
         ref = pa.paged_attention_partial_ref(*args, window=window)
         # the normalised output, and the raw (m, l) row by row
         err, m_err, l_err, ok = k3_errors(part, ref)
@@ -1615,7 +1662,6 @@ def phase_k3(dev, flush):
         mask = (t < lengths.long()[:, None]) & (t >= lo[:, None])
         grp = 4
         qs = q.reshape(b, hkv * grp, r // grp, d)
-        body = pa.paged_body(r, qdt, dt, d, blk)
         row = {"kernel": "K3", "case": label, "dtype": pdt,
                "shape": [b, hkv, r, d, blk, nb], "window": window,
                "body": body, "max_abs_err": err, "tol": K3_ATOL,
@@ -2047,6 +2093,101 @@ def phase_async_serve(dev, cfg, params, smi, batch_tokens):
     return row
 
 
+def phase_deadlines(dev, cfg, params, smi):
+    """Per-request deadlines on a contiguous int8 engine like the serve
+    phase's (4 slots, max_len 4096), its graphs warm: a request submitted
+    with ``deadline_s=0`` is dropped at the next step uncomputed (no K1 or
+    K2 launch); then 4 of the synthetic prompts, the shortest last, with
+    48 new tokens, the shortest one's deadline moved to the present after
+    the second dispatch, as a deadline that expires there would be: its
+    slot retires with partial tokens and ``finish_reason="deadline"``, and
+    the other three greedy streams must equal those of a run of the three
+    alone on the same engine (the same waves, rows and kv buckets)."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.tokenizer import (
+        ByteTokenizer,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        build_prompt,
+    )
+
+    new_tokens = 48
+    eng = GenerationEngine(cfg, params, num_slots=4, max_len=4096,
+                           quantize="int8", device=dev)
+    tok = ByteTokenizer(max(259, cfg.vocab_size))
+    prompts = sorted((tok.encode(build_prompt(t), add_bos=True)
+                      for t in synthetic_threads(4)), key=len, reverse=True)
+    eng.generate(prompts, 16)                  # warm: the graphs captured
+
+    def run(reqs, expire=None):
+        rids = [eng.submit(p, new_tokens, **kw) for p, kw in reqs]
+        done, steps = {}, 0
+        while eng._queue or eng._active or eng._done:
+            steps += 1
+            for c in eng.step():
+                done[c.request_id] = c
+            if steps == 2 and expire is not None:
+                req = next(r for r in eng._active.values()
+                           if r.request_id == rids[expire])
+                req.deadline_at = time.monotonic()
+        torch.cuda.synchronize()
+        return [done[r] for r in rids]
+
+    reset_launches()
+    dropped = run([(prompts[0], {"deadline_s": 0.0})])[0]
+    drop_launches = read_launches()
+    reset_launches()
+    with_victim = run([(p, {}) for p in prompts[:3]]
+                      + [(prompts[3], {"deadline_s": 3600.0})], expire=3)
+    victim_launches, victim_bodies = read_launches(), read_bodies()
+    alone = run([(p, {}) for p in prompts[:3]])
+    victim = with_victim[3]
+    equal = [a.tokens == b.tokens for a, b in zip(with_victim[:3], alone)]
+    row = {"phase": "deadlines", "config": cfg.name,
+           "dropped": {"finish": dropped.finish_reason,
+                       "tokens": len(dropped.tokens),
+                       "launches": drop_launches},
+           "victim": {"finish": victim.finish_reason,
+                      "tokens": len(victim.tokens),
+                      "prompt_tokens": victim.prompt_len},
+           "others_equal_alone": equal,
+           "other_tokens": [len(c.tokens) for c in with_victim[:3]],
+           "deadline_expired": eng.deadline_expired,
+           "launches": victim_launches, "launches_by_body": victim_bodies,
+           "graphs": eng.graph_stats(), "device": smi}
+    emit(row)
+    if (dropped.finish_reason, dropped.tokens) != ("deadline", []) or \
+            any(drop_launches.values()):
+        raise AssertionError(f"deadlines: the expired request was not "
+                             f"dropped uncomputed: {row['dropped']}")
+    if victim.finish_reason != "deadline" or not \
+            0 < len(victim.tokens) < new_tokens:
+        raise AssertionError(f"deadlines: the victim {row['victim']}")
+    if not all(equal) or eng.deadline_expired != 2:
+        raise AssertionError(f"deadlines: the other slots' streams moved: "
+                             f"{equal}")
+    check_path("deadlines", victim_launches, ("K1", "K2"))
+    check_bodies("deadlines", victim_bodies)
+    check_k2_passes("deadlines", victim_launches, victim_bodies,
+                    cfg.n_layers)
+    return victim_launches, victim_bodies
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield fn
+    finally:
+        setattr(module, name, saved)
+
+
 @contextlib.contextmanager
 def plain_calls():
     """Count the calls of every kernel's plain version inside the block
@@ -2093,13 +2234,31 @@ def _histogram(p, name: str) -> dict:
     return {"sum": total[0], "count": total[1]}
 
 
+def _counter(p, name: str) -> float:
+    """A counter the pipeline's collector holds, summed over its label
+    sets."""
+    return sum(p.metrics.snapshot()["counters"].get(name, {}).values())
+
+
+def deployed_llm(journal: Path) -> dict:
+    """``deploy/config/pipeline.json``'s llm block (read, never written):
+    its resilience keys, the journal moved to ``journal``."""
+    block = json.loads((Path(__file__).resolve().parent / "deploy" /
+                        "config" / "pipeline.json").read_text())["llm"]
+    return {"supervisor": block["supervisor"],
+            "deadline_s": block["deadline_s"],
+            "journal": {**block["journal"], "path": str(journal)}}
+
+
 def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path,
-                  retrieval: bool = False) -> dict:
+                  retrieval: bool = False,
+                  journal: Path | None = None) -> dict:
     """``build_pipeline`` with the cuda driver over ``ckpt`` on the
     fixture mbox (with the port's cuda embedding and vector-store drivers
-    where ``retrieval``, else the mock embedder and the memory store); the
-    launches, bodies and plain-version calls of its run, and what it
-    stored."""
+    where ``retrieval``, else the mock embedder and the memory store; with
+    the deployed llm block's supervisor, deadline and journal, at
+    ``journal``, where it is given); the launches, bodies and
+    plain-version calls of its run, and what it stored."""
     import torch
 
     from copilot_for_consensus_tpu_torch.services.runner import (
@@ -2110,7 +2269,9 @@ def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path,
     p = build_pipeline({"llm": {"driver": "cuda", "model": "mistral-7b",
                                 "checkpoint": str(ckpt),
                                 "max_new_tokens": 64, "num_slots": 4,
-                                "pipelined": pipelined},
+                                "pipelined": pipelined,
+                                **(deployed_llm(journal) if journal
+                                   else {})},
                         **(RETRIEVAL if retrieval else
                            {"embedding": {"driver": "mock"}})})
     build_s = time.monotonic() - t0
@@ -2174,6 +2335,21 @@ def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path,
                 r.kind == "embed" and r.seq > seq0
                 for r in embed_tel.recorder.records()),
             "search_threads": sorted(r["thread_id"] for r in search)}
+    if journal is not None:
+        # the deployed block: the engine's series on the service's
+        # collector, and its journal
+        eng = summ.engine
+        run["deployed"] = {
+            "supervisor": summ.supervisor, "deadline_s": summ.deadline_s,
+            "telemetry_on_service_collector":
+                eng.telemetry.metrics is p.metrics,
+            "engine_series": {
+                "admitted": _histogram(p, "engine_queue_wait_seconds")
+                ["count"],
+                "steps": _histogram(p, "engine_step_seconds")["count"],
+                "retired": _counter(p, "engine_requests_total")},
+            "journal": eng.journal_stats(),
+            "deadline_expired": eng.deadline_expired}
     summ.close()
     return run
 
@@ -2196,6 +2372,14 @@ def _check_pipeline(label: str, run: dict, cfg,
     if not run["device"].startswith("cuda") or run["in_flight"]:
         raise AssertionError(f"{label}: engine on {run['device']}, "
                              f"{run['in_flight']} in flight")
+    dep = run.get("deployed")
+    if dep is not None and not (
+            dep["supervisor"] is True and dep["deadline_s"] == 300
+            and dep["telemetry_on_service_collector"]
+            and all(dep["engine_series"].values())
+            and dep["journal"]["enabled"] and dep["journal"]["depth"] == 0
+            and dep["journal"]["retired"] >= stats["summaries"]):
+        raise AssertionError(f"{label}: the deployed llm block {dep}")
     if any(run["plain_calls"].values()):
         raise AssertionError(f"{label}: plain versions ran: "
                              f"{run['plain_calls']}")
@@ -2245,7 +2429,12 @@ def phase_pipeline(dev, cfg, params, smi):
     one synthetic thread (equal greedy token streams), then
     ``build_pipeline`` with the cuda driver over the checkpoint on the
     fixture mbox, synchronous and pipelined (``summarize_async`` and the
-    runner): one archive, a cited report a thread (≥ 3), every citation a
+    runner; the pipelined run with ``deploy/config/pipeline.json``'s llm
+    block under the cuda driver — supervisor, ``deadline_s`` 300 and the
+    journal, under a temporary directory, checkpointing every 8 steps —
+    whose ``copilot_engine_*`` series must reach the service's collector
+    with admissions, steps and retirements counted, and whose journal must
+    end empty): one archive, a cited report a thread (≥ 3), every citation a
     stored chunk, the engine on the card, K1 and K2 the only kernels
     launched (K1's wgmma body, K2's stream and wgmma bodies) and no plain
     version called. The two modes must report the same threads with the
@@ -2285,6 +2474,8 @@ def phase_pipeline(dev, cfg, params, smi):
         raise RuntimeError(f"pipeline: {free} bytes free under "
                            f"{ckpt.parent}, the checkpoint needs {nbytes}")
     shutil.rmtree(ckpt, ignore_errors=True)
+    # the deployed block's journal, under a temporary directory
+    jdir = tempfile.mkdtemp(prefix="pipeline-journal-")
     try:
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -2335,8 +2526,11 @@ def phase_pipeline(dev, cfg, params, smi):
 
         runs = {}
         for mode in ("sync", "pipelined", "retrieval"):
-            runs[mode] = _pipeline_run(ckpt, mode == "pipelined", mbox,
-                                       retrieval=mode == "retrieval")
+            runs[mode] = _pipeline_run(
+                ckpt, mode == "pipelined", mbox,
+                retrieval=mode == "retrieval",
+                journal=Path(jdir) / "engine-journal.sqlite3"
+                if mode == "pipelined" else None)
             gc.collect()
             torch.cuda.empty_cache()
         sync, piped = runs["sync"], runs["pipelined"]
@@ -2356,6 +2550,8 @@ def phase_pipeline(dev, cfg, params, smi):
                         "embed_s": r["embed_s"], "query_s": r["query_s"],
                         **({"retrieval": r["retrieval"]}
                            if "retrieval" in r else {}),
+                        **({"deployed": r["deployed"]}
+                           if "deployed" in r else {}),
                         "pipelined": r["pipelined"],
                         "launches": r["launches"],
                         "launches_by_body": r["bodies"],
@@ -2380,6 +2576,196 @@ def phase_pipeline(dev, cfg, params, smi):
         return runs
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(jdir, ignore_errors=True)
+
+
+#: the journal phase's storm: the port's storm driver at mistral-7b's full
+#: width (int8, bf16, contiguous), the deployed journal's checkpoint
+#: cadence, killed after this many steps (the second wave's slots
+#: checkpointed, the third queued)
+STORM = dict(requests=12, new_tokens=24, seed=7, checkpoint_every=8,
+             kill_after=9)
+#: the in-process repeat at f32: mistral-7b's widths, this many layers
+STORM_F32_LAYERS = 2
+#: a stream of the f32 repeat may leave the uninterrupted run's only where
+#: the top-2 logits at its first divergent token are this close (relative)
+STORM_F32_GAP = 1e-5
+
+
+def _storm_lines(path: Path) -> tuple[dict, int]:
+    out, dup = {}, 0
+    if path.exists():
+        for line in path.read_text().splitlines():
+            d = json.loads(line)
+            dup += d["cid"] in out
+            out[d["cid"]] = d["tokens"]
+    return out, dup
+
+
+def _storm_child(tmp: Path, name: str, journal: Path,
+                 kill_after: int = 0) -> tuple[int, dict | None, float]:
+    """One storm process on the card (the driver of
+    ``copilot_for_consensus_tpu_torch/tools/journal_storm.py``): its exit
+    code, its result (None when it was killed) and its wall seconds."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m",
+           "copilot_for_consensus_tpu_torch.tools.journal_storm",
+           "--journal", str(journal), "--out", str(tmp / f"{journal.stem}"
+                                                   ".jsonl"),
+           "--result", str(tmp / f"{name}.json"),
+           "--requests", str(STORM["requests"]),
+           "--new-tokens", str(STORM["new_tokens"]),
+           "--seed", str(STORM["seed"]),
+           "--checkpoint-every", str(STORM["checkpoint_every"]),
+           "--model", "mistral-7b", "--quantize", "int8",
+           "--dtype", "bfloat16", "--device", "cuda"]
+    if kill_after:
+        cmd += ["--kill-after-step", str(kill_after)]
+    env = {**os.environ, "PYTHONPATH": str(here) + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    t0 = time.monotonic()
+    r = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                       text=True, timeout=300)
+    wall = time.monotonic() - t0
+    res = tmp / f"{name}.json"
+    if r.returncode not in (0, -9) or (r.returncode == 0) != res.exists():
+        raise AssertionError(f"journal: storm {name} exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return r.returncode, (json.loads(res.read_text()) if res.exists()
+                          else None), wall
+
+
+def _top2_gap(params, cfg, prompt: list[int], tokens: list[int]) -> float:
+    """(top-1 - top-2) / |top-1| of the logits that chose ``tokens``'
+    next token after ``prompt + tokens``."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder
+
+    seq = torch.tensor([prompt + tokens], device=params["tok_emb"].device)
+    with torch.inference_mode():
+        lg = decoder.forward(params, seq, cfg)[0, -1].double()
+    top = torch.topk(lg, 2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def phase_journal(dev, smi):
+    """The request journal's warm restart on the card, through the port's
+    storm driver: at mistral-7b's full width (int8 weights from seed 0,
+    bf16, 4 contiguous slots, checkpoints every 8 steps, as the deployed
+    journal), an uninterrupted child, a child SIGKILLed after
+    ``STORM["kill_after"]`` steps, and a child that resumes on its journal
+    file: lost 0, duplicated 0, replayed > 0, final depth 0, and each
+    resumed stream starts with exactly the tokens its row had
+    checkpointed; how many streams equal the uninterrupted run's is
+    printed, not gated (bf16 prefill and decode round differently). Then
+    the kill in process at f32 on ``STORM_F32_LAYERS`` layers of
+    mistral-7b's widths (the engine dropped mid-storm, rebuilt on the same
+    file): every stream must equal the uninterrupted run's, unless the
+    top-2 logits at its first divergent token are closer than
+    ``STORM_F32_GAP`` relative (printed)."""
+    import tempfile
+
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.journal import (
+        EngineJournal,
+    )
+    from copilot_for_consensus_tpu_torch.tools import journal_storm
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        rc_ref, ref_res, ref_s = _storm_child(tmp, "ref", tmp / "ref.sqlite3")
+        rc_kill, _, kill_s = _storm_child(tmp, "kill", tmp / "kill.sqlite3",
+                                          kill_after=STORM["kill_after"])
+        before, _ = _storm_lines(tmp / "kill.jsonl")
+        rc_res, res, res_s = _storm_child(tmp, "resume", tmp / "kill.sqlite3")
+        ref, _ = _storm_lines(tmp / "ref.jsonl")
+        got, dup = _storm_lines(tmp / "kill.jsonl")
+    lost = sorted(set(ref) - set(got))
+    resumed = res["resumed"]
+    starts = {c: got.get(c, [])[:len(t)] == t for c, t in resumed.items()}
+    row = {"phase": "journal", "config": "mistral-7b", "quantize": "int8",
+           "dtype": "bfloat16", "storm": STORM,
+           "exit": {"ref": rc_ref, "kill": rc_kill, "resume": rc_res},
+           "wall_s": {"ref": ref_s, "kill": kill_s, "resume": res_s},
+           "build_s": {"ref": ref_res["build_s"], "resume": res["build_s"]},
+           "completed_before_kill": len(before),
+           "replayed": res["journal_replayed"],
+           "abandoned": res["journal_abandoned"],
+           "final_depth": res["journal_depth"], "lost": len(lost),
+           "duplicated": dup,
+           "checkpointed_tokens": {c: len(t) for c, t in resumed.items()},
+           "resumed_start_with_checkpoint": all(starts.values()),
+           "equal_to_uninterrupted_bf16": sum(got.get(c) == t
+                                              for c, t in ref.items()),
+           "streams": len(ref), "device": res["device"],
+           "graphs": {"ref": ref_res["graphs"], "resume": res["graphs"]},
+           "launches_by_body": {"ref": ref_res["launches_by_body"],
+                                "resume": res["launches_by_body"]}}
+    if rc_kill != -9 or rc_ref or rc_res or lost or dup \
+            or not res["journal_replayed"] or res["journal_depth"] \
+            or not all(starts.values()) or not res["device"].startswith(
+                "cuda") or not any(resumed.values()):
+        emit(row)
+        raise AssertionError(f"journal: the SIGKILL storm lost {lost}, "
+                             f"duplicated {dup}, or resumed wrongly")
+
+    # the kill in process, at f32 on a few layers of mistral-7b's widths
+    kw = dict(model="mistral-7b", layers=STORM_F32_LAYERS, dtype="float32",
+              device=dev)
+    prompts = journal_storm.storm_prompts(STORM["requests"], STORM["seed"])
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "f32.sqlite3")
+        eng = journal_storm.build_engine(None, **kw)
+        want = {f"f-{i}": c.tokens for i, c in enumerate(
+            eng.generate(prompts, STORM["new_tokens"]))}
+        del eng
+        eng = journal_storm.build_engine(
+            EngineJournal(path, checkpoint_every=STORM["checkpoint_every"]),
+            **kw)
+        names = {eng.submit(p, STORM["new_tokens"], correlation_id=f"f-{i}"):
+                 f"f-{i}" for i, p in enumerate(prompts)}
+        f32_got: dict = {}
+        for _ in range(STORM["kill_after"]):
+            for c in eng.step():
+                f32_got[names[c.request_id]] = c.tokens
+        depth = eng.journal.depth()
+        del eng
+        torch.cuda.synchronize()
+        eng = journal_storm.build_engine(
+            EngineJournal(path, checkpoint_every=STORM["checkpoint_every"]),
+            **kw)
+        replayed = eng.journal_replayed
+        names = dict(eng.journal_recovered)
+        while eng._queue or eng._active or eng._done:
+            for c in eng.step():
+                f32_got[names[c.request_id]] = c.tokens
+        f32_depth = eng.journal.depth()
+        gaps = {}
+        for i, p in enumerate(prompts):
+            cid = f"f-{i}"
+            a, b = want[cid], f32_got.get(cid)
+            if a != b and b is not None:
+                j = next(k for k in range(min(len(a), len(b)) + 1)
+                         if k == min(len(a), len(b)) or a[k] != b[k])
+                gaps[cid] = _top2_gap(eng.params, eng.cfg, p, a[:j])
+        del eng
+    row["f32"] = {"layers": STORM_F32_LAYERS, "depth_at_kill": depth,
+                  "replayed": replayed, "final_depth": f32_depth,
+                  "streams": len(want),
+                  "equal": sum(f32_got.get(c) == t for c, t in want.items()),
+                  "divergent_top2_gap": gaps, "gap_limit": STORM_F32_GAP}
+    emit(row)
+    if set(f32_got) != set(want) or not replayed or f32_depth or \
+            any(g >= STORM_F32_GAP for g in gaps.values()):
+        raise AssertionError(f"journal: the f32 restart diverged: "
+                             f"{row['f32']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 #: the encoder phase: cosine of each vector against the same encoder with
@@ -2699,7 +3085,8 @@ def expected_hit(prompt: list[int], published: list[list[int]],
     return best * blk
 
 
-def phase_paged_serve(dev, cfg, eng, smi):
+def phase_paged_serve(dev, cfg, eng, smi, label: str = "paged_serve",
+                      n_rounds: int = 3):
     """``CUDASummarizer`` (cache_scope "full") over the paged engine, three
     rounds of 64 new tokens with the K1/K2/K3 counts reset before the
     first: 8 threads (all misses, published on retire), the same 8 again
@@ -2708,9 +3095,15 @@ def phase_paged_serve(dev, cfg, eng, smi):
     prompt fits ``prompt_limit``; a tail-truncated prompt has lost its
     head). Each round's admission is one wave, so a request can only hit
     prompts of earlier rounds: hits and saved tokens must equal
-    ``expected_hit`` over the prompts the engine was given."""
+    ``expected_hit`` over the prompts the engine was given. Every K3 call
+    asserts the body it runs (``paged_body``): on a bf16 pool the seeded
+    wgmma body in admission and the split-KV body in decode; on an fp8
+    pool (``kv_dtype="float8_e4m3fn"``) the CUDA-core body in both, which
+    reads the fp8 bytes in place. No plain version may run. The first
+    ``n_rounds`` rounds run; their completions are returned."""
     import torch
 
+    from copilot_for_consensus_tpu_torch.engine import generation
     from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
     from copilot_for_consensus_tpu_torch.summarization.summarizer import (
         CUDASummarizer,
@@ -2746,18 +3139,38 @@ def phase_paged_serve(dev, cfg, eng, smi):
                     k3_bodies[kind][body] += n - b0[body]
         return run
 
+    fp8 = eng.kv_dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+    want_body = {"admit": "simt" if fp8 else "seeded",
+                 "decode": "simt" if fp8 else "decode"}
+    k3_call = generation.paged_attention_partial
+
+    def asserting_k3(q_rows, pool_k, *a, **kw):
+        """K3 as the engine calls it, asserting the body each launch ran
+        (a graph capture's launch included; its replays replay it)."""
+        body = pa.paged_body(q_rows.shape[2], q_rows.dtype, pool_k.dtype,
+                             q_rows.shape[3], pool_k.shape[3])
+        before = pa.paged_attention_partial.launches_by_body[body]
+        out = k3_call(q_rows, pool_k, *a, **kw)
+        if body not in want_body.values() or \
+                pa.paged_attention_partial.launches_by_body[body] != \
+                before + 1:
+            raise AssertionError(f"{label}: K3 ran {body} on a "
+                                 f"{pool_k.dtype} pool")
+        return out
+
     eng._admit = counted("admit", eng._admit)
     eng._decode_once = counted("decode", eng._decode_once)
     eng.generate = recording_generate
     rounds = [("round1", synthetic_threads(8)),
               ("round2", synthetic_threads(8)),
-              ("round3", synthetic_threads(16)[8:])]
+              ("round3", synthetic_threads(16)[8:])][:n_rounds]
     reset_launches()
     published: list[list[int]] = []
     expect_saved = expect_hits = 0
     rows = []
-    with finite_logits(eng) as finite:
-        for label, threads in rounds:
+    with patched(generation, "paged_attention_partial", asserting_k3), \
+            finite_logits(eng) as finite, plain_calls() as plain:
+        for rname, threads in rounds:
             prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
                        [-eng.prompt_limit:] for t in threads]
             hits = [expected_hit(p, published, blk) for p in prompts]
@@ -2778,13 +3191,14 @@ def phase_paged_serve(dev, cfg, eng, smi):
                     [t.thread_id for t in threads] or \
                     any(s.completion_tokens != len(c.tokens)
                         for s, c in zip(summaries, rc)):
-                raise AssertionError(f"{label}: summaries out of order")
+                raise AssertionError(f"{rname}: summaries out of order")
             if [c.prompt_len for c in rc] != [len(p) for p in prompts]:
-                raise AssertionError(f"{label}: prompt lengths differ")
+                raise AssertionError(f"{rname}: prompt lengths differ")
             published += prompts
             dec_s = eng.decode_s - before["decode_s"]
             dec_t = eng.decode_tokens - before["decode_tokens"]
-            row = {"phase": "paged_serve", "round": label,
+            row = {"phase": label, "round": rname,
+                   "kv_dtype": str(eng.kv_dtype).removeprefix("torch."),
                    "threads": len(threads),
                    "prompt_tokens": sum(c.prompt_len for c in rc),
                    "prefill_tokens": eng.prefill_tokens
@@ -2811,8 +3225,10 @@ def phase_paged_serve(dev, cfg, eng, smi):
     bodies = read_bodies()
     st, ps = eng.kv_pool_stats(), eng.prefix_stats()
     node_count = eng._prefix.node_count
-    summary = {"phase": "paged_serve", "config": cfg.name,
+    summary = {"phase": label, "config": cfg.name,
+               "kv_dtype": str(eng.kv_dtype).removeprefix("torch."),
                "launches": launches, "launches_by_body": bodies,
+               "plain_calls": dict(plain),
                "k3_by": k3_by, "k3_bodies": k3_bodies,
                "zero_copy_admits": st["zero_copy_admits"],
                "prefill_tokens_saved": ps["prefill_tokens_saved"],
@@ -2829,15 +3245,21 @@ def phase_paged_serve(dev, cfg, eng, smi):
     if k3_by["admit"] <= 0 or k3_by["decode"] <= 0:
         raise AssertionError(f"K3 not launched in admission and decode: "
                              f"{k3_by}")
+    if any(plain.values()):
+        raise AssertionError(f"{label}: plain versions ran: {plain}")
     # admission's seeded passes (R = 4 x a bucket of 64 or more) all on the
-    # wgmma body, decode's 4 rows all on the split-KV body
-    if (k3_bodies["admit"]["seeded"] != k3_by["admit"]
-            or k3_bodies["decode"]["decode"] != k3_by["decode"]):
+    # wgmma body, decode's 4 rows all on the split-KV body (an fp8 pool:
+    # both on the CUDA-core body)
+    if (k3_bodies["admit"][want_body["admit"]] != k3_by["admit"]
+            or k3_bodies["decode"][want_body["decode"]] != k3_by["decode"]):
         raise AssertionError(f"K3's bodies in admission and decode: "
                              f"{k3_bodies}")
-    check_path("paged_serve", launches, ("K1", "K2", "K3"))
-    check_bodies("paged_serve", bodies)
-    check_k2_passes("paged_serve", launches, bodies, cfg.n_layers)
+    check_path(label, launches, ("K1", "K2", "K3"))
+    # the CUDA-core body is the fp8 pool's own (asserted just above); the
+    # other kernels keep the main path's bodies
+    check_bodies(label, {**bodies, "K3": {**bodies["K3"], "simt": 0}}
+                 if fp8 else bodies)
+    check_k2_passes(label, launches, bodies, cfg.n_layers)
     if rows[1]["zero_copy_admits"] != len(rounds[1][1]):
         raise AssertionError("round 2: not every row was a pointer hit")
     if (st["zero_copy_admits"], ps["prefill_tokens_saved"]) != \
@@ -2849,7 +3271,50 @@ def phase_paged_serve(dev, cfg, eng, smi):
     if (st["free_blocks"] + st["pinned_blocks"] != st["num_blocks"]
             or st["pinned_blocks"] != node_count):
         raise AssertionError(f"pool books do not balance: {summary}")
-    return launches, bodies, rows
+    return launches, bodies, rows, comps
+
+
+def phase_paged_fp8(dev, cfg, params, smi, bf16_comps):
+    """The paged serve phase's first two rounds (misses, then the same
+    threads as pointer hits) on a paged engine like its own with an fp8
+    KV pool (``kv_dtype="float8_e4m3fn"``): K3 reads the fp8 pool in place
+    on its CUDA-core body in admission and in decode, every call asserting
+    it, no plain version. The row gives the launches by body and how the
+    token streams agree with the bf16 pool's same rounds (``bf16_comps``):
+    streams equal, and the mean share of each stream's leading tokens that
+    agree. Returns the launches and bodies."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+
+    eng = GenerationEngine(cfg, params, num_slots=8, max_len=4096,
+                           prefill_chunk=64, kv_pool_blocks=1024,
+                           prefix_cache_blocks=1, quantize="int8",
+                           kv_dtype="float8_e4m3fn", device=dev)
+    if eng._pool.k.dtype != torch.float8_e4m3fn or \
+            eng._static["k_win"].dtype != torch.float8_e4m3fn:
+        raise AssertionError("paged_fp8: the pool is not fp8")
+    launches, bodies, _rows, comps = phase_paged_serve(
+        dev, cfg, eng, smi, label="paged_fp8", n_rounds=2)
+
+    def lead(a, b):
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        return n / max(1, len(a))
+
+    pairs = list(zip(comps, bf16_comps[:len(comps)]))
+    emit({"phase": "paged_fp8_agreement", "streams": len(pairs),
+          "equal_to_bf16": sum(a.tokens == b.tokens for a, b in pairs),
+          "mean_leading_share": sum(lead(b.tokens, a.tokens)
+                                    for a, b in pairs) / len(pairs),
+          "k3_launches_by_body": bodies["K3"],
+          "pool_bytes": eng._pool.k.numel() * 2, "device": smi})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, bodies
 
 
 #: the long-context summarization deployment the JAX bench serves int4 in
@@ -3399,6 +3864,78 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     return row
 
 
+@contextlib.contextmanager
+def host_seconds(obj):
+    """Host seconds spent inside ``obj``'s public methods in the block
+    (yielded: a dict with ``s`` and ``calls``; a call made from inside
+    another counts once)."""
+    acc = {"s": 0.0, "calls": 0}
+    depth = [0]
+    names = [n for n in dir(obj) if not n.startswith("_")
+             and callable(getattr(obj, n))]
+
+    def timed(fn):
+        def run(*a, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    acc["s"] += time.perf_counter() - t0
+                    acc["calls"] += 1
+        return run
+
+    for n in names:
+        setattr(obj, n, timed(getattr(obj, n)))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            delattr(obj, n)
+
+
+def phase_telemetry_cost(cfg, eng, prompts, smi):
+    """Phase 6's trace with the engine's telemetry on (its default), then
+    on the same engine, its slots freed, with telemetry off: the step ms
+    and the device's busy ms a step side by side, and the host seconds the
+    telemetry's own calls took over the first trace's dispatches.
+    Telemetry is host bookkeeping after each dispatch's one fetch: the
+    device's busy time must not move, and the host's step is what it
+    costs."""
+    tele = eng.telemetry
+    if tele is None:
+        raise AssertionError("trace: the engine's telemetry is off")
+    n0 = len(tele.recorder.records())
+    with host_seconds(tele) as host:
+        on = phase_trace(cfg, eng, prompts, smi)
+    records = tele.recorder.records()[n0:]
+    steps = sum(eng._dispatch_steps for r in records if r.kind == "decode")
+    free_slots(eng)
+    eng.telemetry = None
+    try:
+        off = phase_trace(cfg, eng, prompts, smi,
+                          label="trace_telemetry_off")
+    finally:
+        eng.telemetry = tele
+    keys = ("step_ms", "traced_step_ms", "device_busy_ms_per_step",
+            "idle_share")
+    row = {"phase": "telemetry_cost", "config": cfg.name,
+           "on": {k: on[k] for k in keys}, "off": {k: off[k] for k in keys},
+           "step_ms_on_minus_off": on["step_ms"] - off["step_ms"],
+           "recorded_steps": len(records),
+           "telemetry_host": {"calls": host["calls"], "s": host["s"],
+                              "decode_steps": steps,
+                              "ms_per_decode_step": host["s"] * 1e3 / steps
+                              if steps else None},
+           "device": smi}
+    emit(row)
+    if not row["recorded_steps"]:
+        raise AssertionError("trace: telemetry recorded no step")
+    return row
+
+
 def free_slots(eng) -> None:
     """Retire every busy slot of ``eng`` (a trace phase leaves them busy),
     so that another trace phase can fill them again."""
@@ -3497,7 +4034,7 @@ def main() -> int:
     launches, bodies, prompts, eng, batch = phase_serve(dev, cfg, params,
                                                         smi)
     phase_int8_wave(cfg, eng, smi)
-    phase_trace(cfg, eng, prompts, smi)
+    phase_telemetry_cost(cfg, eng, prompts, smi)
     # the contiguous engine's cache goes before the next engines come
     del eng
     gc.collect()
@@ -3506,9 +4043,14 @@ def main() -> int:
     phase_async_serve(dev, cfg, params, smi, batch)
     gc.collect()
     torch.cuda.empty_cache()
+    deadline_launches, deadline_bodies = phase_deadlines(dev, cfg, params,
+                                                         smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     pipeline = phase_pipeline(dev, cfg, params, smi)
     encoder_launches, encoder_bodies = phase_encoder(dev, smi)
     phase_vectorstore(dev, smi)
+    journal = phase_journal(dev, smi)
 
     from copilot_for_consensus_tpu_torch.engine.generation import (
         GenerationEngine,
@@ -3518,13 +4060,15 @@ def main() -> int:
                              prefix_cache_blocks=1, quantize="int8",
                              device=dev)
     phase_paged_model(dev, cfg, paged)
-    paged_launches, paged_bodies, _ = phase_paged_serve(dev, cfg, paged,
-                                                         smi)
+    paged_launches, paged_bodies, _, paged_comps = phase_paged_serve(
+        dev, cfg, paged, smi)
     phase_trace(cfg, paged, prompts, smi, label="paged_trace")
     del paged
     gc.collect()
     torch.cuda.empty_cache()
     phase_graphs(dev, cfg, params, smi, paged=True)
+    fp8_launches, fp8_bodies = phase_paged_fp8(dev, cfg, params, smi,
+                                               paged_comps)
     # the int8 weights go before the int4 engine comes
     del params
     gc.collect()
@@ -3538,11 +4082,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the journal phase's resumed child counts in its own process: its K1,
+    # K2 and K3 bodies, the other kernels none
+    storm = journal["launches_by_body"]["resume"]
+    journal_bodies = {k: {**dict.fromkeys(kernel_wrappers()[k]
+                                          .launches_by_body, 0),
+                          **storm.get(k, {})} for k in BODY_KERNELS}
+    journal_launches = {k: sum(journal_bodies[k].values())
+                        if k in journal_bodies else 0
+                        for k in kernel_wrappers()}
     by_path = {"pipeline": pipeline["sync"]["launches"],
                "pipeline_pipelined": pipeline["pipelined"]["launches"],
                "pipeline_retrieval": pipeline["retrieval"]["launches"],
                "encoder": encoder_launches,
                "serve": launches, "paged_serve": paged_launches,
+               "paged_fp8": fp8_launches, "deadlines": deadline_launches,
+               "journal_resume": journal_launches,
                "a8_model": a8_launches, "int4_serve": int4_launches,
                "int4_serve_a8": int4_a8_launches, "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
@@ -3550,6 +4105,8 @@ def main() -> int:
                       "pipeline_retrieval": pipeline["retrieval"]["bodies"],
                       "encoder": encoder_bodies,
                       "serve": bodies, "paged_serve": paged_bodies,
+                      "paged_fp8": fp8_bodies, "deadlines": deadline_bodies,
+                      "journal_resume": journal_bodies,
                       "a8_model": a8_bodies, "int4_serve": int4_bodies,
                       "int4_serve_a8": int4_a8_bodies}
     table = []
@@ -3572,6 +4129,9 @@ def main() -> int:
              "paged_attention.py:166"),
             ("paged_attention_seeded",
              rows[("K3", "seeded_s1024", "bfloat16")], "paged_serve",
+             "copilot_for_consensus_tpu/ops/paged_attention.py:166"),
+            ("paged_attention_fp8",
+             rows[("K3", "decode", "float8_e4m3fn")], "paged_fp8",
              "copilot_for_consensus_tpu/ops/paged_attention.py:166"),
             ("w8a8_matmul", rows[("K4", "m4096_d4096_f14336", "bfloat16")],
              "a8_model", f"{q}:309"),
@@ -3596,6 +4156,7 @@ def main() -> int:
             "int8_matmul_tiled": ("wgmma", "int8_wgmma.cuh"),
             "paged_attention": ("decode", "paged_decode.cuh"),
             "paged_attention_seeded": ("seeded", "paged_wgmma.cuh"),
+            "paged_attention_fp8": ("simt", "paged_attention.cu"),
             "int4_matmul": ("stream", "int4_stream.cuh"),
             "int4_matmul_tiled": ("wgmma", "int4_wgmma.cuh"),
             "w4a8_matmul": ("stream", "w4a8_stream.cuh"),

@@ -7,7 +7,8 @@
 //   `_paged_partial_kernel`.
 //
 // Contract (same as the TPU kernel): q_rows [B, Hkv, R, D] f32 or bf16; the
-// stacked pool halves [L, NBtot, Hkv, blk, D] in f32, bf16 or fp8 e4m3; a
+// stacked pool halves [L, NBtot, Hkv, blk, D] in f32, bf16, f16 or fp8
+// (e4m3 or e5m2); a
 // layer index li; block tables [B, NB] int32; lengths and q_pos [B] int32.
 // Position p of slot b lives in pool block tables[b, p / blk] at offset
 // p % blk of layer li. For each (b, kv head h) and each of the R rows, an
@@ -33,9 +34,10 @@
 //     the CUDA cores' f32 rate. `paged_attention_seeded_fwd` runs the
 //     wgmma body of paged_wgmma.cuh (R > 16): K1's Hopper flash partial,
 //     its K/V boxes addressed through the table.
-//   * The f32 and fp8 pools, f32 q_rows and D 32 (test and off-path
-//     layouts: the engine's KV is its activation dtype) take the CUDA-core
-//     body below, `paged_attention_fwd`.
+//   * The f32, f16 and fp8 pools, f32 q_rows and D 32 take the CUDA-core
+//     body below, `paged_attention_fwd`: an engine with an fp8 KV cache
+//     (`kv_dtype="float8_e4m3fn"`) reads its pool here, in decode and in
+//     seeded admission, its bytes converted to f32 on load.
 //
 // Design of the CUDA-core body. The TPU walked the table entries as a
 // sequential grid axis with (m, l, acc) in VMEM scratch and the table in
@@ -50,8 +52,8 @@
 //   * a (layer, block, head) tile [blk, D] is contiguous in the pool; each
 //     thread loads 16-byte chunks of the positions' rows, neighbouring
 //     threads on neighbouring addresses, all of its chunks issued before
-//     any is used, converts them to f32 (fp8 through cuda_fp8.h) and stages
-//     K (rows padded by one word) and V in shared memory; with few rows the
+//     any is used, converts them to f32 (fp8 through cuda_fp8.h, f16
+//     through cuda_fp16.h) and stages K (rows padded by one word) and V in shared memory; with few rows the
 //     next tile's chunks are in flight while the current tile computes;
 //   * two row tilings share one body: RT = 8 rows (16 lanes a row, for
 //     R <= 8) and RT = 64 rows (8 lanes own 4 rows, as K1), with the row
@@ -60,6 +62,7 @@
 //     explicitly and exp(-inf - -inf) is never formed.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,19 +107,36 @@ struct Vec<__nv_bfloat16> {
   }
 };
 template <>
-struct Vec<__nv_fp8_e4m3> {
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static void convert(const uint4& raw, float* out) {
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __half2float(__ushort_as_half(w[i] & 0xffffu));
+      out[2 * i + 1] = __half2float(__ushort_as_half(w[i] >> 16));
+    }
+  }
+};
+// the two fp8 formats: 16 one-byte values, each converted exactly to f32
+template <typename F8>
+struct VecF8 {
   static constexpr int N = 16;
   __device__ static void convert(const uint4& raw, float* out) {
     const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      __nv_fp8_e4m3 x;
+      F8 x;
       x.__x = static_cast<__nv_fp8_storage_t>((w[i / 4] >> (8 * (i % 4))) &
                                               0xffu);
       out[i] = static_cast<float>(x);
     }
   }
 };
+template <>
+struct Vec<__nv_fp8_e4m3> : VecF8<__nv_fp8_e4m3> {};
+template <>
+struct Vec<__nv_fp8_e5m2> : VecF8<__nv_fp8_e5m2> {};
 
 template <int D, int RPT, int LPR>
 constexpr size_t smem_bytes() {
@@ -371,6 +391,10 @@ cudaError_t dispatch_kv(int kv_kind, int D, const Args& a) {
       return dispatch_d<TQ, __nv_bfloat16>(D, a);
     case 2:
       return dispatch_d<TQ, __nv_fp8_e4m3>(D, a);
+    case 3:
+      return dispatch_d<TQ, __half>(D, a);
+    case 4:
+      return dispatch_d<TQ, __nv_fp8_e5m2>(D, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -378,7 +402,8 @@ cudaError_t dispatch_kv(int kv_kind, int D, const Args& a) {
 
 }  // namespace
 
-// kv_kind: 0 = f32, 1 = bf16, 2 = fp8 e4m3 pools; q_bf16: q_rows in bf16.
+// kv_kind: 0 = f32, 1 = bf16, 2 = fp8 e4m3, 3 = f16, 4 = fp8 e5m2 pools;
+// q_bf16: q_rows in bf16.
 extern "C" int paged_attention_fwd(const void* q, const void* pool_k,
                                    const void* pool_v, const void* tables,
                                    const void* lengths, const void* q_pos,

@@ -40,3 +40,23 @@ def resolve_dtype(dtype: str | torch.dtype | None,
     except KeyError:
         raise ValueError(
             f"unknown dtype {dtype!r}; one of {sorted(_DTYPES)}") from None
+
+
+def storage_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for a one-byte float (the fp8 KV dtypes) its
+    bytes as ``uint8``: PyTorch implements few indexing and selection ops
+    (``index_put_``, ``torch.where``, ``fill_``) for float8 tensors, and
+    moving bytes needs none of them. Writes through the view land in
+    ``t``."""
+    if t.is_floating_point() and t.element_size() == 1:
+        return t.view(torch.uint8)
+    return t
+
+
+def zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.zeros`` for every KV dtype: a one-byte float is made as
+    zero bytes and viewed (0x00 is +0 in both fp8 formats)."""
+    if dtype.is_floating_point and dtype.itemsize == 1:
+        return torch.zeros(shape, dtype=torch.uint8,
+                           device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)

@@ -50,10 +50,33 @@ Two KV layouts:
   the trie's budget is the shared pool, so every positive value behaves
   the same.
 
+The reference engine's control plane:
+
+* **Telemetry** (``telemetry=True``, the default; ``engine/telemetry.py``):
+  request spans, a flight recorder of every wave and dispatch, and the
+  ``copilot_engine_*`` series. Every number it records is host state read
+  after a dispatch's one device-to-host fetch: nothing of it lives in the
+  captured dispatch body, and it adds no sync.
+* **Deadlines** (``submit(deadline_s=)``): expired work is dropped at the
+  head of ``step`` — queued requests uncomputed, active slots retired with
+  their partial output — with ``finish_reason="deadline"``.
+* **The request journal** (``journal=``, ``engine/journal.py``): submits
+  are journaled before they queue, accepted tokens checkpoint every
+  ``checkpoint_every`` steps, rows retire at harvest, and an engine built
+  over a non-empty journal warm-restarts its unfinished requests as
+  prompt + generated continuations.
+* **KV dtype** (``kv_dtype=``): the cache, the pool and the window buffers
+  may be held below the activation dtype (``float8_e4m3fn`` halves the KV
+  bytes); KV is cast on write and read up to the compute dtype. On the
+  paged route K3 reads an fp8 pool in place through its CUDA-core body.
+* ``tenant`` and ``priority`` are carried on each request (journal rows,
+  replays); the scheduler that would act on them is not ported yet, and
+  ``scheduler=`` is refused.
+
 Where the JAX engine builds new arrays, this one updates the cache and the
-pool in place (no second allocation). It has no telemetry, journal,
-scheduler, speculative decoding, chunked prefill or disaggregated roles,
-and no gather-based reference route for the paged layout.
+pool in place (no second allocation). It has no scheduler, speculative
+decoding, chunked prefill or disaggregated roles, and no gather-based
+reference route for the paged layout.
 """
 
 from __future__ import annotations
@@ -65,10 +88,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from copilot_for_consensus_tpu_torch.device import resolve_device, \
-    resolve_dtype
-from copilot_for_consensus_tpu_torch.engine.faults import resolve_faults
+from copilot_for_consensus_tpu_torch.device import (
+    resolve_device,
+    resolve_dtype,
+    storage_view,
+    zeros,
+)
+from copilot_for_consensus_tpu_torch.engine.faults import (
+    InjectedFault,
+    resolve_faults,
+)
 from copilot_for_consensus_tpu_torch.engine.graphs import DecodeGraphs
+from copilot_for_consensus_tpu_torch.engine.journal import resolve_journal
 from copilot_for_consensus_tpu_torch.engine.kv_pool import (
     BLOCK_TABLE_DTYPE,
     BlockPool,
@@ -77,6 +108,9 @@ from copilot_for_consensus_tpu_torch.engine.prefix_cache import PrefixCache
 from copilot_for_consensus_tpu_torch.engine.sampling import (
     SamplingConfig,
     sample,
+)
+from copilot_for_consensus_tpu_torch.engine.telemetry import (
+    resolve_telemetry,
 )
 from copilot_for_consensus_tpu_torch.models import decoder, quant
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
@@ -103,13 +137,16 @@ class Request:
     decode_started_at: float = 0.0
     #: the prompt's block digests, computed once (``_req_digests``)
     block_digests: list | None = None
-    #: the pipeline event that caused the request (error reports name it)
+    #: the pipeline event that caused the request (telemetry spans and
+    #: error reports name it)
     correlation_id: str = ""
-    #: the scheduler's keys (``engine/scheduler.py``), which the async
-    #: runner carries into a replayed continuation; the port's engine
-    #: has no scheduler yet, so they keep their defaults
+    #: the scheduling identity (the JAX engine's defaults): the tenant
+    #: ("" = the anonymous tenant) and the priority lane. The port has no
+    #: scheduler yet; journal rows and replays carry them.
     tenant: str = ""
-    priority: str = ""
+    priority: str = "interactive"
+    #: absolute monotonic deadline: expired work is dropped
+    #: (``finish_reason="deadline"``), never computed. inf = none.
     deadline_at: float = float("inf")
 
 
@@ -118,7 +155,7 @@ class Completion:
     request_id: int
     prompt_len: int
     tokens: list[int]
-    finish_reason: str            # "eos" | "length"
+    finish_reason: str            # "eos" | "length" | "deadline"
     prefill_s: float = 0.0
     decode_s: float = 0.0
     #: submit → first token on the host
@@ -130,6 +167,35 @@ def _next_bucket(n: int, buckets: tuple[int, ...]) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+#: the JAX engine's KV dtype names
+_KV_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float32": torch.float32,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
+}
+
+
+def resolve_kv_dtype(kv_dtype, default: torch.dtype) -> torch.dtype:
+    """The KV cache dtype from a name (config strings included) or a torch
+    dtype; None or "" (the schema default) keeps ``default``, the
+    activation dtype. An unknown name fails here with the valid set."""
+    if not kv_dtype:
+        return default
+    if isinstance(kv_dtype, str):
+        try:
+            return _KV_DTYPES[kv_dtype]
+        except KeyError:
+            raise ValueError(
+                f"unknown kv_dtype {kv_dtype!r}; one of "
+                f"{sorted(_KV_DTYPES)}") from None
+    if kv_dtype not in _KV_DTYPES.values():
+        raise ValueError(f"unsupported kv_dtype {kv_dtype}; one of "
+                         f"{sorted(_KV_DTYPES)}")
+    return kv_dtype
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:
@@ -152,6 +218,7 @@ class GenerationEngine:
         eos_id: int = 2,
         seed: int = 0,
         dtype: str | torch.dtype = torch.bfloat16,
+        kv_dtype: str | torch.dtype | None = None,
         quantize: bool | str = False,
         decode_window: int = 8,
         windows_per_dispatch: int = 1,
@@ -161,8 +228,17 @@ class GenerationEngine:
         prefix_cache_blocks: int = 0,
         faults=None,
         cuda_graphs: bool = True,
+        telemetry=True,
+        scheduler=None,
+        journal=None,
         device: str | torch.device | None = None,
     ):
+        if scheduler is not None:
+            raise NotImplementedError(
+                "scheduler=: the port's engine has no scheduler yet; it "
+                "comes in the next slice with chunked prefill and "
+                "spec-decode verify over decoder.verify_seeded (ROADMAP "
+                "Queue 1 item 4)")
         self.device = resolve_device(device)
         # Resilience hooks (the JAX engine's): ``faults`` installs the
         # seeded fault injector at every dispatch boundary; a supervisor
@@ -172,6 +248,38 @@ class GenerationEngine:
         self.supervisor = None
         self._last_failed_kind = ""
         self._slot_cap = num_slots
+        # The durable request journal (the JAX engine's): submits journal
+        # before they queue, accepted tokens checkpoint incrementally,
+        # retire deletes at harvest; a non-empty journal at construction
+        # warm-restarts (``_recover_from_journal``, last in __init__).
+        self.journal = resolve_journal(journal)
+        #: journal rows resubmitted at warm restart in this process
+        self.journal_replayed = 0
+        #: journal rows that could not be resumed (continuation past
+        #: ``prompt_limit``): counted, never silent
+        self.journal_abandoned = 0
+        #: (new rid, correlation_id) of each row recovered at construction
+        self.journal_recovered: list[tuple[int, str]] = []
+        #: rid → (original prompt_len, resumed token prefix), stitched back
+        #: onto the continuation's completion at harvest
+        self._journal_stitch: dict[int, tuple[int, list[int]]] = {}
+        #: rid → generated-token count at the last checkpoint (lag gauge)
+        self._journal_ckpt: dict[int, int] = {}
+        self._journal_steps = 0
+        #: True while a resubmission's row comes from the journal's atomic
+        #: ``supersede`` re-key instead of ``record_submit``
+        self._journal_suppress = False
+        #: requests dropped uncomputed because their deadline passed
+        self.deadline_expired = 0
+        #: set by the first submit with a deadline: engines that never see
+        #: one skip the per-step expiry walk
+        self._deadlines_in_use = False
+        # Flight recorder, request spans and the copilot_engine_* series
+        # (default on, as in the JAX engine): host bookkeeping around the
+        # dispatches' own host syncs. False disables; an EngineTelemetry
+        # or a MetricsCollector shares a collector.
+        self.telemetry = resolve_telemetry(telemetry, engine="generation",
+                                           num_slots=num_slots)
         self.dtype = resolve_dtype(dtype)
         self.cfg = cfg
         self.num_slots = num_slots
@@ -225,7 +333,9 @@ class GenerationEngine:
             # serves dense decoders on one card, so always.
             params = quant.fuse_int4_projections(params)
         self.params = params
-        self.kv_dtype = self.dtype
+        # A KV dtype below the activation dtype (float8_e4m3fn halves the
+        # cache bytes); None keeps the activation dtype
+        self.kv_dtype = resolve_kv_dtype(kv_dtype, self.dtype)
 
         # ---- KV layout: the contiguous slot cache, or one block pool ------
         self.paged = bool(kv_pool_blocks)
@@ -283,7 +393,14 @@ class GenerationEngine:
                 # an enable flag only: the trie's budget is the shared
                 # pool's, so 1 and 8 behave the same
                 self._prefix = PrefixCache(shared=self._pool)
+            #: the paged route's label on every StepRecord and the
+            #: copilot_engine_kv_route gauge: the port always reads the
+            #: pool in place with K3 (the JAX engine's "kernel" route)
+            self._kv_route = "kernel"
+            if self.telemetry is not None:
+                self.telemetry.gauge_kv_route(self._kv_route)
         else:
+            self._kv_route = ""
             self._cache = decoder.init_cache(cfg, num_slots, self.max_len,
                                              dtype=self.kv_dtype,
                                              device=self.device)
@@ -322,6 +439,11 @@ class GenerationEngine:
             self.device, enabled=cuda_graphs, stream=self._stream,
             generators=(self._gen,) if sampling.temperature > 0 else ())
 
+        # Warm restart last: every queue and slot structure above must
+        # exist before recovered requests resubmit through submit().
+        if self.journal is not None and self.journal.depth():
+            self._recover_from_journal()
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -335,7 +457,9 @@ class GenerationEngine:
         quantize mode comes from the checkpoint's metadata ("int8",
         "int4" or none; True means int8), as do the EOS ids. Leaves go
         to ``device`` (None → the card) by ``params_from_numpy``'s rules:
-        ``q`` and ``q4`` stay int8, ``scale`` f32, the rest ``dtype``."""
+        ``q`` and ``q4`` stay int8, ``scale`` f32, the rest ``dtype``.
+        ``engine_kw`` reaches the engine (``kv_dtype=``, ``journal=`` and
+        the rest): a journal with rows warm-restarts here."""
         from copilot_for_consensus_tpu_torch.checkpoint import (
             load_checkpoint,
         )
@@ -361,13 +485,20 @@ class GenerationEngine:
 
     def submit(self, prompt: list[int], max_new_tokens: int = 256, *,
                cache_eligible_tokens: int | None = None,
-               correlation_id: str = "") -> int:
+               correlation_id: str = "", tenant: str = "",
+               priority: str = "interactive",
+               deadline_s: float | None = None) -> int:
         """Enqueue a tokenized prompt; returns a request id.
         ``cache_eligible_tokens`` caps how many leading prompt tokens the
         prefix cache may publish when the request retires (None: the
         whole block-aligned prompt). ``correlation_id`` names the
-        pipeline event behind the request (the async runner's error
-        reports and replays carry it)."""
+        pipeline event behind the request (its telemetry span, the async
+        runner's error reports and replays carry it). ``tenant`` and
+        ``priority`` are the request's scheduling identity, journaled and
+        carried into replays. ``deadline_s`` is the request's wall-clock
+        budget: once it expires the request is dropped (queued) or retired
+        with its partial output (active), both with
+        ``finish_reason="deadline"``."""
         if not prompt:
             raise ValueError("empty prompt")
         limit = self.prompt_limit
@@ -379,20 +510,61 @@ class GenerationEngine:
                 cache_eligible_tokens = 0
         rid = self._next_id
         self._next_id += 1
-        self._queue.append(Request(rid, list(prompt), max_new_tokens,
-                                   cache_eligible_tokens,
-                                   correlation_id=correlation_id))
+        if self.journal is not None:
+            if not self._journal_suppress:
+                # Journal BEFORE the request enters the queue: no window
+                # where admitted work is journal-invisible. A warm
+                # restart's continuation takes its row by the atomic
+                # supersede re-key instead, never insert-then-re-key.
+                from copilot_for_consensus_tpu_torch.obs import (
+                    trace as _trace,
+                )
+
+                ids = _trace.current_ids()
+                self.journal.record_submit(
+                    rid, prompt, max_new_tokens,
+                    cache_eligible_tokens=cache_eligible_tokens,
+                    correlation_id=correlation_id, tenant=tenant,
+                    priority=priority,
+                    deadline_wall=(time.time() + max(0.0, deadline_s)
+                                   if deadline_s is not None else 0.0),
+                    trace_id=ids[0] if ids else "",
+                    span_id=ids[1] if ids else "")
+            self._journal_ckpt[rid] = 0
+        if deadline_s is not None:
+            self._deadlines_in_use = True
+        self._queue.append(Request(
+            rid, list(prompt), max_new_tokens, cache_eligible_tokens,
+            correlation_id=correlation_id, tenant=tenant,
+            priority=priority,
+            deadline_at=(time.monotonic() + max(0.0, deadline_s)
+                         if deadline_s is not None else float("inf"))))
+        if self.telemetry is not None:
+            self.telemetry.on_submit(rid, len(prompt), correlation_id)
         return rid
 
     def step(self) -> list[Completion]:
-        """Admit queued requests into free slots, run one decode dispatch
-        for all active slots, retire finished ones. Returns completions."""
+        """Drop expired work, admit queued requests into free slots, run
+        one decode dispatch for all active slots, retire finished ones.
+        Returns completions."""
         with self._on_stream():
+            self._expire_deadlines()
             self._admit()
             if self.paged:
                 self.peak_active = max(self.peak_active, len(self._active))
             if self._active:
                 self._decode_once()
+        if self.journal is not None:
+            self._journal_tick()
+        if self.telemetry is not None:
+            self.telemetry.gauge_queue(self.queue_depth, len(self._active))
+            if self.paged:
+                # straight off the pool's counters: kv_pool_stats() walks
+                # the active slots and the trie, too heavy for every step
+                self.telemetry.gauge_kv_pool(
+                    self._pool.free_blocks, self._pool.pinned_blocks,
+                    round(self._pool.fragmentation(
+                        self._used_tokens()), 4))
         return self._drain_done()
 
     def generate(self, prompts: list[list[int]],
@@ -400,15 +572,45 @@ class GenerationEngine:
                  cache_eligible_tokens: int | None = None
                  ) -> list[Completion]:
         """Batch convenience: submit all, run to completion, return in
-        submission order."""
+        submission order. A failure dumps the flight recorder (the
+        requests in flight and the last dispatches) before it raises."""
         ids = [self.submit(p, max_new_tokens,
                            cache_eligible_tokens=cache_eligible_tokens)
                for p in prompts]
         results: dict[int, Completion] = {}
-        while len(results) < len(ids):
-            for c in self.step():
-                results[c.request_id] = c
+        try:
+            while len(results) < len(ids):
+                for c in self.step():
+                    results[c.request_id] = c
+        except Exception as exc:
+            if self.telemetry is not None:
+                self.telemetry.record_error(exc)
+            raise
         return [results[i] for i in ids]
+
+    def journal_stats(self) -> dict:
+        """Journal counters (the JAX engine's keys): ``replayed`` counts
+        this process's warm-restart resubmissions, ``abandoned`` the rows
+        that could not be resumed; the rest come from the journal."""
+        out = {"enabled": self.journal is not None,
+               "replayed": self.journal_replayed,
+               "abandoned": self.journal_abandoned}
+        if self.journal is not None:
+            st = self.journal.stats()
+            for key in ("depth", "journaled", "retired", "checkpoints"):
+                out[key] = st[key]
+        return out
+
+    def sched_stats(self) -> dict:
+        """Scheduler counters in the JAX engine's disabled form: the port
+        has no scheduler and no chunked prefill yet."""
+        return {"enabled": False, "chunk_dispatches": 0,
+                "chunk_prefill_tokens": 0}
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests submitted and not yet admitted."""
+        return len(self._queue)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (the JAX engine's keys): ``hit_rate`` is
@@ -519,6 +721,8 @@ class GenerationEngine:
         while n < len(batch):
             n *= 2
         kind = "prefill_seeded" if any(matches) else "prefill"
+        seq = self.telemetry.next_step() if self.telemetry is not None \
+            else None
         try:
             with self._dispatch_boundary(kind):
                 if self.paged:
@@ -549,11 +753,19 @@ class GenerationEngine:
             raise
         prefill_s = time.monotonic() - t0
         self.admitted_s += prefill_s
+        if self.telemetry is not None:
+            self.telemetry.record_step(
+                kind, prefill_s, seq=seq, rows=len(batch), batch=n,
+                tokens=sum(suffix_lens), padded_tokens=n * bucket,
+                route=self._kv_route)
         self.prefill_tokens += sum(suffix_lens)
         self.prefill_tokens_saved += sum(m.tokens for m in matches if m)
         if self.paged:
             self.paged_admits += len(batch)
-            self.zero_copy_admits += sum(1 for m in matches if m)
+            hits = sum(1 for m in matches if m)
+            self.zero_copy_admits += hits
+            if hits and self.telemetry is not None:
+                self.telemetry.on_zero_copy_admits(hits)
         now = time.monotonic()
         for i, (slot, req) in enumerate(batch):
             tok = int(first[i])
@@ -561,6 +773,13 @@ class GenerationEngine:
                 # pinned until retirement: the blocks a slot reads must
                 # not be evicted under it
                 self._prefix_pins[req.request_id] = matches[i]
+            if self.telemetry is not None:
+                self.telemetry.on_admit(
+                    req.request_id, wave_start=t0,
+                    admit_kind="seeded" if matches[i] is not None
+                    else "wave",
+                    prefix_hit_tokens=(matches[i].tokens
+                                       if matches[i] is not None else 0))
             self._active[slot] = req
             self._generated[slot] = [tok]
             self._positions[slot] = plens[i]
@@ -586,7 +805,9 @@ class GenerationEngine:
         rows = len(slots)
         sl = torch.tensor(slots, device=self.device)
         for name in ("k", "v"):
-            self._cache[name][:, sl, :, :bucket] = scratch[name][:, :rows]
+            # fp8 caches move as bytes: index_put_ has no float8 kernel
+            storage_view(self._cache[name])[:, sl, :, :bucket] = \
+                storage_view(scratch[name][:, :rows])
         first = sample(logits[:rows], self._gen, self.sampling)
         return first.cpu().numpy()                 # the ONE host sync
 
@@ -780,8 +1001,8 @@ class GenerationEngine:
         st = {"tok": torch.zeros(b, dtype=torch.int64, device=dev),
               "pos": torch.zeros(b, dtype=torch.int32 if self.paged
                                  else torch.int64, device=dev),
-              "k_win": torch.zeros(win, dtype=self.kv_dtype, device=dev),
-              "v_win": torch.zeros(win, dtype=self.kv_dtype, device=dev),
+              "k_win": zeros(win, self.kv_dtype, dev),
+              "v_win": zeros(win, self.kv_dtype, dev),
               "out": torch.zeros((steps, b), dtype=torch.int64, device=dev)}
         if self.paged:
             st.update(tables=torch.zeros(b * self._max_blocks, **i32),
@@ -807,8 +1028,8 @@ class GenerationEngine:
         sentinel on the device (``BlockPool.scatter_static``)."""
         cfg, st, w_sz = self.cfg, self._static, self.decode_window
         k_all, v_all = st["k_win"], st["v_win"]
-        k_all.zero_()
-        v_all.zero_()
+        storage_view(k_all).zero_()
+        storage_view(v_all).zero_()
         positions = st["pos"]
         if self.paged:
             nb = kv_len // self._block
@@ -899,6 +1120,8 @@ class GenerationEngine:
     def _decode_once(self) -> None:
         window = self._dispatch_steps
         active_before = list(self._active.items())
+        seq = self.telemetry.next_step() if self.telemetry is not None \
+            else None
         t0 = time.monotonic()
         try:
             with self._dispatch_boundary("decode"):
@@ -909,7 +1132,9 @@ class GenerationEngine:
             # once it has repaired the engine (``on_repaired``).
             self._graphs.drop(block=self.supervisor is not None)
             raise
-        self.decode_s += time.monotonic() - t0
+        step_s = time.monotonic() - t0
+        self.decode_s += step_s
+        harvested_total = 0
         for slot, req in active_before:
             gen = self._generated[slot]
             harvested0 = len(gen)
@@ -923,7 +1148,7 @@ class GenerationEngine:
                 if len(gen) >= req.max_new_tokens:
                     finished = "length"
                     break
-            self.decode_tokens += len(gen) - harvested0
+            harvested_total += len(gen) - harvested0
             self._positions[slot] += window
             self._next_tok[slot] = int(toks[window - 1, slot])
             # Keep a full dispatch of cache headroom: the next dispatch
@@ -933,6 +1158,14 @@ class GenerationEngine:
                 finished = "length"
             if finished:
                 self._retire(slot, finished)
+        self.decode_tokens += harvested_total
+        if self.telemetry is not None:
+            # host numbers only, read after the dispatch's one fetch: the
+            # captured body records nothing
+            self.telemetry.record_step(
+                "decode", step_s, seq=seq, rows=len(active_before),
+                batch=self.num_slots, tokens=harvested_total,
+                padded_tokens=window * self.num_slots, route=self._kv_route)
 
     # ------------------------------------------------------------------
     # retirement
@@ -968,12 +1201,177 @@ class GenerationEngine:
             decode_s=time.monotonic() - req.decode_started_at,
             ttft_s=self._ttft.pop(slot, 0.0),
         )
+        if self.telemetry is not None:
+            self.telemetry.on_retire(req.request_id, new_tokens=len(gen),
+                                     finish_reason=reason)
+            # the ledgers are cumulative engine-wide counters: exported at
+            # retire cadence, not every step
+            self.telemetry.update_ledgers(
+                self.prefix_stats() if self._prefix is not None else None,
+                None)
         self._free.append(slot)
 
+    def _expire_deadlines(self) -> None:
+        """Drop every request whose ``deadline_at`` has passed — queued
+        work uncomputed (an empty completion), active slots retired with
+        their partial output — all with ``finish_reason="deadline"``. It
+        runs at the head of ``step``, between dispatches, so a retired
+        slot parks exactly as an eos or length retirement parks it: the
+        next dispatch's static buffers are filled from host state that no
+        longer holds it, and its pool blocks are back in the pool."""
+        if not self._deadlines_in_use:
+            return    # no deadline ever submitted: skip the queue walk
+        now = time.monotonic()
+        expired = [r for r in self._queue if r.deadline_at <= now]
+        if expired:
+            self._queue = [r for r in self._queue if r.deadline_at > now]
+        for req in expired:
+            self.deadline_expired += 1
+            self._done[req.request_id] = Completion(
+                request_id=req.request_id, prompt_len=len(req.prompt),
+                tokens=[], finish_reason="deadline")
+            if self.telemetry is not None:
+                self.telemetry.on_deadline_expired()
+                self.telemetry.on_retire(req.request_id, new_tokens=0,
+                                         finish_reason="deadline")
+        # active slots: retire with what was accepted so far (the partial
+        # output is real work; only future compute is dropped)
+        for slot, req in list(self._active.items()):
+            if req.deadline_at <= now:
+                self.deadline_expired += 1
+                if self.telemetry is not None:
+                    self.telemetry.on_deadline_expired()
+                self._retire(slot, "deadline")
+
+    # ------------------------------------------------------------------
+    # the request journal
+    # ------------------------------------------------------------------
+
+    def _journal_tick(self) -> None:
+        """Incremental token checkpoints: every ``checkpoint_every``
+        steps, and on any step that retired a request (the surviving
+        slots' progress is durable before the finished rows delete). Also
+        exports the journal gauges."""
+        j = self.journal
+        self._journal_steps += 1
+        if self._active and (self._done
+                             or self._journal_steps >= j.checkpoint_every):
+            self._journal_steps = 0
+            pairs = []
+            for slot, req in self._active.items():
+                gen = self._generated.get(slot)
+                if gen:
+                    pairs.append((req.request_id, gen))
+                    self._journal_ckpt[req.request_id] = len(gen)
+            if pairs:
+                j.checkpoint_many(pairs)
+        if self.telemetry is not None:
+            lag = 0
+            for slot, req in self._active.items():
+                gen = self._generated.get(slot)
+                if gen:
+                    lag = max(lag, len(gen) - self._journal_ckpt.get(
+                        req.request_id, 0))
+            self.telemetry.gauge_journal(j.depth(), lag)
+
     def _drain_done(self) -> list[Completion]:
-        out = list(self._done.values())
+        out = []
+        for c in self._done.values():
+            st = self._journal_stitch.pop(c.request_id, None)
+            if st is not None:
+                # a recovered continuation goes back onto its original
+                # identity: the original prompt length and the whole
+                # token stream
+                plen, prefix = st
+                c = Completion(
+                    request_id=c.request_id, prompt_len=plen,
+                    tokens=prefix + c.tokens,
+                    finish_reason=c.finish_reason, prefill_s=c.prefill_s,
+                    decode_s=c.decode_s, ttft_s=c.ttft_s)
+            out.append(c)
+        if self.journal is not None and out:
+            # Retire at harvest: the row leaves the journal in the step()
+            # call that returns the completion. A kill inside this window
+            # replays the request (at least once; the pipeline supersedes).
+            for c in out:
+                self.journal.record_retire(c.request_id)
+                self._journal_ckpt.pop(c.request_id, None)
         self._done.clear()
         return out
+
+    def _recover_from_journal(self) -> int:
+        """Warm restart (at construction, one owner): resubmit every
+        unfinished journaled request as a prompt + generated continuation
+        through ``submit`` (telemetry spans rebuild as a side effect) and
+        re-key its row onto the continuation's id. A request whose
+        wall-clock deadline passed during the outage completes as a
+        ``finish_reason="deadline"`` drop; a row already fully generated
+        is emitted without compute; a continuation past ``prompt_limit``
+        is abandoned (counted), never head-truncated into divergence."""
+        from copilot_for_consensus_tpu_torch.obs import trace as _trace
+
+        entries = self.journal.unfinished()
+        if not entries:
+            return 0
+        # continuation ids must never collide with journaled ids, or the
+        # re-key and the retire would hit the wrong row
+        self._next_id = max(self._next_id,
+                            max(e.request_id for e in entries) + 1)
+        now_wall = time.time()
+        self._journal_suppress = True
+        try:
+            for e in entries:
+                done = min(len(e.tokens), e.max_new_tokens)
+                remaining = e.max_new_tokens - done
+                if e.deadline_wall and e.deadline_wall <= now_wall:
+                    self.deadline_expired += 1
+                    self._done[e.request_id] = Completion(
+                        request_id=e.request_id, prompt_len=len(e.prompt),
+                        tokens=list(e.tokens)[:done],
+                        finish_reason="deadline")
+                    continue
+                if remaining <= 0:
+                    # fully generated before the crash (between the last
+                    # checkpoint and the retire): emit, don't recompute
+                    self._done[e.request_id] = Completion(
+                        request_id=e.request_id, prompt_len=len(e.prompt),
+                        tokens=list(e.tokens)[:e.max_new_tokens],
+                        finish_reason="length")
+                    continue
+                prompt = list(e.prompt) + list(e.tokens)
+                if len(prompt) > self.prompt_limit:
+                    self.journal.record_abandon(e.request_id)
+                    self.journal_abandoned += 1
+                    continue
+                kw: dict = {}
+                if e.deadline_wall:
+                    kw["deadline_s"] = e.deadline_wall - now_wall
+                rid = self.submit(
+                    prompt, remaining,
+                    cache_eligible_tokens=e.cache_eligible_tokens,
+                    correlation_id=e.correlation_id, tenant=e.tenant,
+                    priority=e.priority or "interactive", **kw)
+                self.journal.supersede(e.request_id, rid, e.tokens)
+                self._journal_stitch[rid] = (len(e.prompt), list(e.tokens))
+                self._journal_ckpt[rid] = 0
+                self.journal_recovered.append((rid, e.correlation_id))
+                self.journal_replayed += 1
+                if self.telemetry is not None:
+                    self.telemetry.on_journal_replayed()
+                if e.trace_id and e.span_id:
+                    # an attempt-numbered replay span in the originating
+                    # pipeline trace (never a fresh orphan root)
+                    with _trace.span(
+                            "engine_replay", kind="engine_replay",
+                            service="engine",
+                            correlation_id=e.correlation_id,
+                            attempt=e.attempt + 1,
+                            parent=(e.trace_id, e.span_id),
+                            request_id=rid, restart=True):
+                        pass
+        finally:
+            self._journal_suppress = False
+        return self.journal_replayed
 
     # ------------------------------------------------------------------
     # supervisor hooks, streams, graphs
@@ -997,6 +1395,9 @@ class GenerationEngine:
                 sup.on_dispatch_ok(kind)
         except Exception as exc:
             self._last_failed_kind = kind
+            if isinstance(exc, InjectedFault) \
+                    and self.telemetry is not None:
+                self.telemetry.on_fault_injected(kind, exc.mode)
             if sup is not None:
                 sup.on_dispatch_error(kind, exc)
             raise

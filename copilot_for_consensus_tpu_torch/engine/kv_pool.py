@@ -26,7 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from copilot_for_consensus_tpu_torch.device import resolve_device
+from copilot_for_consensus_tpu_torch.device import (
+    resolve_device,
+    storage_view,
+    zeros,
+)
 
 #: dtype of every block table the paged dispatches consume
 BLOCK_TABLE_DTYPE = np.int32
@@ -66,8 +70,8 @@ class BlockPool:
         shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads, block_size,
                  cfg.head_dim)
         dev = resolve_device(device)
-        self.k = torch.zeros(shape, dtype=kv_dtype, device=dev)
-        self.v = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        self.k = zeros(shape, kv_dtype, dev)
+        self.v = zeros(shape, kv_dtype, dev)
         self._free: list[int] = list(range(num_blocks))
         self._is_free = np.ones(num_blocks, dtype=bool)
         self._pins = np.zeros(num_blocks, dtype=np.int64)
@@ -181,7 +185,7 @@ class BlockPool:
         ``soffs[i, j]`` (host maps ``[R, S]``). Entries holding the
         sentinel id (``num_blocks``: parked rows, padding, columns past
         ``max_len``) are dropped, as the reference's ``mode="drop"``
-        drops them."""
+        drops them. An fp8 pool moves as bytes (``storage_view``)."""
         rows, cols = np.nonzero(sbids < self.num_blocks)
         if rows.size == 0:
             return
@@ -196,7 +200,8 @@ class BlockPool:
         # advanced indices on axes 1 and 3 put the [N] index axis first:
         # [N, L, Hkv, Dh] on both sides
         for pool, new in ((self.k, k_new), (self.v, v_new)):
-            pool[:, bids, :, offs, :] = new[:, r, :, c, :].to(pool.dtype)
+            storage_view(pool)[:, bids, :, offs, :] = storage_view(
+                new[:, r, :, c, :].to(pool.dtype))
 
     def scatter_static(self, k_new: torch.Tensor, v_new: torch.Tensor,
                        bids: torch.Tensor, offs: torch.Tensor,
@@ -215,5 +220,6 @@ class BlockPool:
         keep = keep[:, :, None, None, None]
         for pool, new in ((self.k, k_new), (self.v, v_new)):
             # [R, S, L, Hkv, Dh] on both sides, as in scatter
-            upd = new.permute(1, 3, 0, 2, 4).to(pool.dtype)
-            pool[:, b, :, o, :] = torch.where(keep, upd, pool[:, b, :, o, :])
+            upd = storage_view(new.permute(1, 3, 0, 2, 4).to(pool.dtype))
+            raw = storage_view(pool)
+            raw[:, b, :, o, :] = torch.where(keep, upd, raw[:, b, :, o, :])

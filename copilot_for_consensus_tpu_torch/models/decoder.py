@@ -29,7 +29,11 @@ from typing import Any
 
 import torch
 
-from copilot_for_consensus_tpu_torch.device import resolve_device
+from copilot_for_consensus_tpu_torch.device import (
+    resolve_device,
+    storage_view,
+    zeros,
+)
 from copilot_for_consensus_tpu_torch.models import layers as L
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
 from copilot_for_consensus_tpu_torch.models.quant import (
@@ -90,8 +94,8 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> Params:
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     device = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros(shape, dtype, device),
+            "v": zeros(shape, dtype, device)}
 
 
 def prefill(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -239,7 +243,8 @@ def merge_window(cache: Params, k_win: torch.Tensor, v_win: torch.Tensor,
     extent) - 1``, whose own value is written back. No kept column of the
     slot lands there (they start at ``positions0[b]``), and every slot
     writes only its own row, so the cache ends as if the dropped columns
-    were never written."""
+    were never written. The window buffers hold the cache's dtype; an
+    fp8 cache moves as bytes (``storage_view``)."""
     b, w = k_win.shape[1], k_win.shape[3]
     steps = min(steps, w)
     s_max = cache["k"].shape[3]
@@ -252,10 +257,11 @@ def merge_window(cache: Params, k_win: torch.Tensor, v_win: torch.Tensor,
     bidx = torch.arange(b, device=dev)[:, None].expand(b, steps)
     keep = keep[:, :, None, None, None]
     for name, win in (("k", k_win), ("v", v_win)):
-        c = cache[name]
+        c = storage_view(cache[name])
         # advanced indices on axes 1 and 3 put the [B, steps] index axes
         # first: [B, steps, L, Hkv, Dh] on both sides
-        upd = win[:, :, :, :steps].permute(1, 3, 0, 2, 4).to(c.dtype)
+        upd = storage_view(win[:, :, :, :steps].permute(1, 3, 0, 2, 4)
+                           .to(cache[name].dtype))
         c[:, bidx, :, pidx, :] = torch.where(keep, upd,
                                              c[:, bidx, :, pidx, :])
     return cache

@@ -13,10 +13,10 @@ head (R = group for decode, group·S for a seeded suffix pass, rows (g, s)
 flattened row-major) against one layer of the stacked pool, read in
 place through the table. Positions ``p < lengths[b]`` are attended and,
 when ``window > 0``, only those with ``p > q_pos[b] - window``. Scores
-are ``(q·k)·D**-0.5`` in f32, K and V converted to f32 on load (fp8
-e4m3 pools included). Outputs are f32: ``acc = Σ exp(s - m)·v``, the
-max ``m`` and ``l = Σ exp(s - m)``; a row masked everywhere gives
-``m = -inf``, ``l = 0``, ``acc = 0``. ``ops.attention.combine_partials``
+are ``(q·k)·D**-0.5`` in f32, K and V converted to f32 on load (f16 and
+fp8 pools, e4m3 and e5m2, included). Outputs are f32:
+``acc = Σ exp(s - m)·v``, the max ``m`` and ``l = Σ exp(s - m)``; a row
+masked everywhere gives ``m = -inf``, ``l = 0``, ``acc = 0``. ``ops.attention.combine_partials``
 folds them with the dispatch-local pieces into one joint softmax.
 
 ``paged_attention_partial`` launches the kernel for CUDA tensors and runs
@@ -25,8 +25,9 @@ three bodies, chosen by :func:`paged_body` from dtypes and shape alone:
 for bf16 q_rows and a bf16 pool at D 64/128 (the main path), the split-KV
 body of ``csrc/paged_decode.cuh`` for decode's few rows and the wgmma body
 of ``csrc/paged_wgmma.cuh`` for a seeded pass's many; the CUDA-core body
-of ``csrc/paged_attention.cu`` for the rest (f32 or fp8 pools, f32 q_rows,
-D 32). :func:`decode_splits` and :func:`paged_attention_partial_split_ref`
+of ``csrc/paged_attention.cu`` for the rest (f32, f16 or fp8 pools, f32
+q_rows, D 32): an engine with an fp8 KV cache reads its pool there, in
+decode and in seeded admission. :func:`decode_splits` and :func:`paged_attention_partial_split_ref`
 mirror the decode body's plan and its fixed-order merge in plain PyTorch.
 """
 
@@ -43,7 +44,8 @@ from copilot_for_consensus_tpu_torch.ops.attention import (
 HEAD_DIMS = (32, 64, 128)
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 #: pool dtype → the kernel's ``kv_kind`` argument
-_KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+_KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+             torch.float16: 3, torch.float8_e5m2: 4}
 #: K3's bodies, the keys of ``paged_attention_partial.launches_by_body``
 K3_BODIES = ("decode", "seeded", "simt")
 #: head dims of the decode and seeded bodies
@@ -256,8 +258,9 @@ def paged_attention_partial(
     the stacked pool, read in place through ``tables``.
 
     q_rows: [B, Hkv, R, D] f32 or bf16; pools: [L, NBtot, Hkv, blk, D]
-    bf16, f32 or float8_e4m3fn; ``li``: layer index (an offset into the
-    stacked pool: no per-layer slice is copied); tables: [B, NB] int32
+    bf16, f32, f16, float8_e4m3fn or float8_e5m2; ``li``: layer index (an
+    offset into the stacked pool: no per-layer slice is copied); tables:
+    [B, NB] int32
     (pad ids >= NBtot are clamped and must be length-masked); lengths,
     q_pos: int32 [B] tensors on the same device (``q_pos`` is read only
     when ``window > 0``). Returns f32 (acc [B, Hkv, R, D], m [B, Hkv, R,

@@ -4,10 +4,11 @@
 Drivers: ``mock``, ``cuda`` (the port's ``CUDASummarizer``, the
 counterpart of the JAX package's ``tpu`` driver; ``device`` from the
 config, None meaning the card), ``openai`` and ``azure_openai``. The
-``tpu`` driver is refused with a pointer to ``cuda``. An option of the
-``tpu`` driver that the port does not serve yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it; none is
-dropped silently.
+``tpu`` driver is refused with a pointer to ``cuda``. The ``cuda`` driver
+takes the ``tpu`` driver's options as it does (``supervisor``,
+``deadline_s``, ``journal`` or ``journal_path``, ``kv_dtype``); an option
+the port does not serve yet raises ``NotImplementedError`` naming the
+ROADMAP item that brings it; none is dropped silently.
 """
 
 from __future__ import annotations
@@ -27,9 +28,6 @@ from copilot_for_consensus_tpu_torch.summarization.base import (
 #: yet → the ROADMAP Queue 1 item that brings each
 _NOT_YET = {
     "long_context": "item 6 (engine/longctx.py, the long-context route)",
-    "journal": "item 4 (engine/journal.py, the request journal)",
-    "journal_path": "item 4 (engine/journal.py, the request journal)",
-    "deadline_s": "item 4 (per-request deadlines, with the scheduler)",
     "profile_dir": "item 7 (obs/profile.py on torch.profiler)",
 }
 
@@ -48,12 +46,6 @@ def _refuse_unserved(config: Any) -> None:
             raise NotImplementedError(
                 f"llm_backend option {key!r} is not served by the port's "
                 f"cuda driver yet: ROADMAP Queue 1 {item}")
-    kv_dtype = _cfg_get(config, "kv_dtype")
-    if kv_dtype and kv_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: the port's engine keeps its KV in the "
-            f"activation dtype (bfloat16); another KV dtype is ROADMAP "
-            f"Queue 1 item 4")
 
 
 def create_summarizer(config: Any = None, **kwargs: Any) -> Summarizer:
@@ -76,11 +68,18 @@ def create_summarizer(config: Any = None, **kwargs: Any) -> Summarizer:
             num_slots=int(_cfg_get(config, "num_slots", 4)),
             max_len=int(_cfg_get(config, "max_len", 4096)),
             checkpoint=_cfg_get(config, "checkpoint") or None,
+            kv_dtype=_cfg_get(config, "kv_dtype") or None,
             quantize=_cfg_get(config, "quantize", "int8"),
             # resilience (engine/supervisor.py): supervisor=true wires
             # watchdog + request replay + degraded-mode breakers into
-            # the engine's dispatcher
+            # the engine's dispatcher; deadline_s drops expired work
             supervisor=_cfg_get(config, "supervisor", None),
+            deadline_s=_cfg_get(config, "deadline_s", None),
+            # the request journal (engine/journal.py): a config dict
+            # {"path": ..., "checkpoint_every": ...} or the "journal_path"
+            # string; either way the engine warm-restarts from it
+            journal=(_cfg_get(config, "journal", None)
+                     or _cfg_get(config, "journal_path", None)),
             device=_cfg_get(config, "device"),
             **kwargs,
         )

@@ -5,7 +5,9 @@ Port of the JAX package's ``summarization/tpu_summarizer.py``
 ``build_prompt``, ``shared_template_head``, ``cache_scope``,
 ``summarize``, ``summarize_batch`` and the async front end
 (``summarize_async``, ``drain``, ``close``: the engine behind an
-``AsyncEngineRunner`` and its supervisor), served by the port's
+``AsyncEngineRunner`` and its supervisor), the default scheduling identity
+(``tenant``, ``priority``), the per-request ``deadline_s``, the request
+``journal`` and the ``kv_dtype``, served by the port's
 ``GenerationEngine`` (a paged one with a prefix cache comes in through
 ``engine=``). Prompts longer than the engine's ``prompt_limit`` keep their
 tail (there is no long-context engine here).
@@ -99,7 +101,14 @@ class CUDASummarizer(Summarizer):
     "full" — the whole prompt (a re-summarized thread re-sends a
     near-identical prompt); "template" — only the shared template head,
     for small pools where thread-unique context would evict it; "off" —
-    nothing."""
+    nothing.
+
+    ``tenant`` and ``priority`` are the default scheduling identity of this
+    summarizer's requests (a call's own override them); ``deadline_s`` is
+    each request's wall-clock budget through the runner (expired work is
+    dropped, and a drop with no tokens raises ``EngineFailed``);
+    ``journal`` (a path, a ``{"path", "checkpoint_every"}`` dict or an
+    ``EngineJournal``) and ``kv_dtype`` go to the engine it builds."""
 
     def __init__(self, model: str = "mistral-7b", *, engine=None,
                  tokenizer: Tokenizer | None = None,
@@ -111,8 +120,16 @@ class CUDASummarizer(Summarizer):
                  dtype: str | torch.dtype | None = None,
                  quantize: bool | str = "int8", seed: int = 0,
                  cache_scope: str = "full", supervisor=None,
+                 tenant: str = "", priority: str = "",
+                 deadline_s: float | None = None, journal=None,
+                 kv_dtype: str | torch.dtype | None = None,
                  device: str | torch.device | None = None):
         self._model = model
+        #: the default scheduling identity; a call's own overrides it
+        self.tenant = tenant
+        self.priority = priority
+        #: each request's wall-clock budget (None: no deadline)
+        self.deadline_s = deadline_s
         #: resilience (engine/supervisor.py): True / a SupervisorConfig
         #: wires the watchdog, containment, request replay and breakers
         #: into the runner ``summarize_async`` builds; None (the JAX
@@ -140,16 +157,18 @@ class CUDASummarizer(Summarizer):
             # real weights: the quantize mode is the checkpoint's own
             engine = GenerationEngine.from_checkpoint(
                 checkpoint, num_slots=num_slots, max_len=max_len,
-                seed=seed, dtype=dtype if dtype is not None
-                else torch.bfloat16, device=device)
+                seed=seed, kv_dtype=kv_dtype, journal=journal,
+                dtype=dtype if dtype is not None else torch.bfloat16,
+                device=device)
             self._model = f"checkpoint:{checkpoint}"
         elif engine is None:
             cfg = decoder_config(model)
             engine = GenerationEngine(
                 cfg, params, num_slots=num_slots,
                 max_len=min(max_len, cfg.max_seq_len), quantize=quantize,
-                seed=seed, dtype=dtype if dtype is not None
-                else torch.bfloat16, device=resolve_device(device))
+                seed=seed, kv_dtype=kv_dtype, journal=journal,
+                dtype=dtype if dtype is not None else torch.bfloat16,
+                device=resolve_device(device))
         self.engine = engine
         self.tokenizer: Tokenizer = tokenizer or ByteTokenizer(
             max(259, self.engine.cfg.vocab_size))
@@ -197,8 +216,25 @@ class CUDASummarizer(Summarizer):
                 cache_eligible_tokens=self._cache_eligible)
         handles = [self._runner.submit(
             p, self.max_new_tokens,
-            cache_eligible_tokens=self._cache_eligible) for p in prompts]
-        return [h.result(timeout=600.0) for h in handles]
+            cache_eligible_tokens=self._cache_eligible, tenant=self.tenant,
+            priority=self.priority, deadline_s=self.deadline_s)
+            for p in prompts]
+        return [self._checked(h.result(timeout=600.0)) for h in handles]
+
+    @staticmethod
+    def _checked(comp):
+        """A deadline drop with no tokens is a failure, not an empty
+        summary the service would store and publish: it raises the
+        structured ``EngineFailed`` that the bus retry path handles."""
+        if comp.finish_reason == "deadline" and not comp.tokens:
+            from copilot_for_consensus_tpu_torch.engine.supervisor import (
+                EngineFailed,
+            )
+            raise EngineFailed(
+                f"request {comp.request_id} dropped at its deadline "
+                f"before any tokens were generated",
+                request_id=comp.request_id, reason="deadline-expired")
+        return comp
 
     def summarize_batch(self, threads: list[ThreadContext]) -> list[Summary]:
         """Continuous batching: all threads share the decode batch."""
@@ -215,25 +251,18 @@ class CUDASummarizer(Summarizer):
         event at a time. The first call starts an ``AsyncEngineRunner``
         (with the summarizer's ``supervisor``), whose dispatcher thread
         owns the engine from then on. ``correlation_id`` (the pipeline
-        event id) tags the request, so an engine error report or a
-        replay names it.
+        event id) tags the request, so its telemetry span, an engine error
+        report or a replay names it. ``tenant`` and ``priority`` (falling
+        back to the summarizer's defaults) are the request's scheduling
+        identity, journaled with it; the summarizer's ``deadline_s`` is
+        its budget.
 
         Left out against the JAX package's ``TPUSummarizer``: the
         long-context route (prompts over ``prompt_limit`` keep their
-        tail) and the scheduler's tenant, priority and deadline, which
-        the port does not have yet. A ``tenant`` or ``priority`` that is
-        not empty is refused with ``NotImplementedError``, so the copied
-        ``SummarizationService`` (which passes them when the call takes
-        them) cannot drop a configured one without a word."""
+        tail)."""
         from copilot_for_consensus_tpu_torch.engine.async_runner import (
             AsyncEngineRunner,
         )
-
-        if tenant or priority:
-            raise NotImplementedError(
-                f"summarize_async(tenant={tenant!r}, priority={priority!r}):"
-                f" the port's engine has no scheduler to serve a tenant or "
-                f"a priority yet (ROADMAP Queue 1 item 4)")
 
         fi = getattr(self.engine, "faults", None)
         if fi is not None:
@@ -249,10 +278,12 @@ class CUDASummarizer(Summarizer):
         handle = runner.submit(
             prompt, self.max_new_tokens,
             cache_eligible_tokens=self._cache_eligible,
-            correlation_id=correlation_id)
+            correlation_id=correlation_id, tenant=tenant or self.tenant,
+            priority=priority or self.priority, deadline_s=self.deadline_s)
 
         def wait(timeout: float | None = 600.0) -> Summary:
-            return self._summary(thread, handle.result(timeout))
+            return self._summary(thread,
+                                 self._checked(handle.result(timeout)))
 
         return wait
 

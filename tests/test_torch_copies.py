@@ -21,11 +21,11 @@ consensus/__init__.py consensus/base.py consensus/factory.py
 core/__init__.py core/config.py core/events.py core/factory.py core/ids.py
 core/openai_compat.py core/retry.py core/startup.py core/validation.py
 embedding/__init__.py embedding/openai_provider.py
-engine/async_runner.py engine/faults.py engine/telemetry.py
-engine/tokenizer.py
+engine/__init__.py engine/async_runner.py engine/faults.py
+engine/journal.py engine/telemetry.py engine/tokenizer.py
 fetch/__init__.py fetch/base.py fetch/factory.py
 obs/__init__.py obs/azure_monitor.py obs/errors.py obs/factory.py
-obs/logging.py obs/metrics.py obs/trace.py
+obs/logging.py obs/metrics.py obs/ship.py obs/trace.py
 security/__init__.py security/factory.py security/secrets.py
 services/__init__.py services/base.py services/chunking.py
 services/embedding.py services/ingestion.py services/orchestrator.py
@@ -95,7 +95,6 @@ PORTED = {
     "summarization/factory.py": "the cuda driver; tpu and the options the "
                                 "port does not serve refused",
     "summarization/summarizer.py": "CUDASummarizer, TPUSummarizer's port",
-    "engine/__init__.py": "the JAX one imports the journal (item 4)",
     "engine/generation.py": "the engine, in PyTorch",
     "engine/graphs.py": "CUDA graphs of the decode dispatch; no JAX "
                         "counterpart (jit per bucket)",
@@ -123,6 +122,10 @@ PORTED = {
                                      "body is the port's own)",
     "scripts/probe_stream.py": "the weight-stream probe's driver on the "
                                "card",
+    "tools/journal_storm.py": "builds the port's engine (the JAX one "
+                              "imports JAX), on the card unless --device "
+                              "cpu; adds --model, --quantize, --dtype and "
+                              "--checkpoint-every for full-width storms",
 }
 
 

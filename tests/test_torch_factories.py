@@ -57,14 +57,29 @@ CUDA = {"driver": "cuda", "model": "tiny", "max_new_tokens": 4,
 
 @pytest.mark.parametrize("key,value,item", [
     ("long_context", True, "item 6"),
-    ("journal", {"path": "/nowhere"}, "item 4"),
-    ("journal_path", "/nowhere", "item 4"),
-    ("deadline_s", 5.0, "item 4"),
-    ("profile_dir", "/nowhere", "item 7"),
-    ("kv_dtype", "float8_e4m3fn", "item 4")])
+    ("profile_dir", "/nowhere", "item 7")])
 def test_cuda_driver_refuses_what_it_does_not_serve(key, value, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         create_summarizer({**CUDA, key: value})
+
+
+@pytest.mark.parametrize("key,value", [
+    ("journal", {"path": ":memory:", "checkpoint_every": 3}),
+    ("journal_path", ":memory:"),
+    ("deadline_s", 5.0),
+    ("kv_dtype", "float8_e4m3fn")])
+def test_cuda_driver_serves_the_deployed_options(key, value):
+    summ = create_summarizer({**CUDA, key: value})
+    eng = summ.engine
+    if key.startswith("journal"):
+        assert eng.journal is not None and eng.journal.depth() == 0
+        assert eng.journal.checkpoint_every == (
+            3 if key == "journal" else 8)
+    elif key == "deadline_s":
+        assert summ.deadline_s == 5.0
+    else:
+        assert eng.kv_dtype == torch.float8_e4m3fn
+        assert eng._cache["k"].dtype == torch.float8_e4m3fn
 
 
 @pytest.mark.parametrize("key,value", [
@@ -74,6 +89,29 @@ def test_cuda_driver_refuses_what_it_does_not_serve(key, value, item):
 def test_cuda_driver_takes_the_defaults_of_those_options(key, value):
     assert isinstance(create_summarizer({**CUDA, key: value}),
                       CUDASummarizer)
+
+
+def test_deployed_llm_block_builds_on_the_cuda_driver(tmp_path):
+    # deploy/config/pipeline.json's llm block, its tpu drivers mapped to
+    # cuda in memory (the file is read, never written), at the tiny
+    # config on the CPU: nothing in it is refused
+    path = PKG.parent / "deploy" / "config" / "pipeline.json"
+    text = path.read_text()
+    deployed = json.loads(text)
+    mapped = {k: {**v, "driver": "cuda"} if isinstance(v, dict)
+              and v.get("driver") == "tpu" else v
+              for k, v in deployed.items()}
+    llm = {**mapped["llm"], **{k: v for k, v in CUDA.items()
+                               if k != "driver"},
+           "journal": {**mapped["llm"]["journal"],
+                       "path": str(tmp_path / "j.sqlite3")}}
+    assert llm["driver"] == "cuda"
+    summ = create_summarizer(llm)
+    assert isinstance(summ, CUDASummarizer)
+    assert summ.supervisor is True and summ.deadline_s == 300
+    eng = summ.engine
+    assert eng.journal.checkpoint_every == 8 and eng.telemetry is not None
+    assert path.read_text() == text
 
 
 def test_tpu_driver_is_refused_naming_cuda():
@@ -201,8 +239,21 @@ def test_registry_kind_modules_are_the_ports():
         assert module.startswith("copilot_for_consensus_tpu_torch."), kind
 
 
+#: the deployed llm block's keys (deploy/config/pipeline.json) that the
+#: cuda schema documents and the tpu schema takes only as additional
+#: properties
+LLM_DEPLOYED_KEYS = {
+    "supervisor": {"type": ["boolean", "object", "null"], "default": None},
+    "deadline_s": {"type": ["number", "null"], "default": None},
+    "journal": {"type": ["object", "string", "null"], "default": None,
+                "properties": {"path": {"type": "string"},
+                               "checkpoint_every": {"type": "integer",
+                                                    "minimum": 1}}},
+    "journal_path": {"type": "string", "default": ""}}
+
+
 def test_cuda_schema_is_the_tpu_schema_with_a_device():
-    _check_cuda_schema("llm_backend")
+    _check_cuda_schema("llm_backend", LLM_DEPLOYED_KEYS)
 
 
 @pytest.mark.parametrize("kind", ["embedding_backend", "vector_store"])
@@ -210,12 +261,15 @@ def test_cuda_retrieval_schema_is_the_tpu_schema_with_a_device(kind):
     _check_cuda_schema(kind)
 
 
-def _check_cuda_schema(kind):
+def _check_cuda_schema(kind, extra=None):
     root = PKG / "schemas" / "configs" / "adapters" / kind
     tpu = json.loads((root / "tpu.schema.json").read_text())
     cuda = json.loads((root / "cuda.schema.json").read_text())
     assert cuda["properties"].pop("device") == {"type": "string",
                                                 "default": "cuda"}
+    for key, want in (extra or {}).items():
+        assert key not in tpu["properties"]
+        assert cuda["properties"].pop(key) == want
     assert cuda["properties"].pop("driver") == {"const": "cuda"}
     assert tpu["properties"].pop("driver") == {"const": "tpu"}
     assert cuda.pop("$id") == tpu.pop("$id").replace("tpu.schema",
@@ -232,6 +286,14 @@ def test_cuda_schema_validates_a_cuda_config():
         validate_json({**CUDA, "driver": "tpu"}, name, provider)
     with pytest.raises(SchemaValidationError):
         validate_json({**CUDA, "num_slots": "four"}, name, provider)
+    # the deployed block's resilience keys, and their wrong types
+    deployed = {**CUDA, "supervisor": True, "deadline_s": 300,
+                "journal": {"path": "/data/j.sqlite3", "checkpoint_every": 8}}
+    validate_json(deployed, name, provider)
+    for wrong in ({"deadline_s": "soon"}, {"journal": 3},
+                  {"journal": {"checkpoint_every": 0}}):
+        with pytest.raises(SchemaValidationError):
+            validate_json({**deployed, **wrong}, name, provider)
 
 
 @pytest.mark.parametrize("kind,config,bad", [
@@ -250,12 +312,38 @@ def test_cuda_retrieval_schemas_validate_a_cuda_config(kind, config, bad):
 
 def test_service_collector_attach_is_a_no_op_without_telemetry():
     # SummarizationService re-points engine telemetry at its collector;
-    # the port's engine has none yet (ROADMAP Queue 1 item 4)
+    # an engine built with telemetry=False has none to re-point
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.telemetry import (
+        attach_service_collector,
+    )
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+    from copilot_for_consensus_tpu_torch.obs.metrics import InMemoryMetrics
+
+    eng = GenerationEngine(decoder_config("tiny"), num_slots=2, max_len=128,
+                           telemetry=False, device="cpu")
+    summ = CUDASummarizer(engine=eng, max_new_tokens=4)
+    assert attach_service_collector(summ, InMemoryMetrics()) == 0
+    assert summ.engine.prefix_stats()["enabled"] is False
+
+
+def test_service_collector_attach_repoints_the_engine_series():
+    # the cuda driver's engine has telemetry on by default: the service's
+    # collector then renders the copilot_engine_* series it emits
     from copilot_for_consensus_tpu_torch.engine.telemetry import (
         attach_service_collector,
     )
     from copilot_for_consensus_tpu_torch.obs.metrics import InMemoryMetrics
 
     summ = create_summarizer(CUDA)
-    assert attach_service_collector(summ, InMemoryMetrics()) == 0
-    assert summ.engine.prefix_stats()["enabled"] is False
+    shared = InMemoryMetrics(namespace="copilot")
+    assert attach_service_collector(summ, shared) == 1
+    assert summ.engine.telemetry.metrics is shared
+    summ.engine.generate([[5, 6, 7]], 3)
+    body = shared.render_prometheus()
+    assert 'copilot_engine_requests_total{engine="generation"' in body
+    assert "copilot_engine_step_seconds_bucket" in body

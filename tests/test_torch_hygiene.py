@@ -50,6 +50,41 @@ def test_the_retrieval_modules_are_among_the_checked_files(rel):
     assert PKG / rel in PORT_FILES
 
 
+@pytest.mark.parametrize("rel", [
+    "engine/__init__.py", "engine/journal.py", "obs/ship.py",
+    "tools/journal_storm.py"])
+def test_the_journal_modules_are_among_the_checked_files(rel):
+    # the request journal, the telemetry spool and the storm driver are
+    # checked with every other file of the package
+    assert PKG / rel in PORT_FILES
+
+
+_STORM_ALONE = """
+import sys
+from copilot_for_consensus_tpu_torch.tools import journal_storm
+d = sys.argv[1]
+rc = journal_storm.main(["--journal", d + "/j.sqlite3", "--out",
+                         d + "/out.jsonl", "--result", d + "/r.json",
+                         "--requests", "2", "--new-tokens", "3",
+                         "--spool", d + "/spool.sqlite3", "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "copilot_for_consensus_tpu"
+             or m.startswith("copilot_for_consensus_tpu."))
+assert rc == 0 and not bad, (rc, bad)
+"""
+
+
+def test_journal_storm_runs_without_jax(tmp_path):
+    # the storm drives the port's engine, journal and spool end to end in
+    # a fresh interpreter that never loads JAX
+    out = subprocess.run([sys.executable, "-c", _STORM_ALONE, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert len((tmp_path / "out.jsonl").read_text().splitlines()) == 2
+
+
 def _imported_names(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -5,6 +5,7 @@
 # and the cuda driver on tiny (device "cpu", a checkpoint the JAX package
 # wrote) turns the mbox into cited reports, one a thread, sync and
 # pipelined alike, from the same prompt ids as the JAX tpu driver.
+import json
 import pathlib
 import subprocess
 import sys
@@ -302,23 +303,25 @@ def test_pipelined_crash_between_ack_and_store_recovers(ckpt):
     summ.summarizer.close()
 
 
-def test_configured_tenant_and_priority_are_refused_in_words(ckpt):
+def test_configured_tenant_and_priority_are_served(ckpt):
     """A pipeline's tenancy block reaches summarize_async, which the copied
-    service probes for tenant and priority; the port has no scheduler to
-    serve them yet, so every thread is refused naming ROADMAP Queue 1
-    item 4 (on the failure event and to the error reporter) and no summary
-    or report is written — never a silent drop."""
-    from copilot_for_consensus_tpu_torch.obs.errors import (
-        CollectingErrorReporter,
-    )
-
+    service probes for tenant and priority: every thread is summarized and
+    reported, and every engine request carries the configured identity
+    (the journal row and a replay keep it)."""
     p = trunner.build_pipeline({
         "llm": _llm("cuda", ckpt, pipelined=True),
         "embedding": {"driver": "mock"},
         "tenancy": {"tenant": "ietf", "priority": "batch"}})
     summ = p.summarization
     assert {"tenant", "priority"} <= summ._async_kwargs
-    summ.error_reporter = CollectingErrorReporter()
+    eng = summ.summarizer.engine
+    seen, submit = [], eng.submit
+
+    def recording_submit(prompt, *a, **kw):
+        seen.append((kw.get("tenant"), kw.get("priority")))
+        return submit(prompt, *a, **kw)
+
+    eng.submit = recording_submit
     failures = []
     p.broker.bind("summarization.failed", failures.append)
     p.ingestion.create_source({"source_id": "s", "name": "s",
@@ -326,34 +329,74 @@ def test_configured_tenant_and_priority_are_refused_in_words(ckpt):
     stats = p.ingest_and_run("s")
     summ.summarizer.close()
     threads = {t["thread_id"] for t in p.store.query_documents("threads", {})}
+    assert not failures
     assert stats["threads"] == len(threads) >= 3
-    assert stats["summaries"] == stats["reports"] == 0
-    assert p.store.count_documents("reports") == 0
-    assert {f["data"]["thread_id"] for f in failures} == threads
-    for f in failures:
-        assert f["data"]["error_type"] == "NotImplementedError"
-        assert "ROADMAP Queue 1 item 4" in f["data"]["error"]
-    reported = summ.error_reporter.reports
-    assert reported and all("Queue 1 item 4" in str(e)
-                            for e, _ in reported)
+    assert stats["reports"] == len(threads)
+    assert seen and set(seen) == {("ietf", "batch")}
 
 
-def test_summarize_async_refuses_a_tenant_or_a_priority(ckpt):
+def test_summarize_async_carries_a_tenant_and_a_priority(ckpt):
     summ = CUDASummarizer(checkpoint=ckpt, max_new_tokens=4, num_slots=4,
-                          max_len=256, device="cpu")
+                          max_len=256, device="cpu", tenant="ietf",
+                          priority="batch")
     from copilot_for_consensus_tpu_torch.summarization.base import (
         ThreadContext,
     )
 
     thread = ThreadContext(thread_id="t", subject="s", chunks=[])
-    for kw in ({"tenant": "ietf"}, {"priority": "interactive"}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 4"):
-            summ.summarize_async(thread, **kw)
-    assert summ._runner is None              # nothing was submitted
-    wait = summ.summarize_async(thread, tenant="", priority="")
-    assert wait(60.0).completion_tokens >= 1
+    seen, submit = [], summ.engine.submit
+
+    def recording_submit(prompt, *a, **kw):
+        seen.append((kw.get("tenant"), kw.get("priority")))
+        return submit(prompt, *a, **kw)
+
+    summ.engine.submit = recording_submit
+    waits = [summ.summarize_async(thread, tenant="acme",
+                                  priority="interactive"),
+             summ.summarize_async(thread)]
+    assert all(w(60.0).completion_tokens >= 1 for w in waits)
+    # a call's own identity overrides the summarizer's defaults
+    assert seen == [("acme", "interactive"), ("ietf", "batch")]
     summ.close()
+
+
+def _deployed_llm(ckpt, journal_path) -> dict:
+    """deploy/config/pipeline.json's llm block (read, never written) on
+    the cuda driver: the tiny checkpoint on the CPU, its journal moved
+    under the test's directory, pipelined."""
+    block = json.loads((ROOT / "deploy" / "config" / "pipeline.json")
+                       .read_text())["llm"]
+    assert block["driver"] == "tpu"
+    assert {"supervisor", "deadline_s", "journal"} <= set(block)
+    return {**block, **_llm("cuda", ckpt, pipelined=True),
+            "journal": {**block["journal"], "path": str(journal_path)}}
+
+
+def test_deployed_llm_block_serves_on_the_cuda_driver(ckpt, tmp_path):
+    llm = _deployed_llm(ckpt, tmp_path / "engine-journal.sqlite3")
+    p = trunner.build_pipeline({"llm": llm,
+                                "embedding": {"driver": "mock"}})
+    summ = p.summarization.summarizer
+    eng = summ.engine
+    assert summ.supervisor is True and summ.deadline_s == 300
+    assert eng.journal is not None and eng.journal.checkpoint_every == 8
+    assert eng.telemetry.metrics is p.metrics       # the service's
+    p.ingestion.create_source({"source_id": "s", "name": "s",
+                               "fetcher": "local", "location": MBOX})
+    stats = p.ingest_and_run("s")
+    assert summ.drain(30.0) is True
+    threads = {t["thread_id"] for t in p.store.query_documents("threads", {})}
+    assert stats["threads"] == len(threads) >= 3
+    assert stats["reports"] == p.store.count_documents("reports") \
+        == len(threads)
+    m = p.metrics
+    lb = {"engine": "generation"}
+    assert m.histogram_stats("engine_queue_wait_seconds", lb)["count"] > 0
+    assert m.histogram_stats("engine_step_seconds",
+                             {**lb, "kind": "decode"})["count"] > 0
+    assert "copilot_engine_requests_total" in m.render_prometheus()
+    st = eng.journal_stats()
+    assert st["depth"] == 0 and st["retired"] >= len(threads)
 
 
 _RUN_ALONE = """
