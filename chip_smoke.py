@@ -36,8 +36,9 @@ non-zero before the last line:
    for f32) runs, each case asserting its body. K2's cases
    name their body (the stream body at M 4 and 8, wgmma for bf16 waves,
    the GEMV and CUDA cores for f32) and include three few-row waves (M 512
-   and 64); four more with small integer x must equal the plain version
-   bit for bit on the wgmma body and six on the stream body (M 1, 4, 8;
+   and 64) and the verify passes' M 40 and 288 at w_gate/w_up's and the
+   lm_head's shapes; four more with small integer x must equal the plain
+   version bit for bit on the wgmma body and six on the stream body (M 1, 4, 8;
    both convert int8 -> bf16 exactly), two layouts the wgmma body does not
    take hold the WMMA body to its tolerance, and, untimed, the stream
    body's edges (M 1, 3, 5, 7) and a layout it refuses (F 1000, on the
@@ -71,7 +72,9 @@ non-zero before the last line:
 7. kernels, K3 — (run right after phase 3, on a 1024-block pool) the
    paged flash-partial kernel against its plain version at the decode
    (R = 4, a 64-entry table, bf16/f32/fp8 pools, windows 4096 and 100)
-   and seeded-admission (R = 4·64, 4·1024) shapes — the normalised output
+   and seeded-admission (R = 4·64, 4·1024) shapes, and the verify (R =
+   4·5, 4·9) and chunk (R = 4·64, first chunks among them) passes' — the
+   normalised output
    and the raw m and l — timed likewise; bf16 decode runs the split-KV
    body, bf16 seeded the wgmma body, f32 and fp8 the CUDA-core body; then,
    untimed, the other layouts the two new bodies take (D 64, 8 and 16
@@ -114,7 +117,7 @@ non-zero before the last line:
    an int4 engine of the JAX bench's 3072-context deployment (32 slots,
    one 2816 bucket, an 8192-token admission budget, decode window 32)
    behind ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens
-   (64 new tokens each) on K5, then 8 threads with a8 on, on K6; every
+   (32 new tokens each) on K5, then 8 threads with a8 on, on K6; every
    forward pass must make 4 quantized launches a layer plus the lm_head's,
    all on the wgmma body (K5's, K6's) in the waves' layers, and on the
    stream body (K5's, K6's) in decode and the waves' lm_head;
@@ -216,7 +219,34 @@ non-zero before the last line:
    and decode), no plain version; agreement with the bf16 rounds printed;
 25. telemetry_cost — phase 6's trace runs with the engine's telemetry on
    (its default), then again on the same engine with it off: step ms and
-   busy ms a step side by side.
+   busy ms a step side by side;
+26. spec_serve — (after phase 24) speculative decoding at the JAX bench's
+   ``spec_decode`` preset: a contiguous int8 engine of 32 slots, max_len
+   896, 32 copy-heavy prompts of 512 tokens, 192 new tokens, window 8,
+   draft lengths (0, 4, 8), spec on and then off: ``spec_stats()``, verify
+   dispatches and their ms, decode tok/s of both arms, the streams equal
+   between them (bf16: counted); every K2 launch on the wgmma body, 225 a
+   forward pass (waves, verify passes, decode steps), no plain version;
+27. sched_serve — the scheduler at the bench's ``mixed_traffic`` shape
+   (contiguous int8, fp8 KV, 32 slots, max_len 1024): 12 long batch
+   prompts at step 0, 48 chats 8 a step, a 192-text ``minilm-l6`` embed
+   burst at step 4 through a shared ``Scheduler``; with the scheduler
+   (chunked prefill of 128, DRR chat 2 : analytics 1, shedding) and
+   without: TTFT p50/p99 by class, ITL p95/p99, chunk dispatches and
+   tokens, sheds, the fairness index, the embed tiles; K1 and K2 only, 225
+   K2 a forward pass;
+28. paged_spec and paged_chunk — the paged cell's engine (phase 9's) with
+   spec decoding over copy-heavy prompts, and with chunked prefill of 64
+   over cache-miss prompts of 300-1000 tokens, each beside the same engine
+   with the feature off: K3's verify and chunk passes all on its seeded
+   body (R 20, 36 and 256), its decode steps on the decode body, none on
+   the CUDA-core body, no plain version, the pool's books balanced;
+29. spec_chunk_f32 — (after phase 14) 2 layers at mistral-7b's widths at
+   f32 (the lm_head cut to a 64-token alphabet the prompts share, so that
+   drafts fire), greedy: spec on equals off and chunked equals monolithic
+   admission, on the contiguous cache and on the paged pool, decode by
+   graph replays between the verify dispatches (a divergence passes only
+   where the top-2 logits are within 1e-5 relative).
 
 The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
 llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
@@ -353,7 +383,13 @@ INT4_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
 A8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 
 
+#: the script's start: every phase line carries its ``elapsed_s`` from here
+T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.monotonic() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -540,6 +576,8 @@ OTHER_BODIES = {"k5s::": ("HMMA", "UTMALDG"),
 #: (wgmma is HGMMA in the SASS on 16-bit operands, IGMMA on 8-bit integers;
 #: mma.sync is HMMA on 16-bit operands, IMMA on 8-bit integers)
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "HMMA", "IMMA")
+#: one pass over a SASS line finds every op of ``SASS_OPS`` in it
+SASS_RE = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
 
 
 def short_name(mangled: str) -> str:
@@ -615,9 +653,8 @@ def sass_counts(lib_path) -> dict | str:
                                     dict.fromkeys(SASS_OPS, 0))
             continue
         if cur is not None:
-            for op in SASS_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    cur[op] += 1
+            for op in set(SASS_RE.findall(line)):
+                cur[op] += 1
     return counts
 
 
@@ -627,12 +664,18 @@ def phase_build_info():
     dynamic shared memory, and the SASS counts per kernel. Each wgmma body
     must show HGMMA and UTMALDG (tensor-core products fed by TMA); this
     slice's bodies must build without spills and without a ptxas note."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from copilot_for_consensus_tpu_torch.ops import _build
 
+    # one cuobjdump a library, all started together
+    with ThreadPoolExecutor(len(REDESIGNED)) as pool:
+        all_sass = dict(zip(REDESIGNED, pool.map(
+            lambda n: sass_counts(_build._target(n)), REDESIGNED)))
     for name, (body, others) in REDESIGNED.items():
         log = _build.build_log.get(name)
         lib = _build.library(name)
-        sass = sass_counts(_build._target(name))
+        sass = all_sass[name]
         ptxas = ptxas_functions(log["nvcc"]) if log else None
         row = {"phase": "build_info", "library": name,
                "ptxas": ptxas if ptxas is not None else
@@ -798,6 +841,11 @@ def phase_kernels(dev, flush):
     # ones would leave SMs idle
     cases += [(4096, 14336, 512, "bfloat16"), (4096, 4096, 512, "bfloat16"),
               (4096, 14336, 64, "bfloat16")]
+    # verify passes: slots x (k+1) rows — 4 x 9 + 4 (M 40) and the spec
+    # preset's 32 x 9 (M 288) — at w_gate/w_up's shape and the lm_head's
+    cases += [(d, f, m, "bfloat16") for d, f in ((4096, 14336),
+                                                 (4096, 32000))
+              for m in (40, 288)]
     for d, f, m, dt_name in cases:
         dt = getattr(torch, dt_name)
         x = torch.randn(m, d, generator=g, device=dev).to(dt)
@@ -1508,6 +1556,16 @@ def k3_cases():
         ("seeded_s64", "float8_e4m3fn", 0, 4 * 64,
          [0, 64, 128, 333, 512, 700, 960, 1]),
         ("seeded_s1024", "bfloat16", 0, 4 * 1024, [128] * 8),
+        # verify passes: R = 4 x (k+1) rows a kv head at k = 4 and 8 (one
+        # 128-row tile, mostly past R), committed prefixes to ~1000
+        ("verify_k4", "bfloat16", 0, 4 * 5,
+         [0, 1, 64, 333, 512, 777, 960, 1000]),
+        ("verify_k8", "bfloat16", 0, 4 * 9,
+         [0, 1, 64, 333, 512, 777, 960, 1000]),
+        # a 64-wide chunk: R = 256, first chunks (prefix 0) beside filled
+        # ones
+        ("chunk_s64", "bfloat16", 0, 4 * 64,
+         [0, 0, 64, 128, 640, 896, 960, 0]),
     ]
 
 
@@ -1916,10 +1974,16 @@ def phase_serve(dev, cfg, params, smi):
     return launches, bodies, prompts, eng, summaries
 
 
+#: new tokens a thread in the graphs phases (64 until the script outgrew
+#: ~600 s: the eager engine's steps were most of their time)
+GRAPHS_NEW = 32
+
+
 def phase_graphs(dev, cfg, params, smi, *, paged: bool):
     """Decode through graph replays against the eager body, on the card:
-    the serve phase's 8 threads (64 new tokens each) through two engines of
-    the same weights and configuration, one replaying a CUDA graph per kv
+    the serve phase's 8 threads (``GRAPHS_NEW`` new tokens each) through
+    two engines of the same weights and configuration, one replaying a
+    CUDA graph per kv
     bucket (``cuda_graphs=True``, the default) and one running the same
     dispatch body eagerly (``cuda_graphs=False``), at windows_per_dispatch
     1 and 2. Both admit the same waves and launch the same kernels, so
@@ -1968,7 +2032,7 @@ def phase_graphs(dev, cfg, params, smi, *, paged: bool):
                                    cuda_graphs=graphs, **kw)
             reset_launches()
             t0 = time.monotonic()
-            comps = eng.generate(prompts, max_new_tokens=64)
+            comps = eng.generate(prompts, max_new_tokens=GRAPHS_NEW)
             torch.cuda.synchronize()
             runs[graphs] = {
                 "tokens": [c.tokens for c in comps],
@@ -3348,9 +3412,9 @@ def long_threads(tokenizer, n: int, lo: int, hi: int):
 def phase_int4_serve(dev, cfg, smi):
     """An int4 engine of the 3072-context deployment (``CAP3072``, random
     packed weights from seed 0, q/k/v and gate/up fused) behind
-    ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens, 64 new tokens
-    each, weight-only; then ``set_act_quant("a8")`` on the same engine for
-    8 threads. Launch counts are reset before each round: each forward
+    ``CUDASummarizer``: 32 threads of 2000-2816 prompt tokens, 32 new tokens
+    each (64 until the script outgrew ~600 s), weight-only; then
+    ``set_act_quant("a8")`` on the same engine for 8 threads. Launch counts are reset before each round: each forward
     pass (an admission wave or a decode step) makes 4 quantized matmuls a
     layer plus the lm_head, all on K5 in the first round and all on K6 in
     the second, and none on K2."""
@@ -3372,7 +3436,7 @@ def phase_int4_serve(dev, cfg, smi):
           "fused": sorted(k for k in eng.params["layers"]
                           if quant.quant_kind(eng.params["layers"][k])),
           "seconds": time.monotonic() - t0})
-    new_tokens = 64
+    new_tokens = 32
     summ = CUDASummarizer(cfg.name, engine=eng, max_new_tokens=new_tokens)
     threads = long_threads(summ.tokenizer, 32, 2000, 2816)
     prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
@@ -3970,6 +4034,560 @@ def phase_int4_a8_trace(cfg, eng, prompts, smi):
     return row
 
 
+#: the JAX bench's ``spec_decode`` preset (bench.py:92-104): contiguous
+#: int8, 32 slots, max_len 896, 512-token copy-heavy prompts, 192 new
+#: tokens, window 8, the engine's draft lengths
+SPEC_SERVE = dict(num_slots=32, max_len=896, prefill_buckets=(512,),
+                  decode_window=8, spec_draft_lens=(0, 4, 8))
+SPEC_PROMPT, SPEC_NEW = 512, 192
+#: the JAX bench's ``mixed_traffic`` shape (bench.py:981-1070): contiguous
+#: int8 with an fp8 KV cache, 32 slots, max_len 1024, window 8, 64 new
+#: tokens; 12 "analytics" batch prompts of 832 tokens at step 0, then 48
+#: "chat" interactive prompts of 96 tokens, 8 a step; a 192-text embed
+#: burst on minilm-l6 at step 4; the TTFT and ITL SLOs of 2.0 and 0.25 s
+MIX = dict(slots=32, max_len=1024, window=8, new=64, n_long=12,
+           long_len=832, n_chat=48, chat_len=96, n_embed=192, chunk=128,
+           ttft_slo=2.0, itl_slo=0.25, kv="float8_e4m3fn")
+#: the paged cell's engine (paged_serve's), for the paged verify and chunk
+PAGED_CELL = dict(num_slots=8, max_len=4096, prefill_chunk=64,
+                  kv_pool_blocks=1024, prefix_cache_blocks=1)
+#: spec_chunk_f32: 2 layers at mistral-7b's widths, f32 weights and KV; the
+#: lm_head keeps the columns of a 64-token alphabet the prompts are drawn
+#: from, so every stream stays in its prompt's alphabet and prompt-lookup
+#: drafts fire on some steps and not on others (random weights at 2 layers
+#: rarely repeat a bigram over 32,000 tokens); greedy streams equal, or
+#: diverging only where the top-2 logits are within STORM_F32_GAP relative
+F32_LAYERS, F32_ALPHABET = 2, 64
+
+
+def copy_heavy(rng, vocab: int, plen: int) -> list[int]:
+    """bench.py:1401-1409's copy-heavy prompt: the back half repeats
+    16-token spans of the random front half."""
+    half = plen // 2
+    head = rng.integers(3, vocab, size=half).tolist()
+    tail: list[int] = []
+    while len(tail) < plen - half:
+        s0 = int(rng.integers(0, max(1, half - 16)))
+        tail.extend(head[s0:s0 + 16])
+    return head + tail[:plen - half]
+
+
+def engine_counts(eng) -> dict:
+    """The engine's dispatches so far: plain decode dispatches (graph
+    replays and eager runs), verify and chunk dispatches, and its flight
+    recorder's last step id."""
+    g = eng.graph_stats()
+    return {"plain": g["replays"] + g["eager"],
+            "verify": eng.spec_dispatches, "chunk": eng.chunk_dispatches,
+            "seq": eng.telemetry.recorder._seq}
+
+
+def dispatches_since(eng, before: dict) -> dict:
+    """Dispatches since ``before`` (``engine_counts``), with the admission
+    waves by kind from the flight recorder (which must still hold every
+    step since)."""
+    now = engine_counts(eng)
+    held = eng.telemetry.recorder.records()
+    if held and held[0].seq > before["seq"] + 1:
+        raise AssertionError("the flight recorder dropped steps of the "
+                             "phase: raise its capacity")
+    recs = [r for r in held if r.seq > before["seq"]]
+    out = {k: now[k] - before[k] for k in ("plain", "verify", "chunk")}
+    out["waves"] = sum(r.kind == "prefill" for r in recs)
+    out["seeded_waves"] = sum(r.kind == "prefill_seeded" for r in recs)
+    return out
+
+
+def check_forward_passes(label: str, cfg, launches: dict, bodies: dict,
+                         d: dict, window: int) -> None:
+    """Every forward pass makes 7 K2 launches a layer and one for the
+    lm_head: the admission waves, the verify and chunk passes, and each
+    step of a plain dispatch; K1 runs once a layer in a miss wave; K3 (a
+    paged engine) once a layer in each seeded wave, verify and chunk pass
+    on its seeded body, and each decode step on its decode body."""
+    n = cfg.n_layers
+    passes = (d["waves"] + d["seeded_waves"] + d["verify"] + d["chunk"]
+              + window * d["plain"])
+    want = {"K2": (7 * n + 1) * passes, "K1": n * d["waves"]}
+    got = {"K2": launches["K2"], "K1": bodies["K1"]["wgmma"]}
+    if launches["K3"] or bodies["K3"]["seeded"] or bodies["K3"]["decode"]:
+        want.update(K3_seeded=n * (d["seeded_waves"] + d["verify"]
+                                   + d["chunk"]),
+                    K3_decode=n * window * d["plain"])
+        got.update(K3_seeded=bodies["K3"]["seeded"],
+                   K3_decode=bodies["K3"]["decode"])
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} "
+                             f"from the dispatches {d}")
+
+
+def _stream_stats(comps) -> dict:
+    """Decode tokens and their per-request TTFT spread."""
+    return {"tokens": sum(len(c.tokens) for c in comps),
+            "ttft_p50_s": _pct([c.ttft_s for c in comps], 0.5),
+            "ttft_p99_s": _pct([c.ttft_s for c in comps], 0.99)}
+
+
+def _pct(vals, q: float) -> float:
+    vals = sorted(vals)
+    if not vals:
+        return 0.0
+    return vals[min(len(vals) - 1, max(0, round(q * (len(vals) - 1))))]
+
+
+def phase_spec_serve(dev, cfg, params, smi):
+    """Speculative decoding at the JAX bench's ``spec_decode`` preset
+    (``SPEC_SERVE``): 32 copy-heavy prompts (numpy seed 0), 192 new tokens,
+    first with ``spec_decode=True``, then on an engine of the same weights
+    with it off. Per arm: ``spec_stats()``, verify dispatches and their
+    seconds, plain dispatches, decode tok/s (harvested decode tokens over
+    the decode and verify dispatches' seconds) and the wall. The verify
+    dispatches run eagerly, the plain ones replay their graphs. The spec
+    arm's launches: K1 (waves) and K2 only, every K2 launch on the wgmma
+    body (M = 32 rows or more: decode 32, verify 32 x (k+1), waves), 225 a
+    forward pass, no plain version. bf16 greedy is not bit-stable across
+    different passes: the streams equal between the arms are counted, not
+    gated. Returns the spec arm's launches and bodies."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+
+    rng = np.random.default_rng(0)
+    prompts = [copy_heavy(rng, cfg.vocab_size, SPEC_PROMPT)
+               for _ in range(SPEC_SERVE["num_slots"])]
+    arms, out = {}, {}
+    for name, spec in (("spec", True), ("plain", False)):
+        eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                               spec_decode=spec, **SPEC_SERVE)
+        before = engine_counts(eng)
+        reset_launches()
+        with plain_calls() as plain:
+            t0 = time.monotonic()
+            comps = eng.generate(prompts, SPEC_NEW)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches, bodies = read_launches(), read_bodies()
+        d = dispatches_since(eng, before)
+        dec = eng.decode_tokens
+        arms[name] = {
+            "wall_s": wall, "dispatches": d,
+            "decode_s": eng.decode_s, "decode_tokens": dec,
+            "decode_tok_per_s": dec / eng.decode_s,
+            "verify_s": eng.spec_s,
+            "verify_ms_each": (eng.spec_s * 1e3 / d["verify"]
+                               if d["verify"] else None),
+            "plain_ms_each": ((eng.decode_s - eng.spec_s) * 1e3 / d["plain"]
+                              if d["plain"] else None),
+            "admitted_s": eng.admitted_s, **_stream_stats(comps),
+            "spec_stats": eng.spec_stats(), "graphs": eng.graph_stats(),
+            "launches": launches, "launches_by_body": bodies,
+            "plain_calls": dict(plain)}
+        out[name] = ([c.tokens for c in comps], launches, bodies, d,
+                     eng._dispatch_steps)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens, launches, bodies, d, _ = out["spec"]
+    row = {"phase": "spec_serve", "config": cfg.name, **SPEC_SERVE,
+           "prompt_tokens": SPEC_PROMPT, "new_tokens": SPEC_NEW,
+           "arms": arms,
+           "streams_equal": sum(a == b for a, b in zip(tokens,
+                                                        out["plain"][0])),
+           "streams": len(tokens), "device": smi}
+    emit(row)
+    st = arms["spec"]["spec_stats"]
+    if not (st["verify_dispatches"] and st["accepted_tokens"]) or \
+            arms["spec"]["plain_calls"] or arms["plain"]["plain_calls"]:
+        raise AssertionError(f"spec_serve: no verify dispatch accepted a "
+                             f"draft, or a plain version ran: {arms}")
+    for name in arms:
+        check_path(f"spec_serve {name}", out[name][1], ("K1", "K2"))
+        check_bodies(f"spec_serve {name}", out[name][2])
+        check_forward_passes(f"spec_serve {name}", cfg, *out[name][1:])
+    if bodies["K2"]["stream"]:
+        raise AssertionError(f"spec_serve: K2 launches off the wgmma body "
+                             f"at 32 rows: {bodies['K2']}")
+    return launches, bodies
+
+
+def phase_sched_serve(dev, cfg, params, smi):
+    """The scheduler at the JAX bench's ``mixed_traffic`` shape (``MIX``):
+    all 12 long batch-lane prompts ("analytics") arrive at step 0, ahead
+    of 48 short interactive chats ("chat", 8 a step), and a 192-text embed
+    burst on ``minilm-l6`` contends at step 4. The same scripted arrivals
+    run with the scheduler (chunked prefill of 128 tokens, 512 prompt
+    tokens released a step, weighted DRR chat 2 : analytics 1, shedding at
+    queue depths 32 / 48, the SLOs of the preset; one ``Scheduler`` shared
+    with the embedding engine, which sizes its tiles) and without it
+    (FIFO, monolithic waves), each after a warm request of each class.
+    Per arm: chat and long TTFT p50/p99, ITL p95/p99 (the engine's
+    telemetry), chunk dispatches and tokens, shed count, the fairness
+    index over the timed window, the embed tiles, and decode tok/s; the
+    streams of requests both arms completed are counted equal (bf16, not
+    gated). Launches: K1 and K2 only, 225 K2 a forward pass, no plain
+    version, no old body. Returns the scheduler arm's launches and
+    bodies."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.embedding import (
+        EmbeddingEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.scheduler import (
+        EngineOverloaded,
+        SchedulerConfig,
+        jain_index,
+    )
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        encoder_config,
+    )
+
+    m = MIX
+    rng = np.random.default_rng(0)
+    script = [(0, i, "analytics", "batch",
+               rng.integers(3, cfg.vocab_size, size=m["long_len"]).tolist())
+              for i in range(m["n_long"])]
+    script += [(1 + i // 8, m["n_long"] + i, "chat", "interactive",
+                rng.integers(3, cfg.vocab_size, size=m["chat_len"]).tolist())
+               for i in range(m["n_chat"])]
+    texts = [f"mixed traffic embed text {i} corpus chunk " * 4
+             for i in range(m["n_embed"])]
+    emb_cfg = encoder_config("minilm-l6")
+    emb_params = None
+    arms, outs, paths = {}, {}, {}
+    for name, on in (("sched", True), ("fifo", False)):
+        sched = SchedulerConfig(
+            chunk_tokens=m["chunk"], prefill_wave_tokens=4 * m["chunk"],
+            quantum_tokens=m["chunk"],
+            tenant_weights={"chat": 2.0, "analytics": 1.0},
+            max_queue_depth=48, batch_shed_depth=32,
+            ttft_p99_slo_s=4 * m["ttft_slo"],
+            queue_wait_p95_slo_s=2 * m["ttft_slo"]) if on else None
+        eng = GenerationEngine(
+            cfg, params, num_slots=m["slots"], max_len=m["max_len"],
+            prefill_buckets=tuple(sorted({m["chat_len"], m["chunk"],
+                                          m["long_len"]})),
+            kv_dtype=m["kv"], quantize="int8", decode_window=m["window"],
+            scheduler=sched, device=dev)
+        emb = EmbeddingEngine(emb_cfg, emb_params, seed=0,
+                              dtype=torch.bfloat16, batch_size=32,
+                              scheduler=eng._sched if on else None,
+                              device=dev)
+        emb_params = emb.params
+        tiles: list = []
+        if on:
+            admit = eng._sched.embed_admit
+
+            def sized(*a, _admit=admit, **kw):
+                tiles.append(_admit(*a, **kw))
+                return tiles[-1]
+            eng._sched.embed_admit = sized
+        # warm: one request of each class, and the encoder
+        warm = {eng.submit(rng.integers(3, cfg.vocab_size,
+                                        size=plen).tolist(), m["new"],
+                           tenant=tenant, priority=prio)
+                for plen, tenant, prio in ((m["long_len"], "analytics",
+                                            "batch"),
+                                           (m["chat_len"], "chat",
+                                            "interactive"))}
+        while warm:
+            warm -= {c.request_id for c in eng.step()}
+        emb.embed_batch(texts[:4], tenant="ingest")
+        tiles.clear()
+        fair0 = dict(eng._sched.fairness_snapshot()) if on else {}
+        n_traces0 = len(eng.telemetry.completed)
+        before = engine_counts(eng)
+        chunk0 = (eng.chunk_dispatches, eng.chunk_prefill_tokens,
+                  eng.chunk_s)
+        dec0 = (eng.decode_s, eng.decode_tokens)
+        reset_launches()
+        done, shed, rid_idx, comps = 0, 0, {}, {}
+        pending = sorted(script, key=lambda x: x[:2])
+        step, embed_s, embed_shed, enc_k1 = 0, None, False, {}
+        with plain_calls() as plain:
+            t0 = time.monotonic()
+            while done + shed < len(script) and step < 5000:
+                while pending and pending[0][0] <= step:
+                    _, idx, tenant, prio, prompt = pending.pop(0)
+                    try:
+                        rid_idx[eng.submit(prompt, m["new"], tenant=tenant,
+                                           priority=prio)] = idx
+                    except EngineOverloaded:
+                        shed += 1
+                if step == 4:
+                    # K1's d32 body runs here; its launches are the
+                    # encoder's, outside the engine's accounting
+                    e0 = time.monotonic()
+                    k1 = dict(read_bodies()["K1"])
+                    try:
+                        emb.embed_batch(texts, tenant="ingest")
+                    except EngineOverloaded:
+                        embed_shed = True
+                    torch.cuda.synchronize()
+                    embed_s = time.monotonic() - e0
+                    enc_k1 = {b: n - k1[b]
+                              for b, n in read_bodies()["K1"].items()}
+                for c in eng.step():
+                    comps[rid_idx[c.request_id]] = c
+                    done += 1
+                step += 1
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches, bodies = read_launches(), read_bodies()
+        # the encoder's d32 launches are its own: the engine's K1 is wgmma
+        launches["K1"] -= sum(enc_k1.values())
+        for b, n in enc_k1.items():
+            bodies["K1"][b] -= n
+        d = dispatches_since(eng, before)
+        traces = list(eng.telemetry.completed)[n_traces0:]
+        itls = [t.itl_s for t in traces if t.new_tokens > 1]
+        long_c = [c for i, c in comps.items() if i < m["n_long"]]
+        chat_c = [c for i, c in comps.items() if i >= m["n_long"]]
+        row = {"wall_s": wall, "steps": step, "completed": done,
+               "shed": shed, "dispatches": d,
+               "chat": _stream_stats(chat_c), "long": _stream_stats(long_c),
+               "itl_p95_s": _pct(itls, 0.95), "itl_p99_s": _pct(itls, 0.99),
+               "chunk_dispatches": eng.chunk_dispatches - chunk0[0],
+               "chunk_tokens": eng.chunk_prefill_tokens - chunk0[1],
+               "chunk_s": eng.chunk_s - chunk0[2],
+               "decode_tok_per_s": (eng.decode_tokens - dec0[1])
+               / (eng.decode_s - dec0[0]),
+               "embed_s": embed_s, "embed_shed": embed_shed,
+               "embed_tiles": list(tiles),
+               "encoder_k1": enc_k1, "plain_calls": dict(plain),
+               "launches": launches, "launches_by_body": bodies,
+               "graphs": eng.graph_stats()}
+        if on:
+            st = eng.sched_stats()
+            fair1 = eng._sched.fairness_snapshot()
+            deltas = [v - fair0.get(t, 0.0) for t, v in fair1.items()
+                      if v - fair0.get(t, 0.0) > 0]
+            row.update(fairness_jain_index=round(jain_index(deltas), 4),
+                       sched_stats=st)
+        arms[name] = row
+        outs[name] = {i: c.tokens for i, c in comps.items()}
+        paths[name] = (launches, bodies, d, eng._dispatch_steps)
+        del eng, emb
+        gc.collect()
+        torch.cuda.empty_cache()
+    common = set(outs["sched"]) & set(outs["fifo"])
+    emit({"phase": "sched_serve", "config": cfg.name, **MIX, "arms": arms,
+          "common": len(common),
+          "streams_equal": sum(outs["sched"][i] == outs["fifo"][i]
+                               for i in common), "device": smi})
+    for name, (launches, bodies, d, steps) in paths.items():
+        if arms[name]["plain_calls"]:
+            raise AssertionError(f"sched_serve {name}: a plain version ran")
+        check_path(f"sched_serve {name}", launches, ("K1", "K2"))
+        check_bodies(f"sched_serve {name}", bodies)
+        check_forward_passes(f"sched_serve {name}", cfg, launches, bodies,
+                             d, steps)
+    if not arms["sched"]["chunk_dispatches"] or \
+            arms["sched"]["completed"] + arms["sched"]["shed"] != \
+            len(script) or arms["fifo"]["completed"] != len(script):
+        raise AssertionError(f"sched_serve: {arms}")
+    return paths["sched"][0], paths["sched"][1]
+
+
+def phase_paged_spec_chunk(dev, cfg, params, smi):
+    """The paged cell's engine (``PAGED_CELL``, int8, bf16) with its two
+    new dispatches, each on an engine of its own: ``paged_spec``, spec
+    decoding over 8 copy-heavy prompts of 512 tokens (128 new tokens);
+    ``paged_chunk``, ``SchedulerConfig(chunk_tokens=64)`` over 8 cache-miss
+    prompts of 300-1000 tokens (32 new tokens), every one chunked. K3 runs
+    the verify and chunk passes on its seeded body (R = 4 x (k+1) = 20 or
+    36, and 4 x 64 = 256 rows a kv head: 128-row tiles mostly past R),
+    decode on its decode body, never its CUDA-core body; no plain version;
+    the pool's books balance after. Streams against the same engine with
+    the feature off are counted (bf16, not gated). Returns {phase:
+    (launches, bodies)}."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.scheduler import (
+        SchedulerConfig,
+    )
+
+    rng = np.random.default_rng(1)
+    runs = {
+        "paged_spec": (dict(spec_decode=True), 128,
+                       [copy_heavy(rng, cfg.vocab_size, 512)
+                        for _ in range(8)]),
+        "paged_chunk": (dict(scheduler=SchedulerConfig(chunk_tokens=64)), 32,
+                        [rng.integers(3, cfg.vocab_size, size=n).tolist()
+                         for n in np.linspace(300, 1000, 8).astype(int)]),
+    }
+    out = {}
+    for label, (kw, new, prompts) in runs.items():
+        rows = {}
+        for arm, extra in (("on", kw), ("off", {})):
+            eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                                   **PAGED_CELL, **extra)
+            before = engine_counts(eng)
+            reset_launches()
+            with plain_calls() as plain:
+                t0 = time.monotonic()
+                comps = eng.generate(prompts, new)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            launches, bodies = read_launches(), read_bodies()
+            d = dispatches_since(eng, before)
+            pool = eng.kv_pool_stats()
+            rows[arm] = {"wall_s": wall, "dispatches": d,
+                         "decode_s": eng.decode_s, "verify_s": eng.spec_s,
+                         "chunk_s": eng.chunk_s,
+                         "decode_tok_per_s": eng.decode_tokens
+                         / eng.decode_s,
+                         **_stream_stats(comps),
+                         "spec_stats": eng.spec_stats(),
+                         "sched_stats": eng.sched_stats(),
+                         "plain_calls": dict(plain),
+                         "launches": launches, "launches_by_body": bodies,
+                         "pool_free": pool["free_blocks"],
+                         "pool_pinned": pool["pinned_blocks"],
+                         "pool_blocks": pool["num_blocks"]}
+            rows[arm]["_"] = ([c.tokens for c in comps], launches, bodies,
+                              d, eng._prefix.node_count,
+                              eng._dispatch_steps)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        tokens_on, launches, bodies, d, nodes, steps = rows["on"].pop("_")
+        tokens_off = rows["off"].pop("_")[0]
+        emit({"phase": label, "config": cfg.name, **{
+            k: v for k, v in PAGED_CELL.items()}, "new_tokens": new,
+            "prompt_tokens": [len(p) for p in prompts], "arms": rows,
+            "streams_equal": sum(a == b for a, b in zip(tokens_on,
+                                                         tokens_off)),
+            "device": smi})
+        on = rows["on"]
+        fired = d["verify"] if label == "paged_spec" else d["chunk"]
+        if not fired or on["plain_calls"] or bodies["K3"]["simt"] or \
+                on["pool_free"] + on["pool_pinned"] != on["pool_blocks"] \
+                or on["pool_pinned"] != nodes:
+            raise AssertionError(f"{label}: {on}")
+        used = ("K2", "K3") if label == "paged_chunk" else ("K1", "K2",
+                                                             "K3")
+        check_path(label, launches, used)
+        check_bodies(label, bodies)
+        check_forward_passes(label, cfg, launches, bodies, d, steps)
+        out[label] = (launches, bodies)
+    return out
+
+
+def phase_spec_chunk_f32(dev, smi):
+    """The reference's bit-identity claims on the card, at f32: 2 layers
+    at mistral-7b's widths (seed-0 f32 weights, f32 KV; the lm_head keeps
+    ``F32_ALPHABET`` columns, the prompts' alphabet, so drafts fire),
+    greedy. Speculation on equals off, stream for stream, and chunked
+    prefill (64 tokens) equals monolithic admission, on the contiguous
+    cache and on the paged pool, every decode dispatch after the first a
+    graph replay — so a replay right after a verify that rewound a slot
+    must read the right tokens and positions (such replays are counted,
+    ``decode_after_rewind``, and must occur). A divergence passes only
+    where the top-2 logits of the diverging step are within
+    ``STORM_F32_GAP`` relative (f32 sums in another order). The verify and
+    chunk dispatches must fire; no plain version runs."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.scheduler import (
+        SchedulerConfig,
+    )
+    from copilot_for_consensus_tpu_torch.models import decoder
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    cfg = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+    params = decoder.init_params(cfg, seed=0, dtype=torch.float32,
+                                 device=dev)
+    rng = np.random.default_rng(2)
+    alphabet = rng.choice(np.arange(3, cfg.vocab_size), F32_ALPHABET,
+                          replace=False)
+    keep = torch.zeros(cfg.vocab_size, dtype=torch.bool, device=dev)
+    keep[torch.from_numpy(alphabet).to(dev)] = True
+    params["lm_head"] = params["lm_head"] * keep
+    spec_prompts = [rng.choice(alphabet, 320).tolist() for _ in range(8)]
+    long_prompts = [rng.choice(alphabet, n).tolist()
+                    for n in (300, 90, 512, 200, 700, 64, 450, 130)]
+    layouts = {"contiguous": dict(num_slots=8, max_len=1024),
+               "paged": dict(num_slots=8, max_len=1024, prefill_chunk=64,
+                             kv_pool_blocks=8 * 16 + 16)}
+    rows = {}
+    with plain_calls() as plain:
+        for lay, base in layouts.items():
+            for feat, kw, prompts, new in (
+                    ("spec", dict(spec_decode=True), spec_prompts, 96),
+                    ("chunk", dict(scheduler=SchedulerConfig(
+                        chunk_tokens=64)), long_prompts, 24)):
+                got = GenerationEngine(cfg, params, dtype="float32",
+                                       device=dev, **base, **kw)
+                on = got.generate(prompts, new)
+                ref = GenerationEngine(cfg, params, dtype="float32",
+                                       device=dev, **base)
+                off = ref.generate(prompts, new)
+                # plain dispatches (replays once captured) that follow a
+                # verify which rewound a slot (accepted < drafted)
+                kinds = got.telemetry.recorder.as_dicts()
+                after_rewind = sum(
+                    cur["kind"] == "decode" and prev["kind"] == "verify"
+                    and prev["accepted_tokens"] < prev["draft_tokens"]
+                    for prev, cur in zip(kinds, kinds[1:]))
+                gaps = {}
+                for i, (a, b) in enumerate(zip(off, on)):
+                    if a.tokens != b.tokens:
+                        j = next(k for k in range(min(len(a.tokens),
+                                                      len(b.tokens)) + 1)
+                                 if k == min(len(a.tokens), len(b.tokens))
+                                 or a.tokens[k] != b.tokens[k])
+                        gaps[i] = _top2_gap(params, cfg, prompts[i],
+                                            a.tokens[:j])
+                rows[f"{lay}_{feat}"] = {
+                    "streams": len(on),
+                    "equal": sum(a.tokens == b.tokens
+                                 for a, b in zip(off, on)),
+                    "divergent_top2_gap": gaps,
+                    "verify_dispatches": got.spec_dispatches,
+                    "accepted": got.spec_accepted_tokens,
+                    "chunk_dispatches": got.chunk_dispatches,
+                    "decode_after_rewind": after_rewind,
+                    "graphs": got.graph_stats()}
+                del got, ref
+                gc.collect()
+    emit({"phase": "spec_chunk_f32", "layers": F32_LAYERS,
+          "alphabet": F32_ALPHABET, "runs": rows,
+          "gap_limit": STORM_F32_GAP, "plain_calls": dict(plain),
+          "device": smi})
+    for key, r in rows.items():
+        fired = r["verify_dispatches"] if key.endswith("spec") \
+            else r["chunk_dispatches"]
+        if not fired or not r["graphs"]["replays"] or \
+                any(g >= STORM_F32_GAP for g in r["divergent_top2_gap"]
+                    .values()):
+            raise AssertionError(f"spec_chunk_f32 {key}: {r}")
+    if not sum(r["decode_after_rewind"] for r in rows.values()):
+        raise AssertionError(f"spec_chunk_f32: no plain dispatch followed "
+                             f"a verify that rewound a slot: {rows}")
+    if plain:
+        raise AssertionError(f"spec_chunk_f32: a plain version ran: {plain}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4069,6 +4687,9 @@ def main() -> int:
     phase_graphs(dev, cfg, params, smi, paged=True)
     fp8_launches, fp8_bodies = phase_paged_fp8(dev, cfg, params, smi,
                                                paged_comps)
+    spec_launches, spec_bodies = phase_spec_serve(dev, cfg, params, smi)
+    sched_launches, sched_bodies = phase_sched_serve(dev, cfg, params, smi)
+    paged_new = phase_paged_spec_chunk(dev, cfg, params, smi)
     # the int8 weights go before the int4 engine comes
     del params
     gc.collect()
@@ -4081,6 +4702,7 @@ def main() -> int:
     del int4
     gc.collect()
     torch.cuda.empty_cache()
+    phase_spec_chunk_f32(dev, smi)
 
     # the journal phase's resumed child counts in its own process: its K1,
     # K2 and K3 bodies, the other kernels none
@@ -4099,7 +4721,11 @@ def main() -> int:
                "paged_fp8": fp8_launches, "deadlines": deadline_launches,
                "journal_resume": journal_launches,
                "a8_model": a8_launches, "int4_serve": int4_launches,
-               "int4_serve_a8": int4_a8_launches, "probe": probe_launches}
+               "int4_serve_a8": int4_a8_launches,
+               "spec_serve": spec_launches, "sched_serve": sched_launches,
+               "paged_spec": paged_new["paged_spec"][0],
+               "paged_chunk": paged_new["paged_chunk"][0],
+               "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
                       "pipeline_pipelined": pipeline["pipelined"]["bodies"],
                       "pipeline_retrieval": pipeline["retrieval"]["bodies"],
@@ -4108,7 +4734,11 @@ def main() -> int:
                       "paged_fp8": fp8_bodies, "deadlines": deadline_bodies,
                       "journal_resume": journal_bodies,
                       "a8_model": a8_bodies, "int4_serve": int4_bodies,
-                      "int4_serve_a8": int4_a8_bodies}
+                      "int4_serve_a8": int4_a8_bodies,
+                      "spec_serve": spec_bodies,
+                      "sched_serve": sched_bodies,
+                      "paged_spec": paged_new["paged_spec"][1],
+                      "paged_chunk": paged_new["paged_chunk"][1]}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
     csrc = "copilot_for_consensus_tpu_torch/csrc"

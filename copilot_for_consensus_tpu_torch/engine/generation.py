@@ -69,14 +69,32 @@ The reference engine's control plane:
   may be held below the activation dtype (``float8_e4m3fn`` halves the KV
   bytes); KV is cast on write and read up to the compute dtype. On the
   paged route K3 reads an fp8 pool in place through its CUDA-core body.
-* ``tenant`` and ``priority`` are carried on each request (journal rows,
-  replays); the scheduler that would act on them is not ported yet, and
-  ``scheduler=`` is refused.
+* **The scheduler** (``scheduler=``, ``engine/scheduler.py``): with one
+  configured, ``submit`` may shed with ``EngineOverloaded`` at the door
+  (warm-restart resubmits bypass it), requests queue per ``tenant`` and
+  ``priority`` lane, and each ``step`` releases at most one wave's token
+  budget in weighted deficit-round-robin order.
+* **Chunked prefill** (with a scheduler): a cache-miss prompt longer than
+  ``chunk_tokens`` takes a slot and is prefilled one chunk a step, between
+  the decode dispatches, by a seeded pass over the slot's own partly
+  filled cache (``decoder.verify_seeded`` on the contiguous cache,
+  ``decoder.prefill_seeded_paged`` over K3 on the pool); the chunk that
+  completes the prompt samples its first token.
+* **Speculative decoding** (``spec_decode=True``): each stream's
+  prompt-lookup index (``NgramDraftIndex``) drafts up to ``k`` tokens; a
+  step where any slot drafts runs one verify dispatch that scores every
+  slot's next token and draft in one weight pass (the same seeded pass)
+  and accepts exactly (``sampling.verify_draft``: greedy output equals
+  stepwise greedy). The supervisor's ``spec_verify`` breaker can veto it;
+  plain decode then serves.
 
-Where the JAX engine builds new arrays, this one updates the cache and the
-pool in place (no second allocation). It has no scheduler, speculative
-decoding, chunked prefill or disaggregated roles, and no gather-based
-reference route for the paged layout.
+The verify and chunk dispatches run eagerly (no CUDA graph); they write
+the cache or the pool in place, and the decode graphs read positions and
+tokens from their static buffers, refilled before every dispatch. Where
+the JAX engine builds new arrays, this one updates the cache and the
+pool in place (no second allocation). It has no piggyback prefill,
+admission holds or disaggregated roles, and no gather-based reference
+route for the paged layout.
 """
 
 from __future__ import annotations
@@ -108,23 +126,21 @@ from copilot_for_consensus_tpu_torch.engine.prefix_cache import PrefixCache
 from copilot_for_consensus_tpu_torch.engine.sampling import (
     SamplingConfig,
     sample,
+    verify_draft,
+)
+from copilot_for_consensus_tpu_torch.engine.scheduler import (
+    jain_index,
+    resolve_scheduler,
 )
 from copilot_for_consensus_tpu_torch.engine.telemetry import (
     resolve_telemetry,
 )
+from copilot_for_consensus_tpu_torch.engine.tokenizer import NgramDraftIndex
 from copilot_for_consensus_tpu_torch.models import decoder, quant
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
 from copilot_for_consensus_tpu_torch.ops.paged_attention import (
     paged_attention_partial,
 )
-
-#: the JAX engine's verify write margin at its default draft lengths
-#: (longest draft 8, plus the bonus token). Its paged admission reserves
-#: at least this much past a request's generation budget even with
-#: speculative decoding off; reserving the same keeps both engines'
-#: admission accounting — and so their waves and hit counts — equal.
-_VERIFY_MARGIN = 9
-
 
 @dataclass
 class Request:
@@ -141,8 +157,9 @@ class Request:
     #: error reports name it)
     correlation_id: str = ""
     #: the scheduling identity (the JAX engine's defaults): the tenant
-    #: ("" = the anonymous tenant) and the priority lane. The port has no
-    #: scheduler yet; journal rows and replays carry them.
+    #: ("" = the anonymous tenant), the scheduler's fairness key, and the
+    #: priority lane ("interactive" > "batch"); journal rows and replays
+    #: carry them.
     tenant: str = ""
     priority: str = "interactive"
     #: absolute monotonic deadline: expired work is dropped
@@ -229,16 +246,14 @@ class GenerationEngine:
         faults=None,
         cuda_graphs: bool = True,
         telemetry=True,
+        spec_decode: bool = False,
+        spec_draft_lens: tuple[int, ...] = (0, 4, 8),
+        spec_ngram: int = 3,
+        spec_min_ngram: int = 2,
         scheduler=None,
         journal=None,
         device: str | torch.device | None = None,
     ):
-        if scheduler is not None:
-            raise NotImplementedError(
-                "scheduler=: the port's engine has no scheduler yet; it "
-                "comes in the next slice with chunked prefill and "
-                "spec-decode verify over decoder.verify_seeded (ROADMAP "
-                "Queue 1 item 4)")
         self.device = resolve_device(device)
         # Resilience hooks (the JAX engine's): ``faults`` installs the
         # seeded fault injector at every dispatch boundary; a supervisor
@@ -271,6 +286,9 @@ class GenerationEngine:
         self._journal_suppress = False
         #: requests dropped uncomputed because their deadline passed
         self.deadline_expired = 0
+        #: True while ``_recover_from_journal`` resubmits: those submits
+        #: bypass the scheduler's shed gate
+        self._journal_recovering = False
         #: set by the first submit with a deadline: engines that never see
         #: one skip the per-step expiry walk
         self._deadlines_in_use = False
@@ -305,6 +323,52 @@ class GenerationEngine:
                 f"{self.windows_per_dispatch} windows/dispatch leaves no "
                 f"prompt room in max_len {self.max_len}")
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        # ---- speculative decoding (prompt-lookup drafts) ----------------
+        # A verify dispatch scores every slot's next token and its draft
+        # in one weight pass. Draft lengths snap to a static bucket set
+        # (the JAX engine's retrace bound; here, the shapes one verify
+        # pass takes); rows without a draft ride the same pass in the k=0
+        # lane.
+        self.spec_decode = bool(spec_decode)
+        self.spec_draft_lens = tuple(sorted(
+            {int(k) for k in spec_draft_lens} | {0}))
+        if any(k < 0 for k in self.spec_draft_lens):
+            raise ValueError(
+                f"spec_draft_lens must be >= 0, got {spec_draft_lens}")
+        self._spec_max_draft = max(self.spec_draft_lens)
+        self.spec_ngram = int(spec_ngram)
+        self.spec_min_ngram = int(spec_min_ngram)
+        if self.spec_decode:
+            if cfg.sliding_window and cfg.sliding_window < self.max_len:
+                raise ValueError(
+                    "spec_decode requires full attention: the verify "
+                    "pass rides prefill_attention_seeded, which does "
+                    "not implement absolute-timeline window masking")
+            if self._spec_max_draft + 1 >= self.max_len:
+                raise ValueError(
+                    f"spec_draft_lens {spec_draft_lens} leave no cache "
+                    f"room in max_len {self.max_len}")
+        #: slot → NgramDraftIndex over (prompt + emitted tokens): built at
+        #: activation, extended as tokens are accepted, dropped at
+        #: retirement. Host state only.
+        self._draft_index: dict[int, NgramDraftIndex] = {}
+        #: lookups/hits count draft-index probes; drafted/accepted count
+        #: draft tokens through verify; rows counts (slot, verify dispatch)
+        #: pairs; emitted counts tokens harvested from verify. The
+        #: ``_row_*`` pair is the per-stream weight-pass ledger across both
+        #: decode paths (a verify dispatch is one pass a row, a plain
+        #: dispatch one a row a step): tokens_per_weight_pass.
+        self.spec_lookups = 0
+        self.spec_hits = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_dispatches = 0
+        self.spec_rows = 0
+        self.spec_emitted_tokens = 0
+        self.spec_s = 0.0
+        self._row_tokens = 0
+        self._row_passes = 0
 
         # quantize: False | True ("int8") | "int8" | "int4" (packed
         # nibbles with group scales: half the int8 weight bytes again)
@@ -368,8 +432,14 @@ class GenerationEngine:
                     f"== 0, got {self.max_len} % {block}")
             self._block = block
             self._max_blocks = self.max_len // block
-            #: furthest a dispatch writes past a slot's committed length
-            self._write_margin = max(self._dispatch_steps, _VERIFY_MARGIN)
+            #: furthest a dispatch (a decode window, a verify pass, a
+            #: chunk) writes past a slot's committed length. The JAX
+            #: engine reserves the verify margin even with speculation
+            #: off; so does this one, and both engines' admission books
+            #: (and so their waves and hit counts) agree.
+            self._write_margin = max(
+                self._dispatch_steps,
+                max(spec_draft_lens, default=0) + 1)
             if kv_pool_blocks < self._max_blocks + 1:
                 raise ValueError(
                     f"kv_pool_blocks={kv_pool_blocks} cannot hold even "
@@ -425,9 +495,39 @@ class GenerationEngine:
         self._next_id = 0
         #: cumulative wall time of admission waves (prefill + insert +
         #: first-token sync) and of decode dispatches since engine build
+        #: (decode_s, decode_tokens: plain dispatches and verify
+        #: dispatches both; spec_s and spec_emitted_tokens: verify alone)
         self.admitted_s = 0.0
         self.decode_s = 0.0
         self.decode_tokens = 0
+
+        # ---- the scheduler and chunked prefill (engine/scheduler.py) ----
+        # Per-tenant weighted-DRR admission with priority lanes, load
+        # shedding at the door, and chunked prefill: a long cache-miss
+        # prompt takes a slot and is prefilled one chunk a step between
+        # the decode dispatches, by a seeded pass over the slot's own
+        # partly filled cache — bit-identical (greedy) to the monolithic
+        # wave when the cache holds the compute dtype.
+        self._sched = resolve_scheduler(scheduler,
+                                        telemetry=self.telemetry)
+        # The seeded pass does not implement absolute-timeline window
+        # masking (as for speculation)
+        self._chunk_ok = (cfg.sliding_window == 0
+                          or cfg.sliding_window >= self.max_len)
+        ct = self.prompt_limit
+        if self._sched is not None:
+            ct = max(1, min(self._sched.cfg.chunk_tokens,
+                            self.prompt_limit))
+        #: the static chunk widths (the JAX engine's retrace bound)
+        self._chunk_buckets = tuple(sorted(
+            {min(b, ct) for b in self.buckets} | {ct}))
+        #: released long prompts waiting for a slot to start chunking
+        self._chunk_pending: list[Request] = []
+        #: slot → [request, tokens filled so far, chunk-start time]
+        self._chunking: dict[int, list] = {}
+        self.chunk_dispatches = 0
+        self.chunk_prefill_tokens = 0
+        self.chunk_s = 0.0
 
         # ---- the decode dispatch's static buffers and its graphs --------
         # One CUDA stream carries every device op of the engine: eager
@@ -495,10 +595,12 @@ class GenerationEngine:
         pipeline event behind the request (its telemetry span, the async
         runner's error reports and replays carry it). ``tenant`` and
         ``priority`` are the request's scheduling identity, journaled and
-        carried into replays. ``deadline_s`` is the request's wall-clock
-        budget: once it expires the request is dropped (queued) or retired
-        with its partial output (active), both with
-        ``finish_reason="deadline"``."""
+        carried into replays: with a scheduler configured they feed its
+        fairness and shedding, and an overloaded scheduler raises
+        ``EngineOverloaded`` here, at the door. ``deadline_s`` is the
+        request's wall-clock budget: once it expires the request is
+        dropped (queued) or retired with its partial output (active),
+        both with ``finish_reason="deadline"``."""
         if not prompt:
             raise ValueError("empty prompt")
         limit = self.prompt_limit
@@ -508,6 +610,14 @@ class GenerationEngine:
             # the cap indexed the ORIGINAL prompt; its head is gone
             if cache_eligible_tokens is not None:
                 cache_eligible_tokens = 0
+        if self._sched is not None and not self._journal_recovering:
+            # Warm-restart resubmits bypass the shed gate: journaled work
+            # was admitted once, and shedding it at restart would turn a
+            # crash into silent loss. They still queue through the
+            # scheduler (fairness holds).
+            self._sched.check_admission(
+                tenant=tenant, priority=priority,
+                prompt_tokens=len(prompt), correlation_id=correlation_id)
         rid = self._next_id
         self._next_id += 1
         if self.journal is not None:
@@ -533,25 +643,39 @@ class GenerationEngine:
             self._journal_ckpt[rid] = 0
         if deadline_s is not None:
             self._deadlines_in_use = True
-        self._queue.append(Request(
+        req = Request(
             rid, list(prompt), max_new_tokens, cache_eligible_tokens,
             correlation_id=correlation_id, tenant=tenant,
             priority=priority,
             deadline_at=(time.monotonic() + max(0.0, deadline_s)
-                         if deadline_s is not None else float("inf"))))
+                         if deadline_s is not None else float("inf")))
+        if self._sched is not None:
+            self._sched.enqueue(req)
+        else:
+            self._queue.append(req)
         if self.telemetry is not None:
             self.telemetry.on_submit(rid, len(prompt), correlation_id)
         return rid
 
     def step(self) -> list[Completion]:
         """Drop expired work, admit queued requests into free slots, run
-        one decode dispatch for all active slots, retire finished ones.
-        Returns completions."""
+        one decode dispatch (or verify dispatch) for all active slots,
+        retire finished ones. Returns completions.
+
+        With a scheduler, admission is gated by it: the closed loop
+        observes this step's signals, at most one wave's token budget is
+        released (DRR order, interactive lane first), long prompts advance
+        by ONE chunk dispatch, and only then does decode run — so one
+        step's prefill work, and with it ITL, stays bounded."""
         with self._on_stream():
             self._expire_deadlines()
+            if self._sched is not None:
+                self._sched_pump()
             self._admit()
+            if self._chunk_pending or self._chunking:
+                self._chunk_step()
             if self.paged:
-                self.peak_active = max(self.peak_active, len(self._active))
+                self.peak_active = max(self.peak_active, self._occupied)
             if self._active:
                 self._decode_once()
         if self.journal is not None:
@@ -602,15 +726,75 @@ class GenerationEngine:
         return out
 
     def sched_stats(self) -> dict:
-        """Scheduler counters in the JAX engine's disabled form: the port
-        has no scheduler and no chunked prefill yet."""
-        return {"enabled": False, "chunk_dispatches": 0,
-                "chunk_prefill_tokens": 0}
+        """Scheduler counters (the JAX engine's keys). ``shed_rate`` is
+        over all admission attempts; ``fairness_jain_index`` is Jain's
+        index over per-tenant admitted tokens normalized by DRR weight
+        (1.0 = perfectly weighted-fair)."""
+        out = {"enabled": self._sched is not None,
+               "chunk_dispatches": self.chunk_dispatches,
+               "chunk_prefill_tokens": self.chunk_prefill_tokens}
+        if self._sched is None:
+            return out
+        sch = self._sched
+        attempts = sch.shed_total + sch.submitted_total
+        fairness = sch.fairness_snapshot()
+        out.update({
+            "submitted": sch.submitted_total,
+            "shed": sch.shed_total,
+            "shed_rate": sch.shed_total / attempts if attempts else 0.0,
+            "overload_level": sch.overload_level,
+            "fairness": {t: round(v, 1) for t, v in fairness.items()},
+            "fairness_jain_index": round(
+                jain_index(fairness.values()), 4),
+            "signals": dict(sch.last_signals),
+        })
+        return out
+
+    def spec_stats(self) -> dict:
+        """Speculative-decoding counters (the JAX engine's keys).
+        ``draft_hit_rate`` is over draft-index probes,
+        ``acceptance_rate`` over drafted tokens;
+        ``mean_accepted_per_step`` is the accepted draft tokens a row a
+        verify dispatch; ``tokens_per_weight_pass`` is the per-stream
+        ledger across both decode paths (1.0 is plain decode's wall)."""
+        return {
+            "enabled": self.spec_decode,
+            "lookups": self.spec_lookups,
+            "hits": self.spec_hits,
+            "draft_hit_rate": (self.spec_hits / self.spec_lookups
+                               if self.spec_lookups else 0.0),
+            "drafted_tokens": self.spec_drafted_tokens,
+            "accepted_tokens": self.spec_accepted_tokens,
+            "acceptance_rate": (
+                self.spec_accepted_tokens / self.spec_drafted_tokens
+                if self.spec_drafted_tokens else 0.0),
+            "verify_dispatches": self.spec_dispatches,
+            "verify_rows": self.spec_rows,
+            "emitted_tokens": self.spec_emitted_tokens,
+            "mean_accepted_per_step": (
+                self.spec_accepted_tokens / self.spec_rows
+                if self.spec_rows else 0.0),
+            "weight_row_passes": self._row_passes,
+            "weight_row_tokens": self._row_tokens,
+            "tokens_per_weight_pass": (
+                self._row_tokens / self._row_passes
+                if self._row_passes else 0.0),
+        }
 
     @property
     def queue_depth(self) -> int:
-        """Requests submitted and not yet admitted."""
-        return len(self._queue)
+        """Requests submitted and not yet decoding: queued for a wave,
+        waiting to chunk or chunking, and held by the scheduler."""
+        n = (len(self._queue) + len(self._chunk_pending)
+             + len(self._chunking))
+        if self._sched is not None:
+            n += self._sched.queued
+        return n
+
+    @property
+    def _occupied(self) -> int:
+        """Slots holding a timeline: decoding or chunking."""
+        return len(self._active) + len(self._chunking)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (the JAX engine's keys): ``hit_rate`` is
@@ -682,7 +866,7 @@ class GenerationEngine:
         # scratch and activations scale with rows × bucket; and the slots
         # in use at the occupancy cap the resource breaker may lower.
         while (self._queue and self._free and len(batch) < 128
-               and len(self._active) + len(batch) < self._slot_cap):
+               and self._occupied + len(batch) < self._slot_cap):
             head = self._queue[0]
             match_len = 0
             if self.paged:
@@ -782,6 +966,7 @@ class GenerationEngine:
                                        if matches[i] is not None else 0))
             self._active[slot] = req
             self._generated[slot] = [tok]
+            self._spec_track(slot, req, tok)
             self._positions[slot] = plens[i]
             self._next_tok[slot] = tok
             self._t_prefill[slot] = prefill_s
@@ -859,7 +1044,8 @@ class GenerationEngine:
 
             logits, k_new, v_new = decoder.prefill_seeded_paged(
                 self.params, tokens_t, lengths_t,
-                torch.from_numpy(pref).to(dev), self.cfg, partial_fn)
+                torch.from_numpy(pref).to(dev), self.cfg, partial_fn,
+                all_logits=False)
         else:
             scratch = decoder.init_cache(self.cfg, n, bucket,
                                          dtype=self.kv_dtype, device=dev)
@@ -889,6 +1075,9 @@ class GenerationEngine:
         need = sum(max(0, self._worst_blocks_total(req)
                        - len(self._tables[slot]))
                    for slot, req in self._active.items())
+        need += sum(max(0, self._worst_blocks_total(entry[0])
+                        - len(self._tables[slot]))
+                    for slot, entry in self._chunking.items())
         evictable = self._prefix.evictable_blocks \
             if self._prefix is not None else 0
         return self._pool.free_blocks + evictable - need
@@ -953,11 +1142,12 @@ class GenerationEngine:
 
     def _used_tokens(self) -> int:
         """Live positions in the pool: committed slot timelines minus
-        their borrowed spans (counted once, as trie nodes), plus the
-        published blocks (always full)."""
+        their borrowed spans (counted once, as trie nodes), chunk fills,
+        plus the published blocks (always full)."""
         used = sum(int(self._positions[s])
                    - self._owned_from[s] * self._block
                    for s in self._active)
+        used += sum(e[1] for e in self._chunking.values())
         if self._prefix is not None:
             used += self._prefix.node_count * self._block
         return used
@@ -1119,6 +1309,17 @@ class GenerationEngine:
 
     def _decode_once(self) -> None:
         window = self._dispatch_steps
+        # Speculation routes a step to the verify dispatch whenever any
+        # active slot's draft index hits (slots without a draft ride the
+        # same pass in the k=0 lane); draft-less steps keep the plain
+        # windowed dispatch, which amortizes the host sync over a window.
+        # _spec_allowed consults the supervisor's spec_verify breaker:
+        # open → plain decode serves, half-open → this step may probe.
+        if self.spec_decode and self._active and self._spec_allowed():
+            drafts = self._spec_drafts()
+            if drafts:
+                self._dispatch_verify(drafts)
+                return
         active_before = list(self._active.items())
         seq = self.telemetry.next_step() if self.telemetry is not None \
             else None
@@ -1149,6 +1350,14 @@ class GenerationEngine:
                     finished = "length"
                     break
             harvested_total += len(gen) - harvested0
+            if self.spec_decode:
+                # weight-pass ledger and draft index upkeep: a plain
+                # window costs one weight pass a row a step
+                self._row_tokens += len(gen) - harvested0
+                self._row_passes += window
+                idx = self._draft_index.get(slot)
+                if idx is not None:
+                    idx.extend(gen[harvested0:])
             self._positions[slot] += window
             self._next_tok[slot] = int(toks[window - 1, slot])
             # Keep a full dispatch of cache headroom: the next dispatch
@@ -1168,11 +1377,384 @@ class GenerationEngine:
                 padded_tokens=window * self.num_slots, route=self._kv_route)
 
     # ------------------------------------------------------------------
+    # the scheduler and chunked prefill
+    # ------------------------------------------------------------------
+
+    def _sched_cost(self, req: Request) -> int:
+        """What this request will prefill: its prompt minus the prefix
+        cache's match — the DRR charge and the chunk-or-wave size, so a
+        cached prompt costs its suffix."""
+        if self._prefix is None:
+            return len(req.prompt)
+        match = self._prefix.match_tokens(req.prompt,
+                                          digests=self._req_digests(req))
+        return max(1, len(req.prompt) - match)
+
+    def _placement_key(self, req: Request):
+        """Prefix-aware placement: the first radix block digest. Requests
+        sharing it open with the same block-aligned span, so releasing
+        them into one wave makes the wave ride the seeded path (or publish
+        one shared prefix)."""
+        if self._prefix is None:
+            return None
+        digs = self._req_digests(req)
+        return digs[0] if digs else None
+
+    def _sched_pump(self) -> None:
+        """One scheduler turn: feed the closed loop, release at most one
+        wave's token budget of requests (DRR order), route long cache-miss
+        prompts to chunked prefill."""
+        sched = self._sched
+        sched.observe(queued=self.queue_depth, active=len(self._active),
+                      num_slots=self.num_slots, telemetry=self.telemetry,
+                      free_blocks=(self._block_headroom()
+                                   if self.paged else None),
+                      total_blocks=(self._pool.num_blocks
+                                    if self.paged else None))
+        room = len(self._free) - len(self._queue) - len(self._chunk_pending)
+        if room <= 0:
+            return
+        reqs = sched.select(max_requests=room,
+                            token_budget=sched.cfg.prefill_wave_tokens,
+                            cost_fn=self._sched_cost,
+                            placement_key=self._placement_key)
+        ct = sched.cfg.chunk_tokens
+        for req in reqs:
+            # Prefix hits keep the seeded wave; long cache misses chunk. A
+            # hit shows as a suffix cost below the prompt length.
+            cost = self._sched_cost(req)
+            if self._chunk_ok and cost >= len(req.prompt) \
+                    and len(req.prompt) > ct:
+                self._chunk_pending.append(req)
+            else:
+                self._queue.append(req)
+
+    def _chunk_step(self) -> None:
+        """One chunked-prefill dispatch: every chunking slot advances by at
+        most one chunk of its prompt; rows whose prompt completes activate
+        with their first token (sampled from the last prompt position).
+        Free and decoding rows park at ``max_len``: their KV write drops
+        and their output is discarded."""
+        while self._chunk_pending and self._free \
+                and self._occupied < self._slot_cap:
+            if self.paged and self._worst_blocks_total(
+                    self._chunk_pending[0]) > self._block_headroom():
+                break           # the pool cannot take the head yet
+            self._chunking[self._free.pop(0)] = [
+                self._chunk_pending.pop(0), 0, time.monotonic()]
+        if not self._chunking:
+            return
+        t0 = time.monotonic()
+        ct = self._chunk_buckets[-1]
+        rem_max = max(len(req.prompt) - filled
+                      for req, filled, _ in self._chunking.values())
+        width = _next_bucket(min(rem_max, ct), self._chunk_buckets)
+        tokens = np.zeros((self.num_slots, width), dtype=np.int64)
+        qlens = np.ones((self.num_slots,), dtype=np.int64)
+        positions = np.full((self.num_slots,), self.max_len, dtype=np.int64)
+        fed: dict[int, int] = {}
+        for slot, (req, filled, _started) in self._chunking.items():
+            n = min(len(req.prompt) - filled, width)
+            tokens[slot, :n] = req.prompt[filled:filled + n]
+            qlens[slot] = n
+            positions[slot] = filled
+            fed[slot] = n
+        kv_len = self._kv_extent(max(e[1] for e in self._chunking.values()))
+        seq = self.telemetry.next_step() if self.telemetry is not None \
+            else None
+        # The fill offsets advance only after the host fetch: a failed
+        # dispatch leaves the entries as they were, and the next step
+        # retries the same chunk.
+        with self._dispatch_boundary("prefill_chunk"):
+            if self.paged:
+                for slot, n in fed.items():
+                    self._ensure_blocks(slot, self._chunking[slot][1] + n)
+                rows = [(slot, self._tables[slot], self._chunking[slot][1],
+                         n) for slot, n in fed.items()]
+                sbids, soffs = self._write_maps(rows, width, self.num_slots)
+                first = self._chunk_paged(tokens, qlens, positions, sbids,
+                                          soffs, kv_len)
+            else:
+                first = self._prefill_chunk(tokens, qlens, positions,
+                                            kv_len)
+        step_s = time.monotonic() - t0
+        self.chunk_s += step_s
+        self.chunk_dispatches += 1
+        now = time.monotonic()
+        for slot in list(self._chunking):
+            entry = self._chunking[slot]
+            req, _filled, started = entry
+            entry[1] += fed[slot]
+            self.prefill_tokens += fed[slot]
+            self.chunk_prefill_tokens += fed[slot]
+            if entry[1] < len(req.prompt):
+                continue
+            del self._chunking[slot]
+            tok = int(first[slot])
+            if self.telemetry is not None:
+                self.telemetry.on_admit(req.request_id, wave_start=started,
+                                        admit_kind="chunked")
+            self._active[slot] = req
+            self._generated[slot] = [tok]
+            self._spec_track(slot, req, tok)
+            self._positions[slot] = len(req.prompt)
+            self._next_tok[slot] = tok
+            self._t_prefill[slot] = now - started
+            self._ttft[slot] = now - req.submitted_at
+            req.decode_started_at = now
+            if tok in self._eos_set or req.max_new_tokens <= 1:
+                self._retire(slot,
+                             "eos" if tok in self._eos_set else "length")
+        if self.telemetry is not None:
+            self.telemetry.record_step(
+                "prefill_chunk", step_s, seq=seq, rows=len(fed),
+                batch=self.num_slots, tokens=sum(fed.values()),
+                padded_tokens=self.num_slots * width, route=self._kv_route)
+            self.telemetry.on_prefill_chunks(len(fed))
+
+    @torch.inference_mode()
+    def _prefill_chunk(self, tokens: np.ndarray, qlens: np.ndarray,
+                       positions: np.ndarray, kv_len: int) -> np.ndarray:
+        """The contiguous chunk pass: every slot's next prompt chunk
+        attends (its own cache prefix ++ fresh causal chunk) in one weight
+        pass (``decoder.verify_seeded``), the fresh KV lands at the
+        per-row fill offset (``merge_window``), and each row samples a
+        candidate first token from its last fed position. Returns the
+        candidates [slots] (the one host fetch)."""
+        dev = self.device
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        qlens_t = torch.from_numpy(qlens).to(dev)
+        positions_t = torch.from_numpy(positions).to(dev)
+        logits, k_new, v_new = decoder.verify_seeded(
+            self.params, tokens_t, qlens_t, positions_t, self.cfg,
+            self._cache, kv_len=kv_len)
+        decoder.merge_window(self._cache, k_new, v_new, positions_t,
+                             steps=tokens.shape[1])
+        last = logits[torch.arange(logits.shape[0], device=dev),
+                      qlens_t - 1]
+        return sample(last, self._gen, self.sampling).cpu().numpy()
+
+    def _pool_partial_fn(self, kv_len: int):
+        """K3 over the pool for a seeded pass at extent ``kv_len``: each
+        row's table to ``kv_len // block`` entries (sentinel-padded), full
+        attention (the seeded passes refuse sliding windows)."""
+        tables = torch.from_numpy(self._gather_bids(kv_len)).to(self.device)
+        pool = self._pool
+
+        def partial_fn(li, q_rows, lns, q_pos):
+            return paged_attention_partial(q_rows, pool.k, pool.v, li,
+                                           tables, lns, q_pos, window=0)
+        return partial_fn
+
+    @torch.inference_mode()
+    def _chunk_paged(self, tokens: np.ndarray, qlens: np.ndarray,
+                     positions: np.ndarray, sbids: np.ndarray,
+                     soffs: np.ndarray, kv_len: int) -> np.ndarray:
+        """The paged chunk pass: ``decoder.prefill_seeded_paged`` with the
+        slot's filled prefix scored in place by K3 and the last valid row
+        selected before the lm_head (``all_logits=False``), then one pool
+        scatter of the chunk's KV and the candidates' sample."""
+        dev = self.device
+        last, k_new, v_new = decoder.prefill_seeded_paged(
+            self.params, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(qlens).to(dev),
+            torch.from_numpy(positions).to(dev), self.cfg,
+            self._pool_partial_fn(kv_len), all_logits=False)
+        self._pool.scatter(k_new, v_new, sbids, soffs)
+        return sample(last, self._gen, self.sampling).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+
+    def _spec_allowed(self) -> bool:
+        """The supervisor's ``spec_verify`` breaker (open after repeated
+        verify failures) vetoes the verify dispatch; plain decode
+        serves."""
+        sup = self.supervisor
+        return sup is None or sup.spec_allowed()
+
+    def _spec_track(self, slot: int, req: Request, first_tok: int) -> None:
+        """Build the stream's draft index at activation (spec engines):
+        once over the prompt and the first token, extended per accepted
+        token from then on."""
+        if not self.spec_decode:
+            return
+        idx = NgramDraftIndex(req.prompt, ngram=self.spec_ngram,
+                              min_ngram=self.spec_min_ngram)
+        idx.extend([first_tok])
+        self._draft_index[slot] = idx
+
+    def _spec_bucket(self, n: int) -> int:
+        """Largest declared draft length <= n (0 = no draft)."""
+        return max(k for k in self.spec_draft_lens if k <= n)
+
+    def _spec_drafts(self) -> dict[int, list[int]]:
+        """Prompt-lookup drafts for the next verify dispatch: each active
+        slot's index is probed and its draft clamped to the cache room
+        (the verify writes KV at [pos, pos + k]). The dispatch's width
+        snaps to the declared buckets and fires only when some slot's
+        draft reaches a nonzero one; shorter drafts ride the same pass
+        through their row lengths. Empty: the step takes the plain
+        windowed dispatch."""
+        cands: dict[int, list[int]] = {}
+        k_max = 0
+        for slot in self._active:
+            idx = self._draft_index.get(slot)
+            if idx is None:
+                continue
+            self.spec_lookups += 1
+            d = idx.draft(self._spec_max_draft)
+            d = d[:max(0, self.max_len - 1 - int(self._positions[slot]))]
+            if d:
+                cands[slot] = d
+                k_max = max(k_max, self._spec_bucket(len(d)))
+        if k_max == 0:
+            return {}
+        drafts = {}
+        for slot, d in cands.items():
+            drafts[slot] = d[:k_max]
+            self.spec_hits += 1
+            self.spec_drafted_tokens += len(drafts[slot])
+        return drafts
+
+    def _dispatch_verify(self, drafts: dict[int, list[int]]) -> None:
+        """One verify dispatch: every active slot's committed next token
+        plus its (possibly empty) draft in one weight pass, exact
+        acceptance, and the rewind to the accept point on the host."""
+        k_max = max(len(d) for d in drafts.values())
+        s = k_max + 1
+        active_before = list(self._active.items())
+        tokens = np.zeros((self.num_slots, s), dtype=np.int64)
+        tokens[:, 0] = self._next_tok
+        qlens = np.ones((self.num_slots,), dtype=np.int64)
+        for slot, d in drafts.items():
+            tokens[slot, 1:1 + len(d)] = d
+            qlens[slot] = len(d) + 1
+        t0 = time.monotonic()
+        seq = self.telemetry.next_step() if self.telemetry is not None \
+            else None
+        with self._dispatch_boundary("verify"):
+            kv_len = self._kv_bucket()
+            if self.paged:
+                # The width is global: a near-cap row's columns past
+                # max_len are dead padding, so its table grows only to
+                # max_len (its admission-time reservation)
+                for slot in self._active:
+                    self._ensure_blocks(
+                        slot, min(int(self._positions[slot]) + s,
+                                  self.max_len))
+                rows = [(sl, self._tables[sl], int(self._positions[sl]), s)
+                        for sl in self._active]
+                sbids, soffs = self._write_maps(rows, s, self.num_slots)
+                out, acc = self._verify_paged(tokens, qlens, sbids, soffs,
+                                              kv_len)
+            else:
+                out, acc = self._verify(tokens, qlens, kv_len)
+        step_s = time.monotonic() - t0
+        self.spec_s += step_s
+        self.decode_s += step_s
+        self.spec_dispatches += 1
+        accepted0 = self.spec_accepted_tokens
+        emitted0 = self.spec_emitted_tokens
+        for slot, req in active_before:
+            m = int(acc[slot]) + 1        # emitted: accepts + 1 sample
+            self.spec_accepted_tokens += m - 1
+            self.spec_rows += 1
+            self._row_passes += 1
+            gen = self._generated[slot]
+            emitted = [int(t) for t in out[slot, :m]]
+            finished = None
+            kept = 0
+            for tok in emitted:
+                gen.append(tok)
+                kept += 1
+                if tok in self._eos_set:
+                    finished = "eos"
+                    break
+                if len(gen) >= req.max_new_tokens:
+                    finished = "length"
+                    break
+            self.spec_emitted_tokens += kept
+            self._row_tokens += kept
+            self._draft_index[slot].extend(emitted[:kept])
+            # Rewind or advance the committed length to the accept point:
+            # columns [pos + m, pos + k_max] hold rejected-draft KV, dead
+            # under the strict prefix mask until the next write lands
+            self._positions[slot] += m
+            self._next_tok[slot] = emitted[m - 1]
+            if (finished is None
+                    and self._positions[slot] + self._dispatch_steps
+                    > self.max_len - 1):
+                finished = "length"
+            if finished:
+                self._retire(slot, finished)
+        self.decode_tokens += self.spec_emitted_tokens - emitted0
+        if self.telemetry is not None:
+            self.telemetry.record_step(
+                "verify", step_s, seq=seq, rows=len(active_before),
+                batch=self.num_slots,
+                tokens=self.spec_emitted_tokens - emitted0,
+                padded_tokens=s * self.num_slots,
+                draft_tokens=sum(len(d) for d in drafts.values()),
+                accepted_tokens=self.spec_accepted_tokens - accepted0,
+                route=self._kv_route)
+
+    @torch.inference_mode()
+    def _verify(self, tokens: np.ndarray, qlens: np.ndarray,
+                kv_len: int) -> tuple[np.ndarray, np.ndarray]:
+        """The contiguous verify pass: ``decoder.verify_seeded`` scores
+        k+1 positions a slot against the slot cache read in place, the
+        fresh KV of all fed tokens lands at the per-row offset in one
+        ``merge_window`` (columns past the accept point are dead by the
+        prefix mask), and ``verify_draft`` accepts. Returns (tokens
+        [slots, S], accepted [slots]) from one host fetch."""
+        dev = self.device
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        qlens_t = torch.from_numpy(qlens).to(dev)
+        positions_t = torch.from_numpy(self._positions).to(dev)
+        logits, k_new, v_new = decoder.verify_seeded(
+            self.params, tokens_t, qlens_t, positions_t, self.cfg,
+            self._cache, kv_len=kv_len)
+        decoder.merge_window(self._cache, k_new, v_new, positions_t,
+                             steps=tokens.shape[1])
+        return self._accept(logits, tokens_t, qlens_t)
+
+    @torch.inference_mode()
+    def _verify_paged(self, tokens: np.ndarray, qlens: np.ndarray,
+                      sbids: np.ndarray, soffs: np.ndarray,
+                      kv_len: int) -> tuple[np.ndarray, np.ndarray]:
+        """The paged verify pass: ``decoder.prefill_seeded_paged`` with
+        every position's logits (``all_logits=True``) and each slot's
+        committed prefix scored in place by K3 (R = group x (k+1) rows a
+        kv head), one pool scatter of the fed tokens' KV, then
+        ``verify_draft``."""
+        dev = self.device
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        qlens_t = torch.from_numpy(qlens).to(dev)
+        logits, k_new, v_new = decoder.prefill_seeded_paged(
+            self.params, tokens_t, qlens_t,
+            torch.from_numpy(self._positions).to(dev), self.cfg,
+            self._pool_partial_fn(kv_len), all_logits=True)
+        self._pool.scatter(k_new, v_new, sbids, soffs)
+        return self._accept(logits, tokens_t, qlens_t)
+
+    def _accept(self, logits: torch.Tensor, tokens_t: torch.Tensor,
+                qlens_t: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """``verify_draft`` over a verify pass's logits: the emitted
+        tokens [slots, S] and accept counts [slots] in one host fetch."""
+        out, n_accept = verify_draft(logits, tokens_t[:, 1:], qlens_t - 1,
+                                     self._gen, self.sampling)
+        both = torch.cat([out, n_accept[:, None]], dim=1).cpu().numpy()
+        return both[:, :-1], both[:, -1]       # the ONE host fetch
+
+    # ------------------------------------------------------------------
     # retirement
     # ------------------------------------------------------------------
 
     def _retire(self, slot: int, reason: str) -> None:
         self._positions[slot] = self.max_len   # park out of range
+        self._draft_index.pop(slot, None)
         req = self._active.pop(slot)
         if self.paged:
             adopted: set[int] | frozenset = frozenset()
@@ -1208,23 +1790,41 @@ class GenerationEngine:
             # retire cadence, not every step
             self.telemetry.update_ledgers(
                 self.prefix_stats() if self._prefix is not None else None,
-                None)
+                self.spec_stats() if self.spec_decode else None)
         self._free.append(slot)
 
     def _expire_deadlines(self) -> None:
         """Drop every request whose ``deadline_at`` has passed — queued
-        work uncomputed (an empty completion), active slots retired with
-        their partial output — all with ``finish_reason="deadline"``. It
-        runs at the head of ``step``, between dispatches, so a retired
-        slot parks exactly as an eos or length retirement parks it: the
-        next dispatch's static buffers are filled from host state that no
-        longer holds it, and its pool blocks are back in the pool."""
+        work uncomputed (an empty completion: the wave queue, the chunk
+        queue, chunking slots and the scheduler's queues), active slots
+        retired with their partial output — all with
+        ``finish_reason="deadline"``. It runs at the head of ``step``,
+        between dispatches, so a retired slot parks exactly as an eos or
+        length retirement parks it: the next dispatch's static buffers are
+        filled from host state that no longer holds it, and its pool
+        blocks are back in the pool."""
         if not self._deadlines_in_use:
             return    # no deadline ever submitted: skip the queue walk
         now = time.monotonic()
         expired = [r for r in self._queue if r.deadline_at <= now]
         if expired:
             self._queue = [r for r in self._queue if r.deadline_at > now]
+        late = [r for r in self._chunk_pending if r.deadline_at <= now]
+        if late:
+            self._chunk_pending = [r for r in self._chunk_pending
+                                   if r.deadline_at > now]
+            expired += late
+        for slot in list(self._chunking):
+            req = self._chunking[slot][0]
+            if req.deadline_at <= now:
+                del self._chunking[slot]
+                self._positions[slot] = self.max_len
+                if self.paged:
+                    self._paged_release_slot(slot)
+                self._free.append(slot)
+                expired.append(req)
+        if self._sched is not None:
+            expired += self._sched.drop_expired(now)
         for req in expired:
             self.deadline_expired += 1
             self._done[req.request_id] = Completion(
@@ -1318,6 +1918,7 @@ class GenerationEngine:
         self._next_id = max(self._next_id,
                             max(e.request_id for e in entries) + 1)
         now_wall = time.time()
+        self._journal_recovering = True
         self._journal_suppress = True
         try:
             for e in entries:
@@ -1370,6 +1971,7 @@ class GenerationEngine:
                             request_id=rid, restart=True):
                         pass
         finally:
+            self._journal_recovering = False
             self._journal_suppress = False
         return self.journal_replayed
 

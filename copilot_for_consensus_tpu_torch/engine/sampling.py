@@ -1,5 +1,6 @@
-"""Token sampling: greedy / temperature / top-k / nucleus (port of the
-JAX package's ``engine/sampling.py``).
+"""Token sampling: greedy / temperature / top-k / nucleus, and the
+speculative verify dispatch's draft acceptance (port of the JAX
+package's ``engine/sampling.py``).
 
 Random draws come from an explicit ``torch.Generator``; they differ from
 ``jax.random``'s bits for the same seed, so sampled outputs compare by
@@ -49,3 +50,58 @@ def sample(logits: torch.Tensor, generator: torch.Generator | None,
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(_filter_logits(logits.float(), cfg), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def verify_draft(logits: torch.Tensor, draft: torch.Tensor,
+                 draft_lens: torch.Tensor,
+                 generator: torch.Generator | None,
+                 cfg: SamplingConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact acceptance of prompt-lookup drafts over one verify dispatch.
+
+    ``logits``: [B, S, V] raw model logits at the S = k_max+1 scored
+    positions — row j is the distribution of the token FOLLOWING fed
+    token j (token 0 is the stream's committed next token, tokens 1..k
+    its draft). ``draft``: [B, S-1] proposed tokens, right-padded;
+    ``draft_lens``: [B] valid draft counts per row (0 = the row rides the
+    dispatch as a plain single decode step).
+
+    Returns ``(tokens_out [B, S] int64, n_accept [B] int64)``: row b emits
+    ``tokens_out[b, :n_accept[b] + 1]`` — the accepted draft tokens, then
+    one model-sampled token (the correction at the first rejection, or the
+    bonus token after a fully accepted draft). Columns past that are
+    garbage.
+
+    Greedy (``temperature <= 0``): accept while the argmax matches the
+    draft, so the emitted tokens are the argmax chain itself —
+    bit-identical to stepwise greedy decode. Sampled: the rejection rule
+    with a point-mass draft — accept d with probability p(d) under the
+    FILTERED serving distribution p, else resample from p with d removed
+    (renormalized) — which leaves every emitted token distributed exactly
+    as p. The draws come from ``generator``."""
+    b, s, v = logits.shape
+    dev = logits.device
+    draft = draft.to(dev).long()
+    within = (torch.arange(s - 1, device=dev)[None, :]
+              < draft_lens.to(dev)[:, None])                 # [B, S-1]
+    if cfg.temperature <= 0.0:
+        out = torch.argmax(logits, dim=-1)                   # [B, S]
+        ok = (out[:, :-1] == draft) & within
+        return out, torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    p = torch.softmax(_filter_logits(logits.float(), cfg), dim=-1)
+    p_draft = torch.gather(p[:, :-1], -1, draft[..., None])[..., 0]
+    u = torch.rand((b, s - 1), generator=generator, device=dev)
+    ok = (u < p_draft) & within
+    n_accept = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    # Correction draw at a rejection: p with the drafted token removed
+    # (multinomial renormalizes). A p(d) = 1 point mass never rejects; its
+    # empty row draws from p instead, and the draw is unused.
+    res_p = p[:, :-1].scatter(-1, draft[..., None], 0.0)
+    res_p = torch.where(res_p.sum(-1, keepdim=True) > 0, res_p, p[:, :-1])
+    res = torch.multinomial(res_p.reshape(-1, v), 1,
+                            generator=generator).reshape(b, s - 1)
+    # Plain draw from p: the bonus token after a fully accepted draft, and
+    # what a 0-draft row emits (``sample``'s draw).
+    plain = torch.multinomial(p.reshape(-1, v), 1,
+                              generator=generator).reshape(b, s)
+    head = torch.where(within, torch.where(ok, draft, res), plain[:, :-1])
+    return torch.cat([head, plain[:, -1:]], dim=1), n_accept

@@ -52,12 +52,12 @@ thread itself only reads its own frame stack and flips flags.
 Design notes: ``docs/RESILIENCE.md``.
 
 The port's copy of the JAX package's ``engine/supervisor.py``. The port's
-engine has no speculative decoding, chunked prefill, scheduler or
-disaggregated roles yet, so every member they add (``_draft_index``,
-``_chunking``, ``_handoff``, ``_sched``) is read with ``getattr``, as is
-``set_slot_cap``. One addition: a repairing :meth:`audit` ends with the
-engine's ``on_repaired`` hook, which lets an engine that dropped its
-decode graphs after a failed dispatch capture them again.
+engine has no disaggregated roles yet, so the member they add
+(``_handoff``) is read with ``getattr``, and ``set_slot_cap`` is called
+behind ``hasattr`` where the reference calls it outright. One addition: a
+repairing :meth:`audit` ends with the engine's ``on_repaired`` hook, which
+lets an engine that dropped its decode graphs after a failed dispatch
+capture them again.
 """
 
 from __future__ import annotations
@@ -549,7 +549,7 @@ class EngineSupervisor:
             gen = eng._generated.pop(slot, [])
             eng._active.pop(slot, None)
             eng._positions[slot] = eng.max_len
-            getattr(eng, "_draft_index", {}).pop(slot, None)
+            eng._draft_index.pop(slot, None)
             eng._t_prefill.pop(slot, None)
             self._release_pin(req.request_id)
             if paged:
@@ -743,7 +743,7 @@ class EngineSupervisor:
                 self.quarantined.append(slot)
             for slot in gen_orphans:
                 eng._generated.pop(slot, None)
-                getattr(eng, "_draft_index", {}).pop(slot, None)
+                eng._draft_index.pop(slot, None)
                 eng._t_prefill.pop(slot, None)
             for rid in pin_leaks:
                 self._release_pin(rid)
@@ -759,7 +759,7 @@ class EngineSupervisor:
                     eng._owned_from[slot] = 0
                     req = eng._active.pop(slot, None)
                     if req is None:
-                        ch = getattr(eng, "_chunking", {}).pop(slot, None)
+                        ch = eng._chunking.pop(slot, None)
                         req = ch[0] if ch else None
                     if req is None:
                         h = getattr(eng, "_handoff", {}).pop(slot,
@@ -768,7 +768,7 @@ class EngineSupervisor:
                     if req is not None:
                         self._release_pin(req.request_id)
                     eng._generated.pop(slot, None)
-                    getattr(eng, "_draft_index", {}).pop(slot, None)
+                    eng._draft_index.pop(slot, None)
                     eng._positions[slot] = eng.max_len
                     eng._free = [s for s in eng._free if s != slot]
                     if slot not in self.quarantined:

@@ -11,8 +11,11 @@ the ``lax.scan`` over that axis becomes a Python loop. Entry points:
 * ``decode_step_windowed``  — one token per slot against the read-only
   cache plus the dispatch's window buffer;
 * ``merge_window``          — writes a window's KV into the cache, once;
+* ``verify_seeded``        — the contiguous engine's seeded pass over its
+  slots (speculative verify, chunked prefill), every position's logits;
 * ``decode_step_windowed_paged`` / ``prefill_seeded_paged`` — the paged
-  engine's decode step and seeded admission pass: the KV held in the block
+  engine's decode step and seeded pass (admission, chunk, verify with
+  ``all_logits``): the KV held in the block
   pool is scored in place by a ``partial_fn(li, q_rows, lengths, q_pos)``
   (K3), handed the layer index ``li`` as an int offset into the stacked
   pool, so no per-layer pool slice is copied.
@@ -203,16 +206,21 @@ def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
 
 def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
                          lengths: torch.Tensor, prefix_lens: torch.Tensor,
-                         cfg: DecoderConfig, partial_fn
+                         cfg: DecoderConfig, partial_fn, *,
+                         all_logits: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
-    """Seeded admission pass: right-padded suffix tokens [B, S] at
-    absolute positions ``prefix_lens[b] + i`` attend their prefix,
-    scored off the block pool by ``partial_fn(li, q_rows, lengths,
-    q_pos)``, and their own causal suffix below ``lengths[b]``. Returns
-    (last-valid-position logits [B, V] f32, selected before the lm_head;
-    k_new, v_new [L, B, Hkv, S, Dh] in the compute dtype for the pool
-    scatter). ``prefix_lens`` goes to K3 as int32, converted once here."""
+    """Seeded suffix pass over the block pool — seeded admission and the
+    chunked-prefill continuation (``all_logits=False``), the speculative
+    verify (``all_logits=True``): right-padded suffix tokens [B, S] at
+    absolute positions ``prefix_lens[b] + i`` attend their prefix, scored
+    off the pool by ``partial_fn(li, q_rows, lengths, q_pos)`` (prefix
+    columns at or past ``prefix_lens[b]`` are unreadable), and their own
+    causal suffix below ``lengths[b]``. Returns (logits, k_new, v_new
+    [L, B, Hkv, S, Dh] in the compute dtype for the pool scatter): logits
+    are [B, S, V] f32 with ``all_logits``, else the last valid position's
+    [B, V], selected before the lm_head. ``prefix_lens`` goes to K3 as
+    int32, converted once here."""
     b, s = tokens.shape
     prefix_lens = prefix_lens.to(torch.int32)
     x = params["tok_emb"][tokens.long()]
@@ -227,8 +235,51 @@ def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
         x = x + h
         x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
                          layer)
+    if all_logits:
+        return _unembed(x, params, cfg), k_new, v_new
     x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
     return _unembed(x_last, params, cfg), k_new, v_new
+
+
+def verify_seeded(params: Params, tokens: torch.Tensor,
+                  lengths: torch.Tensor, prefix_lens: torch.Tensor,
+                  cfg: DecoderConfig, cache: Params,
+                  kv_len: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-token seeded pass over DECODE SLOTS of the contiguous cache —
+    the speculative verify and the chunked-prefill continuation.
+
+    Row b's S tokens (the committed next token and its drafted
+    continuation, or the next prompt chunk) sit at absolute positions
+    ``prefix_lens[b] + i`` and attend (slot cache prefix ++ fresh causal
+    suffix) through ``attn_prefill_seeded``: one weight pass scores all S
+    positions of every slot. The cache is read in place, sliced to the
+    static ``kv_len``; positions at or past ``prefix_lens[b]`` are masked,
+    so KV left from a previous dispatch's rejected drafts is dead.
+
+    tokens: [B, S] right-padded; lengths: [B] valid tokens per row
+    (>= 1); prefix_lens: [B] committed cache prefix per slot (parked
+    slots sit at ``max_len``; their output is dropped). Returns (logits
+    [B, S, V] f32, k_new, v_new [L, B, Hkv, S, Dh] in the compute dtype,
+    ``merge_window``'s layout, for the one write at the per-row offset)."""
+    b, s = tokens.shape
+    x = params["tok_emb"][tokens.long()]
+    k_pref, v_pref = cache["k"], cache["v"]
+    if kv_len is not None and kv_len < k_pref.shape[3]:
+        k_pref = k_pref[:, :, :, :kv_len]
+        v_pref = v_pref[:, :, :, :kv_len]
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+    k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
+    v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        h, k_new[li], v_new[li] = L.attn_prefill_seeded(
+            L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
+            k_pref[li], v_pref[li], prefix_lens, lengths)
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                         layer)
+    return _unembed(x, params, cfg), k_new, v_new
 
 
 def merge_window(cache: Params, k_win: torch.Tensor, v_win: torch.Tensor,

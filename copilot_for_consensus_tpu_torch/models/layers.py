@@ -28,6 +28,7 @@ from copilot_for_consensus_tpu_torch.ops.attention import (
     combine_partials,
     decode_attention_prefix_window,
     decode_window_partial,
+    prefill_attention_seeded,
 )
 from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
 
@@ -201,6 +202,26 @@ def attn_decode_windowed_paged(x: torch.Tensor, layer: dict,
     o = combine_partials([pool_part, local_part], x.dtype)
     o = o.reshape(b, 1, cfg.n_heads * dh)
     return qmatmul(o, layer["wo"]), k_cur, v_cur
+
+
+def attn_prefill_seeded(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
+                        k_pref: torch.Tensor, v_pref: torch.Tensor,
+                        prefix_lens: torch.Tensor,
+                        lengths: torch.Tensor | None = None):
+    """Suffix prefill against a seeded prefix held as an array (the
+    contiguous slot cache): row b's tokens sit at absolute positions
+    ``prefix_lens[b] + i`` (RoPE rotates with that offset) and attend
+    (prefix KV ++ fresh causal suffix) in one joint softmax
+    (``ops.attention.prefill_attention_seeded``). k_pref/v_pref:
+    [B, Hkv, P, Dh]. Returns (out [B, S, D_model], k, v) with the fresh
+    suffix k/v in [B, Hkv, S, Dh] for the cache write at the offset."""
+    b, s, _ = x.shape
+    positions = prefix_lens[:, None] + torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(x, layer, cfg, positions)
+    o = prefill_attention_seeded(q, k, v, k_pref, v_pref, prefix_lens,
+                                 kv_lengths=lengths)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return qmatmul(o, layer["wo"]), k, v
 
 
 def attn_prefill_seeded_paged(x: torch.Tensor, layer: dict,

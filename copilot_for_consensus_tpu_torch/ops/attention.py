@@ -315,3 +315,73 @@ def causal_suffix_partial(
                        < kv_lengths.to(q.device)[:, None, None, None, None])
     logits.masked_fill_(~mask, float("-inf"))
     return _masked_partial(logits.reshape(b, hkv, g * s, s), [v])
+
+
+# ---------------------------------------------------------------------------
+# seeded suffix attention: the contiguous verify and chunk passes
+# ---------------------------------------------------------------------------
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with f32 output over the leading batch dims. On the
+    card, bf16 or f16 operands stay in their dtype and accumulate into
+    f32 (the JAX reference's ``preferred_element_type``): nothing is cast
+    up before the product. Elsewhere, and for f32 operands, the product
+    runs in f32."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                        b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-2], *out.shape[-2:])
+    return torch.matmul(a.float(), b.float())
+
+
+def prefill_attention_seeded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_pref: torch.Tensor,
+    v_pref: torch.Tensor,
+    prefix_lens: torch.Tensor,
+    kv_lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Suffix-prefill attention over (seeded prefix KV ++ fresh suffix KV),
+    one joint softmax — the speculative verify pass and the chunked
+    prefill continuation of the contiguous engine (``decoder
+    .verify_seeded``), whose prefix is the slot's own cache.
+
+    Row b's queries sit at absolute positions ``prefix_lens[b] + i``.
+    Prefix column j is attended iff ``j < prefix_lens[b]`` (strict: cache
+    columns at or past a slot's committed length — KV of a previous
+    dispatch's rejected drafts — are unreadable, and the next write
+    overwrites them); the suffix piece is causal below ``kv_lengths[b]``.
+    Fully masked rows give zeros. Plain PyTorch, as the JAX package's is
+    plain XLA: no Pallas kernel computes it.
+
+    q/k/v: [B, Hq|Hkv, S, D] fresh suffix projections; k_pref/v_pref:
+    [B, Hkv, P, D] in any KV dtype (an fp8 cache included), cast to q's;
+    prefix_lens: [B]; kv_lengths: [B] valid suffix length per row. GQA
+    runs grouped — the prefix is never expanded to Hq heads — with scores
+    in f32 (``_matmul_f32``) and the output in q's dtype."""
+    b, hq, s, d = q.shape
+    hkv, p = k_pref.shape[1], k_pref.shape[2]
+    g = hq // hkv
+    dt = q.dtype
+    dev = q.device
+    k_pref, v_pref = k_pref.to(dt), v_pref.to(dt)
+    qg = q.reshape(b, hkv, g * s, d)                 # rows (g, s)
+    lp = _matmul_f32(qg, k_pref.transpose(-1, -2)) * (d ** -0.5)
+    ls = _matmul_f32(qg, k.transpose(-1, -2)) * (d ** -0.5)
+    jpos = torch.arange(p, device=dev)[None, None, None, :]
+    lp = lp.masked_fill(~(jpos < prefix_lens.to(dev)[:, None, None, None]),
+                        float("-inf"))
+    iq = torch.arange(s, device=dev).repeat(g)[:, None]     # row → i
+    jk = torch.arange(s, device=dev)[None, :]
+    mask_s = (jk <= iq)[None, None]
+    if kv_lengths is not None:
+        mask_s = mask_s & (jk[None, None]
+                           < kv_lengths.to(dev)[:, None, None, None])
+    ls = ls.masked_fill(~mask_s, float("-inf"))
+    pp, ps = _joint_probs([lp, ls])
+    out = _matmul_f32(pp.to(dt), v_pref) + _matmul_f32(ps.to(dt), v)
+    return out.to(dt).reshape(b, hq, s, d)

@@ -101,8 +101,9 @@ PORTED = {
     "engine/kv_pool.py": "the paged pool, in PyTorch",
     "engine/prefix_cache.py": "the shared-pool trie, in PyTorch",
     "engine/sampling.py": "sampling, in PyTorch",
-    "engine/supervisor.py": "reads the engine members of features the port "
-                            "lacks with getattr, and calls on_repaired",
+    "engine/supervisor.py": "reads the roles' _handoff with getattr, calls "
+                            "set_slot_cap behind hasattr, and calls "
+                            "on_repaired",
     "models/__init__.py": "the port's config exports",
     "models/configs.py": "the decoder and encoder configs the port serves; "
                          "the MoE configs come with item 6",

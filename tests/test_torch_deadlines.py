@@ -6,8 +6,7 @@
 # without the expired request. A slot retired between dispatches parks as
 # an eos retirement parks it (the next dispatch does not write its column
 # over a live one; its pool blocks go back). The summarizer raises the
-# structured EngineFailed for a drop with no tokens. The port's engine
-# refuses a scheduler in words naming the slice that brings it.
+# structured EngineFailed for a drop with no tokens.
 import functools
 import time
 
@@ -174,13 +173,3 @@ def test_summarizer_deadline_reaches_the_runner_and_fails_in_words():
     summ.close()
     assert teng.deadline_expired == 2
 
-
-def test_scheduler_is_refused_naming_the_next_slice():
-    with pytest.raises(NotImplementedError,
-                       match="next slice.*verify_seeded"):
-        GenerationEngine(decoder_config("tiny"), device="cpu",
-                         scheduler=object())
-    eng = GenerationEngine(decoder_config("tiny"), device="cpu")
-    assert eng.sched_stats() == _pair()[0].sched_stats()
-    eng.submit([1, 2], 2)
-    assert eng.queue_depth == 1

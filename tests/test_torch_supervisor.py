@@ -3,11 +3,12 @@
 # the host-level cases of tests/test_engine_chaos.py: the fault plane and
 # circuit breaker units and every StubEngine case — watchdog, request
 # replay, purge, audit, resolve_supervisor, breakers — with the stub (plain
-# Python) copied here. Left out, because they need engine hooks the port
-# does not have yet: test_purge_queued_repays_scheduler_ledgers and the
-# scheduler half of test_resource_breaker_lowers_cap_and_informs_scheduler
-# (the scheduler), test_deadline_completion_surfaces_as_structured_failure
-# (per-request deadlines). The two prefix-cache cases run against the
+# Python) copied here. The scheduler's cases
+# (test_purge_queued_repays_scheduler_ledgers and the scheduler half of
+# test_resource_breaker_lowers_cap_and_informs_scheduler) run on the
+# port's engine in tests/test_torch_scheduler.py, and
+# test_deadline_completion_surfaces_as_structured_failure in
+# tests/test_torch_deadlines.py. The two prefix-cache cases run against the
 # port's shared-pool PrefixCache, which publishes by adopting a slot's
 # blocks instead of copying a contiguous cache.
 import threading
@@ -761,12 +762,15 @@ def test_resource_breaker_lowers_and_restores_the_slot_cap():
 
 
 def test_supervisor_reads_missing_engine_members_with_getattr():
-    """The port's engine has no draft index, chunking or handoff tables:
-    containment and audit must run on an engine without them."""
+    """The port's engine has no handoff table (disaggregated roles) and no
+    piggyback queue, and the supervisor reads those members, the chunk
+    queue and the scheduler with getattr, as the reference does:
+    containment and audit must run on an engine without them. The draft
+    index and the chunking table the engine now has are read directly."""
     eng = StubEngine(script=["fail"])
-    for name in ("_draft_index", "_chunking", "_chunk_pending",
-                 "_prefilling", "_sched"):
+    for name in ("_chunk_pending", "_prefilling", "_sched"):
         delattr(eng, name)
+    assert not hasattr(eng, "_handoff")
     sup = EngineSupervisor(eng, _sup_cfg())
     eng.submit([1, 2, 3], 4)
     with pytest.raises(RuntimeError):
