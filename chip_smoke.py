@@ -730,7 +730,9 @@ def k1_cases():
     smallest bucket (``enc_s32``: B 64, S 32, lengths over 1-32), a
     length-1 row, Sq 200 against Skv 700 with ``q_offsets`` and
     ``kv_begins`` (and a row of length 0, which writes zeros), and a window
-    of 100 that bites. At f32 every case runs the CUDA-core body."""
+    of 100 that bites. Then the piggyback dispatch's chunk attention
+    (``piggy_s64``): packed lanes, their begins and a length-0 lane. At f32
+    every case runs the CUDA-core body."""
     return [
         ("s512", 4, 32, 8, 512, 512, 128, 4096, [512, 300, 1, 0], None,
          None, False, True),
@@ -758,6 +760,13 @@ def k1_cases():
          [700, 200, 356, 0], [500, 0, 100, 0], [0, 0, 50, 0], False, True),
         ("d32_w100", 2, 8, 2, 600, 600, 32, 100, [600, 450], None, None,
          False, True),
+        # the piggyback dispatch's chunk attention at the rag2k shape: P 4
+        # lanes of Sq = C = 64 at step w = 5 (q_offsets 64 w) against
+        # 2048-column lane buffers — lane 0 one row from column 0, lane 1
+        # a packed row from column 192, lane 2 a partial final chunk,
+        # lane 3 idle (begin past the buffer, length 0: zeros)
+        ("piggy_s64", 4, 32, 8, 64, 2048, 128, 0, [384, 384, 360, 0],
+         [320] * 4, [0, 192, 128, 2048], True, True),
     ]
 
 
@@ -4588,6 +4597,485 @@ def phase_spec_chunk_f32(dev, smi):
     torch.cuda.empty_cache()
 
 
+#: the JAX bench's ``rag2k`` preset with ``BENCH_PIGGYBACK=1``
+#: (bench.py:67-70, :2876-2882): contiguous int8, 32 slots, max_len 2304,
+#: 2048-token prompts, window 32, prefill_chunk 64, prefill_rows 4, prompts
+#: of 512 tokens or more piggyback; new tokens cut to 32 (one window)
+PIGGY = dict(num_slots=32, max_len=2304, prefill_buckets=(2048,),
+             decode_window=32, prefill_chunk=64, prefill_rows=4)
+PIGGY_PROMPT, PIGGY_NEW, PIGGY_MIN = 2048, 32, 512
+#: the JAX bench's ``shared_prefix`` preset (bench.py:86-91) on the
+#: contiguous cache: 32 slots, max_len 768, 512-token prompts opening with
+#: one shared 384-token span, a 64-block prefix pool, window 32; a cold
+#: round and a repeat round of 32 new tokens each
+PREFIX = dict(num_slots=32, max_len=768, prefill_buckets=(128, 512),
+              decode_window=32, prefix_cache_blocks=64)
+PREFIX_PROMPT, PREFIX_SHARED, PREFIX_NEW = 512, 384, 32
+#: the holds phase: 8 arrivals one a step into an idle 32-slot batch, a
+#: strict hold of 4 rows (the wait bound far past the phase)
+HOLDS = dict(num_slots=32, max_len=1024, prefill_buckets=(256,),
+             decode_window=8, admit_min_rows=4, admit_hold_strict=True,
+             admit_max_wait_s=600.0)
+
+
+def piggy_check(label: str, cfg, launches: dict, bodies: dict, d: dict,
+                piggy: int, window: int) -> None:
+    """Launch counts a piggyback run must show: a wave is one forward pass
+    (7 K2 launches a layer and one for the lm_head, K1 once a layer); a
+    piggyback dispatch is ``window`` steps of one forward pass over the
+    decode and chunk rows each (K1 once a layer a step, for the chunks)
+    and one more lm_head for the placed rows' first tokens; a plain
+    dispatch ``window`` decode passes."""
+    n = cfg.n_layers
+    want = {"K1": n * (d["waves"] + window * piggy),
+            "K2": (7 * n + 1) * (d["waves"] + window * (d["plain"] + piggy))
+            + piggy}
+    got = {"K1": bodies["K1"]["wgmma"], "K2": launches["K2"]}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} "
+                             f"from {d} and {piggy} piggyback dispatches")
+
+
+def phase_piggy_serve(dev, cfg, params, smi):
+    """Piggyback prefill at the rag2k shape (``PIGGY``): 32 prompts of 2048
+    tokens (numpy seed 0) submitted at once, 32 new tokens, piggyback on
+    (``piggyback_min_prompt`` 512: whole prompts ride the decode
+    dispatches, up to two dispatches' backlog; the wave takes the rest)
+    then off (every prompt in waves), each on an engine of its own. Per
+    arm: the waves, piggyback and plain dispatches and their seconds,
+    ``piggy_tokens``, admission-to-first-token (TTFT p50/p99), decode
+    tok/s over the decode dispatches' seconds, the wall. The piggyback
+    dispatches run eagerly: M = 32 + 4 x 64 = 288 rows a projection (K2's
+    wgmma body) and one K1 call a layer a step over the lanes' 2048-column
+    buffers. Streams equal between the arms are counted (bf16, not
+    gated). Returns the piggyback arm's launches and bodies."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, size=PIGGY_PROMPT).tolist()
+               for _ in range(PIGGY["num_slots"])]
+    arms, out = {}, {}
+    for name, low in (("piggyback", PIGGY_MIN), ("wave", 10**9)):
+        eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                               piggyback_min_prompt=low, **PIGGY)
+        before = engine_counts(eng)
+        reset_launches()
+        with plain_calls() as plain:
+            t0 = time.monotonic()
+            comps = eng.generate(prompts, PIGGY_NEW)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches, bodies = read_launches(), read_bodies()
+        d = dispatches_since(eng, before)
+        arms[name] = {
+            "wall_s": wall, "dispatches": d,
+            "piggy_dispatches": eng.piggy_dispatches,
+            "piggy_s": eng.piggy_s, "piggy_rows": eng.piggy_rows,
+            "piggy_tokens": eng.piggy_tokens,
+            "piggy_ms_each": (eng.piggy_s * 1e3 / eng.piggy_dispatches
+                              if eng.piggy_dispatches else None),
+            "plain_ms_each": (eng.plain_s * 1e3 / eng.plain_dispatches
+                              if eng.plain_dispatches else None),
+            "admitted_s": eng.admitted_s, "decode_s": eng.decode_s,
+            "decode_tokens": eng.decode_tokens,
+            "decode_tok_per_s": eng.decode_tokens / eng.decode_s,
+            "prefill_tokens": eng.prefill_tokens,
+            "total_tok_per_s": (eng.prefill_tokens + eng.decode_tokens)
+            / wall, **_stream_stats(comps),
+            "plain_calls": dict(plain), "launches": launches,
+            "launches_by_body": bodies}
+        out[name] = ([c.tokens for c in comps], launches, bodies, d,
+                     eng.piggy_dispatches, eng._dispatch_steps)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "piggy_serve", "config": cfg.name, **PIGGY,
+          "prompt_tokens": PIGGY_PROMPT, "new_tokens": PIGGY_NEW,
+          "piggyback_min_prompt": PIGGY_MIN, "arms": arms,
+          "streams_equal": sum(a == b for a, b in zip(out["piggyback"][0],
+                                                       out["wave"][0])),
+          "streams": len(prompts), "device": smi})
+    if not arms["piggyback"]["piggy_tokens"] or arms["wave"]["piggy_tokens"]:
+        raise AssertionError(f"piggy_serve: piggy_tokens {arms}")
+    for name in arms:
+        if arms[name]["plain_calls"]:
+            raise AssertionError(f"piggy_serve {name}: a plain version ran")
+        _, launches, bodies, d, piggy, window = out[name]
+        check_path(f"piggy_serve {name}", launches, ("K1", "K2"))
+        check_bodies(f"piggy_serve {name}", bodies)
+        piggy_check(f"piggy_serve {name}", cfg, launches, bodies, d, piggy,
+                    window)
+    return out["piggyback"][1], out["piggyback"][2]
+
+
+def phase_prefix_serve(dev, cfg, params, smi):
+    """The contiguous engine's prefix cache at the shared_prefix preset
+    (``PREFIX``): 32 prompts of 512 tokens opening with one shared
+    384-token span (numpy seed 0), a cold round then the same prompts
+    again, 32 new tokens each. Per round: prompt tokens prefilled and
+    saved, hits and the hit rate, the admission waves (the cold one a miss
+    wave on K1, the repeat one a seeded wave: the matched blocks gathered
+    from the pool, the suffix against them in plain attention, as the JAX
+    engine's is plain XLA), TTFT p50/p99 (the re-summary TTFT in the
+    repeat round), decode tok/s. The repeat round must hit on every row
+    and save prefill tokens; the pool's books must hold. Streams equal
+    between the rounds are counted (bf16: a seeded pass is not the full
+    pass bit for bit). Returns the repeat round's launches and bodies."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+
+    rng = np.random.default_rng(0)
+    common = rng.integers(3, cfg.vocab_size, size=PREFIX_SHARED).tolist()
+    prompts = [common + rng.integers(
+        3, cfg.vocab_size, size=PREFIX_PROMPT - PREFIX_SHARED).tolist()
+        for _ in range(PREFIX["num_slots"])]
+    eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                           **PREFIX)
+    rounds, out = {}, {}
+    for rname in ("cold", "repeat"):
+        st0, g0 = eng.prefix_stats(), eng.graph_stats()
+        before = engine_counts(eng)
+        dec0 = (eng.decode_s, eng.decode_tokens)
+        reset_launches()
+        with plain_calls() as plain:
+            t0 = time.monotonic()
+            comps = eng.generate(prompts, PREFIX_NEW)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches, bodies = read_launches(), read_bodies()
+        d = dispatches_since(eng, before)
+        st = eng.prefix_stats()
+        delta = {k: st[k] - st0[k] for k in (
+            "lookups", "hits", "prefill_tokens", "prefill_tokens_saved",
+            "blocks_published", "blocks_evicted")}
+        dec_s, dec_t = (eng.decode_s - dec0[0], eng.decode_tokens - dec0[1])
+        rounds[rname] = {
+            "wall_s": wall, "dispatches": d, **delta,
+            "hit_rate": delta["hits"] / delta["lookups"],
+            **_stream_stats(comps), "decode_tok_per_s": dec_t / dec_s,
+            "blocks_in_use": st["blocks_in_use"],
+            "publish_failures": st["publish_failures"],
+            # the decode seconds hold this round's eager warm-up or
+            # captures: compare tok/s only where both are replays
+            "graphs": {k: eng.graph_stats()[k] - g0[k]
+                       for k in ("captured", "capture_s", "eager",
+                                 "replays")},
+            "plain_calls": dict(plain), "launches": launches,
+            "launches_by_body": bodies}
+        out[rname] = ([c.tokens for c in comps], launches, bodies, d)
+    emit({"phase": "prefix_serve", "config": cfg.name, **PREFIX,
+          "prompt_tokens": PREFIX_PROMPT, "shared_tokens": PREFIX_SHARED,
+          "new_tokens": PREFIX_NEW, "rounds": rounds,
+          "streams_equal": sum(a == b for a, b in zip(out["cold"][0],
+                                                       out["repeat"][0])),
+          "streams": len(prompts), "device": smi})
+    rep = rounds["repeat"]
+    # every row hits at least the shared span's whole blocks
+    shared_blocks = PREFIX_SHARED // eng.prefill_chunk * eng.prefill_chunk
+    if (rep["hits"] != len(prompts) or rep["prefill_tokens_saved"] <
+            len(prompts) * shared_blocks or rep["publish_failures"]
+            or rep["blocks_in_use"] > PREFIX["prefix_cache_blocks"]):
+        raise AssertionError(f"prefix_serve: {rounds}")
+    for rname, used in (("cold", ("K1", "K2")), ("repeat", ("K2",))):
+        if rounds[rname]["plain_calls"]:
+            raise AssertionError(f"prefix_serve {rname}: a plain version "
+                                 f"ran")
+        _, launches, bodies, d = out[rname]
+        check_path(f"prefix_serve {rname}", launches, used)
+        check_bodies(f"prefix_serve {rname}", bodies)
+        check_forward_passes(f"prefix_serve {rname}", cfg, launches, bodies,
+                             d, eng._dispatch_steps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["repeat"][1], out["repeat"][2]
+
+
+def phase_holds(dev, cfg, params, smi):
+    """The admission holds (``HOLDS``): 8 prompts of 200 tokens arrive one
+    a step (one ``step()`` each) into an idle batch with a strict hold of
+    4 rows: the waves must take them 4 and 4. Reports the wave sizes from
+    the flight recorder, each request's TTFT (the held ones wait for their
+    wave) and the steps taken. Returns the launches and bodies."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+
+    rng = np.random.default_rng(3)
+    eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                           **HOLDS)
+    before = engine_counts(eng)
+    reset_launches()
+    done = []
+    with plain_calls() as plain:
+        t0 = time.monotonic()
+        for i in range(8):
+            eng.submit(rng.integers(3, cfg.vocab_size, size=200).tolist(),
+                       16)
+            done += eng.step()
+        steps = 8
+        while len(done) < 8:
+            done += eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches, bodies = read_launches(), read_bodies()
+    d = dispatches_since(eng, before)
+    waves = [r.rows for r in eng.telemetry.recorder.records()
+             if r.kind == "prefill" and r.seq > before["seq"]]
+    emit({"phase": "holds", "config": cfg.name, **HOLDS, "arrivals": 8,
+          "waves": waves, "steps": steps, "wall_s": wall,
+          "ttft_s": [c.ttft_s for c in sorted(done,
+                                              key=lambda c: c.request_id)],
+          "plain_calls": dict(plain), "launches": launches,
+          "launches_by_body": bodies, "device": smi})
+    if waves != [4, 4] or plain:
+        raise AssertionError(f"holds: waves {waves}, plain calls {plain}")
+    check_path("holds", launches, ("K1", "K2"))
+    check_bodies("holds", bodies)
+    check_forward_passes("holds", cfg, launches, bodies, d,
+                         eng._dispatch_steps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, bodies
+
+
+@contextlib.contextmanager
+def first_logits(n: int = 2):
+    """The logits of the engine module's first ``n`` ``sample`` calls in
+    the block, copied to the host (yielded list); later calls pass
+    through. The first calls are an admission wave's and the first eager
+    decode step's: no graph is captured before them."""
+    from copilot_for_consensus_tpu_torch.engine import generation
+
+    got: list = []
+    plain_sample = generation.sample
+
+    def recording(logits, gen, sampling):
+        if len(got) < n:
+            got.append(logits.float().cpu())
+        return plain_sample(logits, gen, sampling)
+
+    with patched(generation, "sample", recording):
+        yield got
+
+
+def phase_gather_route(dev, cfg, params, smi):
+    """The paged cell's engine (``PAGED_CELL``, int8, bf16) on its two
+    routes: ``kv_kernel="reference"`` (the gather route: every dispatch
+    gathers the working-set view, runs the contiguous program over it and
+    scatters the merged columns back; decode under graphs as on the K3
+    route) and ``"auto"`` (K3 in place), each serving paged_serve's round
+    1 (8 synthetic threads through CUDASummarizer, all misses, 64 new
+    tokens), then round 2 (the same threads: every row a prefix hit, the
+    seeded wave; the decode buckets already captured). Reports the
+    streams equal between the routes in round 1, the rel-L2 of round 1's
+    first decode step logits (the same first tokens and prompt KV on
+    both: only the route differs), and per round the decode ms a step,
+    the wave seconds and the graphs captured in it. The gather route must
+    launch no K3 call and no plain version in either round. Returns the
+    gather route's launches and bodies (both rounds)."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+
+    threads = synthetic_threads(8)
+    arms, out = {}, {}
+    for name, route in (("gather", "reference"), ("k3", "auto")):
+        eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                               kv_kernel=route, **PAGED_CELL)
+        summ = CUDASummarizer(cfg.name, engine=eng, max_new_tokens=64)
+        comps = _recorded(summ)
+        before = engine_counts(eng)
+        reset_launches()
+        rounds = {}
+        with plain_calls() as plain:
+            for rname in ("round1", "round2"):
+                g0, n0 = eng.graph_stats(), len(comps)
+                s0 = (eng.decode_s, eng.decode_tokens, eng.admitted_s,
+                      engine_counts(eng))
+                # round 1's first two samples (the wave's, the first
+                # decode step's) run eagerly: no capture records them
+                with (first_logits() if rname == "round1"
+                      else contextlib.nullcontext([])) as logits:
+                    t0 = time.monotonic()
+                    summ.summarize_batch(threads)
+                    torch.cuda.synchronize()
+                    wall = time.monotonic() - t0
+                g = eng.graph_stats()
+                dec_s = eng.decode_s - s0[0]
+                steps = (engine_counts(eng)["plain"] - s0[3]["plain"]) \
+                    * eng._dispatch_steps
+                rounds[rname] = {
+                    "wall_s": wall, "decode_s": dec_s,
+                    "decode_ms_per_step": dec_s * 1e3 / steps,
+                    "decode_tok_per_s": (eng.decode_tokens - s0[1]) / dec_s,
+                    "wave_s": eng.admitted_s - s0[2],
+                    "captured": g["captured"] - g0["captured"],
+                    "capture_s": g["capture_s"] - g0["capture_s"],
+                    "eager": g["eager"] - g0["eager"],
+                    "replays": g["replays"] - g0["replays"],
+                    **_stream_stats(comps[n0:])}
+                if rname == "round1":
+                    first = (logits, [c.tokens for c in comps[n0:]])
+        launches, bodies = read_launches(), read_bodies()
+        d = dispatches_since(eng, before)
+        arms[name] = {"route": eng._kv_route, "rounds": rounds,
+                      "dispatches": d,
+                      "zero_copy_admits": eng.zero_copy_admits,
+                      "plain_calls": dict(plain), "launches": launches,
+                      "launches_by_body": bodies}
+        out[name] = (first, launches, bodies, d, eng._dispatch_steps)
+        del summ, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lg_g, tok_g), (lg_k, tok_k) = out["gather"][0], out["k3"][0]
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(lg_g, lg_k)]
+    emit({"phase": "gather_route", "config": cfg.name, **PAGED_CELL,
+          "threads": len(threads), "new_tokens": 64, "arms": arms,
+          "round1_streams_equal": sum(a == b for a, b in zip(tok_g, tok_k)),
+          "streams": len(threads),
+          "logits_rel_l2": {"wave": rel[0], "decode_step0": rel[1]},
+          "device": smi})
+    if rel[1] > 5e-2 or rel[0] > 1e-6:
+        raise AssertionError(f"gather_route: logits rel-L2 {rel}")
+    for name, used in (("gather", ("K1", "K2")), ("k3", ("K1", "K2", "K3"))):
+        if arms[name]["plain_calls"] or \
+                arms[name]["zero_copy_admits"] != len(threads):
+            raise AssertionError(f"gather_route {name}: {arms[name]}")
+        _, launches, bodies, d, steps = out[name]
+        check_path(f"gather_route {name}", launches, used)
+        check_bodies(f"gather_route {name}", bodies)
+        check_forward_passes(f"gather_route {name}", cfg, launches, bodies,
+                             d, steps)
+    return out["gather"][1], out["gather"][2]
+
+
+def _roles_run(cfg, params, dev, prompts, new, engine_kw):
+    """A co-located paged engine's completions, then a DisaggregatedEngine
+    with both roles on ``dev`` over the same prompts: (co-located
+    completions, role completions, the role engine's stats, launches,
+    bodies, wall seconds of the role run)."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.roles import (
+        DisaggregatedEngine,
+    )
+
+    co = GenerationEngine(cfg, params, device=dev, **engine_kw)
+    want = co.generate(prompts, new)
+    co_tok_per_s = co.decode_tokens / co.decode_s
+    del co
+    gc.collect()
+    torch.cuda.empty_cache()
+    dis = DisaggregatedEngine(cfg, params, devices=[dev, dev],
+                              engine_kw=engine_kw)
+    reset_launches()
+    t0 = time.monotonic()
+    got = dis.generate(prompts, new)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, bodies = read_launches(), read_bodies()
+    st = dis.stats()
+    st.update(colocated_decode_tok_per_s=co_tok_per_s,
+              decode_s=dis.decode.decode_s,
+              decode_tokens=dis.decode.decode_tokens,
+              admitted_s=dis.prefill.admitted_s,
+              pools_whole=all(e._pool.free_blocks + e._pool.pinned_blocks
+                              == e._pool.num_blocks
+                              for e in (dis.prefill, dis.decode)))
+    del dis
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, got, st, launches, bodies, wall
+
+
+def phase_roles(dev, cfg, params, smi):
+    """The prefill/decode roles on one card: a DisaggregatedEngine with
+    both roles on ``cuda:0`` at the paged cell's geometry (``PAGED_CELL``,
+    int8, bf16; 8 cache-miss prompts of 300-1000 tokens, 64 new tokens),
+    against a co-located paged engine on the same prompts: handoffs, their
+    blocks and mean wait, TTFT, decode tok/s, streams equal (bf16: the
+    decode role's batches and kv buckets differ from the co-located
+    engine's, so not gated). The prefill role runs K1 and K2 (miss waves),
+    the decode role K2 and K3 (decode). Then the same at f32 over 2
+    layers at mistral-7b's widths (seed-0 f32 weights and KV), which must
+    be equal stream for stream: the handoff moves the exact KV bytes.
+    Returns the bf16 role run's launches and bodies."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in np.linspace(300, 1000, 8).astype(int)]
+    with plain_calls() as plain:
+        want, got, st, launches, bodies, wall = _roles_run(
+            cfg, params, dev, prompts, 64, dict(PAGED_CELL,
+                                                quantize="int8"))
+        cfg32 = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+        p32 = decoder.init_params(cfg32, seed=0, dtype=torch.float32,
+                                  device=dev)
+        want32, got32, st32, _, _, wall32 = _roles_run(
+            cfg32, p32, dev, prompts, 32, dict(PAGED_CELL, dtype="float32"))
+        del p32
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "roles", "config": cfg.name, **PAGED_CELL,
+          "devices": [str(dev), str(dev)], "new_tokens": 64,
+          "prompt_tokens": [len(p) for p in prompts], "wall_s": wall,
+          "handoffs": st["handoffs"], "handoff_blocks": st["handoff_blocks"],
+          "handoff_wait_mean_s": st["handoff_wait_mean_s"],
+          "decode_tok_per_s": st["decode_tokens"] / st["decode_s"],
+          "admitted_s": st["admitted_s"], **_stream_stats(got),
+          "colocated": {**_stream_stats(want), "decode_tok_per_s":
+                        st["colocated_decode_tok_per_s"]},
+          "streams_equal": sum(a.tokens == b.tokens
+                               for a, b in zip(want, got)),
+          "streams": len(prompts), "pools_whole": st["pools_whole"],
+          "f32": {"layers": F32_LAYERS, "wall_s": wall32,
+                  "handoffs": st32["handoffs"],
+                  "streams_equal": sum(a.tokens == b.tokens
+                                       for a, b in zip(want32, got32)),
+                  "pools_whole": st32["pools_whole"]},
+          "plain_calls": dict(plain), "launches": launches,
+          "launches_by_body": bodies, "device": smi})
+    if (st["handoffs"] != len(prompts) or st32["handoffs"] != len(prompts)
+            or not (st["pools_whole"] and st32["pools_whole"]) or plain
+            or [c.tokens for c in got32] != [c.tokens for c in want32]):
+        raise AssertionError(f"roles: {st} / f32 {st32} / plain {plain}")
+    check_path("roles", launches, ("K1", "K2", "K3"))
+    check_bodies("roles", bodies)
+    if bodies["K3"]["seeded"] or not bodies["K3"]["decode"]:
+        raise AssertionError(f"roles: K3 by body {bodies['K3']}")
+    return launches, bodies
+
+
 def main() -> int:
     import torch
 
@@ -4690,6 +5178,11 @@ def main() -> int:
     spec_launches, spec_bodies = phase_spec_serve(dev, cfg, params, smi)
     sched_launches, sched_bodies = phase_sched_serve(dev, cfg, params, smi)
     paged_new = phase_paged_spec_chunk(dev, cfg, params, smi)
+    slice20 = {"piggy_serve": phase_piggy_serve(dev, cfg, params, smi),
+               "prefix_serve": phase_prefix_serve(dev, cfg, params, smi),
+               "holds": phase_holds(dev, cfg, params, smi),
+               "gather_route": phase_gather_route(dev, cfg, params, smi),
+               "roles": phase_roles(dev, cfg, params, smi)}
     # the int8 weights go before the int4 engine comes
     del params
     gc.collect()
@@ -4725,6 +5218,7 @@ def main() -> int:
                "spec_serve": spec_launches, "sched_serve": sched_launches,
                "paged_spec": paged_new["paged_spec"][0],
                "paged_chunk": paged_new["paged_chunk"][0],
+               **{p: lb[0] for p, lb in slice20.items()},
                "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
                       "pipeline_pipelined": pipeline["pipelined"]["bodies"],
@@ -4738,7 +5232,8 @@ def main() -> int:
                       "spec_serve": spec_bodies,
                       "sched_serve": sched_bodies,
                       "paged_spec": paged_new["paged_spec"][1],
-                      "paged_chunk": paged_new["paged_chunk"][1]}
+                      "paged_chunk": paged_new["paged_chunk"][1],
+                      **{p: lb[1] for p, lb in slice20.items()}}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
     csrc = "copilot_for_consensus_tpu_torch/csrc"

@@ -1,6 +1,8 @@
-"""Continuous-batching LLM generation engine — the contiguous-cache route
-and the paged kernel route of the JAX package's ``engine/generation.py``,
-ported to PyTorch.
+"""Continuous-batching LLM generation engine — the JAX package's
+``engine/generation.py`` on one device, ported to PyTorch: the contiguous
+cache and the paged pool (its K3 route and its gather route), prefix
+caches on both, piggyback prefill, the admission holds and the
+prefill/decode roles.
 
 * **Slot batch.** Decode state is a fixed batch of ``num_slots``
   sequences; every decode dispatch advances all slots, and requests join
@@ -33,6 +35,11 @@ ported to PyTorch.
 Two KV layouts:
 
 * **Contiguous** (default): one cache ``[L, slots, Hkv, max_len, Dh]``.
+  With ``prefix_cache_blocks`` > 0 a radix trie over a block pool of its
+  own (``engine/prefix_cache.py``, owned mode) turns a cached prompt
+  prefix into a hit: the wave gathers the matched blocks, prefills only
+  the suffix against them (``decoder.prefill_seeded``) and seeds both
+  into the slot; a retiring request's prompt KV is copied into the pool.
 * **Paged** (``kv_pool_blocks`` > 0): one block pool
   ``[L, kv_pool_blocks, Hkv, block, Dh]`` (``engine/kv_pool.py``, block =
   ``prefill_chunk``) under admission and decode. Slots map positions onto
@@ -48,7 +55,11 @@ Two KV layouts:
   K3; a retiring request's prompt blocks are adopted by the trie. As in
   the JAX paged engine, ``prefix_cache_blocks`` is only an enable flag:
   the trie's budget is the shared pool, so every positive value behaves
-  the same.
+  the same. ``kv_kernel="reference"`` selects the gather route instead of
+  K3: every pass gathers the working-set view the tables describe
+  (``ops.paged_attention.paged_gather_kv``), runs the contiguous program
+  over it, and scatters the freshly merged columns back into the pool. It
+  is an explicit choice, never a fallback, and launches no K3 call.
 
 The reference engine's control plane:
 
@@ -88,13 +99,26 @@ The reference engine's control plane:
   stepwise greedy). The supervisor's ``spec_verify`` breaker can veto it;
   plain decode then serves.
 
-The verify and chunk dispatches run eagerly (no CUDA graph); they write
-the cache or the pool in place, and the decode graphs read positions and
-tokens from their static buffers, refilled before every dispatch. Where
-the JAX engine builds new arrays, this one updates the cache and the
-pool in place (no second allocation). It has no piggyback prefill,
-admission holds or disaggregated roles, and no gather-based reference
-route for the paged layout.
+* **Admission holds** (``admit_min_rows``, ``admit_max_wait_s``,
+  ``admit_hold_strict``): a wave waits while too few requests are queued
+  and the batch is busy, so trickling arrivals share one weight pass.
+* **Piggyback prefill** (``piggyback_min_prompt``, ``prefill_rows``;
+  contiguous, one window a dispatch, opt-in): whole prompts ride a decode
+  dispatch in ``prefill_chunk``-token chunks across packed lanes — every
+  projection takes the decode rows and the chunk rows in one matmul, and
+  the chunks' attention is one K1 call a layer
+  (``decoder.decode_step_piggyback``).
+* **Prefill/decode roles** (``role=``, ``handoff_high``; paged): a
+  prefill-role engine parks each finished prefill for a block-granular KV
+  handoff (``take_prefilled``), and a decode-role engine imports it
+  (``admit_prefilled``); ``engine/roles.py`` pairs them.
+
+The verify, chunk and piggyback dispatches run eagerly (no CUDA graph);
+they write the cache or the pool in place, and the decode graphs read
+positions and tokens from their static buffers, refilled before every
+dispatch. Where the JAX engine builds new arrays, this one updates the
+cache and the pool in place (no second allocation). Multi-device meshes
+(and with them roles over more than one device) are not served.
 """
 
 from __future__ import annotations
@@ -140,6 +164,7 @@ from copilot_for_consensus_tpu_torch.models import decoder, quant
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
 from copilot_for_consensus_tpu_torch.ops.paged_attention import (
     paged_attention_partial,
+    paged_gather_kv,
 )
 
 @dataclass
@@ -165,6 +190,27 @@ class Request:
     #: absolute monotonic deadline: expired work is dropped
     #: (``finish_reason="deadline"``), never computed. inf = none.
     deadline_at: float = float("inf")
+
+
+@dataclass
+class PrefilledHandoff:
+    """One finished prefill exported for the prefill→decode KV handoff.
+    ``kv_k``/``kv_v`` are the slot's pool blocks gathered dense
+    ``[L, 1, Hkv, NBpad*block, Dh]`` on the prefill engine's device (the
+    importing engine moves them with ``Tensor.to``); only the first
+    ``prompt_len`` columns are live. Ownership moves, never aliases: the
+    source slot's pins and blocks were released at export (after its trie
+    adopted the prompt prefix), and the importer allocates fresh blocks
+    owned by the new slot alone."""
+
+    request: "Request"
+    first_token: int
+    prompt_len: int
+    kv_k: torch.Tensor
+    kv_v: torch.Tensor
+    blocks: int                   # live (unpadded) block count
+    ready_at: float               # monotonic: when the prefill parked
+    prefill_s: float = 0.0
 
 
 @dataclass
@@ -240,9 +286,17 @@ class GenerationEngine:
         decode_window: int = 8,
         windows_per_dispatch: int = 1,
         admission_token_budget: int = 16384,
+        admit_min_rows: int = 1,
+        admit_max_wait_s: float = 0.5,
+        admit_hold_strict: bool = False,
         prefill_chunk: int = 64,
+        prefill_rows: int = 4,
+        piggyback_min_prompt: int = 10**9,
         kv_pool_blocks: int = 0,
         prefix_cache_blocks: int = 0,
+        kv_kernel: str = "auto",
+        role: str = "both",
+        handoff_high: int = 0,
         faults=None,
         cuda_graphs: bool = True,
         telemetry=True,
@@ -316,6 +370,31 @@ class GenerationEngine:
         self.windows_per_dispatch = max(1, windows_per_dispatch)
         # Prompt tokens one admission wave may prefill (rows × bucket).
         self.admission_token_budget = admission_token_budget
+        # The admission holds (the JAX engine's wave hysteresis): with
+        # admit_min_rows > 1 a wave waits while fewer requests are queued,
+        # the batch is at least 3/4 occupied (or the hold is strict), and
+        # the oldest has waited under admit_max_wait_s — trickling
+        # arrivals then share one wave's weight pass instead of paying one
+        # each.
+        self.admit_min_rows = max(1, admit_min_rows)
+        self.admit_max_wait_s = admit_max_wait_s
+        self.admit_hold_strict = admit_hold_strict
+        # Piggyback prefill (opt-in, as in the JAX engine): whole prompts
+        # of [piggyback_min_prompt, decode_window * prefill_chunk] tokens
+        # skip the wave and ride a decode dispatch, prefill_chunk tokens a
+        # step across prefill_rows packed lanes. Single-window dispatches
+        # on the contiguous cache only, and no sliding window narrower
+        # than the cache (the paged test comes with the pool below).
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.prefill_rows = max(1, prefill_rows)
+        self.piggyback_min_prompt = piggyback_min_prompt
+        self._piggyback_ok = (
+            self.windows_per_dispatch == 1 and not cfg.is_moe
+            and (cfg.sliding_window == 0
+                 or cfg.sliding_window >= self.max_len))
+        #: whole prompts waiting to ride a piggyback dispatch, with the
+        #: time each joined the feed
+        self._prefilling: list[tuple[Request, float]] = []
         self._dispatch_steps = self.decode_window * self.windows_per_dispatch
         if self.max_len - self._dispatch_steps < 1:
             raise ValueError(
@@ -403,12 +482,52 @@ class GenerationEngine:
 
         # ---- KV layout: the contiguous slot cache, or one block pool ------
         self.paged = bool(kv_pool_blocks)
-        self.prefill_chunk = max(1, prefill_chunk)
-        if prefix_cache_blocks and not self.paged:
+        # The paged route (the JAX engine's kv_kernel): "auto" and
+        # "pallas" score the pool in place through K3 ("kernel"),
+        # "reference" gathers the working-set view the tables describe and
+        # runs the contiguous decoder over it ("reference"). Only an
+        # explicit "reference" selects the gather route: no failure of K3
+        # ever falls back to it.
+        if kv_kernel not in ("auto", "pallas", "reference"):
             raise ValueError(
-                "prefix_cache_blocks requires kv_pool_blocks: the port's "
-                "prefix cache is the paged pool's radix trie (the "
-                "contiguous engine's copy-publish cache is not ported)")
+                f"kv_kernel must be 'auto', 'pallas' or 'reference', "
+                f"got {kv_kernel!r}")
+        if kv_kernel != "auto" and not self.paged:
+            raise ValueError(
+                "kv_kernel selects the paged-attention dispatch route "
+                "and requires kv_pool_blocks > 0")
+        self.kv_kernel = kv_kernel
+        # The disaggregated serving role (engine/roles.py): "prefill"
+        # parks finished prefills for the KV handoff instead of decoding
+        # them, "decode" also takes handed-off timelines through
+        # ``admit_prefilled``. The block pool is the handoff's substrate.
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'both', 'prefill' or 'decode', "
+                f"got {role!r}")
+        if role != "both" and not self.paged:
+            raise ValueError(
+                "prefill/decode roles require kv_pool_blocks: the "
+                "block-granular KV handoff moves pool blocks, not "
+                "contiguous slot caches")
+        self.role = role
+        #: slot → [request, first token, prompt_len, ready_at, prefill_s]
+        #: parked for handoff (prefill role); the slot's blocks keep the
+        #: prompt KV until ``take_prefilled`` exports them
+        self._handoff: dict[int, list] = {}
+        self.handoff_exported = 0
+        self.handoff_imported = 0
+        #: the prefill role stops releasing scheduler waves when this many
+        #: finished prefills await handoff (parked + exported but not yet
+        #: admitted downstream); parked entries are slot-keyed, so the
+        #: default is half the slots
+        self._handoff_high = int(handoff_high) or max(1, num_slots // 2)
+        #: handoffs exported but not admitted, as the DisaggregatedEngine
+        #: reports them (``set_handoff_external``)
+        self._handoff_external = 0
+        #: publishes that failed at retire (contained: the completion is
+        #: delivered, only the cache's share is lost)
+        self.prefix_publish_failures = 0
         if prefix_cache_blocks and cfg.sliding_window \
                 and cfg.sliding_window < self.max_len:
             raise ValueError(
@@ -448,6 +567,9 @@ class GenerationEngine:
             self._pool = BlockPool(cfg, num_blocks=kv_pool_blocks,
                                    block_size=block, kv_dtype=self.kv_dtype,
                                    device=self.device)
+            # piggyback packing binds rows to contiguous slot-cache spans;
+            # the paged engine's overlap path is chunked prefill
+            self._piggyback_ok = False
             #: slot → block table (pool ids; position p lives at
             #: table[p // block] offset p % block) and the index where
             #: OWNED blocks start (entries before it are BORROWED from the
@@ -463,10 +585,10 @@ class GenerationEngine:
                 # an enable flag only: the trie's budget is the shared
                 # pool's, so 1 and 8 behave the same
                 self._prefix = PrefixCache(shared=self._pool)
-            #: the paged route's label on every StepRecord and the
-            #: copilot_engine_kv_route gauge: the port always reads the
-            #: pool in place with K3 (the JAX engine's "kernel" route)
-            self._kv_route = "kernel"
+            #: the resolved paged route, labelled on every StepRecord and
+            #: the copilot_engine_kv_route gauge
+            self._kv_route = "reference" if kv_kernel == "reference" \
+                else "kernel"
             if self.telemetry is not None:
                 self.telemetry.gauge_kv_route(self._kv_route)
         else:
@@ -474,6 +596,14 @@ class GenerationEngine:
             self._cache = decoder.init_cache(cfg, num_slots, self.max_len,
                                              dtype=self.kv_dtype,
                                              device=self.device)
+            if prefix_cache_blocks:
+                # the contiguous engine's cache owns its block pool: a
+                # retiring slot's prompt KV is copied in, and a hit's
+                # blocks are gathered back into the admitting slot
+                self._prefix = PrefixCache(
+                    cfg, num_blocks=prefix_cache_blocks,
+                    block_size=self.prefill_chunk, kv_dtype=self.kv_dtype,
+                    device=self.device)
         self._prefix_pins: dict[int, object] = {}  # request_id → match
         #: prompt tokens prefilled / skipped through prefix hits
         self.prefill_tokens = 0
@@ -500,6 +630,14 @@ class GenerationEngine:
         self.admitted_s = 0.0
         self.decode_s = 0.0
         self.decode_tokens = 0
+        #: piggybacked vs plain decode dispatches (their wall time and
+        #: count), and the prompt rows and tokens that rode piggyback
+        self.piggy_s = 0.0
+        self.piggy_dispatches = 0
+        self.plain_s = 0.0
+        self.plain_dispatches = 0
+        self.piggy_rows = 0
+        self.piggy_tokens = 0
 
         # ---- the scheduler and chunked prefill (engine/scheduler.py) ----
         # Per-tenant weighted-DRR admission with priority lanes, load
@@ -676,12 +814,16 @@ class GenerationEngine:
                 self._chunk_step()
             if self.paged:
                 self.peak_active = max(self.peak_active, self._occupied)
-            if self._active:
+            if self._active or (self._prefilling and self._free):
                 self._decode_once()
         if self.journal is not None:
             self._journal_tick()
         if self.telemetry is not None:
             self.telemetry.gauge_queue(self.queue_depth, len(self._active))
+            if self.role != "both":
+                self.telemetry.gauge_role_occupancy(
+                    self.role, self._occupied / self.num_slots
+                    if self.num_slots else 0.0)
             if self.paged:
                 # straight off the pool's counters: kv_pool_stats() walks
                 # the active slots and the trie, too heavy for every step
@@ -783,32 +925,36 @@ class GenerationEngine:
 
     @property
     def queue_depth(self) -> int:
-        """Requests submitted and not yet decoding: queued for a wave,
-        waiting to chunk or chunking, and held by the scheduler."""
-        n = (len(self._queue) + len(self._chunk_pending)
-             + len(self._chunking))
+        """Requests submitted and not yet decoding: queued for a wave or
+        a piggyback dispatch, waiting to chunk or chunking, and held by
+        the scheduler."""
+        n = (len(self._queue) + len(self._prefilling)
+             + len(self._chunk_pending) + len(self._chunking))
         if self._sched is not None:
             n += self._sched.queued
         return n
 
     @property
     def _occupied(self) -> int:
-        """Slots holding a timeline: decoding or chunking."""
-        return len(self._active) + len(self._chunking)
+        """Slots holding a timeline: decoding, chunking, or parked for the
+        KV handoff (their blocks are held until exported)."""
+        return len(self._active) + len(self._chunking) + len(self._handoff)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (the JAX engine's keys): ``hit_rate`` is
         over admission lookups; ``prefill_tokens`` / ``..._saved`` count
-        prompt tokens prefilled and skipped."""
+        prompt tokens prefilled (waves, chunks and piggyback) and skipped;
+        ``publish_failures`` counts contained publish failures."""
         out = {"enabled": self._prefix is not None,
                "prefill_tokens": self.prefill_tokens,
-               "prefill_tokens_saved": self.prefill_tokens_saved}
+               "prefill_tokens_saved": self.prefill_tokens_saved,
+               "publish_failures": self.prefix_publish_failures}
         if self._prefix is not None:
             st = self._prefix.stats.as_dict()
             out.update(st)
             out["hit_rate"] = (st["hits"] / st["lookups"]
                                if st["lookups"] else 0.0)
-            out["blocks_in_use"] = self._prefix.node_count
+            out["blocks_in_use"] = self._prefix.blocks_in_use
         return out
 
     def kv_pool_stats(self) -> dict:
@@ -834,6 +980,11 @@ class GenerationEngine:
                 if self.paged_admits else 0.0),
             "peak_active": self.peak_active,
             "headroom_blocks": self._block_headroom(),
+            "dp_shards": 1,
+            "role": self.role,
+            "handoff_parked": len(self._handoff),
+            "handoff_exported": self.handoff_exported,
+            "handoff_imported": self.handoff_imported,
         })
         return out
 
@@ -851,11 +1002,53 @@ class GenerationEngine:
         batched prefill over [N, bucket]: one pass over the weights, one
         KV write, one sample, one host fetch of the N first tokens.
 
-        Paged engines admit a request only while its worst-case block
-        footprint fits the pool's headroom, look its prompt up in the
-        prefix trie (pinning the match), and budget the wave by SUFFIX
-        tokens: the cached span is never prefilled."""
+        Before the wave: with piggyback on, eligible whole prompts leave
+        the queue for the piggyback feed (up to about two dispatches'
+        worth of backlog; prefix hits keep the seeded wave), and the
+        admission holds may defer the wave. A request is admitted only
+        while its worst-case block footprint fits the pool's headroom
+        (paged), its prompt is looked up in the prefix trie (pinning the
+        match), and the wave is budgeted by SUFFIX tokens: the cached span
+        is never prefilled. A prefill-role engine parks each finished
+        prefill for the KV handoff instead of decoding it."""
         if not (self._queue and self._free):
+            return
+        if self._piggyback_ok:
+            # Eligible prompts ride the decode dispatches instead of a
+            # wave, up to the piggyback grid's absorption rate (two
+            # dispatches' worth); the wave takes the overflow.
+            cap = self.decode_window * self.prefill_chunk
+            budget = 2 * cap * self.prefill_rows - sum(
+                len(r.prompt) for r, _ in self._prefilling)
+            keep = []
+            for req in self._queue:
+                plen = len(req.prompt)
+                # a prefix hit keeps the seeded wave: the chunk grid
+                # attends only its own dispatch buffer, so a hit riding it
+                # would prefill the cached span again
+                if (self._prefix is not None
+                        and self._prefix.match_tokens(
+                            req.prompt,
+                            digests=self._req_digests(req)) > 0):
+                    keep.append(req)
+                    continue
+                if (self.piggyback_min_prompt <= plen <= cap
+                        and plen <= budget):
+                    # whole prompts only; the slot is taken at pack time
+                    self._prefilling.append((req, time.monotonic()))
+                    budget -= plen
+                else:
+                    keep.append(req)
+            self._queue = keep
+            if not (self._queue and self._free):
+                return
+        if (len(self._queue) < self.admit_min_rows
+                and (self.admit_hold_strict
+                     or len(self._free) * 4 <= self.num_slots)
+                and (time.monotonic() - self._queue[0].submitted_at
+                     < self.admit_max_wait_s)):
+            # let the wave fill while decode runs on, but only while the
+            # batch is at least 3/4 occupied (or the hold is strict)
             return
         t0 = time.monotonic()
         batch: list[tuple[int, Request]] = []
@@ -876,9 +1069,9 @@ class GenerationEngine:
                 need = self._worst_blocks_total(head)
                 if need > headroom:
                     break
-                if self._prefix is not None:
-                    match_len = self._prefix.match_tokens(
-                        head.prompt, digests=self._req_digests(head))
+            if self._prefix is not None:
+                match_len = self._prefix.match_tokens(
+                    head.prompt, digests=self._req_digests(head))
             longest = max(longest, len(head.prompt) - match_len)
             if batch and (len(batch) + 1) * _next_bucket(
                     longest, self.buckets) > self.admission_token_budget:
@@ -912,6 +1105,9 @@ class GenerationEngine:
                 if self.paged:
                     first = self._admit_wave_paged(batch, matches,
                                                    suffix_lens, bucket, n)
+                elif any(matches):
+                    first = self._admit_wave_seeded(batch, matches,
+                                                    suffix_lens, bucket, n)
                 else:
                     tokens = np.zeros((n, bucket), dtype=np.int64)
                     lengths = np.ones((n,), dtype=np.int64)
@@ -964,17 +1160,30 @@ class GenerationEngine:
                     else "wave",
                     prefix_hit_tokens=(matches[i].tokens
                                        if matches[i] is not None else 0))
-            self._active[slot] = req
-            self._generated[slot] = [tok]
-            self._spec_track(slot, req, tok)
-            self._positions[slot] = plens[i]
-            self._next_tok[slot] = tok
-            self._t_prefill[slot] = prefill_s
-            self._ttft[slot] = now - req.submitted_at
-            req.decode_started_at = now
-            if tok in self._eos_set or req.max_new_tokens <= 1:
-                self._retire(slot,
-                             "eos" if tok in self._eos_set else "length")
+            if (self.role == "prefill" and tok not in self._eos_set
+                    and req.max_new_tokens > 1):
+                # the prompt KV is done and the first token sampled: park
+                # for the handoff; the slot and its blocks stay held until
+                # take_prefilled exports them
+                self._park_handoff(slot, req, tok, plens[i], prefill_s)
+                continue
+            self._activate(slot, req, tok, plens[i], prefill_s, now)
+
+    def _activate(self, slot: int, req: Request, tok: int, pos: int,
+                  prefill_s: float, now: float) -> None:
+        """A prefilled request starts decoding in ``slot``: its first
+        token ``tok`` sampled, its committed length ``pos``. A first token
+        that ends it (eos, or a one-token budget) retires it at once."""
+        self._active[slot] = req
+        self._generated[slot] = [tok]
+        self._spec_track(slot, req, tok)
+        self._positions[slot] = pos
+        self._next_tok[slot] = tok
+        self._t_prefill[slot] = prefill_s
+        self._ttft[slot] = now - req.submitted_at
+        req.decode_started_at = now
+        if tok in self._eos_set or req.max_new_tokens <= 1:
+            self._retire(slot, "eos" if tok in self._eos_set else "length")
 
     @torch.inference_mode()
     def _admit_wave(self, tokens: np.ndarray, lengths: np.ndarray,
@@ -994,6 +1203,58 @@ class GenerationEngine:
             storage_view(self._cache[name])[:, sl, :, :bucket] = \
                 storage_view(scratch[name][:, :rows])
         first = sample(logits[:rows], self._gen, self.sampling)
+        return first.cpu().numpy()                 # the ONE host sync
+
+    @torch.inference_mode()
+    def _admit_wave_seeded(self, batch, matches, suffix_lens: list[int],
+                           bucket: int, n: int) -> np.ndarray:
+        """A contiguous admission wave with prefix-cache hits: gather each
+        row's matched blocks from the cache's pool (``paged_gather_kv``),
+        prefill only the suffixes against them (``decoder
+        .prefill_seeded``), seed the matched blocks into the slot cache
+        at [0, match) and the fresh suffix KV at the per-row offset, and
+        sample the first tokens — one host sync. Miss rows (match 0) ride
+        the same pass. Every write names real slots and in-range columns
+        only: the JAX program's out-of-range drops are left out on the
+        host."""
+        dev = self.device
+        pool = self._prefix.pool
+        tokens = np.zeros((n, bucket), dtype=np.int64)
+        lengths = np.ones((n,), dtype=np.int64)
+        pref = np.zeros((n,), dtype=np.int64)
+        nb = 1
+        while nb < max(len(m.block_ids) for m in matches if m):
+            nb *= 2
+        # padding ids are clamped by the gather and masked by pref
+        bids = np.full((n, nb), self._prefix.num_blocks, dtype=np.int32)
+        for i, (_slot, req) in enumerate(batch):
+            start = len(req.prompt) - suffix_lens[i]
+            tokens[i, :suffix_lens[i]] = req.prompt[start:]
+            lengths[i] = suffix_lens[i]
+            if matches[i] is not None:
+                bids[i, :len(matches[i].block_ids)] = matches[i].block_ids
+                pref[i] = matches[i].tokens
+        pk, pv = paged_gather_kv(storage_view(pool["k"]),
+                                 storage_view(pool["v"]),
+                                 torch.from_numpy(bids).to(dev))
+        if pk.dtype != self.kv_dtype:              # fp8 pools as bytes
+            pk, pv = pk.view(self.kv_dtype), pv.view(self.kv_dtype)
+        scratch = decoder.init_cache(self.cfg, n, bucket,
+                                     dtype=self.kv_dtype, device=dev)
+        logits, scratch = decoder.prefill_seeded(
+            self.params, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(lengths).to(dev), pk, pv,
+            torch.from_numpy(pref).to(dev), self.cfg, scratch)
+        for i, (slot, _req) in enumerate(batch):
+            p0 = int(pref[i])
+            cols = min(bucket, self.max_len - p0)
+            for name, piece in (("k", pk), ("v", pv)):
+                c = storage_view(self._cache[name])
+                if p0:
+                    c[:, slot, :, :p0] = storage_view(piece[:, i, :, :p0])
+                c[:, slot, :, p0:p0 + cols] = storage_view(
+                    scratch[name][:, i, :, :cols])
+        first = sample(logits[:len(batch)], self._gen, self.sampling)
         return first.cpu().numpy()                 # the ONE host sync
 
     @torch.inference_mode()
@@ -1037,15 +1298,26 @@ class GenerationEngine:
                     pref[i] = m.tokens
             tables = torch.from_numpy(bids).to(dev)
             pool = self._pool
+            if self._kv_route == "reference":
+                # the gather route: the matched prefixes as a dense view,
+                # the contiguous seeded pass over it
+                pk, pv = self._gather_view(tables)
+                scratch = decoder.init_cache(self.cfg, n, bucket,
+                                             dtype=self.kv_dtype, device=dev)
+                logits, scratch = decoder.prefill_seeded(
+                    self.params, tokens_t, lengths_t, pk, pv,
+                    torch.from_numpy(pref).to(dev), self.cfg, scratch)
+                k_new, v_new = scratch["k"], scratch["v"]
+            else:
+                def partial_fn(li, q_rows, lns, q_pos):
+                    return paged_attention_partial(q_rows, pool.k, pool.v,
+                                                   li, tables, lns, q_pos,
+                                                   window=0)
 
-            def partial_fn(li, q_rows, lns, q_pos):
-                return paged_attention_partial(q_rows, pool.k, pool.v, li,
-                                               tables, lns, q_pos, window=0)
-
-            logits, k_new, v_new = decoder.prefill_seeded_paged(
-                self.params, tokens_t, lengths_t,
-                torch.from_numpy(pref).to(dev), self.cfg, partial_fn,
-                all_logits=False)
+                logits, k_new, v_new = decoder.prefill_seeded_paged(
+                    self.params, tokens_t, lengths_t,
+                    torch.from_numpy(pref).to(dev), self.cfg, partial_fn,
+                    all_logits=False)
         else:
             scratch = decoder.init_cache(self.cfg, n, bucket,
                                          dtype=self.kv_dtype, device=dev)
@@ -1140,17 +1412,181 @@ class GenerationEngine:
             offs[idx, :n] = pos % self._block
         return bids, offs
 
+    def _view_width(self, kv_len: int, steps: int) -> int:
+        """The gather route's view width for a dispatch that reads
+        ``kv_len`` committed columns and writes up to ``steps`` more,
+        block-rounded."""
+        return kv_len + -(-steps // self._block) * self._block
+
+    def _gather_view(self, tables: torch.Tensor):
+        """The gather route's working-set view ``[L, B, Hkv, NB*blk, Dh]``
+        of the pool blocks ``tables`` [B, NB] names (sentinel ids clamp;
+        the length masks hide their columns), in the pool's dtype (an fp8
+        pool is gathered as bytes)."""
+        pool = self._pool
+        vk, vv = paged_gather_kv(storage_view(pool.k), storage_view(pool.v),
+                                 tables)
+        if vk.dtype != pool.k.dtype:
+            vk, vv = vk.view(pool.k.dtype), vv.view(pool.v.dtype)
+        return vk, vv
+
+    @staticmethod
+    def _view_take(view: torch.Tensor, positions: torch.Tensor,
+                   steps: int) -> torch.Tensor:
+        """The columns a dispatch merged into the view, read back:
+        ``[L, B, Hkv, steps, Dh]`` at positions + [0, steps) a row (a
+        parked row's positions clamp into the view; its write map drops
+        them)."""
+        b, s_v = view.shape[1], view.shape[3]
+        dev = view.device
+        pidx = (positions.to(dev).long()[:, None]
+                + torch.arange(steps, device=dev)[None, :]).clamp(0, s_v - 1)
+        bidx = torch.arange(b, device=dev)[:, None].expand(b, steps)
+        # advanced indices on axes 1 and 3: [B, steps, L, Hkv, Dh]
+        return storage_view(view)[:, bidx, :, pidx, :].permute(
+            2, 0, 3, 1, 4).view(view.dtype)
+
     def _used_tokens(self) -> int:
         """Live positions in the pool: committed slot timelines minus
         their borrowed spans (counted once, as trie nodes), chunk fills,
-        plus the published blocks (always full)."""
+        slots parked for the handoff, plus the published blocks (always
+        full)."""
         used = sum(int(self._positions[s])
                    - self._owned_from[s] * self._block
                    for s in self._active)
         used += sum(e[1] for e in self._chunking.values())
+        used += sum(h[2] - self._owned_from[s] * self._block
+                    for s, h in self._handoff.items())
         if self._prefix is not None:
             used += self._prefix.node_count * self._block
         return used
+
+    # ------------------------------------------------------------------
+    # the prefill/decode KV handoff (engine/roles.py)
+    # ------------------------------------------------------------------
+
+    def _park_handoff(self, slot: int, req: Request, first_tok: int,
+                      prompt_len: int, prefill_s: float) -> None:
+        """Prefill-role parking: the slot's blocks hold the finished
+        prompt KV (its first token is sampled, on the host) until
+        ``take_prefilled`` exports them. A parked slot sits out of range
+        for every decode dispatch, as a free slot does."""
+        self._positions[slot] = self.max_len
+        self._handoff[slot] = [req, first_tok, prompt_len,
+                               time.monotonic(), prefill_s]
+
+    def set_handoff_external(self, n: int) -> None:
+        """Report handoffs exported but not yet admitted downstream (the
+        DisaggregatedEngine's pending list), so the release hold and the
+        scheduler's ``handoff_backlog`` see the whole handoff pipeline."""
+        self._handoff_external = max(0, int(n))
+
+    @torch.inference_mode()
+    def take_prefilled(self, limit: int | None = None
+                       ) -> list[PrefilledHandoff]:
+        """Export parked finished prefills (prefill role). Per slot: its
+        blocks gathered dense in one read, its prompt prefix published to
+        the trie (later same-prefix prompts still hit here), then its pins
+        and owned blocks released and the slot freed. The journal row
+        retires here: for this role the work is done once the handoff
+        exists; the decode role journals it again on import."""
+        out: list[PrefilledHandoff] = []
+        for slot in list(self._handoff):
+            if limit is not None and len(out) >= limit:
+                break
+            req, tok, plen, ready_at, prefill_s = self._handoff.pop(slot)
+            tbl = list(self._tables[slot])
+            nb = self._pool.blocks_for(plen)
+            nbp = 1
+            while nbp < nb:
+                nbp *= 2
+            # padding ids clamp in the gather; their columns are dead
+            bids = np.full((1, nbp), self._pool.num_blocks,
+                           dtype=BLOCK_TABLE_DTYPE)
+            bids[0, :nb] = tbl[:nb]
+            with self._on_stream(), self._dispatch_boundary("kv_export"):
+                kv_k, kv_v = self._gather_view(
+                    torch.from_numpy(bids).to(self.device))
+            adopted = self._publish(slot, req)
+            self._paged_release_slot(slot, keep=adopted)
+            self._free.append(slot)
+            self.handoff_exported += 1
+            if self.telemetry is not None:
+                self.telemetry.on_retire(req.request_id, new_tokens=1,
+                                         finish_reason="handoff")
+            if self.journal is not None:
+                self.journal.record_retire(req.request_id)
+                self._journal_ckpt.pop(req.request_id, None)
+            out.append(PrefilledHandoff(
+                request=req, first_token=tok, prompt_len=plen,
+                kv_k=kv_k, kv_v=kv_v, blocks=nb, ready_at=ready_at,
+                prefill_s=prefill_s))
+        return out
+
+    @torch.inference_mode()
+    def admit_prefilled(self, handoff: PrefilledHandoff, *,
+                        correlation_id: str | None = None) -> int | None:
+        """Decode-role import of a handed-off finished prefill: fresh
+        blocks for it, its KV moved onto this engine's device
+        (``Tensor.to``) and written into them, and the slot activated at
+        ``prompt_len`` with the first token already sampled — decode goes
+        on exactly as on a co-located engine, since the handoff moved the
+        exact KV bytes. Returns the new request id, or None when no slot
+        or blocks fit now (the caller re-parks the handoff: the
+        backpressure signal toward the prefill role)."""
+        if not self.paged:
+            raise ValueError("admit_prefilled requires kv_pool_blocks")
+        if self.role == "prefill":
+            raise ValueError("admit_prefilled on a prefill-role engine")
+        req0 = handoff.request
+        plen = handoff.prompt_len
+        span = min(plen + req0.max_new_tokens + self._write_margin,
+                   self.max_len)
+        if (not self._free or self._occupied >= self._slot_cap
+                or self._pool.blocks_for(span) > self._block_headroom()):
+            return None
+        slot = self._free[0]
+        rid = self._next_id
+        self._next_id += 1
+        corr = correlation_id if correlation_id is not None \
+            else req0.correlation_id
+        # the original submit time: the completion's TTFT spans the
+        # prefill role, the handoff and this import
+        req = Request(
+            rid, list(req0.prompt), req0.max_new_tokens,
+            cache_eligible_tokens=req0.cache_eligible_tokens,
+            submitted_at=req0.submitted_at,
+            correlation_id=corr, tenant=req0.tenant,
+            priority=req0.priority, deadline_at=req0.deadline_at)
+        if req.deadline_at != float("inf"):
+            # submit() never runs on this path: arm the expiry sweep
+            self._deadlines_in_use = True
+        if self.journal is not None:
+            self.journal.record_submit(
+                rid, req.prompt, req.max_new_tokens,
+                cache_eligible_tokens=req.cache_eligible_tokens,
+                correlation_id=corr, tenant=req.tenant,
+                priority=req.priority)
+            self.journal.checkpoint_many([(rid, [handoff.first_token])])
+            self._journal_ckpt[rid] = 1
+        tbl = self._alloc_blocks(self._pool.blocks_for(plen))
+        width = handoff.kv_k.shape[3]               # NBpad * block
+        sbids, soffs = self._write_maps([(0, tbl, 0, plen)], width, 1)
+        with self._on_stream(), self._dispatch_boundary("kv_import"):
+            self._pool.scatter(handoff.kv_k.to(self.device),
+                               handoff.kv_v.to(self.device), sbids, soffs)
+        self._free.remove(slot)
+        self._tables[slot] = tbl
+        self._owned_from[slot] = 0
+        self.handoff_imported += 1
+        now = time.monotonic()
+        if self.telemetry is not None:
+            self.telemetry.on_submit(rid, len(req.prompt), corr)
+            self.telemetry.on_admit(rid, wave_start=now,
+                                    admit_kind="handoff")
+        self._activate(slot, req, int(handoff.first_token), plen,
+                       handoff.prefill_s, now)
+        return rid
 
     # ------------------------------------------------------------------
     # decode
@@ -1195,7 +1631,10 @@ class GenerationEngine:
               "v_win": zeros(win, self.kv_dtype, dev),
               "out": torch.zeros((steps, b), dtype=torch.int64, device=dev)}
         if self.paged:
-            st.update(tables=torch.zeros(b * self._max_blocks, **i32),
+            # the gather route's view reaches a dispatch's writes past
+            # the bucket (``_view_width``)
+            nb = self._view_width(self.max_len, steps) // self._block
+            st.update(tables=torch.zeros(b * nb, **i32),
                       wbids=torch.zeros((b, steps), **i32),
                       woffs=torch.zeros((b, steps), **i32),
                       back=torch.zeros(2, **i32))
@@ -1221,7 +1660,22 @@ class GenerationEngine:
         storage_view(k_all).zero_()
         storage_view(v_all).zero_()
         positions = st["pos"]
-        if self.paged:
+        view = None
+        if self.paged and self._kv_route == "reference":
+            # the gather route: the working-set view the tables describe,
+            # wide enough for this dispatch's writes, read by the
+            # contiguous step
+            nb = self._view_width(kv_len, self._dispatch_steps) \
+                // self._block
+            vk, vv = self._gather_view(
+                st["tables"][:self.num_slots * nb].view(self.num_slots, nb))
+            view = {"k": vk, "v": vv}
+
+            def step(tok, w, k_win, v_win, k_done, v_done):
+                return decoder.decode_step_windowed(
+                    self.params, tok, positions, w, cfg, view, k_win,
+                    v_win, kv_len=kv_len, k_done=k_done, v_done=v_done)
+        elif self.paged:
             nb = kv_len // self._block
             tables = st["tables"][:self.num_slots * nb].view(
                 self.num_slots, nb)
@@ -1254,7 +1708,16 @@ class GenerationEngine:
                 v_win[:, :, :, w] = v_cols
                 tok = sample(logits, self._gen, self.sampling)
                 st["out"][off + w] = tok
-        if self.paged:
+        if view is not None:
+            # merge into the view, read the merged columns back, scatter
+            # them into the pool at the write maps
+            steps = self._dispatch_steps
+            decoder.merge_window(view, k_all, v_all, positions, steps=steps)
+            self._pool.scatter_static(
+                self._view_take(view["k"], positions, steps),
+                self._view_take(view["v"], positions, steps),
+                st["wbids"], st["woffs"], st["back"])
+        elif self.paged:
             pool.scatter_static(k_all, v_all, st["wbids"], st["woffs"],
                                 st["back"])
         else:
@@ -1289,10 +1752,13 @@ class GenerationEngine:
             st["woffs"].copy_(torch.from_numpy(soffs))
             st["back"].copy_(torch.from_numpy(self._write_back()))
             # K3 reads the first kv_len // block entries of each row (the
-            # JAX engine's kernel route slices its wider gather so too)
-            nb = kv_len // self._block
+            # JAX engine's kernel route slices its wider gather so too);
+            # the gather route's view also covers the dispatch's writes
+            width = kv_len if self._kv_route == "kernel" \
+                else self._view_width(kv_len, steps)
+            nb = width // self._block
             st["tables"][:self.num_slots * nb].copy_(
-                torch.from_numpy(self._gather_bids(kv_len).reshape(-1)))
+                torch.from_numpy(self._gather_bids(width).reshape(-1)))
         else:
             st["pos"].copy_(torch.from_numpy(self._positions))
         key = self._graph_key(kv_len)
@@ -1315,18 +1781,30 @@ class GenerationEngine:
         # windowed dispatch, which amortizes the host sync over a window.
         # _spec_allowed consults the supervisor's spec_verify breaker:
         # open → plain decode serves, half-open → this step may probe.
-        if self.spec_decode and self._active and self._spec_allowed():
+        # Steps with piggyback prompts pending keep the piggyback dispatch
+        # (its chunk grid and a verify pass cannot share one pass).
+        if (self.spec_decode and self._active and self._spec_allowed()
+                and not (self._prefilling and self._free)):
             drafts = self._spec_drafts()
             if drafts:
                 self._dispatch_verify(drafts)
                 return
+        # Snapshot BEFORE the dispatch: rows a piggyback dispatch
+        # activates were prefilling during it — their decode lanes carried
+        # garbage and are not harvested this round.
         active_before = list(self._active.items())
+        piggy = bool(self._prefilling and self._free)
+        kind = "piggyback" if piggy else "decode"
         seq = self.telemetry.next_step() if self.telemetry is not None \
             else None
+        piggy_tok0 = self.piggy_tokens
         t0 = time.monotonic()
         try:
-            with self._dispatch_boundary("decode"):
-                toks = self._decode_dispatch(self._kv_bucket())
+            with self._dispatch_boundary(kind):
+                if piggy:
+                    toks = self._dispatch_piggyback()
+                else:
+                    toks = self._decode_dispatch(self._kv_bucket())
         except Exception:
             # A failed dispatch leaves nothing a graph can trust: drop
             # them all. With a supervisor attached, capture again only
@@ -1335,6 +1813,12 @@ class GenerationEngine:
             raise
         step_s = time.monotonic() - t0
         self.decode_s += step_s
+        if piggy:
+            self.piggy_s += step_s
+            self.piggy_dispatches += 1
+        else:
+            self.plain_s += step_s
+            self.plain_dispatches += 1
         harvested_total = 0
         for slot, req in active_before:
             gen = self._generated[slot]
@@ -1370,10 +1854,12 @@ class GenerationEngine:
         self.decode_tokens += harvested_total
         if self.telemetry is not None:
             # host numbers only, read after the dispatch's one fetch: the
-            # captured body records nothing
+            # captured body records nothing. tokens: the harvested decode
+            # tokens and the prompt tokens a piggyback dispatch prefilled
             self.telemetry.record_step(
-                "decode", step_s, seq=seq, rows=len(active_before),
-                batch=self.num_slots, tokens=harvested_total,
+                kind, step_s, seq=seq, rows=len(active_before),
+                batch=self.num_slots,
+                tokens=harvested_total + (self.piggy_tokens - piggy_tok0),
                 padded_tokens=window * self.num_slots, route=self._kv_route)
 
     # ------------------------------------------------------------------
@@ -1405,13 +1891,23 @@ class GenerationEngine:
         wave's token budget of requests (DRR order), route long cache-miss
         prompts to chunked prefill."""
         sched = self._sched
+        backlog = len(self._handoff) + self._handoff_external
         sched.observe(queued=self.queue_depth, active=len(self._active),
                       num_slots=self.num_slots, telemetry=self.telemetry,
                       free_blocks=(self._block_headroom()
                                    if self.paged else None),
                       total_blocks=(self._pool.num_blocks
-                                    if self.paged else None))
-        room = len(self._free) - len(self._queue) - len(self._chunk_pending)
+                                    if self.paged else None),
+                      handoff_backlog=(backlog if self.role == "prefill"
+                                       else None))
+        if self.role == "prefill" and backlog >= self._handoff_high:
+            # the release hold: finished prefills pile up faster than the
+            # decode role drains them, and more waves would only pin pool
+            # blocks behind the handoff (the shed loop guards the door)
+            return
+        staged = (len(self._queue) + len(self._prefilling)
+                  + len(self._chunk_pending))
+        room = len(self._free) - staged
         if room <= 0:
             return
         reqs = sched.select(max_requests=room,
@@ -1494,17 +1990,14 @@ class GenerationEngine:
             if self.telemetry is not None:
                 self.telemetry.on_admit(req.request_id, wave_start=started,
                                         admit_kind="chunked")
-            self._active[slot] = req
-            self._generated[slot] = [tok]
-            self._spec_track(slot, req, tok)
-            self._positions[slot] = len(req.prompt)
-            self._next_tok[slot] = tok
-            self._t_prefill[slot] = now - started
-            self._ttft[slot] = now - req.submitted_at
-            req.decode_started_at = now
-            if tok in self._eos_set or req.max_new_tokens <= 1:
-                self._retire(slot,
-                             "eos" if tok in self._eos_set else "length")
+            if (self.role == "prefill" and tok not in self._eos_set
+                    and req.max_new_tokens > 1):
+                # chunked prefills hand off exactly like wave admits
+                self._park_handoff(slot, req, tok, len(req.prompt),
+                                   now - started)
+                continue
+            self._activate(slot, req, tok, len(req.prompt), now - started,
+                           now)
         if self.telemetry is not None:
             self.telemetry.record_step(
                 "prefill_chunk", step_s, seq=seq, rows=len(fed),
@@ -1555,13 +2048,188 @@ class GenerationEngine:
         selected before the lm_head (``all_logits=False``), then one pool
         scatter of the chunk's KV and the candidates' sample."""
         dev = self.device
-        last, k_new, v_new = decoder.prefill_seeded_paged(
-            self.params, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(qlens).to(dev),
-            torch.from_numpy(positions).to(dev), self.cfg,
-            self._pool_partial_fn(kv_len), all_logits=False)
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        qlens_t = torch.from_numpy(qlens).to(dev)
+        positions_t = torch.from_numpy(positions).to(dev)
+        if self._kv_route == "reference":
+            # the gather route: the contiguous chunk pass over the view
+            logits, k_new, v_new = self._seeded_over_view(
+                tokens_t, qlens_t, positions_t, kv_len)
+            last = logits[torch.arange(logits.shape[0], device=dev),
+                          qlens_t - 1]
+        else:
+            last, k_new, v_new = decoder.prefill_seeded_paged(
+                self.params, tokens_t, qlens_t, positions_t, self.cfg,
+                self._pool_partial_fn(kv_len), all_logits=False)
         self._pool.scatter(k_new, v_new, sbids, soffs)
         return sample(last, self._gen, self.sampling).cpu().numpy()
+
+    def _seeded_over_view(self, tokens_t: torch.Tensor,
+                          qlens_t: torch.Tensor, positions_t: torch.Tensor,
+                          kv_len: int):
+        """The gather route's verify and chunk pass: gather the view the
+        tables describe (wide enough for the pass's writes), run the
+        contiguous seeded pass (``decoder.verify_seeded``) over it, merge
+        its fresh KV into the view and read the merged columns back for
+        the pool scatter. Returns (logits [B, S, V], k_new, v_new)."""
+        s = tokens_t.shape[1]
+        tables = torch.from_numpy(self._gather_bids(
+            self._view_width(kv_len, s))).to(self.device)
+        vk, vv = self._gather_view(tables)
+        view = {"k": vk, "v": vv}
+        logits, k_new, v_new = decoder.verify_seeded(
+            self.params, tokens_t, qlens_t, positions_t, self.cfg, view,
+            kv_len=kv_len)
+        decoder.merge_window(view, k_new, v_new, positions_t, steps=s)
+        return (logits, self._view_take(view["k"], positions_t, s),
+                self._view_take(view["v"], positions_t, s))
+
+    # ------------------------------------------------------------------
+    # piggyback prefill
+    # ------------------------------------------------------------------
+
+    def _pack_prefill(self):
+        """Pack whole pending prompts into the W x P chunk grid, on the
+        host. Each selected row occupies one consecutive run of steps in
+        one lane, so its buffer span is contiguous and K1's begin/length
+        bounds describe it exactly; first fit over lanes, and rows that do
+        not fit wait for the next dispatch. Returns the per-step metadata
+        [W, P, ...], the completion points, the buffer→cache write maps
+        (live columns only) and the placed (slot, request, started)
+        rows."""
+        w_sz, chunk = self.decode_window, self.prefill_chunk
+        p = self.prefill_rows
+        buf = w_sz * chunk
+        pre_tok = np.zeros((w_sz, p, chunk), dtype=np.int64)
+        rope_base = np.zeros((w_sz, p), dtype=np.int64)
+        kv_begin = np.full((w_sz, p), buf, dtype=np.int32)   # idle: all
+        kv_len = np.zeros((w_sz, p), dtype=np.int32)         # masked
+        sel_rel = np.zeros((w_sz, p), dtype=np.int64)
+        sel_w, sel_p = [], []
+        lanes, cols, slots, pos = [], [], [], []
+        lane_next = [0] * p
+        placed = []
+        deferred = []
+        for req, started in self._prefilling:
+            plen = len(req.prompt)
+            steps = -(-plen // chunk)
+            lane = min(range(p), key=lambda i: lane_next[i])
+            if (lane_next[lane] + steps > w_sz or not self._free
+                    or self._occupied + len(placed) >= self._slot_cap):
+                deferred.append((req, started))
+                continue                        # wait for next dispatch
+            slot = self._free.pop(0)
+            s0 = lane_next[lane]
+            lane_next[lane] = s0 + steps
+            flat = np.zeros(steps * chunk, dtype=np.int64)
+            flat[:plen] = req.prompt
+            pre_tok[s0:s0 + steps, lane] = flat.reshape(steps, chunk)
+            rope_base[s0:s0 + steps, lane] = np.arange(steps) * chunk
+            kv_begin[s0:s0 + steps, lane] = s0 * chunk
+            kv_len[s0:s0 + steps, lane] = s0 * chunk + np.minimum(
+                (np.arange(steps) + 1) * chunk, plen)
+            end = s0 + steps - 1
+            sel_rel[end, lane] = (plen - 1) % chunk
+            sel_w.append(end)
+            sel_p.append(lane)
+            lanes += [lane] * plen
+            cols += range(s0 * chunk, s0 * chunk + plen)
+            slots += [slot] * plen
+            pos += range(plen)
+            placed.append((slot, req, started))
+            self.piggy_rows += 1
+            self.piggy_tokens += plen
+            self.prefill_tokens += plen
+        self._prefilling = deferred
+        return (pre_tok, rope_base, kv_begin, kv_len, sel_rel,
+                (sel_w, sel_p), (lanes, cols, slots, pos), placed)
+
+    def _dispatch_piggyback(self) -> np.ndarray:
+        """One decode window with packed prefill chunks riding it.
+        Returns the decoded tokens [window, slots]; completed prompts are
+        activated into their slots here."""
+        packed = self._pack_prefill()
+        placed = packed[-1]
+        try:
+            return self._piggy_dispatch(*packed)
+        except Exception:
+            # Lossless unwind: packed rows took slots and left the feed
+            # but never activated — requeue them at the head, free their
+            # slots, and take back the accounting the pack charged.
+            for slot, _req, _started in placed:
+                self._free.append(slot)
+            self._queue[0:0] = [req for _s, req, _t in placed]
+            n_tok = sum(len(req.prompt) for _s, req, _t in placed)
+            self.piggy_rows -= len(placed)
+            self.piggy_tokens -= n_tok
+            self.prefill_tokens -= n_tok
+            raise
+
+    @torch.inference_mode()
+    def _piggy_dispatch(self, pre_tok, rope_base, kv_begin, kv_len, sel_rel,
+                        sel, maps, placed) -> np.ndarray:
+        """The piggyback dispatch, eager (no CUDA graph): W steps of
+        ``decoder.decode_step_piggyback`` (one weight pass over B + P·C
+        rows a step, one K1 call a layer for the chunks), then the
+        window's one cache write (``merge_window``; placed rows' slots are
+        parked, so their garbage decode lanes drop), the chunks' write
+        (``merge_prefill``), and the placed rows' first tokens sampled
+        from their last prompt positions. One host fetch brings back the
+        decode tokens and the first tokens together."""
+        cfg, dev = self.cfg, self.device
+        w_sz, chunk, p = self.decode_window, self.prefill_chunk, \
+            self.prefill_rows
+        win = (cfg.n_layers, self.num_slots, cfg.n_kv_heads, w_sz,
+               cfg.head_dim)
+        bufs = (cfg.n_layers, p, cfg.n_kv_heads, w_sz * chunk, cfg.head_dim)
+        k_win, v_win = zeros(win, self.kv_dtype, dev), \
+            zeros(win, self.kv_dtype, dev)
+        kbuf, vbuf = zeros(bufs, self.kv_dtype, dev), \
+            zeros(bufs, self.kv_dtype, dev)
+        positions = torch.from_numpy(self._positions).to(dev)
+        tok = torch.from_numpy(self._next_tok).to(dev)
+        pre_tok_t = torch.from_numpy(pre_tok).to(dev)
+        rope_t = torch.from_numpy(rope_base).to(dev)
+        begin_t = torch.from_numpy(kv_begin).to(dev)
+        len_t = torch.from_numpy(kv_len).to(dev)
+        sel_t = torch.from_numpy(sel_rel).to(dev)
+        kv_ext = self._kv_bucket()
+        outs, h_steps = [], []
+        for w in range(w_sz):
+            logits, k_cols, v_cols, _pk, _pv, h_step = \
+                decoder.decode_step_piggyback(
+                    self.params, tok, positions, w, cfg, self._cache,
+                    k_win, v_win, pre_tok_t[w], rope_t[w], begin_t[w],
+                    len_t[w], sel_t[w], kbuf, vbuf, kv_len=kv_ext)
+            # the step wrote its chunk's KV into kbuf/vbuf itself
+            k_win[:, :, :, w] = k_cols
+            v_win[:, :, :, w] = v_cols
+            tok = sample(logits, self._gen, self.sampling)
+            outs.append(tok)
+            h_steps.append(h_step)
+        decoder.merge_window(self._cache, k_win, v_win, positions,
+                             steps=w_sz)
+        decoder.merge_prefill(self._cache, kbuf, vbuf, *maps)
+        parts = [torch.stack(outs).reshape(-1)]
+        if placed:
+            sel_w, sel_p = (torch.tensor(x, dtype=torch.long, device=dev)
+                            for x in sel)
+            h_sel = torch.stack(h_steps)[sel_w, sel_p]           # [M, D]
+            first_logits = decoder._unembed(h_sel, self.params, cfg)
+            parts.append(sample(first_logits, self._gen, self.sampling))
+        got = torch.cat(parts).cpu().numpy()       # the ONE host fetch
+        toks = got[:w_sz * self.num_slots].reshape(w_sz, self.num_slots)
+        first = got[w_sz * self.num_slots:]
+        now = time.monotonic()
+        for i, (slot, req, started) in enumerate(placed):
+            # every placed row completed (whole prompts only)
+            tok_i = int(first[i])
+            if self.telemetry is not None:
+                self.telemetry.on_admit(req.request_id, wave_start=started,
+                                        admit_kind="piggyback")
+            self._activate(slot, req, tok_i, len(req.prompt), now - started,
+                           now)
+        return toks
 
     # ------------------------------------------------------------------
     # speculative decoding
@@ -1732,10 +2400,14 @@ class GenerationEngine:
         dev = self.device
         tokens_t = torch.from_numpy(tokens).to(dev)
         qlens_t = torch.from_numpy(qlens).to(dev)
-        logits, k_new, v_new = decoder.prefill_seeded_paged(
-            self.params, tokens_t, qlens_t,
-            torch.from_numpy(self._positions).to(dev), self.cfg,
-            self._pool_partial_fn(kv_len), all_logits=True)
+        positions_t = torch.from_numpy(self._positions).to(dev)
+        if self._kv_route == "reference":
+            logits, k_new, v_new = self._seeded_over_view(
+                tokens_t, qlens_t, positions_t, kv_len)
+        else:
+            logits, k_new, v_new = decoder.prefill_seeded_paged(
+                self.params, tokens_t, qlens_t, positions_t, self.cfg,
+                self._pool_partial_fn(kv_len), all_logits=True)
         self._pool.scatter(k_new, v_new, sbids, soffs)
         return self._accept(logits, tokens_t, qlens_t)
 
@@ -1752,22 +2424,42 @@ class GenerationEngine:
     # retirement
     # ------------------------------------------------------------------
 
+    def _publish(self, slot: int, req: Request) -> set[int] | frozenset:
+        """Publish a leaving slot's prompt prefix to the prefix cache,
+        then hand its match pins back. Paged: the trie adopts the slot's
+        own prompt-prefix blocks by refcount (returned, so the caller
+        frees the rest); contiguous: the prompt KV is copied cache→pool,
+        which must happen before the slot is reused (a decode replay
+        writes the cache in place). A failed publish is contained: it is
+        counted and loses only the cache's share, never the completion."""
+        adopted: set[int] | frozenset = frozenset()
+        pc = self._prefix
+        if pc is None:
+            return adopted
+        try:
+            with self._dispatch_boundary("prefix_publish"):
+                if self.paged:
+                    adopted = pc.adopt_blocks(
+                        req.prompt, self._tables[slot],
+                        self._owned_from[slot],
+                        eligible_tokens=req.cache_eligible_tokens)
+                else:
+                    pc.publish(req.prompt, self._cache, slot,
+                               eligible_tokens=req.cache_eligible_tokens)
+        except Exception:
+            self.prefix_publish_failures += 1
+        finally:
+            m = self._prefix_pins.pop(req.request_id, None)
+            if m is not None:
+                pc.release(m)
+        return adopted
+
     def _retire(self, slot: int, reason: str) -> None:
         self._positions[slot] = self.max_len   # park out of range
         self._draft_index.pop(slot, None)
         req = self._active.pop(slot)
+        adopted = self._publish(slot, req)
         if self.paged:
-            adopted: set[int] | frozenset = frozenset()
-            if self._prefix is not None:
-                # publish by refcount handoff: the trie adopts the slot's
-                # own prompt-prefix blocks; then the request's match pins
-                # go back
-                adopted = self._prefix.adopt_blocks(
-                    req.prompt, self._tables[slot], self._owned_from[slot],
-                    eligible_tokens=req.cache_eligible_tokens)
-                m = self._prefix_pins.pop(req.request_id, None)
-                if m is not None:
-                    self._prefix.release(m)
             # tail blocks (generated-token KV, unpublished prompt tail)
             # go straight back to the allocator
             self._paged_release_slot(slot, keep=adopted)
@@ -1795,8 +2487,9 @@ class GenerationEngine:
 
     def _expire_deadlines(self) -> None:
         """Drop every request whose ``deadline_at`` has passed — queued
-        work uncomputed (an empty completion: the wave queue, the chunk
-        queue, chunking slots and the scheduler's queues), active slots
+        work uncomputed (an empty completion: the wave queue, the
+        piggyback feed, the chunk queue, chunking slots, slots parked for
+        the handoff and the scheduler's queues), active slots
         retired with their partial output — all with
         ``finish_reason="deadline"``. It runs at the head of ``step``,
         between dispatches, so a retired slot parks exactly as an eos or
@@ -1814,6 +2507,11 @@ class GenerationEngine:
             self._chunk_pending = [r for r in self._chunk_pending
                                    if r.deadline_at > now]
             expired += late
+        late = [r for r, _t in self._prefilling if r.deadline_at <= now]
+        if late:
+            self._prefilling = [(r, t) for r, t in self._prefilling
+                                if r.deadline_at > now]
+            expired += late
         for slot in list(self._chunking):
             req = self._chunking[slot][0]
             if req.deadline_at <= now:
@@ -1821,6 +2519,16 @@ class GenerationEngine:
                 self._positions[slot] = self.max_len
                 if self.paged:
                     self._paged_release_slot(slot)
+                self._free.append(slot)
+                expired.append(req)
+        for slot in list(self._handoff):
+            req = self._handoff[slot][0]
+            if req.deadline_at <= now:
+                del self._handoff[slot]
+                m = self._prefix_pins.pop(req.request_id, None)
+                if m is not None:
+                    self._prefix.release(m)
+                self._paged_release_slot(slot)
                 self._free.append(slot)
                 expired.append(req)
         if self._sched is not None:

@@ -11,6 +11,11 @@ the ``lax.scan`` over that axis becomes a Python loop. Entry points:
 * ``decode_step_windowed``  — one token per slot against the read-only
   cache plus the dispatch's window buffer;
 * ``merge_window``          — writes a window's KV into the cache, once;
+* ``prefill_seeded``        — the contiguous prefix cache's suffix pass
+  against prefix KV gathered from its block pool;
+* ``decode_step_piggyback`` / ``merge_prefill`` — one decode step that
+  also prefills packed prompt chunks (piggyback prefill), and the write of
+  those chunks' KV into the cache;
 * ``verify_seeded``        — the contiguous engine's seeded pass over its
   slots (speculative verify, chunked prefill), every position's logits;
 * ``decode_step_windowed_paged`` / ``prefill_seeded_paged`` — the paged
@@ -41,6 +46,12 @@ from copilot_for_consensus_tpu_torch.models import layers as L
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
 from copilot_for_consensus_tpu_torch.models.quant import (
     init_random_quantized,
+)
+from copilot_for_consensus_tpu_torch.ops.attention import (
+    decode_attention_prefix_window,
+)
+from copilot_for_consensus_tpu_torch.ops.flash_attention import (
+    flash_attention,
 )
 
 Params = dict[str, Any]
@@ -117,6 +128,37 @@ def prefill(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
     # only B rows (not B·S) are unembedded.
     x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
     return _unembed(x_last, params, cfg, impl), cache
+
+
+def prefill_seeded(params: Params, tokens: torch.Tensor,
+                   lengths: torch.Tensor, k_pref: torch.Tensor,
+                   v_pref: torch.Tensor, prefix_lens: torch.Tensor,
+                   cfg: DecoderConfig, cache: Params
+                   ) -> tuple[torch.Tensor, Params]:
+    """Suffix prompt pass against seeded prefix KV (contiguous prefix-cache
+    hits). tokens: [B, S] right-padded SUFFIX tokens, row b's token i at
+    absolute position ``prefix_lens[b] + i``; lengths: [B] suffix lengths
+    (>= 1). k_pref/v_pref: [L, B, Hkv, P, Dh] prefix KV gathered from the
+    block pool (columns at or past ``prefix_lens[b]`` are masked). Writes
+    the SUFFIX kv into ``cache`` positions [0, S) in place (the engine
+    writes them into the slot cache at the per-row offset) and returns
+    (last-valid-position logits [B, V] f32, cache). A row with prefix 0
+    attends its own causal suffix alone, so mixed hit/miss waves run as
+    one pass."""
+    b, s = tokens.shape
+    x = params["tok_emb"][tokens.long()]
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        h, k, v = L.attn_prefill_seeded(
+            L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
+            k_pref[li], v_pref[li], prefix_lens, lengths)
+        x = x + h
+        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                         layer)
+        cache["k"][li, :, :, :s] = k
+        cache["v"][li, :, :, :s] = v
+    x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
+    return _unembed(x_last, params, cfg), cache
 
 
 def decode_step_windowed(params: Params, tokens: torch.Tensor,
@@ -280,6 +322,146 @@ def verify_seeded(params: Params, tokens: torch.Tensor,
         x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
                          layer)
     return _unembed(x, params, cfg), k_new, v_new
+
+
+def decode_step_piggyback(params: Params, tokens: torch.Tensor,
+                          positions0: torch.Tensor, w: int,
+                          cfg: DecoderConfig, cache: Params,
+                          k_win: torch.Tensor, v_win: torch.Tensor,
+                          pre_tok: torch.Tensor, pre_rope_base: torch.Tensor,
+                          pre_kv_begin: torch.Tensor,
+                          pre_kv_len: torch.Tensor,
+                          pre_sel_rel: torch.Tensor,
+                          pre_kbuf: torch.Tensor, pre_vbuf: torch.Tensor,
+                          kv_len: int | None = None):
+    """One decode step that also advances P prefill lanes by a C-token
+    chunk (piggyback prefill with lane packing).
+
+    Every projection, ``wo`` and the FFN take the B decode rows and the
+    P·C prompt-chunk rows as ONE row-concatenated matmul (M = B + P·C), so
+    the chunks' work rides the weight stream decode already pays for. The
+    engine packs whole prompts into the W x P chunk grid on the host
+    (``GenerationEngine._pack_prefill``); lane p's dispatch buffer holds
+    consecutive rows' chunks back to back. This step's metadata:
+
+    * pre_tok [P, C]      — the chunk's token ids a lane;
+    * pre_rope_base [P]   — chunk-start position within its row (RoPE);
+    * pre_kv_begin [P]    — buffer column where the row's kv starts
+      (earlier columns belong to other rows and are masked);
+    * pre_kv_len [P]      — valid buffer columns through this step (masks
+      a final partial chunk; idle lanes carry 0);
+    * pre_sel_rel [P]     — the in-chunk index of the row's last prompt
+      token when this chunk completes the row; ``h_step`` is the hidden
+      state there, from which the engine samples its first token;
+    * pre_kbuf/pre_vbuf [L, P, Hkv, W·C, Dh] — the dispatch's chunk
+      buffers. This step writes its chunk's KV into columns
+      [w·C, (w+1)·C) of them in place; the engine writes them into the
+      cache once a dispatch (``merge_prefill``).
+
+    The chunk attention is ONE K1 call a layer over the lane buffer,
+    causal, with query offset w·C and the begin/length bounds above, so
+    a row never reads a packed neighbour's kv. The decode rows attend
+    (cache prefix ++ window ++ self) as in ``decode_step_windowed``.
+
+    Returns (logits [B, V] f32, k_cols, v_cols [L, B, Hkv, Dh],
+    pre_k, pre_v [L, P, Hkv, C, Dh], h_step [P, D])."""
+    b = tokens.shape[0]
+    p, c = pre_tok.shape
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dev = tokens.device
+    x_dec = params["tok_emb"][tokens.long()]                 # [B, D]
+    x_pre = params["tok_emb"][pre_tok.long()]                # [P, C, D]
+    d_model = x_dec.shape[-1]
+    x = torch.cat([x_dec, x_pre.reshape(p * c, d_model)])    # [M, D]
+    pos_dec = (positions0 + w)[:, None]                      # [B, 1]
+    pos_pre = pre_rope_base.long()[:, None] + torch.arange(
+        c, device=dev)[None, :]                              # [P, C]
+    k_pref, v_pref = cache["k"], cache["v"]
+    if kv_len is not None and kv_len < k_pref.shape[3]:
+        k_pref = k_pref[:, :, :, :kv_len]
+        v_pref = v_pref[:, :, :, :kv_len]
+    inv_freq = L.rope_frequencies(dh, cfg.rope_theta, device=dev)
+    q_offsets = torch.full((p,), w * c, dtype=torch.int32, device=dev)
+    k_cols, v_cols, pre_k, pre_v = [], [], [], []
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        xa = L.rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        # ONE projection matmul over the decode and the prefill rows
+        if "wqkv" in layer:
+            nq, nkv = hq * dh, hkv * dh
+            qkv = L.qmatmul(xa, layer["wqkv"])
+            q_all, k_all, v_all = (qkv[..., :nq], qkv[..., nq:nq + nkv],
+                                   qkv[..., nq + nkv:])
+        else:
+            q_all = L.qmatmul(xa, layer["wq"])
+            k_all = L.qmatmul(xa, layer["wk"])
+            v_all = L.qmatmul(xa, layer["wv"])
+
+        def split_heads(z, n_heads):
+            zd = z[:b].reshape(b, 1, n_heads, dh).transpose(1, 2)
+            zp = z[b:].reshape(p, c, n_heads, dh).transpose(1, 2)
+            return zd, zp
+
+        qd, qp = split_heads(q_all, hq)
+        kd, kp = split_heads(k_all, hkv)
+        vd, vp = split_heads(v_all, hkv)
+        qd = L.apply_rope(qd, pos_dec, inv_freq)
+        kd = L.apply_rope(kd, pos_dec, inv_freq)
+        qp = L.apply_rope(qp, pos_pre, inv_freq)
+        kp = L.apply_rope(kp, pos_pre, inv_freq)
+        o_dec = decode_attention_prefix_window(
+            qd[:, :, 0], k_pref[li], v_pref[li], k_win[li], v_win[li],
+            kd[:, :, 0], vd[:, :, 0], prefix_lengths=positions0, w=w,
+            window=cfg.sliding_window)                       # [B, Hq, Dh]
+        # the chunk's kv joins its lane buffer, then one K1 call over it
+        kbuf, vbuf = pre_kbuf[li], pre_vbuf[li]
+        kbuf[:, :, w * c:(w + 1) * c] = kp
+        vbuf[:, :, w * c:(w + 1) * c] = vp
+        o_pre = flash_attention(
+            qp.contiguous(), kbuf.to(qp.dtype), vbuf.to(qp.dtype),
+            causal=True, kv_lengths=pre_kv_len, q_offsets=q_offsets,
+            kv_begins=pre_kv_begin)                          # [P, Hq, C, Dh]
+        o = torch.cat([o_dec.reshape(b, hq * dh),
+                       o_pre.transpose(1, 2).reshape(p * c, hq * dh)])
+        x = x + L.qmatmul(o, layer["wo"])                    # one wo matmul
+        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                         layer)                              # one FFN pass
+        k_cols.append(kd[:, :, 0])
+        v_cols.append(vd[:, :, 0])
+        pre_k.append(kp)
+        pre_v.append(vp)
+    logits = _unembed(x[:b], params, cfg)
+    x_pre_out = x[b:].reshape(p, c, d_model)
+    h_step = x_pre_out[torch.arange(p, device=dev),
+                       pre_sel_rel.long().clamp(0, c - 1)]    # [P, D]
+    return (logits, torch.stack(k_cols), torch.stack(v_cols),
+            torch.stack(pre_k), torch.stack(pre_v), h_step)
+
+
+def merge_prefill(cache: Params, k_buf: torch.Tensor, v_buf: torch.Tensor,
+                  lanes, cols, slots, positions) -> Params:
+    """Write a piggyback dispatch's chunk buffers into the cache, in place.
+
+    k_buf/v_buf: [L, P, Hkv, BUF, Dh]; the host-built maps (1-D, one entry
+    a prompt token) say where each live buffer column goes: column
+    ``cols[i]`` of lane ``lanes[i]`` lands at position ``positions[i]`` of
+    slot ``slots[i]``. The maps hold live columns only — padding and idle
+    columns are left out on the host (the JAX package's ``mode="drop"``),
+    so nothing writes into a live slot's timeline and nothing indexes out
+    of range. An fp8 cache moves as bytes."""
+    if len(lanes) == 0:
+        return cache
+    dev = cache["k"].device
+
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.long).to(dev)
+
+    ln, cl, sl, ps = idx(lanes), idx(cols), idx(slots), idx(positions)
+    for name, buf in (("k", k_buf), ("v", v_buf)):
+        # advanced indices on axes 1 and 3: [N, L, Hkv, Dh] both sides
+        storage_view(cache[name])[:, sl, :, ps, :] = storage_view(
+            buf[:, ln, :, cl, :].to(cache[name].dtype))
+    return cache
 
 
 def merge_window(cache: Params, k_win: torch.Tensor, v_win: torch.Tensor,

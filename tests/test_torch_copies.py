@@ -99,7 +99,11 @@ PORTED = {
     "engine/graphs.py": "CUDA graphs of the decode dispatch; no JAX "
                         "counterpart (jit per bucket)",
     "engine/kv_pool.py": "the paged pool, in PyTorch",
-    "engine/prefix_cache.py": "the shared-pool trie, in PyTorch",
+    "engine/prefix_cache.py": "the trie over its own pool or the shared "
+                              "one, in PyTorch",
+    "engine/roles.py": "RoleConfig and DisaggregatedEngine over torch "
+                       "devices, one a role (roles over more wait for "
+                       "item 6), without the hlocheck contracts",
     "engine/sampling.py": "sampling, in PyTorch",
     "engine/supervisor.py": "reads the roles' _handoff with getattr, calls "
                             "set_slot_cap behind hasattr, and calls "

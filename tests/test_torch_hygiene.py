@@ -59,6 +59,16 @@ def test_the_journal_modules_are_among_the_checked_files(rel):
     assert PKG / rel in PORT_FILES
 
 
+@pytest.mark.parametrize("rel", [
+    "engine/roles.py", "engine/generation.py", "engine/prefix_cache.py",
+    "models/decoder.py"])
+def test_the_serving_role_modules_are_among_the_checked_files(rel):
+    # the roles, piggyback prefill, the admission holds, the contiguous
+    # prefix cache and the gather route are checked with every other file
+    # of the package
+    assert PKG / rel in PORT_FILES
+
+
 _STORM_ALONE = """
 import sys
 from copilot_for_consensus_tpu_torch.tools import journal_storm

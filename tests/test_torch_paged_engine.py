@@ -221,8 +221,13 @@ def test_constructor_guards():
         _port(16, max_len=200, prefill_buckets=(64,))
     with pytest.raises(ValueError, match="cannot hold"):
         _port(3)
+    # the paged route and the roles need the pool (the JAX engine's
+    # messages); a contiguous prefix cache owns a pool of its own
     with pytest.raises(ValueError, match="kv_pool_blocks"):
-        _port(0, prefix_cache_blocks=8)
+        _port(0, kv_kernel="pallas")
+    with pytest.raises(ValueError, match="kv_pool_blocks"):
+        _port(0, role="prefill")
+    assert _port(0, prefix_cache_blocks=8)._prefix.pool is not None
     swa = decoder_config("tiny-swa")            # window 64 < max_len 256
     with pytest.raises(ValueError, match="full attention"):
         GenerationEngine(swa, dtype="float32", device="cpu",
