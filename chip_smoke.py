@@ -246,7 +246,49 @@ non-zero before the last line:
    drafts fire), greedy: spec on equals off and chunked equals monolithic
    admission, on the contiguous cache and on the paged pool, decode by
    graph replays between the verify dispatches (a divergence passes only
-   where the top-2 logits are within 1e-5 relative).
+   where the top-2 logits are within 1e-5 relative);
+30. long_s16k — (right after phase 3) K1 at the long route's prefill
+   shape: B 1, 32/8 heads of 128, causal, window 4096, Sq = Skv = the
+   long_serve bucket of its longest prompt (17152), kv_length that
+   prompt's tokens; held against K1's plain version 1024 query rows a
+   call through ``q_offsets`` (every chunk, the last valid row's among
+   them; max abs within 2e-2 and each valid row's rel-L2 within 1e-2, a
+   gate a window one tile short or a dropped key tile must fail), timed
+   beside the chunked plain pass, SDPA with the explicit
+   boolean mask and the bound by attended pairs;
+31. long_serve — (after phase 28's roles, the int8 weights still on the
+   card) ``scripts/bench_longctx.py``'s workload cut from 20 threads to
+   4 (the fixture's threads replayed to 16,000 characters or more: 16,660
+   to 17,017 tokens; 96 new, decode window 16, ctx_block 256, greedy)
+   through ``CUDASummarizer(long_context=True)`` over the deployed short
+   engine (4 slots, max_len 4096): every thread whole on the
+   ``LongContextEngine``, which holds the short engine's tensors; prefill
+   s, decode tok/s, peak memory, K1 (32 a prefill) and K2 (225 a forward
+   pass) launches by body, no plain version; then the overlap: one long
+   thread through ``summarize_async`` on this thread while the runner
+   replays a short request's decode graphs, again and again, on its own
+   thread and stream — the long summary equal to the sync route's, every
+   short one to its run alone;
+32. long_f32 — the long engine against the short engine on the same
+   weights: 2 layers at f32 with a 6,000-token prompt (past the window),
+   16 greedy tokens equal (or a divergence at a top-2 tie); then bf16 at
+   full depth with a 3,000-token prompt: the first tokens equal, the
+   logits of the first token and of the first decode step each within
+   rel-L2 5e-2, greedy tokens that agree counted;
+33. profile — ``profile_dir`` on a ``CUDASummarizer`` with the long
+   engine: one torch.profiler trace a ``generate``, each holding a step
+   annotation for every dispatch its engine's flight recorder holds;
+34. under_load — (right after the weights, before phase 4) every ring
+   body held to its own bits while another stream loads the card: each
+   case (the decode and wave shapes of K1's wgmma body, K2's stream and
+   wgmma bodies, K4, K5's and K6's stream and tiled bodies, P's four
+   Hopper modes; Mistral-7B widths, seeded inputs) runs once for its
+   reference output, ``UNDER_LOAD["idle_repeats"]`` times alone, then
+   ``UNDER_LOAD["repeats"]`` times while a second thread runs the long
+   route's prefill (32 int8 blocks at 16,896 tokens) on its own stream;
+   every repeat must equal the reference bit for bit. A consumer that
+   releases a TMA stage before its generic-proxy reads of it are ordered
+   (no ``fence.proxy.async``) returns other bits only under such load.
 
 The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
 llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
@@ -287,7 +329,8 @@ body at the decode shape on an fp8 pool: ``paged_fp8``), the pipeline phase's
 synchronous run for K1's wgmma body and K2, its retrieval run for K1's
 d32 body (its own row), every path's count beside it — the
 nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. About 8 minutes on one H100 (the
+``{"ok": true, "device": {...}}``. K1's row carries ``long_s16k`` and
+every row a ``long_serve`` path. About 13 minutes on one H100 (the
 host's speed varies), the build included.
 """
 
@@ -5076,6 +5119,730 @@ def phase_roles(dev, cfg, params, smi):
     return launches, bodies
 
 
+# ---------------------------------------------------------------------------
+# slice 21: long context on one card, and the profiler
+# ---------------------------------------------------------------------------
+
+#: the long route's workload: scripts/bench_longctx.py's defaults (the
+#: fixture's threads lengthened to 16000 characters or more, decode window
+#: 16, ctx_block 256, 96 new tokens, greedy), cut from its 20 threads to 4
+#: for time, behind the deployed short engine (the serve phase's: 4 slots,
+#: max_len 4096)
+LONG_SERVE = dict(threads=4, min_chars=16000, decode_window=16,
+                  ctx_block=256, new_tokens=96)
+LONG_SHORT = dict(num_slots=4, max_len=4096)
+#: short requests the overlap sends through the runner, one after
+#: another, while the long one runs (and again alone, the control)
+LONG_OVERLAP_SHORTS = 3
+#: query rows a plain-version call holds when K1 is checked at the long
+#: shape: [32, 1024, S] f32 scores a call (~2.2 GB at S 17152), where the
+#: whole [32, S, S] would be ~38 GB
+LONG_K1_CHUNK = 1024
+#: long_s16k's per-row gate: the rel-L2 of each valid query row (all 32
+#: heads) against the plain version. Both round the output to bf16 once
+#: (~1e-3 relative); a kernel that drops one 128-key tile of a full
+#: 4096-key window, or shifts the window by one tile, moves a row by
+#: ~0.18-0.25. The max-abs limit alone (K1_ATOL, sized for outputs up to
+#: ~4) would not see that: the rows past the first few hundred average
+#: thousands of unit-variance values and sit near 0.03.
+LONG_K1_ROW_REL = 1e-2
+#: long_f32: the prompt past mistral-7b's 4096 window, and the greedy
+#: tokens compared; then bf16 at full depth with a prompt both engines hold
+LONG_F32 = dict(prompt=6000, new_tokens=16, bf16_prompt=3000)
+
+
+def build_long_threads(n_threads: int, min_chars: int):
+    """``scripts/bench_longctx.py``'s ``build_long_threads`` over the
+    port's copies of ``text/mbox.py`` and ``text/threads.py``: the
+    fixture's real messages, each thread's discussion replayed message by
+    message until it holds ``min_chars`` characters, as ThreadContexts
+    the way the bench builds them (one chunk a message)."""
+    from copilot_for_consensus_tpu_torch.summarization.base import (
+        ThreadContext,
+    )
+    from copilot_for_consensus_tpu_torch.text.mbox import parse_mbox_file
+    from copilot_for_consensus_tpu_torch.text.threads import ThreadBuilder
+
+    fixture = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+        "ietf-sample.mbox"
+    messages = [m for m, _is_html in parse_mbox_file(fixture)]
+    threads = ThreadBuilder().build_threads(messages)
+    base = [(t, [messages[i] for i in t.message_indices])
+            for t in threads.values()]
+    out = []
+    i = 0
+    while len(out) < n_threads:
+        thread, msgs = base[i % len(base)]
+        i += 1
+        rounds, chars = [], 0
+        while chars < min_chars:
+            for m in msgs:
+                rounds.append(m)
+                chars += len(m.body_raw)
+        tid = f"{thread.thread_id}-r{i}"
+        out.append(ThreadContext(
+            thread_id=tid, subject=thread.subject,
+            participants=sorted({m.from_addr for m in rounds}),
+            message_count=len(rounds),
+            chunks=[{"chunk_id": f"{tid}-m{j}", "text": m.body_raw}
+                    for j, m in enumerate(rounds)]))
+    return out
+
+
+def long_serve_workload(cfg):
+    """The long_serve threads and their prompts' token counts, with the
+    summarizer's own tokenizer and template (host work only)."""
+    from copilot_for_consensus_tpu_torch.engine.tokenizer import (
+        ByteTokenizer,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        build_prompt,
+    )
+
+    tok = ByteTokenizer(max(259, cfg.vocab_size))
+    threads = build_long_threads(LONG_SERVE["threads"],
+                                 LONG_SERVE["min_chars"])
+    return threads, [len(tok.encode(build_prompt(t), add_bos=True))
+                     for t in threads]
+
+
+#: under_load: repeats a case alone and under the load; the load is the
+#: long route's prefill of its shortest fixture thread (16,660 tokens in a
+#: 16,896 bucket)
+UNDER_LOAD = dict(idle_repeats=20, repeats=200, load_tokens=16896,
+                  load_length=16660)
+
+
+def under_load_cases(dev, cfg, params):
+    """(name, call) pairs: the ring bodies at their decode and wave shapes
+    (K1 wgmma; K2 stream and wgmma; K4; K5 and K6 stream and tiled; P's
+    Hopper modes), seed-0 inputs at Mistral-7B's widths; K2 and K4 on
+    layer 0 of ``params``, K5 and K6 on one layer of seed-0 int4
+    weights."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder, quant
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
+    from copilot_for_consensus_tpu_torch.ops import probe_stream as ps
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+    from copilot_for_consensus_tpu_torch.scripts import probe_stream as drv
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    l8 = decoder.layer_params(params, 0)
+    l4 = decoder.layer_params(quant.fuse_int4_projections(
+        quant.init_random_quantized(
+            decoder_config(cfg.name, n_layers=1), seed=0,
+            dtype=torch.bfloat16, device=dev, mode="int4")), 0)
+    out = []
+    for s, n in ((512, 300), (1024, 900)):
+        q, k, v = randn(1, 32, s, 128), randn(1, 8, s, 128), randn(1, 8, s,
+                                                                   128)
+        ln = torch.tensor([n], dtype=torch.int32, device=dev)
+        out.append((f"K1 wgmma S{s}", lambda q=q, k=k, v=v, ln=ln:
+                    fa.flash_attention(q, k, v, causal=True, window=4096,
+                                       kv_lengths=ln)))
+    leaves8 = {name: l8[name] for name in ("wq", "wk", "w_gate", "w_down")}
+    leaves8["lm_head"] = params["lm_head"]
+    for m in (1, 4, 512):
+        body = "stream" if m <= 8 else "wgmma"
+        for name, leaf in leaves8.items():
+            if m > 8 and name == "lm_head":
+                continue
+            x = randn(m, leaf["q"].shape[0])
+            out.append((f"K2 {body} M{m} {name}", lambda x=x, leaf=leaf:
+                        qm.int8_matmul(x, leaf["q"], leaf["scale"])))
+    for name in ("w_gate", "w_down"):
+        leaf = l8[name]
+        x = randn(1024, leaf["q"].shape[0])
+        out.append((f"K4 wgmma M1024 {name}", lambda x=x, leaf=leaf:
+                    qm.w8a8_matmul(x, leaf["q"], leaf["scale"])))
+    for m in (4, 32, 512):
+        body = "stream" if m <= 32 else "wgmma"
+        for name in ("w_gu", "w_down"):
+            leaf = l4[name]
+            x = randn(m, leaf["q4"].shape[0] * 2)
+            out.append((f"K5 {body} M{m} {name}", lambda x=x, leaf=leaf:
+                        qm.int4_matmul(x, leaf["q4"], leaf["scale"])))
+            out.append((f"K6 {body} M{m} {name}", lambda x=x, leaf=leaf:
+                        qm.w4a8_matmul(x, leaf["q4"], leaf["scale"])))
+    x = randn(drv.B, drv.D)
+    w = torch.randint(-127, 128, (drv.D, drv.F), generator=g,
+                      dtype=torch.int8, device=dev)
+    w4 = torch.randint(-128, 128, (drv.D // 2, drv.F), generator=g,
+                       dtype=torch.int8, device=dev)
+    out += [("P convdot", lambda: ps.probe_convdot(x, w)),
+            ("P i8dot", lambda: ps.probe_i8dot(x, w)),
+            ("P unpack8", lambda: ps.probe_unpack(x, w4)),
+            ("P unpack32", lambda: ps.probe_unpack(x, w4, widen=True))]
+    return out
+
+
+def phase_under_load(dev, cfg, params, smi):
+    """Every ring body held to its own bits under another stream's load
+    (``under_load_cases``): each case's first output is its reference;
+    ``idle_repeats`` more alone and ``repeats`` while a second thread runs
+    the long route's prefill blocks (``UNDER_LOAD``, int8 ``params``, K1
+    and K2's wgmma bodies) on its own stream, every repeat compared with
+    the reference bit for bit on the card. Fails on any mismatch, a load
+    that raised or ran no pass, or a load thread that does not stop."""
+    import threading
+
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder
+
+    ul = UNDER_LOAD
+    t0 = time.monotonic()
+    runs = under_load_cases(dev, cfg, params)
+    lens = torch.tensor([ul["load_length"]], dtype=torch.int32, device=dev)
+    load_stream, test_stream = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    stop = threading.Event()
+    errors: list = []
+    passes = [0]
+
+    def load():
+        try:
+            with torch.inference_mode(), torch.cuda.stream(load_stream):
+                while not stop.is_set():
+                    x = params["tok_emb"][torch.zeros(
+                        (1, ul["load_tokens"]), dtype=torch.long,
+                        device=dev)]
+                    for li in range(cfg.n_layers):
+                        x, _, _ = decoder._block(
+                            x, decoder.layer_params(params, li), cfg, lens,
+                            "auto")
+                    load_stream.synchronize()
+                    passes[0] += 1
+        except Exception as exc:     # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    cases = {}
+    with torch.inference_mode():
+        wants = []
+        with torch.cuda.stream(test_stream):
+            for name, fn in runs:
+                wants.append(fn().clone())
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                for _ in range(ul["idle_repeats"]):
+                    bad += (fn() != wants[-1]).any()
+                cases[name] = {"idle_mismatches": bad}
+            test_stream.synchronize()
+        worker = threading.Thread(target=load, daemon=True)
+        worker.start()
+        time.sleep(0.5)
+        t1 = time.monotonic()
+        with torch.cuda.stream(test_stream):
+            for (name, fn), want in zip(runs, wants):
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                for _ in range(ul["repeats"]):
+                    bad += (fn() != want).any()
+                cases[name]["loaded_mismatches"] = bad
+            test_stream.synchronize()
+        loaded_s = time.monotonic() - t1
+        stop.set()
+        worker.join(300)
+    torch.cuda.synchronize()
+    for row in cases.values():
+        for key in ("idle_mismatches", "loaded_mismatches"):
+            row[key] = int(row[key])
+    bad = {n: r for n, r in cases.items()
+           if r["idle_mismatches"] or r["loaded_mismatches"]}
+    row = {"phase": "under_load", "cases": len(cases),
+           "idle_repeats": ul["idle_repeats"], "repeats": ul["repeats"],
+           "mismatched_cases": bad, "load_passes": passes[0],
+           "load_errors": errors, "loaded_s": loaded_s,
+           "seconds": time.monotonic() - t0, "device": smi,
+           "by_case": cases}
+    emit(row)
+    if bad or errors or passes[0] < 1 or worker.is_alive():
+        raise AssertionError(f"under_load: {row}")
+    del runs, wants
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_long_k1(dev, flush, s: int, length: int):
+    """K1 at the long route's prefill shape (``long_s16k``): B 1, 32/8
+    heads of 128, causal, window 4096, Sq = Skv = ``s`` (the long_serve
+    bucket of its longest prompt) and kv_length ``length`` (that prompt's
+    tokens), on the wgmma body. Held against K1's plain version query rows
+    ``LONG_K1_CHUNK`` at a time through ``q_offsets`` (every chunk, the
+    last valid row's among them): max abs within ``K1_ATOL`` and every
+    valid row's rel-L2 within ``LONG_K1_ROW_REL``, a gate that two wrong
+    plain versions (the window one tile short, the last key tile dropped)
+    must fail on the last valid row's chunk; timed (median of 10) beside the plain version's chunked pass, SDPA with the explicit
+    boolean mask (K/V expanded to 32 heads beforehand; the memory-efficient
+    backend, which takes a mask without forming the scores) and the bound
+    by attended pairs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, hq, hkv, d, window = 1, 32, 8, 128, 4096
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev)
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    lens = torch.tensor([length], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=window, kv_lengths=lens)
+    before = dict(fa.flash_attention.launches_by_body)
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ran = [n for n, c in fa.flash_attention.launches_by_body.items()
+           if c != before[n]]
+
+    def plain_chunks():
+        for r0 in range(0, s, LONG_K1_CHUNK):
+            offs = torch.full((b,), r0, dtype=torch.int32, device=dev)
+            yield r0, fa.flash_attention_ref(
+                q[:, :, r0:r0 + LONG_K1_CHUNK].contiguous(), k, v,
+                q_offsets=offs, **kw)
+
+    def row_rel(got, want, r0):
+        # per query row over heads and D; the valid rows (< length) only
+        num = (got.float() - want.float()).square().sum(dim=(0, 1, 3))
+        den = want.float().square().sum(dim=(0, 1, 3))
+        n = max(0, min(got.shape[2], length - r0))
+        return (num[:n] / den[:n].clamp_min(1e-30)).sqrt()
+
+    err, chunks, rel_max, rels = 0.0, 0, 0.0, []
+    for r0, ref in plain_chunks():
+        part = out[:, :, r0:r0 + LONG_K1_CHUNK]
+        err = max(err, (part.float() - ref.float()).abs().max().item())
+        rel = row_rel(part, ref, r0)
+        rel_max = max(rel_max, rel.max().item())
+        rels.append(rel)
+        chunks += 1
+        del ref
+    rel_median = torch.cat(rels).median().item()
+    del rels
+    # the gate's own negative controls on the last valid row's chunk: the
+    # plain version with the window one tile shorter, and with the last
+    # tile of keys dropped; each must fail the per-row gate
+    r0 = (length - 1) // LONG_K1_CHUNK * LONG_K1_CHUNK
+    qc = q[:, :, r0:r0 + LONG_K1_CHUNK].contiguous()
+    offs = torch.full((b,), r0, dtype=torch.int32, device=dev)
+    want = fa.flash_attention_ref(qc, k, v, q_offsets=offs, **kw)
+    controls = {}
+    for name, ckw in (("window_one_tile_short", dict(
+            kw, window=window - 128)), ("last_key_tile_dropped", dict(
+            kw, kv_lengths=lens - 128))):
+        wrong = fa.flash_attention_ref(qc, k, v, q_offsets=offs, **ckw)
+        controls[name] = row_rel(wrong, want, r0).max().item()
+        del wrong
+    del want, qc
+    finite = bool(torch.isfinite(out).all())
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    mask = fa._mask(b, s, s, lens, zero, zero, causal=True, window=window,
+                    device=dev)
+    pairs = int(mask.sum()) * hq
+    kv_rows = int(mask.any(dim=1).sum())
+    bnd, by = bound_ms(nbytes(q, out) + 2 * hkv * d * 2 * kv_rows + 12,
+                       4.0 * d * pairs, "bfloat16")
+    row = {"kernel": "K1", "case": "long_s16k", "dtype": "bfloat16",
+           "shape": [b, hq, hkv, s, s, d], "window": window,
+           "kv_length": length, "causal": True,
+           "body": fa.flash_body(torch.bfloat16, d), "ran": ran,
+           "max_abs_err": err, "tol": K1_ATOL["bfloat16"],
+           "row_rel_l2_max": rel_max, "row_rel_l2_median": rel_median,
+           "row_rel_l2_limit": LONG_K1_ROW_REL,
+           "control_row_rel_l2_max": controls,
+           "plain_chunk_rows": LONG_K1_CHUNK, "chunks_checked": chunks,
+           "last_valid_row_chunk": (length - 1) // LONG_K1_CHUNK,
+           "attended_pairs": pairs,
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+           # the plain version's whole pass, chunk by chunk
+           "plain_ms": time_ms(lambda: [None for _ in plain_chunks()], n=1),
+           "bound_ms": bnd, "bound_by": by}
+    try:
+        ke = k.repeat_interleave(hq // hkv, dim=1)
+        ve = v.repeat_interleave(hq // hkv, dim=1)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, attn_mask=mask[:, None]))
+        row["library"] = ("scaled_dot_product_attention, memory-efficient "
+                          "backend, boolean [S, S] mask, K/V expanded to "
+                          "32 heads beforehand")
+        del ke, ve
+    except (RuntimeError, torch.OutOfMemoryError) as exc:
+        row["library_ms"] = None
+        row["library"] = f"not measured: {type(exc).__name__}: {exc}"[:300]
+    emit(row)
+    if not finite or err > K1_ATOL["bfloat16"] or ran != ["wgmma"] or \
+            rel_max > LONG_K1_ROW_REL or chunks * LONG_K1_CHUNK < length \
+            or min(controls.values()) <= LONG_K1_ROW_REL:
+        raise AssertionError(f"K1 long_s16k: {row}")
+    del q, k, v, out, mask
+    torch.cuda.empty_cache()
+    return {("K1", "long_s16k", "bfloat16"): row}
+
+
+def phase_long_serve(dev, cfg, params, smi, threads):
+    """The long route (``LONG_SERVE``): ``CUDASummarizer(long_context=
+    True)`` over the deployed short engine (``LONG_SHORT``, int8, the
+    weights on the card) with the bench's long-engine settings. Every
+    thread's prompt is over the short engine's ``prompt_limit`` and goes
+    whole to the long engine (``prompt_tokens`` = the full prompt), whose
+    leaves are the short engine's tensors. Per thread: prompt tokens,
+    prefill s (prefill tok/s), decode tok/s, finish; the peak memory
+    allocated; the launches by body with the counts reset just before: K1
+    (32 a prefill, wgmma) and K2 (225 a forward pass: each prefill and
+    each decode step), no plain version; the long engine's telemetry
+    steps. Then the overlap: a short request through ``summarize_async``,
+    the runner's first, then ``LONG_OVERLAP_SHORTS`` more (the control:
+    the run without the long one), then ``LONG_OVERLAP_SHORTS`` again,
+    one after another, while the first long thread goes through
+    ``summarize_async`` on this thread (the runner's dispatcher thread
+    replays the short engine's decode graphs on its stream; the long
+    engine runs on its own stream with its own split counters): the long
+    summary must equal the sync route's, every short completion (tokens
+    and finish) the control's, and at least one short request must
+    complete while the long one runs. Reported beside them: the first
+    token at which the sync run and the runner's first request differ
+    from the control, if they do.
+    Returns the sync route's launches and bodies."""
+    import threading
+
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.sampling import (
+        SamplingConfig,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+
+    ls = LONG_SERVE
+    summ = CUDASummarizer(cfg.name, params=params, device=dev,
+                          max_new_tokens=ls["new_tokens"],
+                          long_context=True, **LONG_SHORT)
+    eng, long_eng = summ.engine, summ.long_engine
+    # scripts/bench_longctx.py's long engine: window 16, ctx_block 256,
+    # greedy (the summarizer's defaults are 8, 64 and greedy)
+    long_eng.decode_window = ls["decode_window"]
+    long_eng.ctx_quantum = ls["ctx_block"]
+    long_eng.sampling = SamplingConfig(temperature=0.0)
+    shared = long_eng.params is eng.params
+    prompts = [summ._prompt(t) for t in threads]
+    comps, plain_generate = [], long_eng.generate
+
+    def recording_generate(prompt, max_new_tokens=256, **kw):
+        c = plain_generate(prompt, max_new_tokens, **kw)
+        comps.append(c)
+        return c
+
+    long_eng.generate = recording_generate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    reset_launches()
+    with plain_calls() as plain:
+        t0 = time.monotonic()
+        summaries = summ.summarize_batch(threads)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches, bodies = read_launches(), read_bodies()
+    peak = torch.cuda.max_memory_allocated(dev)
+    recs = long_eng.telemetry.recorder.records()
+    steps = sum(r.tokens for r in recs if r.kind == "decode")
+    kinds = {k: sum(r.kind == k for r in recs) for k in ("prefill",
+                                                        "decode")}
+    long_eng.generate = plain_generate
+    rows = [{"thread_id": t.thread_id, "messages": t.message_count,
+             "prompt_tokens": s.prompt_tokens,
+             "completion_tokens": s.completion_tokens,
+             "finish": c.finish_reason, "prefill_s": c.prefill_s,
+             "prefill_tok_per_s": c.prompt_len / c.prefill_s,
+             "decode_s": c.decode_s,
+             "decode_tok_per_s": len(c.tokens) / c.decode_s
+             if c.decode_s else None}
+            for t, s, c in zip(threads, summaries, comps)]
+
+    # the overlap: the runner's decode graphs and the long engine at once.
+    # Every completion the short engine returns is recorded: the sync one
+    # (no runner yet) through its generate, the runner's through _checked
+    short = synthetic_threads(1)[0]
+    sync_comps = _recorded(summ)
+    summ.summarize_batch([short])                    # alone; warms graphs
+    done, started = threading.Event(), threading.Event()
+    shorts, errors, runner_comps = [], [], []
+    plain_checked = summ._checked
+
+    def recording_checked(comp):
+        runner_comps.append(comp)
+        return plain_checked(comp)
+
+    summ._checked = recording_checked
+
+    def short_loop(n):
+        try:
+            while not done.is_set() and len(shorts) < n:
+                w = summ.summarize_async(short,
+                                         correlation_id=f"s{len(shorts)}")
+                started.set()
+                w(600)
+                shorts.append(time.monotonic())
+        except Exception as exc:     # noqa: BLE001 — reported below
+            errors.append(exc)
+            started.set()
+
+    # the run without the long one: the runner's first request, then the
+    # control requests, one after another
+    short_loop(1 + LONG_OVERLAP_SHORTS)
+    first, control = runner_comps[0], runner_comps[1:]
+    shorts.clear()
+    runner_comps.clear()
+    th = threading.Thread(target=short_loop, args=(LONG_OVERLAP_SHORTS,))
+    th.start()
+    started.wait(60)
+    t1 = time.monotonic()
+    got_long = summ.summarize_async(threads[0], correlation_id="long")()
+    t2 = time.monotonic()
+    done.set()
+    th.join(600)
+    overlap = list(runner_comps)
+    graphs = eng.graph_stats()
+    summ.close()
+
+    def diff(a, b):
+        """The first token at which two completions differ (None: equal)"""
+        if (a.tokens, a.finish_reason) == (b.tokens, b.finish_reason):
+            return None
+        return next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                     if x != y), min(len(a.tokens), len(b.tokens)))
+
+    want = control[0]
+    overlapped = sum(t1 < t <= t2 for t in shorts)
+    shorts_equal = sum(diff(c, want) is None for c in overlap)
+    long_equal = (got_long.summary_text, got_long.prompt_tokens,
+                  got_long.completion_tokens) == (
+        summaries[0].summary_text, summaries[0].prompt_tokens,
+        summaries[0].completion_tokens)
+    row = {"phase": "long_serve", "config": cfg.name, **ls,
+           "cut": "scripts/bench_longctx.py's 20 threads cut to 4",
+           "short_engine": LONG_SHORT, "prompt_limit": eng.prompt_limit,
+           "shared_weights": shared, "threads_detail": rows,
+           "wall_s": wall, "prefill_s": sum(c.prefill_s for c in comps),
+           "decode_s": sum(c.decode_s for c in comps),
+           "decode_tok_per_s": sum(len(c.tokens) for c in comps)
+           / sum(c.decode_s for c in comps),
+           "decode_steps": steps, "telemetry_steps": kinds,
+           "memory_gb": {"before": mem0 / 1e9, "peak": peak / 1e9},
+           "async": {"long_equal_sync": long_equal,
+                     "long_wall_s": t2 - t1, "shorts": len(overlap),
+                     "shorts_equal_control": shorts_equal,
+                     "overlapped": overlapped,
+                     "shorts_done_s": [t - t1 for t in shorts],
+                     "shorts_first_diff": [diff(c, want) for c in overlap],
+                     "control_first_diff": [diff(c, want) for c in control],
+                     "short_tokens": len(want.tokens),
+                     "short_finish": want.finish_reason,
+                     "sync_first_diff": diff(sync_comps[0], want),
+                     "runner_first_request_first_diff": diff(first, want),
+                     "errors": [repr(e) for e in errors],
+                     "graphs": graphs},
+           "plain_calls": dict(plain), "launches": launches,
+           "launches_by_body": bodies, "device": smi}
+    emit(row)
+    n_layers = cfg.n_layers
+    if (not shared or plain or errors or not long_equal or not overlapped
+            or shorts_equal != len(overlap)
+            or any(diff(c, want) is not None for c in control)
+            or kinds["prefill"] != len(threads)):
+        raise AssertionError(f"long_serve: {row}")
+    for p, s in zip(prompts, summaries):
+        if s.prompt_tokens != len(p) or len(p) <= eng.prompt_limit:
+            raise AssertionError(f"long_serve: {s.thread_id} prompt "
+                                 f"{s.prompt_tokens} of {len(p)}")
+    check_path("long_serve", launches, ("K1", "K2"))
+    check_bodies("long_serve", bodies)
+    check_k2_passes("long_serve", launches, bodies, n_layers)
+    want = {"K1": n_layers * len(threads),
+            "K2": (7 * n_layers + 1) * (len(threads) + steps)}
+    if (bodies["K1"]["wgmma"], launches["K2"]) != (want["K1"], want["K2"]):
+        raise AssertionError(f"long_serve: launches {launches} by body "
+                             f"{bodies}, expected {want}")
+    del summ, eng, long_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, bodies
+
+
+def phase_long_f32(dev, cfg, params, smi):
+    """The long engine against the short engine on the same weights: at
+    f32 over 2 layers at mistral-7b's widths (seed-0 weights), a
+    ``LONG_F32["prompt"]``-token prompt (past the 4096 window, so both
+    engines' window masks bite), greedy: the long engine's tokens must
+    equal the short engine's (``max_len`` 6400, one 6144 bucket), or
+    diverge only where the top-2 logits are within ``STORM_F32_GAP``
+    relative. Then bf16 at full depth on the int8 weights, a
+    ``bf16_prompt``-token prompt that both hold (the short engine's bucket
+    4096): the first tokens equal, the logits of the first token and of
+    the first decode step (the long engine's prefix + suffix attention
+    against the short engine's decode) each within rel-L2
+    ``LOGITS_REL_L2``, and the greedy tokens that agree counted."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine import longctx
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.models import decoder
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    lf = LONG_F32
+    new = lf["new_tokens"]
+    long_kw = dict(decode_window=LONG_SERVE["decode_window"],
+                   ctx_block=LONG_SERVE["ctx_block"], max_new_tokens=new,
+                   device=dev)
+    rng = np.random.default_rng(5)
+    cfg32 = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+    p32 = decoder.init_params(cfg32, seed=0, dtype=torch.float32,
+                              device=dev)
+    prompt = rng.integers(3, cfg32.vocab_size, size=lf["prompt"]).tolist()
+    with plain_calls() as plain:
+        t0 = time.monotonic()
+        got = longctx.LongContextEngine(
+            cfg32, p32, dtype=torch.float32, eos_id=-1,
+            **long_kw).generate(prompt, new)
+        long_s = time.monotonic() - t0
+        short = GenerationEngine(cfg32, p32, dtype="float32", eos_id=-1,
+                                 num_slots=1, max_len=6400,
+                                 prefill_buckets=(6144,), device=dev)
+        want = short.generate([prompt], new)[0]
+        del short
+    gap = None
+    if got.tokens != want.tokens:
+        a, b = want.tokens, got.tokens
+        j = next(k for k in range(min(len(a), len(b)) + 1)
+                 if k == min(len(a), len(b)) or a[k] != b[k])
+        gap = _top2_gap(p32, cfg32, prompt, a[:j])
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompt16 = rng.integers(3, cfg.vocab_size,
+                            size=lf["bf16_prompt"]).tolist()
+    short = GenerationEngine(cfg, params, quantize="int8", num_slots=1,
+                             max_len=4096, prefill_buckets=(4096,),
+                             device=dev)
+    # the logits of the first token (prefill) and of the first decode step
+    with first_logits(2) as lg_short:
+        want16 = short.generate([prompt16], new)[0]
+    del short
+    lg_long: list = []
+    plain_sample = longctx.sample
+
+    def recording(logits, gen, sampling):
+        if len(lg_long) < 2:
+            lg_long.append(logits.float().cpu())
+        return plain_sample(logits, gen, sampling)
+
+    with patched(longctx, "sample", recording):
+        got16 = longctx.LongContextEngine(cfg, params,
+                                          **long_kw).generate(prompt16, new)
+    rel, rel_decode = (
+        float((a - b).norm() / b.norm()) if a.shape == b.shape
+        else float("inf") for a, b in zip(lg_long, lg_short))
+    lead = next((k for k, (a, b) in enumerate(zip(want16.tokens,
+                                                  got16.tokens)) if a != b),
+                min(len(want16.tokens), len(got16.tokens)))
+    row = {"phase": "long_f32", "layers": F32_LAYERS,
+           "prompt_tokens": len(prompt), "new_tokens": new,
+           "long_s": long_s, "streams_equal": got.tokens == want.tokens,
+           "divergent_top2_gap": gap, "gap_limit": STORM_F32_GAP,
+           "bf16": {"config": cfg.name, "prompt_tokens": len(prompt16),
+                    "first_logits_rel_l2": rel,
+                    "first_decode_logits_rel_l2": rel_decode,
+                    "limit": LOGITS_REL_L2,
+                    "tokens_equal": sum(a == b for a, b in
+                                        zip(want16.tokens, got16.tokens)),
+                    "leading_tokens_equal": lead,
+                    "tokens": len(want16.tokens)},
+           "plain_calls": dict(plain), "device": smi}
+    emit(row)
+    # the first decode step's logits are comparable once the first tokens
+    # agree: they read the same prompt KV and the same fed-back token
+    if (gap is not None and gap >= STORM_F32_GAP) or plain or \
+            rel > LOGITS_REL_L2 or lead < 1 or rel_decode > LOGITS_REL_L2:
+        raise AssertionError(f"long_f32: {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: new tokens in the profile phase: one decode dispatch of each engine (a
+#: 16-token run wrote ~100 and ~145 MB of trace and took ~35 s)
+PROFILE_NEW = 4
+
+
+def phase_profile(dev, cfg, params, smi):
+    """``profile_dir`` on the card: a ``CUDASummarizer`` with
+    ``long_context=True`` and ``profile_dir`` a temporary directory (int8
+    weights, 2 slots, ``PROFILE_NEW`` new tokens) summarizes a
+    ~5000-token thread (the long engine) and a short one (the short
+    engine) in one ``summarize_batch``: one
+    torch.profiler trace a ``generate``, each holding a step annotation
+    ``<kind>:<step>`` for every dispatch its engine's flight recorder
+    holds. Reports the trace files' sizes, their annotations and device
+    kernel events (CUPTI), not gated."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="profile-") as tmp:
+        summ = CUDASummarizer(cfg.name, params=params, num_slots=2,
+                              max_len=4096, max_new_tokens=PROFILE_NEW,
+                              long_context=True, profile_dir=tmp,
+                              device=dev)
+        (long_t,) = long_threads(summ.tokenizer, 1, 5000, 5000)
+        t0 = time.monotonic()
+        summ.summarize_batch([long_t, synthetic_threads(1)[0]])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        files = sorted(Path(tmp).glob("trace-*.json"),
+                       key=lambda p: int(p.stem.rsplit("-", 1)[1]))
+        out, missing = {}, {}
+        # the batch's long prompts run first, then the short engine's
+        for name, path, eng in zip(("long", "short"), files,
+                                   (summ.long_engine, summ.engine)):
+            events = json.loads(path.read_text())["traceEvents"]
+            names = {e.get("name") for e in events
+                     if e.get("cat") == "user_annotation"}
+            want = [f"{r.kind}:{r.seq}"
+                    for r in eng.telemetry.recorder.records()]
+            missing[name] = [w for w in want if w not in names]
+            out[name] = {"bytes": path.stat().st_size,
+                         "annotations": len(want),
+                         "kinds": sorted({w.split(":")[0] for w in want}),
+                         "kernel_events": sum(e.get("cat") == "kernel"
+                                              for e in events)}
+        del summ
+    emit({"phase": "profile", "config": cfg.name, "files": len(files),
+          "wall_s": wall, "traces": out, "missing": missing,
+          "device": smi})
+    if len(files) != 2 or any(missing.values()) or \
+            any(not o["annotations"] for o in out.values()):
+        raise AssertionError(f"profile: {len(files)} traces, {out}, "
+                             f"missing {missing}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -5120,6 +5887,12 @@ def main() -> int:
     emit({"phase": "timing_floor", "kernel": "one-element zero_",
           "ms": time_ms(one.zero_, flush=flush)})
     rows = phase_kernels(dev, flush)
+    # K1 at the long route's prefill shape: the long_serve bucket of its
+    # longest prompt (host work: the threads and their token counts)
+    long_work, long_lens = long_serve_workload(decoder_config("mistral-7b"))
+    long_q = LONG_SERVE["ctx_block"]
+    rows.update(phase_long_k1(dev, flush, -(-max(long_lens) // long_q)
+                              * long_q, max(long_lens)))
     rows.update(phase_k3(dev, flush))
     phase_k3_layouts(dev)
     rows.update(phase_quant_kernels(dev, flush))
@@ -5135,6 +5908,7 @@ def main() -> int:
     emit({"phase": "weights", "config": cfg.name,
           "bytes": quant.param_bytes(params),
           "seconds": time.monotonic() - t0})
+    phase_under_load(dev, cfg, params, smi)
     phase_model(dev, cfg, params)
     a8_launches, a8_bodies = phase_a8_model(dev, cfg, params)
     launches, bodies, prompts, eng, batch = phase_serve(dev, cfg, params,
@@ -5183,6 +5957,10 @@ def main() -> int:
                "holds": phase_holds(dev, cfg, params, smi),
                "gather_route": phase_gather_route(dev, cfg, params, smi),
                "roles": phase_roles(dev, cfg, params, smi)}
+    long_launches, long_bodies = phase_long_serve(dev, cfg, params, smi,
+                                                  long_work)
+    phase_long_f32(dev, cfg, params, smi)
+    phase_profile(dev, cfg, params, smi)
     # the int8 weights go before the int4 engine comes
     del params
     gc.collect()
@@ -5219,6 +5997,7 @@ def main() -> int:
                "paged_spec": paged_new["paged_spec"][0],
                "paged_chunk": paged_new["paged_chunk"][0],
                **{p: lb[0] for p, lb in slice20.items()},
+               "long_serve": long_launches,
                "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
                       "pipeline_pipelined": pipeline["pipelined"]["bodies"],
@@ -5233,7 +6012,8 @@ def main() -> int:
                       "sched_serve": sched_bodies,
                       "paged_spec": paged_new["paged_spec"][1],
                       "paged_chunk": paged_new["paged_chunk"][1],
-                      **{p: lb[1] for p, lb in slice20.items()}}
+                      **{p: lb[1] for p, lb in slice20.items()},
+                      "long_serve": long_bodies}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
     csrc = "copilot_for_consensus_tpu_torch/csrc"
@@ -5310,6 +6090,14 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "case": row["case"], "dtype": row["dtype"]})
+    # K1's wgmma body at the long route's prefill shape, beside its row
+    long_k1 = rows[("K1", "long_s16k", "bfloat16")]
+    table[0]["long_s16k"] = {
+        k: long_k1[k] for k in ("shape", "kv_length", "window", "ms",
+                                "plain_ms", "plain_chunk_rows", "bound_ms",
+                                "bound_by", "library_ms", "max_abs_err")}
+    table[0]["long_s16k"]["launches_long_serve"] = \
+        long_bodies["K1"]["wgmma"]
     # P: one row a mode; unpack8 and unpack32 share the unpack wrapper's
     # count, so on the probe path each row gives the mode's own share. The
     # four GEMM-like modes run the Hopper body (probe_wgmma.cuh), the

@@ -142,7 +142,9 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
 }
 
 // generic-proxy stores to shared memory become visible to wgmma (the
-// async proxy) after this fence and a barrier
+// async proxy) after this fence and a barrier; and generic-proxy reads of
+// a stage are ordered before the TMA (async proxy) write that refills it
+// once the readers fence and then release the stage
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

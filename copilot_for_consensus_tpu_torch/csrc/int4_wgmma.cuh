@@ -231,6 +231,11 @@ int4_wgmma(const __grid_constant__ CUtensorMap xmap,
                 facc[4 * j + e],
                 __fmul_rn(acc[4 * j + e], (e & 1) ? sv.y : sv.x));
         }
+        // the scales were read through the generic proxy and the
+        // producer's next TMA writes the stage through the async proxy:
+        // order the reads before the release
+        hop::fence_proxy_async();
+        __syncwarp();
         if (lane == 0) {
           if (prev >= 0) hop::mbar_arrive(&s.empty[prev % STAGES]);
           hop::mbar_arrive(&s.empty[st]);

@@ -221,6 +221,10 @@ int8_stream(const __grid_constant__ CUtensorMap xmap,
       mma_bf16(acc[0], a[0], b0, b1);
       mma_bf16(acc[1], a[1], b0, b1);
     }
+    // the stage was read through the generic proxy (ld.shared,
+    // ldmatrix) and the producer's next TMA writes it through the
+    // async proxy: order the reads before the release
+    hop::fence_proxy_async();
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&s.empty[st]);
   }

@@ -289,8 +289,13 @@ __device__ __forceinline__ void mma(typename Cfg<MODE>::Acc* acc,
 }
 
 // every consumer warp of the cluster arrives once on each CTA's empty
-// barrier of a stage: both producers write into it
+// barrier of a stage: both producers write into it. The warp read the
+// stage's weight tile through the generic proxy (ldmatrix or ld.shared)
+// and the next TMA writes it through the async proxy: the reads are
+// ordered first.
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  hop::fence_proxy_async();
+  __syncwarp();
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < CL; ++r) hop::mbar_arrive_cluster(bar, r);

@@ -226,6 +226,10 @@ w4a8_stream(const __grid_constant__ CUtensorMap xmap,
         for (int j = 0; j < NT; ++j)
           qmma::mma_s8(acc[T][j], a[T], b[j][0], b[j][1]);
     }
+    // the stage was read through the generic proxy (ld.shared,
+    // ldmatrix) and the producer's next TMA writes it through the
+    // async proxy: order the reads before the release
+    hop::fence_proxy_async();
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(&s.empty[st]);
 

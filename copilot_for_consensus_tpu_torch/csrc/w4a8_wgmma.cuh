@@ -128,8 +128,14 @@ __device__ __forceinline__ void stage_products(uint32_t* acc,
     hop::wg_commit();
     if (j + 1 < KS / 32) {
       hop::wg_wait<1>();
-      if (j == 0 && release != nullptr && lane == 0)
-        hop::mbar_arrive(release);
+      if (j == 0 && release != nullptr) {
+        // the stage's q4 was read through the generic proxy (ld.shared)
+        // and the producer's next TMA writes it through the async proxy:
+        // order the reads before the release
+        hop::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(release);
+      }
       load_a(q, j + 1, off_e, off_o, a[(j + 1) & 1]);
       hop::fence_regs<4>(a[(j + 1) & 1]);
     }
@@ -249,6 +255,8 @@ w4a8_wgmma(const __grid_constant__ CUtensorMap xmap,
           facc[i] = __fadd_rn(
               facc[i],
               __fmul_rn(__int2float_rn((int)acc[i]), (i & 2) ? sv.y : sv.x));
+        hop::fence_proxy_async();    // q4 and scales read, as above
+        __syncwarp();
         if (lane == 0) hop::mbar_arrive(&s.empty[st]);
         if (++st == STAGES) st = 0, ph ^= 1;
         if (gi + 1 < groups) {

@@ -123,8 +123,14 @@ __device__ __forceinline__ void stage_products(uint32_t* acc,
     hop::wg_commit();
     if (j + 1 < KS / 32) {
       hop::wg_wait<1>();
-      if (j == 0 && release != nullptr && lane == 0)
-        hop::mbar_arrive(release);
+      if (j == 0 && release != nullptr) {
+        // the stage's q was read through the generic proxy (ldmatrix)
+        // and the producer's next TMA writes it through the async proxy:
+        // order the reads before the release
+        hop::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(release);
+      }
       load_a(q_addr, j + 1, off, sel0, sel1, a[(j + 1) & 1]);
       hop::fence_regs<4>(a[(j + 1) & 1]);
     }
@@ -233,6 +239,8 @@ w8a8_wgmma(const __grid_constant__ CUtensorMap xmap,
                      off, sel0, sel1, release, lane);
       hop::wg_wait<0>();
       hop::fence_regs<NACC>(acc);
+      hop::fence_proxy_async();    // q read by ldmatrix, as above
+      __syncwarp();
       if (lane == 0) hop::mbar_arrive(&s.empty[st]);
       if (++st == STAGES) st = 0, ph ^= 1;
 

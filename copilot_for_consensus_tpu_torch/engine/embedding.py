@@ -11,16 +11,15 @@ the projections) and brings the vectors back to the host.
 
 The fault plane, the step telemetry and the scheduler's ``embed_admit``
 sizing are the JAX engine's (the port's copies of ``engine/faults.py``,
-``telemetry.py`` and ``scheduler.py``). Against the JAX engine: ``device``
-None means the card; a dispatch is marked by an NVTX range on the card
-(the JAX package's profiler step annotation) and by nothing on the CPU;
-a ``mesh`` is refused until the port's sharding lands (ROADMAP Queue 1
-item 6).
+``telemetry.py`` and ``scheduler.py``). A dispatch is marked by the
+profiler's step annotation (``obs/profile.py``: a ``record_function``
+range ``embed:<step>``, and an NVTX range on the card). Against the JAX
+engine: ``device`` None means the card; a ``mesh`` is refused until the
+port's sharding lands (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
-import contextlib
 import pathlib
 import time
 from typing import Any, Sequence
@@ -41,13 +40,7 @@ from copilot_for_consensus_tpu_torch.engine.tokenizer import (
 )
 from copilot_for_consensus_tpu_torch.models import encoder
 from copilot_for_consensus_tpu_torch.models.configs import EncoderConfig
-
-
-def _annotate(device: torch.device, seq: int | None):
-    """An NVTX range named after the dispatch on the card, else nothing."""
-    if device.type != "cuda":
-        return contextlib.nullcontext()
-    return torch.cuda.nvtx.range(f"embed:{seq}")
+from copilot_for_consensus_tpu_torch.obs.profile import step_annotation
 
 
 class EmbeddingEngine:
@@ -190,7 +183,7 @@ class EmbeddingEngine:
                 seq = self.telemetry.next_step() \
                     if self.telemetry is not None else None
                 t0 = time.monotonic()
-                with _annotate(self.device, seq):
+                with step_annotation("embed", seq, self.device):
                     vecs = self._encode(tokens, lengths)
                     out[group] = vecs[:n]
                 if self.telemetry is not None:

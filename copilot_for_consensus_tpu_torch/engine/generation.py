@@ -25,6 +25,12 @@ prefill/decode roles.
   activation-quantization mode runs eagerly as the warm-up) and
   replayed; on the CPU the same body runs eagerly. Each dispatch ends with one device-to-host fetch of its
   tokens. All of the engine's device work runs on its own CUDA stream.
+* **Profiling.** ``profile_dir`` captures a ``torch.profiler`` trace
+  of each ``generate`` call (``obs/profile.py``); every admission wave,
+  chunk, decode, piggyback and verify dispatch is a step annotation
+  named after its kind and flight-recorder step, opened on the host
+  around the dispatch (never inside the captured body, where it would run
+  once at capture).
 * **Supervisor hooks.** Every admission wave and decode dispatch runs
   under ``_dispatch_boundary``: the fault plane's injection point
   (``faults=``, ``engine/faults.py``) and the supervisor's watchdog and
@@ -162,6 +168,11 @@ from copilot_for_consensus_tpu_torch.engine.telemetry import (
 from copilot_for_consensus_tpu_torch.engine.tokenizer import NgramDraftIndex
 from copilot_for_consensus_tpu_torch.models import decoder, quant
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
+from copilot_for_consensus_tpu_torch.obs.profile import (
+    maybe_profile,
+    step_annotation,
+)
+from copilot_for_consensus_tpu_torch.ops.attention import IMPLS
 from copilot_for_consensus_tpu_torch.ops.paged_attention import (
     paged_attention_partial,
     paged_gather_kv,
@@ -282,6 +293,7 @@ class GenerationEngine:
         seed: int = 0,
         dtype: str | torch.dtype = torch.bfloat16,
         kv_dtype: str | torch.dtype | None = None,
+        attn_impl: str = "auto",
         quantize: bool | str = False,
         decode_window: int = 8,
         windows_per_dispatch: int = 1,
@@ -306,9 +318,24 @@ class GenerationEngine:
         spec_min_ngram: int = 2,
         scheduler=None,
         journal=None,
+        profile_dir: str | None = None,
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
+        # The prefill waves' attention route: "auto" (K1 on the card, its
+        # plain version on the CPU) or "plain" (K1's plain version). The
+        # JAX engine also takes a callable (ring attention over a mesh).
+        if callable(attn_impl):
+            raise NotImplementedError(
+                "GenerationEngine(attn_impl=<callable>): a custom attention "
+                "(ring attention over a mesh) waits for the port's "
+                "parallel/ (ROADMAP Queue 1 item 6c)")
+        if attn_impl not in IMPLS:
+            raise ValueError(f"attn_impl must be one of {IMPLS}, got "
+                             f"{attn_impl!r}")
+        self.attn_impl = attn_impl
+        #: where ``generate`` writes a torch.profiler trace (None: off)
+        self.profile_dir = profile_dir
         # Resilience hooks (the JAX engine's): ``faults`` installs the
         # seeded fault injector at every dispatch boundary; a supervisor
         # (attached by EngineSupervisor) gets watchdog and outcome
@@ -839,20 +866,35 @@ class GenerationEngine:
                  ) -> list[Completion]:
         """Batch convenience: submit all, run to completion, return in
         submission order. A failure dumps the flight recorder (the
-        requests in flight and the last dispatches) before it raises."""
+        requests in flight and the last dispatches) before it raises.
+        Captures a torch.profiler trace when the engine was built with
+        ``profile_dir``."""
         ids = [self.submit(p, max_new_tokens,
                            cache_eligible_tokens=cache_eligible_tokens)
                for p in prompts]
         results: dict[int, Completion] = {}
-        try:
-            while len(results) < len(ids):
-                for c in self.step():
-                    results[c.request_id] = c
-        except Exception as exc:
-            if self.telemetry is not None:
-                self.telemetry.record_error(exc)
-            raise
+        with maybe_profile(self.profile_dir):
+            try:
+                while len(results) < len(ids):
+                    for c in self.step():
+                        results[c.request_id] = c
+            except Exception as exc:
+                if self.telemetry is not None:
+                    self.telemetry.record_error(exc)
+                raise
         return [results[i] for i in ids]
+
+    def generate_text(self, prompts: list[str], tokenizer,
+                      max_new_tokens: int = 256) -> list[str]:
+        """Text in, text out: encode each prompt (with BOS), ``generate``,
+        decode. Tokenization is a host boundary of the serving path too:
+        the fault plane's "tokenize" point fires first."""
+        if self.faults is not None:
+            self.faults.check("tokenize")
+        comps = self.generate(
+            [tokenizer.encode(p, add_bos=True) for p in prompts],
+            max_new_tokens)
+        return [tokenizer.decode(c.tokens) for c in comps]
 
     def journal_stats(self) -> dict:
         """Journal counters (the JAX engine's keys): ``replayed`` counts
@@ -939,6 +981,11 @@ class GenerationEngine:
         """Slots holding a timeline: decoding, chunking, or parked for the
         KV handoff (their blocks are held until exported)."""
         return len(self._active) + len(self._chunking) + len(self._handoff)
+
+    @property
+    def active_count(self) -> int:
+        """Slots decoding a request now."""
+        return len(self._active)
 
     def prefix_stats(self) -> dict:
         """Prefix-cache counters (the JAX engine's keys): ``hit_rate`` is
@@ -1101,7 +1148,8 @@ class GenerationEngine:
         seq = self.telemetry.next_step() if self.telemetry is not None \
             else None
         try:
-            with self._dispatch_boundary(kind):
+            with step_annotation(kind, seq, self.device), \
+                    self._dispatch_boundary(kind):
                 if self.paged:
                     first = self._admit_wave_paged(batch, matches,
                                                    suffix_lens, bucket, n)
@@ -1195,7 +1243,8 @@ class GenerationEngine:
                                      dtype=self.kv_dtype, device=self.device)
         logits, scratch = decoder.prefill(
             self.params, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(lengths).to(self.device), self.cfg, scratch)
+            torch.from_numpy(lengths).to(self.device), self.cfg, scratch,
+            attn_impl=self.attn_impl)
         rows = len(slots)
         sl = torch.tensor(slots, device=self.device)
         for name in ("k", "v"):
@@ -1322,7 +1371,8 @@ class GenerationEngine:
             scratch = decoder.init_cache(self.cfg, n, bucket,
                                          dtype=self.kv_dtype, device=dev)
             logits, scratch = decoder.prefill(self.params, tokens_t,
-                                              lengths_t, self.cfg, scratch)
+                                              lengths_t, self.cfg, scratch,
+                                              attn_impl=self.attn_impl)
             k_new, v_new = scratch["k"], scratch["v"]
         self._pool.scatter(k_new, v_new, sbids, soffs)
         first = sample(logits[:len(batch)], self._gen, self.sampling)
@@ -1800,7 +1850,8 @@ class GenerationEngine:
         piggy_tok0 = self.piggy_tokens
         t0 = time.monotonic()
         try:
-            with self._dispatch_boundary(kind):
+            with step_annotation(kind, seq, self.device), \
+                    self._dispatch_boundary(kind):
                 if piggy:
                     toks = self._dispatch_piggyback()
                 else:
@@ -1961,7 +2012,8 @@ class GenerationEngine:
         # The fill offsets advance only after the host fetch: a failed
         # dispatch leaves the entries as they were, and the next step
         # retries the same chunk.
-        with self._dispatch_boundary("prefill_chunk"):
+        with step_annotation("prefill_chunk", seq, self.device), \
+                self._dispatch_boundary("prefill_chunk"):
             if self.paged:
                 for slot, n in fed.items():
                     self._ensure_blocks(slot, self._chunking[slot][1] + n)
@@ -2302,7 +2354,8 @@ class GenerationEngine:
         t0 = time.monotonic()
         seq = self.telemetry.next_step() if self.telemetry is not None \
             else None
-        with self._dispatch_boundary("verify"):
+        with step_annotation("verify", seq, self.device), \
+                self._dispatch_boundary("verify"):
             kv_len = self._kv_bucket()
             if self.paged:
                 # The width is global: a near-cap row's columns past

@@ -17,7 +17,12 @@ the host has copied the dispatch's values into those buffers.
   eagerly — it is the dispatch itself and warms everything a capture
   cannot do (a kernel library's ``nvcc`` build, the stream bodies' lazily
   allocated split counters, the C entries' attribute calls), none of
-  which depends on the bucket; every later dispatch at a bucket without a
+  which depends on the bucket; so does the first dispatch in each thread
+  that would capture, since cuBLAS creates a thread's handle at its first
+  call and a handle cannot be created during a capture (an engine warmed
+  by a synchronous ``generate`` and then driven by the async runner's
+  thread would otherwise fail its first capture there); every later
+  dispatch at a bucket without a
   graph captures the body and replays it at once, and every dispatch
   after that replays. A capture costs about what an eager dispatch costs
   on the host, so capturing right after the warm-up, or warming each
@@ -45,6 +50,7 @@ the CPU tests run exactly the code the card captures.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Hashable
 
@@ -94,8 +100,10 @@ class DecodeGraphs:
         self._stream = stream
         self._generators = tuple(generators)
         self._graphs: dict[Hashable, tuple] = {}
-        #: families whose eager warm-up has run
+        #: families whose eager warm-up has run; ``_tls.warm`` is set on a
+        #: thread that ran one (a flag, not an ident: idents are reused)
         self._warm: set = set()
+        self._tls = threading.local()
         self._pool = None
         #: set by :meth:`drop` when a supervisor will repair the engine:
         #: no capture or replay until :meth:`release`
@@ -132,10 +140,13 @@ class DecodeGraphs:
             raise RuntimeError(
                 "decode graphs were dropped after a failed dispatch and the "
                 "engine state has not been repaired yet")
-        if key not in self._graphs and family not in self._warm:
+        if key not in self._graphs and (
+                family not in self._warm
+                or not getattr(self._tls, "warm", False)):
             body()
             self.eager += 1
             self._warm.add(family)
+            self._tls.warm = True
             return
         if key not in self._graphs:
             self._capture(key, body)

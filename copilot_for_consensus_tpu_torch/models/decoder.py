@@ -83,10 +83,12 @@ def _unembed(x: torch.Tensor, params: Params, cfg: DecoderConfig,
 
 
 def _block(x: torch.Tensor, layer: Params, cfg: DecoderConfig,
-           lengths: torch.Tensor | None, impl: str):
+           lengths: torch.Tensor | None, impl: str,
+           attn_impl: str | None = None):
     """One transformer block; returns (x, k, v) of the block."""
     h, k, v = L.attn_prefill(L.rms_norm(x, layer["attn_norm"], cfg.norm_eps),
-                             layer, cfg, lengths=lengths, impl=impl)
+                             layer, cfg, lengths=lengths, impl=impl,
+                             attn_impl=attn_impl)
     x = x + h
     x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
                      layer, impl)
@@ -113,15 +115,18 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
-            cfg: DecoderConfig, cache: Params,
-            impl: str = "auto") -> tuple[torch.Tensor, Params]:
+            cfg: DecoderConfig, cache: Params, impl: str = "auto",
+            attn_impl: str | None = None) -> tuple[torch.Tensor, Params]:
     """Prompt pass. tokens: [B, S] right-padded; lengths: [B]. Writes kv
     for positions [0, S) into ``cache`` in place and returns
-    (last-valid-position logits [B, V] f32, cache)."""
+    (last-valid-position logits [B, V] f32, cache). ``attn_impl`` picks
+    the attention's route alone (the JAX package's ``attn_impl``; None:
+    ``impl``'s)."""
     b, s = tokens.shape
     x = params["tok_emb"][tokens.long()]
     for li in range(cfg.n_layers):
-        x, k, v = _block(x, layer_params(params, li), cfg, lengths, impl)
+        x, k, v = _block(x, layer_params(params, li), cfg, lengths, impl,
+                         attn_impl)
         cache["k"][li, :, :, :s] = k
         cache["v"][li, :, :, :s] = v
     # Select each row's last valid hidden state BEFORE the lm_head, so

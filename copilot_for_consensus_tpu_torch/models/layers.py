@@ -133,14 +133,16 @@ def _project_qkv(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
 
 
 def attn_prefill(x: torch.Tensor, layer: dict, cfg: DecoderConfig,
-                 lengths: torch.Tensor | None = None, impl: str = "auto"):
+                 lengths: torch.Tensor | None = None, impl: str = "auto",
+                 attn_impl: str | None = None):
     """Full-sequence causal attention. Returns (out [B,S,D_model], k, v)
-    with k/v in [B, Hkv, S, Dh] for cache insertion."""
+    with k/v in [B, Hkv, S, Dh] for cache insertion. ``attn_impl``
+    overrides ``impl`` for the attention alone (None: ``impl``)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(x, layer, cfg, positions, impl)
     o = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                  kv_lengths=lengths, impl=impl)
+                  kv_lengths=lengths, impl=attn_impl or impl)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return qmatmul(o, layer["wo"], impl), k, v
 

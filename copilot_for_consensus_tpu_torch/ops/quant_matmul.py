@@ -80,9 +80,8 @@ _GEMV_MIN_ROWS = 16
 #: 32-row tile split over the contraction axis by whole scale groups
 #: (:func:`stream_splits`); its kernels run it when given splits > 0 and
 #: their 128-row prefill tiling for splits = 0. Decided here alone. The
-#: two stream bodies share K2's split counters (:func:`_counters`), and
-#: with them the rule that their launches on one device keep to one
-#: stream.
+#: two stream bodies share K2's split counters (:func:`_counters`), one
+#: set a CUDA stream.
 STREAM_MAX_M = 32
 _STREAM_COLS = 128        # the split qgemm's output columns per block
 _STREAM_BLOCKS = 528      # blocks the split aims for: 4 per SM on 132 SMs
@@ -507,22 +506,30 @@ def _check_kernel_shape(name: str, d: int, f: int, kstep: int,
                          f"multiple of {kstep}, got {group}")
 
 
+def _stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return _stream_of(x.device)
 
 
-#: per device, the split counters of the stream bodies of K2, K5 and K6
-#: (one int32 a column tile), which share them: zero between launches,
-#: since the last CTA of a tile resets its own. Their launches on one
-#: device must therefore not run concurrently on two streams.
-_stream_counters: dict[torch.device, torch.Tensor] = {}
+#: per (device, CUDA stream), the split counters of the stream bodies of
+#: K2, K5 and K6 (one int32 a column tile), which share them: zero
+#: between launches, since the last CTA of a tile resets its own. Launches
+#: in one stream run in order, so they never use one set at once; two
+#: streams run side by side (the long-context engine's generate on a
+#: caller's thread while the async runner replays decode graphs), so each
+#: stream has a set of its own.
+_stream_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
-    c = _stream_counters.get(device)
+    key = (device, _stream_of(device))
+    c = _stream_counters.get(key)
     if c is None or c.numel() < n:
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _stream_counters[device] = c
+        _stream_counters[key] = c
     return c
 
 

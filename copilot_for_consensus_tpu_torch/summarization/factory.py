@@ -6,9 +6,8 @@ counterpart of the JAX package's ``tpu`` driver; ``device`` from the
 config, None meaning the card), ``openai`` and ``azure_openai``. The
 ``tpu`` driver is refused with a pointer to ``cuda``. The ``cuda`` driver
 takes the ``tpu`` driver's options as it does (``supervisor``,
-``deadline_s``, ``journal`` or ``journal_path``, ``kv_dtype``); an option
-the port does not serve yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it; none is dropped silently.
+``deadline_s``, ``journal`` or ``journal_path``, ``kv_dtype``,
+``long_context``, ``profile_dir``); none is dropped silently.
 """
 
 from __future__ import annotations
@@ -24,28 +23,12 @@ from copilot_for_consensus_tpu_torch.summarization.base import (
     Summarizer,
 )
 
-#: options of the JAX package's ``tpu`` driver the port does not serve
-#: yet → the ROADMAP Queue 1 item that brings each
-_NOT_YET = {
-    "long_context": "item 6 (engine/longctx.py, the long-context route)",
-    "profile_dir": "item 7 (obs/profile.py on torch.profiler)",
-}
-
-
 def _cfg_get(config: Any, key: str, default=None):
     if config is None:
         return default
     if isinstance(config, dict):
         return config.get(key, default)
     return getattr(config, key, default)
-
-
-def _refuse_unserved(config: Any) -> None:
-    for key, item in _NOT_YET.items():
-        if _cfg_get(config, key):
-            raise NotImplementedError(
-                f"llm_backend option {key!r} is not served by the port's "
-                f"cuda driver yet: ROADMAP Queue 1 {item}")
 
 
 def create_summarizer(config: Any = None, **kwargs: Any) -> Summarizer:
@@ -58,7 +41,6 @@ def create_summarizer(config: Any = None, **kwargs: Any) -> Summarizer:
             "llm_backend driver 'tpu' is the JAX package's; the port's "
             "engine-backed driver is 'cuda'")
     if driver == "cuda":
-        _refuse_unserved(config)
         from copilot_for_consensus_tpu_torch.summarization.summarizer import (
             CUDASummarizer,
         )
@@ -80,6 +62,11 @@ def create_summarizer(config: Any = None, **kwargs: Any) -> Summarizer:
             # string; either way the engine warm-restarts from it
             journal=(_cfg_get(config, "journal", None)
                      or _cfg_get(config, "journal_path", None)),
+            # whole-thread prompts past the batch window go to the
+            # long-context engine (engine/longctx.py) instead of being
+            # tail-truncated; profile_dir captures torch.profiler traces
+            long_context=bool(_cfg_get(config, "long_context", False)),
+            profile_dir=_cfg_get(config, "profile_dir") or None,
             device=_cfg_get(config, "device"),
             **kwargs,
         )

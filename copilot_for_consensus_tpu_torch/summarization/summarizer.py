@@ -9,8 +9,12 @@ Port of the JAX package's ``summarization/tpu_summarizer.py``
 (``tenant``, ``priority``), the per-request ``deadline_s``, the request
 ``journal`` and the ``kv_dtype``, served by the port's
 ``GenerationEngine`` (a paged one with a prefix cache comes in through
-``engine=``). Prompts longer than the engine's ``prompt_limit`` keep their
-tail (there is no long-context engine here).
+``engine=``). With ``long_context=True`` (or a ``long_engine``) a prompt
+over the engine's ``prompt_limit`` goes whole to the port's
+``LongContextEngine`` (``engine/longctx.py``), built over the short
+engine's own tensors: one weight residency on the card. Without one such
+a prompt keeps its tail. ``profile_dir`` reaches both engines, which then
+write a torch.profiler trace of each ``generate``.
 """
 
 from __future__ import annotations
@@ -108,7 +112,14 @@ class CUDASummarizer(Summarizer):
     each request's wall-clock budget through the runner (expired work is
     dropped, and a drop with no tokens raises ``EngineFailed``);
     ``journal`` (a path, a ``{"path", "checkpoint_every"}`` dict or an
-    ``EngineJournal``) and ``kv_dtype`` go to the engine it builds."""
+    ``EngineJournal``), ``kv_dtype`` and ``profile_dir`` go to the engine
+    it builds.
+
+    ``long_context=True`` builds a ``LongContextEngine`` over the engine's
+    params (the same tensors), its EOS ids, ``max_new_tokens`` and
+    ``profile_dir``; ``long_engine`` hands one in. Every prompt over the
+    engine's ``prompt_limit`` then goes to it whole, in ``summarize``,
+    ``summarize_batch`` and ``summarize_async``."""
 
     def __init__(self, model: str = "mistral-7b", *, engine=None,
                  tokenizer: Tokenizer | None = None,
@@ -123,6 +134,8 @@ class CUDASummarizer(Summarizer):
                  tenant: str = "", priority: str = "",
                  deadline_s: float | None = None, journal=None,
                  kv_dtype: str | torch.dtype | None = None,
+                 long_engine=None, long_context: bool = False,
+                 profile_dir: str | None = None,
                  device: str | torch.device | None = None):
         self._model = model
         #: the default scheduling identity; a call's own overrides it
@@ -158,6 +171,7 @@ class CUDASummarizer(Summarizer):
             engine = GenerationEngine.from_checkpoint(
                 checkpoint, num_slots=num_slots, max_len=max_len,
                 seed=seed, kv_dtype=kv_dtype, journal=journal,
+                profile_dir=profile_dir,
                 dtype=dtype if dtype is not None else torch.bfloat16,
                 device=device)
             self._model = f"checkpoint:{checkpoint}"
@@ -167,9 +181,22 @@ class CUDASummarizer(Summarizer):
                 cfg, params, num_slots=num_slots,
                 max_len=min(max_len, cfg.max_seq_len), quantize=quantize,
                 seed=seed, kv_dtype=kv_dtype, journal=journal,
+                profile_dir=profile_dir,
                 dtype=dtype if dtype is not None else torch.bfloat16,
                 device=resolve_device(device))
         self.engine = engine
+        if long_engine is None and long_context:
+            from copilot_for_consensus_tpu_torch.engine.longctx import (
+                LongContextEngine,
+            )
+            # the short engine's tensors themselves: one weight residency
+            long_engine = LongContextEngine(
+                engine.cfg, engine.params, eos_id=sorted(engine._eos_set),
+                max_new_tokens=max_new_tokens, profile_dir=profile_dir,
+                dtype=engine.dtype, device=engine.device)
+        #: whole-thread prompts over the short engine's window go here
+        #: instead of being tail-truncated
+        self.long_engine = long_engine
         self.tokenizer: Tokenizer = tokenizer or ByteTokenizer(
             max(259, self.engine.cfg.vocab_size))
         if self.tokenizer.vocab_size > self.engine.cfg.vocab_size:
@@ -187,6 +214,14 @@ class CUDASummarizer(Summarizer):
                 0, len(self.tokenizer.encode(head, add_bos=True)) - 1)
         elif cache_scope == "off":
             self._cache_eligible = 0
+
+    @property
+    def _short_limit(self) -> int:
+        return self.engine.prompt_limit
+
+    def _is_long(self, prompt: list[int]) -> bool:
+        return self.long_engine is not None and \
+            len(prompt) > self._short_limit
 
     def summarize(self, thread: ThreadContext) -> Summary:
         return self.summarize_batch([thread])[0]
@@ -237,8 +272,20 @@ class CUDASummarizer(Summarizer):
         return comp
 
     def summarize_batch(self, threads: list[ThreadContext]) -> list[Summary]:
-        """Continuous batching: all threads share the decode batch."""
-        comps = self._engine_generate([self._prompt(t) for t in threads])
+        """Continuous batching: all threads share the decode batch; a
+        prompt over the batch engine's window runs on the long-context
+        engine, when there is one."""
+        prompts = [self._prompt(t) for t in threads]
+        comps: list = [None] * len(threads)
+        short = [i for i, p in enumerate(prompts) if not self._is_long(p)]
+        for i, p in enumerate(prompts):
+            if self._is_long(p):
+                comps[i] = self.long_engine.generate(
+                    p, max_new_tokens=self.max_new_tokens)
+        if short:
+            for i, c in zip(short, self._engine_generate(
+                    [prompts[i] for i in short])):
+                comps[i] = c
         return [self._summary(t, c) for t, c in zip(threads, comps)]
 
     def summarize_async(self, thread: ThreadContext, *,
@@ -257,9 +304,10 @@ class CUDASummarizer(Summarizer):
         identity, journaled with it; the summarizer's ``deadline_s`` is
         its budget.
 
-        Left out against the JAX package's ``TPUSummarizer``: the
-        long-context route (prompts over ``prompt_limit`` keep their
-        tail)."""
+        A prompt over the batch engine's window, with a long-context
+        engine present, runs synchronously on the caller's thread, on the
+        long engine (its own CUDA stream, the short engine's tensors), and
+        the returned callable is ready at once."""
         from copilot_for_consensus_tpu_torch.engine.async_runner import (
             AsyncEngineRunner,
         )
@@ -269,6 +317,13 @@ class CUDASummarizer(Summarizer):
             # tokenization is a host boundary of the serving path too
             fi.check("tokenize")
         prompt = self._prompt(thread)
+        if self._is_long(prompt):
+            # the long engine owns its own device work: it never drives
+            # self.engine, whose single owner is the runner once one runs
+            summary = self._summary(thread, self.long_engine.generate(
+                prompt, max_new_tokens=self.max_new_tokens,
+                correlation_id=correlation_id))
+            return lambda timeout=600.0: summary
         with self._runner_lock:
             if self._runner is None:
                 self._runner = AsyncEngineRunner(

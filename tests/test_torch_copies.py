@@ -92,10 +92,14 @@ PORTED = {
     "vectorstore/cuda.py": "CUDAVectorStore, vectorstore/tpu.py in PyTorch "
                            "without the shardcheck contracts or a mesh",
     "vectorstore/ivf.py": "the IVF index, in PyTorch, on one card",
-    "summarization/factory.py": "the cuda driver; tpu and the options the "
-                                "port does not serve refused",
+    "summarization/factory.py": "the cuda driver; tpu refused with a "
+                                "pointer to it",
     "summarization/summarizer.py": "CUDASummarizer, TPUSummarizer's port",
     "engine/generation.py": "the engine, in PyTorch",
+    "engine/longctx.py": "LongContextEngine on one device, in PyTorch, "
+                         "without a mesh (item 6c) or the shardcheck "
+                         "contracts",
+    "obs/profile.py": "the profiler hooks on torch.profiler and NVTX",
     "engine/graphs.py": "CUDA graphs of the decode dispatch; no JAX "
                         "counterpart (jit per bucket)",
     "engine/kv_pool.py": "the paged pool, in PyTorch",

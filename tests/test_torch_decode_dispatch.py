@@ -338,6 +338,56 @@ def test_graph_key_holds_the_activation_quant_mode():
     assert eng._graph_key(128) == plain
 
 
+def test_a_new_thread_warms_up_before_it_captures():
+    """cuBLAS creates a thread's handle at its first call, which a capture
+    cannot hold: an engine warmed on one thread (a synchronous generate)
+    and then driven from another (the async runner) runs that thread's
+    first dispatch at a new bucket eagerly instead of capturing it. Runs
+    on the CPU with graphs enabled for a CUDA device: no capture is
+    attempted."""
+    import threading
+
+    from copilot_for_consensus_tpu_torch.engine.graphs import DecodeGraphs
+
+    g = DecodeGraphs(torch.device("cuda"))
+    ran = []
+    g.run((128, "weight_only"), lambda: ran.append("main"),
+          family="weight_only")
+    t = threading.Thread(target=g.run, args=(
+        (256, "weight_only"), lambda: ran.append("runner")),
+        kwargs={"family": "weight_only"})
+    t.start()
+    t.join(10)
+    assert not t.is_alive()
+    assert ran == ["main", "runner"]
+    assert g.stats()["eager"] == 2 and g.stats()["captured"] == 0
+
+
+def test_a_thread_after_a_finished_one_warms_up_again():
+    """Thread idents are reused once a thread exits: a runner thread
+    started after another one ended (a summarizer's runner closed and a
+    new one opened on the same engine) is still a new thread for cuBLAS,
+    and its first dispatch at a new bucket runs eagerly."""
+    import threading
+
+    from copilot_for_consensus_tpu_torch.engine.graphs import DecodeGraphs
+
+    g = DecodeGraphs(torch.device("cuda"))
+    ran = []
+
+    def runner(bucket, name):
+        g.run((bucket, "weight_only"), lambda: ran.append(name),
+              family="weight_only")
+
+    for bucket, name in ((128, "first"), (256, "second")):
+        t = threading.Thread(target=runner, args=(bucket, name))
+        t.start()
+        t.join(10)
+        assert not t.is_alive()
+    assert ran == ["first", "second"]
+    assert g.stats()["eager"] == 2 and g.stats()["captured"] == 0
+
+
 def test_dropped_graphs_stay_warm_and_block_until_release():
     """After a failed dispatch the engine drops its graphs; with a
     supervisor it refuses to capture or replay until the repair, and the

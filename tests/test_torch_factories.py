@@ -55,12 +55,36 @@ CUDA = {"driver": "cuda", "model": "tiny", "max_new_tokens": 4,
         "num_slots": 2, "max_len": 128, "device": "cpu"}
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("long_context", True, "item 6"),
-    ("profile_dir", "/nowhere", "item 7")])
-def test_cuda_driver_refuses_what_it_does_not_serve(key, value, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        create_summarizer({**CUDA, key: value})
+@pytest.mark.parametrize("options", [
+    {"long_context": True}, {"profile_dir": "traces"},
+    {"long_context": True, "profile_dir": "traces"}],
+    ids=["long_context", "profile_dir", "both"])
+def test_cuda_driver_serves_long_context_and_profile_dir(options, tmp_path):
+    # the two options the driver once refused: a long-context engine over
+    # the short engine's own tensors, and a profile_dir that reaches both
+    # engines
+    if "profile_dir" in options:
+        options = {**options, "profile_dir": str(tmp_path / "traces")}
+    summ = create_summarizer({**CUDA, **options})
+    eng, long_eng = summ.engine, summ.long_engine
+    want_dir = options.get("profile_dir")
+    assert eng.profile_dir == want_dir
+    if not options.get("long_context"):
+        assert long_eng is None
+        return
+    assert long_eng.profile_dir == want_dir
+    assert long_eng.device == eng.device and long_eng.cfg == eng.cfg
+    assert long_eng._eos_set == eng._eos_set
+    assert long_eng.suffix_len >= summ.max_new_tokens + 1
+    # one weight residency: every leaf is the short engine's tensor
+    for name, leaf in eng.params["layers"].items():
+        pairs = leaf.items() if isinstance(leaf, dict) else [("", leaf)]
+        for k, t in pairs:
+            other = long_eng.params["layers"][name]
+            other = other[k] if k else other
+            assert other.data_ptr() == t.data_ptr(), (name, k)
+    assert long_eng.params["tok_emb"].data_ptr() == \
+        eng.params["tok_emb"].data_ptr()
 
 
 @pytest.mark.parametrize("key,value", [

@@ -69,6 +69,15 @@ def test_the_serving_role_modules_are_among_the_checked_files(rel):
     assert PKG / rel in PORT_FILES
 
 
+@pytest.mark.parametrize("rel", [
+    "engine/longctx.py", "obs/profile.py", "summarization/summarizer.py",
+    "summarization/factory.py"])
+def test_the_long_context_modules_are_among_the_checked_files(rel):
+    # the long-context engine, the profiler hooks and the summarizer's long
+    # route are checked with every other file of the package
+    assert PKG / rel in PORT_FILES
+
+
 _STORM_ALONE = """
 import sys
 from copilot_for_consensus_tpu_torch.tools import journal_storm
