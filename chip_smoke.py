@@ -288,7 +288,27 @@ non-zero before the last line:
    route's prefill (32 int8 blocks at 16,896 tokens) on its own stream;
    every repeat must equal the reference bit for bit. A consumer that
    releases a TMA stage before its generic-proxy reads of it are ordered
-   (no ``fence.proxy.async``) returns other bits only under such load.
+   (no ``fence.proxy.async``) returns other bits only under such load;
+35. moe_layer — (after phase 29, no other model resident) one
+   Mixtral-8x7B MoE layer (``models/moe.py``), bf16, random int8 and then
+   int4 experts: the kernel route against ``impl="plain"`` on the same
+   routing at decode with 8 and 32 slots (capacity 8 and 16) and at a
+   4 x 1024 wave (capacity 1280), rel-L2 within 1e-2, 3 x 8 launches of
+   K2 (K5) a call on the body the capacity gives; then K2 and K5 alone at
+   the experts' shapes and M 8, 16 and 1280, timed (L2 flushed) beside
+   their plain versions, bounds and PyTorch yardsticks;
+36. moe_serve — ``mixtral-8x7b`` at full width and depth (random weights
+   from seed 0) built by the ``cuda`` LLM driver, at int8 and then, the
+   int8 weights freed, at int4 (unfused): 8 threads of 600-1000 tokens on
+   8 slots, 32 new tokens, under CUDA graphs, weight-only and then "a8":
+   launches by body equal to what the waves and decode steps it made
+   imply (3 x 8 x 32 expert products a forward pass on K2 or K5 in both
+   modes: no expert launch on K4 or K6), every logits row finite; then
+   ``moe_trace_int8`` / ``moe_trace_int4`` (phase_trace: step ms, idle
+   share) and peak memory;
+37. moe_f32 — 2 layers at Mixtral-8x7B's widths, f32, greedy: the
+   contiguous engine on K1 and a paged one on K1 and K3 against
+   ``attn_impl="plain"``, streams equal (or a divergence at a top-2 tie).
 
 The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
 llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
@@ -329,9 +349,10 @@ body at the decode shape on an fp8 pool: ``paged_fp8``), the pipeline phase's
 synchronous run for K1's wgmma body and K2, its retrieval run for K1's
 d32 body (its own row), every path's count beside it — the
 nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. K1's row carries ``long_s16k`` and
-every row a ``long_serve`` path. About 13 minutes on one H100 (the
-host's speed varies), the build included.
+``{"ok": true, "device": {...}}``. K1's row carries ``long_s16k``, K2's
+and K5's rows ``moe_cases`` (their body at the experts' shapes), and
+every row the ``long_serve`` and ``moe_serve_*`` paths. About 14 minutes
+on one H100 (the host's speed varies), the build included.
 """
 
 from __future__ import annotations
@@ -433,6 +454,10 @@ T0 = time.monotonic()
 def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": round(time.monotonic() - T0, 3)}
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            # what the phase leaves allocated on the card as it reports
+            obj["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
     print(json.dumps(obj), flush=True)
 
 
@@ -2374,7 +2399,24 @@ def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path,
     where ``retrieval``, else the mock embedder and the memory store; with
     the deployed llm block's supervisor, deadline and journal, at
     ``journal``, where it is given); the launches, bodies and
-    plain-version calls of its run, and what it stored."""
+    plain-version calls of its run, and what it stored. Fails if the run's
+    engine outlives it (its weights would stay on the card)."""
+    run, engine = _pipeline_body(ckpt, pipelined, mbox, retrieval, journal)
+    gc.collect()
+    if engine() is not None:
+        holders = sorted({type(r).__name__
+                          for r in gc.get_referrers(engine())})
+        raise AssertionError(f"pipeline (pipelined {pipelined}, retrieval "
+                             f"{retrieval}): the run's engine outlived it, "
+                             f"held by {holders}")
+    return run
+
+
+def _pipeline_body(ckpt: Path, pipelined: bool, mbox: Path,
+                   retrieval: bool, journal: Path | None):
+    """``_pipeline_run``'s run, and a weak reference to its engine."""
+    import weakref
+
     import torch
 
     from copilot_for_consensus_tpu_torch.services.runner import (
@@ -2467,7 +2509,19 @@ def _pipeline_run(ckpt: Path, pipelined: bool, mbox: Path,
             "journal": eng.journal_stats(),
             "deadline_expired": eng.deadline_expired}
     summ.close()
-    return run
+    # A pipelined SummarizationService (the JAX package's, copied) keeps
+    # its harvest thread for the life of the process, and the thread keeps
+    # the service and, in its locals, the last summary's wait closure over
+    # the summarizer: drop the service's summarizer and hand the harvester
+    # a no-op item, or the run's engine (10.7 GB) outlives it on the card.
+    svc = p.summarization
+    svc.summarizer = None
+    if pipelined:
+        with svc._flight_lock:
+            svc._in_flight.append((lambda: None, lambda _s: None, {}))
+        svc._flight_event.set()
+        svc.flush(60)
+    return run, weakref.ref(summ.engine)
 
 
 def _check_pipeline(label: str, run: dict, cfg,
@@ -5843,6 +5897,517 @@ def phase_profile(dev, cfg, params, smi):
     torch.cuda.empty_cache()
 
 
+#: Mixtral-8x7B's expert products (D, F): w_gate and w_up, w_down
+MOE_SHAPES = [(4096, 14336), (14336, 4096)]
+#: one MoE layer's cases (rows, tokens a row): decode at 8 and 32 slots
+#: (capacity 8 and 16), a 4 x 1024 wave (capacity 1280) and the 8 x 1024
+#: wave ``moe_serve`` admits (capacity 2560)
+MOE_LAYER_CASES = ((8, 1), (32, 1), (4, 1024), (8, 1024))
+#: the experts' M of the kernel rows: those capacities
+MOE_CAPS = (8, 16, 1280, 2560)
+#: one MoE layer's kernel route against impl="plain", relative L2
+MOE_REL_L2 = 1e-2
+#: the deployment ``moe_serve`` builds through the cuda driver: 8 slots of
+#: 4096, 8 threads of 600-1000 prompt tokens (one admission wave), 32 new
+#: tokens each (4 dispatches of 8 steps)
+MOE_SERVE = dict(num_slots=8, max_len=4096, threads=8, lo=600, hi=1000,
+                 new=32)
+#: the f32 phase's depth (Mixtral-8x7B's widths)
+MOE_F32_LAYERS = 2
+#: device memory (GB) that may be held when a Mixtral model is built:
+#: less than the smallest other model (Mistral-7B int4, 3.7 GB), so none
+#: is resident
+MOE_RESIDENT_GB = 3.0
+
+
+def moe_body(k: str, m: int, d: int, f: int) -> str:
+    """The body of quantized kernel ``k`` at M = ``m`` on a bf16 x and a
+    [D, F] weight (int4: group ``INT4_GROUP``), by the wrappers' rules."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    bf, g = torch.bfloat16, min(quant.INT4_GROUP, d)
+    return {"K2": lambda: qm.int8_body(m, d, f, bf),
+            "K4": lambda: qm.w8a8_body(m, d, f, bf),
+            "K5": lambda: qm.int4_body(m, f, g, bf),
+            "K6": lambda: qm.w4a8_body(m, d, f, g, bf)}[k]()
+
+
+def moe_expected(cfg, passes, quant_mode: str, act: str) -> dict:
+    """Launches by (kernel, body) that forward passes of an MoE engine
+    make: ``passes`` lists (rows, tokens) a pass — an admission wave of n
+    rows x bucket is (n, n x bucket), a decode step (slots, slots). Per
+    pass and layer: the four attention projections at M = tokens and the
+    3 x E expert products at M = ``moe_capacity(tokens)``; the lm_head at
+    M = rows. The experts take the weight-only kernel (K2 for int8, K5 for
+    int4) whatever the act-quant mode; in "a8" mode the projections and
+    the lm_head take K4 (int8, from ``A8_MIN_ROWS`` rows) or K6 (int4)."""
+    import collections
+
+    from copilot_for_consensus_tpu_torch.models import layers
+    from copilot_for_consensus_tpu_torch.models.moe import moe_capacity
+
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+    attn = [(d, cfg.n_heads * dh), (d, cfg.n_kv_heads * dh),
+            (d, cfg.n_kv_heads * dh), (cfg.n_heads * dh, d)]
+    experts = [(d, f), (d, f), (f, d)]
+    head = [(d, cfg.vocab_size)]
+
+    def kernel(m: int, a8: bool) -> str:
+        if quant_mode == "int8":
+            return "K4" if a8 and m >= layers.A8_MIN_ROWS else "K2"
+        return "K6" if a8 else "K5"
+
+    out: collections.Counter = collections.Counter()
+    a8 = act == "a8"
+    for rows, tokens in passes:
+        for m, shapes, times, may_a8 in (
+                (tokens, attn, cfg.n_layers, a8),
+                (moe_capacity(tokens, cfg), experts,
+                 cfg.n_layers * cfg.n_experts, False),
+                (rows, head, 1, a8)):
+            for dd, ff in shapes:
+                k = kernel(m, may_a8)
+                out[(k, moe_body(k, m, dd, ff))] += times
+    return dict(out)
+
+
+def check_moe_bodies(label: str, bodies: dict, launches: dict,
+                     want: dict, n_waves: int, n_layers: int) -> None:
+    """The quantized kernels' launches by body equal ``moe_expected``'s,
+    and K1 made one wgmma launch a layer a wave."""
+    for k in ("K2", "K4", "K5", "K6"):
+        for b, n in bodies[k].items():
+            if n != want.get((k, b), 0):
+                raise AssertionError(
+                    f"{label}: {k} {b} launched {n} times, expected "
+                    f"{want.get((k, b), 0)} (all: {bodies}, want {want})")
+    if bodies["K1"]["wgmma"] != launches["K1"] or \
+            launches["K1"] != n_layers * n_waves:
+        raise AssertionError(f"{label}: K1 {bodies['K1']}, expected "
+                             f"{n_layers * n_waves} wgmma launches")
+
+
+def phase_moe_layer(dev, smi):
+    """One Mixtral-8x7B MoE layer (``models/moe.py``), bf16 activations,
+    random int8 and then int4 experts born on the card from seed 3 (the
+    router bf16, as the random init makes it): the kernel route against
+    ``impl="plain"`` on the same input, so on the same routing, at decode
+    with 8 and 32 slots (capacity 8 and 16) and at waves of 4 and 8 x 1024
+    (capacity 1280 and 2560, the latter ``moe_serve``'s admission wave):
+    relative L2 within ``MOE_REL_L2``, 3 x 8 launches of
+    the weight-only kernel a call on the body its rule gives the capacity,
+    none of another kernel; both routes timed (L2 flushed). Then K2 and K5
+    alone at the experts' shapes (4096 x 14336 and 14336 x 4096) and M the
+    capacities 8, 16, 1280 and 2560: max error against the plain version,
+    ms, plain ms, bound, and the PyTorch yardstick — K2's ``x @ q.to(bf16) *
+    s``, K5's ``x @ w`` with w dequantized beforehand. Returns the kernel
+    rows."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder, quant
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+    from copilot_for_consensus_tpu_torch.models.moe import (
+        moe_capacity,
+        moe_ffn,
+    )
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    cfg = decoder_config("mixtral-8x7b", n_layers=1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    for mode, k in (("int8", "K2"), ("int4", "K5")):
+        params = quant.init_random_quantized(cfg, seed=3, mode=mode,
+                                             device=dev)
+        layer = decoder.layer_params(params, 0)
+        for b, s in MOE_LAYER_CASES:
+            x = torch.randn(b, s, cfg.d_model, generator=g,
+                            device=dev).to(torch.bfloat16)
+            cap = moe_capacity(b * s, cfg)
+            reset_launches()
+            out = moe_ffn(x, layer, cfg)
+            torch.cuda.synchronize()
+            launches, bodies = read_launches(), read_bodies()
+            want = moe_ffn(x, layer, cfg, impl="plain")
+            rel = ((out.float() - want.float()).norm()
+                   / want.float().norm()).item()
+            expect: dict = {}
+            for dd, ff in (MOE_SHAPES[0], MOE_SHAPES[0], MOE_SHAPES[1]):
+                key = (k, moe_body(k, cap, dd, ff))
+                expect[key] = expect.get(key, 0) + cfg.n_experts
+            row = {"phase": "moe_layer", "quantize": mode,
+                   "shape": [b, s, cfg.d_model], "capacity": cap,
+                   "rel_l2": rel, "bound": MOE_REL_L2,
+                   "launches": launches, "launches_by_body": bodies[k],
+                   "ms": time_ms(lambda: moe_ffn(x, layer, cfg), n=5,
+                                 flush=flush),
+                   "plain_ms": time_ms(
+                       lambda: moe_ffn(x, layer, cfg, impl="plain"), n=3,
+                       flush=flush), "device": smi}
+            emit(row)
+            check_path(f"moe_layer {mode} {b}x{s}", launches, (k,))
+            if {(k, bb): n for bb, n in bodies[k].items() if n} != expect:
+                raise AssertionError(f"moe_layer {mode} {b}x{s}: bodies "
+                                     f"{bodies[k]}, expected {expect}")
+            if not (torch.isfinite(out).all() and rel <= MOE_REL_L2):
+                raise AssertionError(f"moe_layer {mode} {b}x{s}: rel-L2 "
+                                     f"{rel}")
+            del x, out, want
+        del params, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k, (d, f) in ((k, sh) for k in ("K2", "K5") for sh in MOE_SHAPES):
+        if k == "K2":
+            w = torch.randint(-127, 128, (d, f), generator=g,
+                              dtype=torch.int8, device=dev)
+            s = torch.rand(1, f, generator=g, device=dev) \
+                * (2 * d ** -0.5 / 73.3)
+            fn, ref, rtol = qm.int8_matmul, qm.int8_matmul_ref, K2_RTOL
+            lib = (lambda x: x @ w.to(torch.bfloat16) * s,
+                   "x @ q.to(bf16) * s")
+        else:
+            w = torch.randint(-128, 128, (d // 2, f), generator=g,
+                              dtype=torch.int8, device=dev)
+            s = torch.rand(d // min(quant.INT4_GROUP, d), f, generator=g,
+                           device=dev) * (2 * d ** -0.5 / 4.61)
+            wd = quant.dequant_int4({"q4": w, "scale": s}, torch.bfloat16)
+            fn, ref, rtol = qm.int4_matmul, qm.int4_matmul_ref, K5_RTOL
+            lib = (lambda x: x @ wd, "x @ w, w dequantized to bf16 "
+                                     "beforehand")
+        for m in MOE_CAPS:
+            x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
+            out = fn(x, w, s)
+            torch.cuda.synchronize()
+            want = ref(x, w, s)
+            top = want.float().abs().max().item()
+            err = (out.float() - want.float()).abs().max().item()
+            bnd, by = bound_ms(nbytes(x, w, s, out), 2.0 * m * d * f,
+                               "bfloat16")
+            body = moe_body(k, m, d, f)
+            row = {"kernel": k, "case": f"moe_m{m}_d{d}_f{f}",
+                   "dtype": "bfloat16", "shape": [m, d, f], "body": body,
+                   "max_abs_err": err, "tol": rtol["bfloat16"] * top,
+                   "ms": time_ms(lambda: fn(x, w, s), flush=flush),
+                   "plain_ms": time_ms(lambda: ref(x, w, s), n=3,
+                                       flush=flush),
+                   "library_ms": time_ms(lambda: lib[0](x), flush=flush),
+                   "library": lib[1], "bound_ms": bnd, "bound_by": by}
+            emit(row)
+            if not (torch.isfinite(out).all() and err <= row["tol"]):
+                raise AssertionError(f"{k} {row['case']}: error {err}")
+            rows[(k, row["case"], "bfloat16")] = row
+            del x, out, want
+        del w, s
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe_serve(dev, smi):
+    """``mixtral-8x7b`` at full width and depth on the card, random weights
+    from seed 0, built by the ``cuda`` LLM driver
+    (``create_summarizer({"driver": "cuda", "model": "mixtral-8x7b",
+    ...})``) at int8 and then, the int8 weights freed, at int4 (unfused).
+    Each: ``MOE_SERVE``'s threads through ``summarize_batch`` under CUDA
+    graphs (one admission wave, then graph replays), every sampled logits
+    row finite, the launches by body equal to ``moe_expected`` of the
+    passes the engine made (waves recorded by shape, decode steps by
+    dispatch) — the 3 x 8 x 32 expert products on the weight-only kernel;
+    then the same threads in "a8" mode, where only the attention
+    projections and the lm_head change kernels (K4 from 1024 rows for
+    int8, K6 for int4): 0 expert launches on K4 or K6; then ``phase_trace``
+    of the engine's steady decode (step ms, replay ms, idle share). Peak
+    device memory a model, and what was resident before it. Returns the
+    paths' launches and bodies."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    cfg = decoder_config("mixtral-8x7b")
+    paths = {}
+    for mode in ("int8", "int4"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        paths.update(_moe_serve_model(dev, smi, cfg, mode))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _moe_serve_model(dev, smi, cfg, mode: str) -> dict:
+    """``phase_moe_serve`` for one quantize mode; everything it builds is
+    freed when it returns."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.summarization.factory import (
+        create_summarizer,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        build_prompt,
+    )
+
+    paths = {}
+    resident = torch.cuda.memory_allocated(dev) / 1e9
+    if resident > MOE_RESIDENT_GB:
+        # each phase line's allocated_gb names the phase that left it
+        raise AssertionError(f"moe_serve {mode}: {resident} GB resident "
+                             f"before the model is built")
+    t0 = time.monotonic()
+    summ = create_summarizer({
+        "driver": "cuda", "model": cfg.name, "quantize": mode,
+        "num_slots": MOE_SERVE["num_slots"],
+        "max_len": MOE_SERVE["max_len"],
+        "max_new_tokens": MOE_SERVE["new"], "device": str(dev)})
+    eng = summ.engine
+    torch.cuda.synchronize()
+    lt = eng.params["layers"]
+    emit({"phase": "moe_weights", "config": cfg.name, "quantize": mode,
+          "bytes": quant.param_bytes(eng.params),
+          "expert_leaf": {k: list(v.shape)
+                          for k, v in lt["w_gate"].items()},
+          "router": [list(lt["router"].shape), str(lt["router"].dtype)],
+          "fused": "wqkv" in lt or "w_gu" in lt,
+          "seconds": time.monotonic() - t0})
+    if eng.cfg != cfg or eng.quant_mode != mode or "wqkv" in lt:
+        raise AssertionError(f"moe_serve {mode}: engine {eng.cfg.name} "
+                             f"{eng.quant_mode}, leaves {sorted(lt)}")
+    threads = long_threads(summ.tokenizer, MOE_SERVE["threads"],
+                           MOE_SERVE["lo"], MOE_SERVE["hi"])
+    prompts = [summ.tokenizer.encode(build_prompt(t), add_bos=True)
+               for t in threads]
+    waves: list = []
+    dispatches = [0]
+    plain_wave, plain_dispatch = eng._admit_wave, eng._decode_dispatch
+
+    def wave(tokens, *a, **kw):
+        waves.append(tokens.shape)
+        return plain_wave(tokens, *a, **kw)
+
+    def dispatch(*a, **kw):
+        dispatches[0] += 1
+        return plain_dispatch(*a, **kw)
+
+    eng._admit_wave, eng._decode_dispatch = wave, dispatch
+    comps = _recorded(summ)
+    for act in ("weight_only", "a8"):
+        quant.set_act_quant(act)
+        try:
+            n_w, n_d, n_c = len(waves), dispatches[0], len(comps)
+            before = (eng.decode_s, eng.decode_tokens, eng.admitted_s)
+            reset_launches()
+            with finite_logits(eng) as finite:
+                t0 = time.monotonic()
+                summaries = summ.summarize_batch(threads)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launches, bodies = read_launches(), read_bodies()
+                stats = eng.graph_stats()
+        finally:
+            quant.set_act_quant("weight_only")
+        rc = comps[n_c:]
+        steps = (dispatches[0] - n_d) * eng._dispatch_steps
+        passes = [(n, n * s) for n, s in waves[n_w:]] + \
+            [(eng.num_slots, eng.num_slots)] * steps
+        want = moe_expected(cfg, passes, mode, act)
+        dec_s = eng.decode_s - before[0]
+        label = f"moe_serve {mode} {act}"
+        row = {"phase": "moe_serve", "quantize": mode, "act_quant": act,
+               "config": cfg.name, "threads": len(threads),
+               "prompt_tokens": [c.prompt_len for c in rc],
+               "completion_tokens": [len(c.tokens) for c in rc],
+               "waves": [list(w) for w in waves[n_w:]],
+               "decode_steps": steps, "wall_s": wall,
+               "prefill_s": eng.admitted_s - before[2],
+               "decode_s": dec_s,
+               "decode_tokens": eng.decode_tokens - before[1],
+               "ms_per_step": dec_s / steps * 1e3 if steps else None,
+               "graphs": stats, "launches": launches,
+               "launches_by_body": bodies,
+               "expected": {f"{k} {b}": n for (k, b), n in want.items()},
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "device": smi}
+        emit(row)
+        if not bool(finite):
+            raise AssertionError(f"{label}: non-finite logits")
+        if [s.thread_id for s in summaries] != \
+                [t.thread_id for t in threads] or any(
+                    s.completion_tokens != len(c.tokens)
+                    or c.prompt_len != len(p)
+                    for s, c, p in zip(summaries, rc, prompts)):
+            raise AssertionError(f"{label}: summaries or prompts off")
+        if not steps or not stats["replays"]:
+            raise AssertionError(f"{label}: no graph replay: {stats}")
+        used = {k for (k, _b) in want} | {"K1"}
+        check_path(label, launches, used)
+        check_moe_bodies(label, bodies, launches, want,
+                         len(waves) - n_w, cfg.n_layers)
+        paths[f"moe_serve_{mode}" + ("_a8" if act == "a8" else "")] = \
+            (launches, bodies)
+    eng._admit_wave, eng._decode_dispatch = plain_wave, plain_dispatch
+    row = phase_trace(cfg, eng, prompts, smi, label=f"moe_trace_{mode}")
+    emit({"phase": "moe_memory", "quantize": mode,
+          "resident_gb_before": resident,
+          "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "step_ms": row["step_ms"], "idle_share": row["idle_share"],
+          "device": smi})
+    summ.close()
+    return paths
+
+
+def _moe_prompts(cfg) -> list:
+    """The short MoE phases' 8 prompts, 64-700 tokens, from seed 5."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [rng.integers(3, cfg.vocab_size, n).tolist()
+            for n in (300, 90, 512, 200, 700, 64, 450, 130)]
+
+
+def phase_moe_f32(dev, smi):
+    """``MOE_F32_LAYERS`` layers at Mixtral-8x7B's widths, f32 weights from
+    seed 0 (full-precision experts: batched f32 products), greedy,
+    ``_moe_prompts`` and 24 new tokens: the contiguous engine on the
+    kernel route (K1's CUDA-core body in every wave) against the same
+    engine with ``attn_impl="plain"``, then a paged engine (K3 on the f32
+    pool) against the plain one. Streams equal, or a divergence only where
+    the top-2 logits of the diverging step are within ``STORM_F32_GAP``
+    relative (f32 sums in another order). The kernel route's engine also
+    runs its dispatch body eagerly (``cuda_graphs=False``): those streams
+    must equal the replaying engine's exactly."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.models import decoder
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    cfg = decoder_config("mixtral-8x7b", n_layers=MOE_F32_LAYERS)
+    params = decoder.init_params(cfg, seed=0, dtype=torch.float32,
+                                 device=dev)
+    prompts = _moe_prompts(cfg)
+    base = dict(num_slots=8, max_len=1024)
+    runs = {}
+    for name, kw, used in (
+            ("plain", dict(attn_impl="plain"), ()),
+            ("kernel", {}, ("K1",)),
+            ("eager", dict(cuda_graphs=False), ("K1",)),
+            ("paged", dict(prefill_chunk=64, kv_pool_blocks=8 * 16 + 16),
+             ("K1", "K3"))):
+        eng = GenerationEngine(cfg, params, dtype="float32", device=dev,
+                               **base, **kw)
+        reset_launches()
+        comps = eng.generate(prompts, 24)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_path(f"moe_f32 {name}", launches, used)
+        runs[name] = {"tokens": [c.tokens for c in comps],
+                      "launches": launches, "graphs": eng.graph_stats()}
+        del eng
+        gc.collect()
+    rows = {}
+    for name in ("kernel", "paged"):
+        gaps = {}
+        for i, (a, b) in enumerate(zip(runs["plain"]["tokens"],
+                                       runs[name]["tokens"])):
+            if a != b:
+                j = next(k for k in range(min(len(a), len(b)) + 1)
+                         if k == min(len(a), len(b)) or a[k] != b[k])
+                gaps[i] = _top2_gap(params, cfg, prompts[i], a[:j])
+        rows[name] = {"equal": sum(a == b for a, b in zip(
+            runs["plain"]["tokens"], runs[name]["tokens"])),
+            "divergent_top2_gap": gaps, "launches": runs[name]["launches"],
+            "graphs": runs[name]["graphs"]}
+    eager = {"equal_to_kernel": sum(a == b for a, b in zip(
+        runs["kernel"]["tokens"], runs["eager"]["tokens"])),
+        "launches": runs["eager"]["launches"],
+        "graphs": runs["eager"]["graphs"]}
+    emit({"phase": "moe_f32", "config": cfg.name, "layers": cfg.n_layers,
+          "streams": len(prompts), "runs": rows, "eager": eager,
+          "gap_limit": STORM_F32_GAP, "device": smi})
+    for name, r in rows.items():
+        if any(g >= STORM_F32_GAP for g in r["divergent_top2_gap"].values()) \
+                or not r["graphs"]["replays"]:
+            raise AssertionError(f"moe_f32 {name}: {r}")
+    if eager["equal_to_kernel"] != len(prompts) or eager["graphs"]["replays"] \
+            or eager["launches"] != runs["kernel"]["launches"]:
+        raise AssertionError(f"moe_f32: the eager body differs from the "
+                             f"replayed one: {eager}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_graphs(dev, smi):
+    """``MOE_F32_LAYERS`` layers at Mixtral-8x7B's widths, random int8
+    experts and projections born on the card from seed 0, bf16: the
+    contiguous engine replaying CUDA graphs (the default) against the same
+    weights in an engine that runs its dispatch body eagerly
+    (``cuda_graphs=False``), ``_moe_prompts`` and 24 greedy new tokens.
+    Both admit the same waves and launch the same kernels, so the streams
+    and the launches by body must be equal: a fault in the captured MoE
+    body (its zeroed scratch, the slot scatter, the stable sort, the
+    static capacity) shows as a difference."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    cfg = decoder_config("mixtral-8x7b", n_layers=MOE_F32_LAYERS)
+    params = quant.init_random_quantized(cfg, seed=0, mode="int8",
+                                         device=dev)
+    prompts = _moe_prompts(cfg)
+    runs = {}
+    for graphs in (True, False):
+        eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                               num_slots=8, max_len=1024,
+                               cuda_graphs=graphs)
+        reset_launches()
+        comps = eng.generate(prompts, 24)
+        torch.cuda.synchronize()
+        runs[graphs] = {"tokens": [c.tokens for c in comps],
+                        "launches": read_launches(), "bodies": read_bodies(),
+                        "graphs": eng.graph_stats()}
+        del eng
+        gc.collect()
+    g, e = runs[True], runs[False]
+    row = {"phase": "moe_graphs", "config": cfg.name, "layers": cfg.n_layers,
+           "quantize": "int8", "streams": len(prompts),
+           "streams_equal": sum(a == b for a, b in zip(g["tokens"],
+                                                       e["tokens"])),
+           "launches_equal": (g["launches"], g["bodies"])
+           == (e["launches"], e["bodies"]),
+           "launches": g["launches"], "launches_by_body": g["bodies"],
+           "graphs": {"replay": g["graphs"], "eager": e["graphs"]},
+           "device": smi}
+    emit(row)
+    check_path("moe_graphs", g["launches"], ("K1", "K2"))
+    if row["streams_equal"] != len(prompts) or not row["launches_equal"] \
+            or not g["graphs"]["replays"] or e["graphs"]["replays"]:
+        raise AssertionError(f"moe_graphs: the replayed MoE body differs "
+                             f"from the eager one: {row}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -5974,6 +6539,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_spec_chunk_f32(dev, smi)
+    # Mixtral-8x7B, with no other model resident
+    moe_rows = phase_moe_layer(dev, smi)
+    rows.update(moe_rows)
+    moe_paths = phase_moe_serve(dev, smi)
+    phase_moe_f32(dev, smi)
+    phase_moe_graphs(dev, smi)
 
     # the journal phase's resumed child counts in its own process: its K1,
     # K2 and K3 bodies, the other kernels none
@@ -5998,6 +6569,7 @@ def main() -> int:
                "paged_chunk": paged_new["paged_chunk"][0],
                **{p: lb[0] for p, lb in slice20.items()},
                "long_serve": long_launches,
+               **{p: lb[0] for p, lb in moe_paths.items()},
                "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
                       "pipeline_pipelined": pipeline["pipelined"]["bodies"],
@@ -6013,7 +6585,8 @@ def main() -> int:
                       "paged_spec": paged_new["paged_spec"][1],
                       "paged_chunk": paged_new["paged_chunk"][1],
                       **{p: lb[1] for p, lb in slice20.items()},
-                      "long_serve": long_bodies}
+                      "long_serve": long_bodies,
+                      **{p: lb[1] for p, lb in moe_paths.items()}}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
     csrc = "copilot_for_consensus_tpu_torch/csrc"
@@ -6098,6 +6671,18 @@ def main() -> int:
                                 "bound_by", "library_ms", "max_abs_err")}
     table[0]["long_s16k"]["launches_long_serve"] = \
         long_bodies["K1"]["wgmma"]
+    # K2's and K5's bodies at the MoE experts' shapes (moe_layer), each
+    # beside the row of its body
+    for row in table:
+        k = {"int8_matmul": "K2", "int4_matmul": "K5"}.get(
+            row["name"].removesuffix("_tiled"))
+        if k is not None:
+            row["moe_cases"] = {
+                r["case"]: {key: r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")}
+                for (kk, _, _), r in moe_rows.items()
+                if kk == k and r["body"] == row["body"]}
     # P: one row a mode; unpack8 and unpack32 share the unpack wrapper's
     # count, so on the probe path each row gives the mode's own share. The
     # four GEMM-like modes run the Hopper body (probe_wgmma.cuh), the

@@ -6,8 +6,10 @@ leaf, quantized leaves included (int8 ``{"q", "scale"}``, packed int4
 ``{"q4", "scale"}``) — or CPU torch tensors (a checkpoint read by
 ``checkpoint/native.py`` or ``checkpoint/hf.py``), and returns the port's
 tree on ``device``: the
-int8 bytes of ``q`` and ``q4`` stay int8, ``scale`` is f32, every other
-leaf is cast to ``dtype``. Layouts are the same in both packages, so the
+int8 bytes of ``q`` and ``q4`` stay int8, ``scale`` is f32, an MoE
+``router`` keeps the dtype it arrives in (a checkpoint's f32 router routes
+in f32, as the JAX engine keeps it; a random-init one is already in the
+activation dtype), and every other leaf is cast to ``dtype``. Layouts are the same in both packages, so the
 same weights drive both. A torch leaf moves to the device before it is
 cast, so a leaf mapped from a file reaches the card with one copy.
 """
@@ -25,8 +27,11 @@ from copilot_for_consensus_tpu_torch.device import resolve_device, \
 
 #: leaves that hold int8 bytes: cast to the activation dtype, packed
 #: nibbles would be destroyed. No encoder leaf bears one of these names
-#: (nor "scale"), so an encoder tree is cast to ``dtype`` whole.
+#: (nor "scale" or "router"), so an encoder tree is cast to ``dtype``
+#: whole.
 _INT8_LEAVES = ("q", "q4")
+#: leaves that keep the dtype they arrive in
+_KEEP_DTYPE = ("router",)
 
 
 def params_from_numpy(tree: dict[str, Any], device, dtype) -> dict:
@@ -36,9 +41,15 @@ def params_from_numpy(tree: dict[str, Any], device, dtype) -> dict:
     def leaf(name: str, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             want = torch.int8 if name in _INT8_LEAVES else \
-                torch.float32 if name == "scale" else dtype
+                torch.float32 if name == "scale" else \
+                a.dtype if name in _KEEP_DTYPE else dtype
             return a.to(device).to(want)
         a = np.asarray(a)
+        if name in _KEEP_DTYPE:
+            if a.dtype.name == "bfloat16":          # ml_dtypes, as words
+                return torch.from_numpy(a.view(np.int16).copy()).view(
+                    torch.bfloat16).to(device)
+            return torch.from_numpy(np.array(a)).to(device)
         if name in _INT8_LEAVES:
             return torch.from_numpy(a.astype(np.int8)).to(device)
         if name == "scale":

@@ -16,8 +16,10 @@ Layout notes:
 * RoPE: both sides use the rotate-half convention, so q/k need no
   permutation.
 
-Mixtral (MoE) checkpoints map to a config but do not load: the port has
-no MoE decoder yet (ROADMAP Queue 1 item 6).
+* Mixtral (MoE): ``block_sparse_moe.gate`` becomes the ``router``
+  [L, D, E], kept in f32 whatever ``dtype`` is (routing flips experts near
+  ties in bf16); ``experts.{j}.w1``/``w3``/``w2`` become ``w_gate``/
+  ``w_up``/``w_down``, transposed and stacked [L, E, in, out].
 """
 
 from __future__ import annotations
@@ -148,16 +150,12 @@ def _cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def load_hf_params(path: str | pathlib.Path, cfg: DecoderConfig,
                    dtype: str = "bfloat16") -> dict[str, Any]:
-    """Load an HF Mistral/Llama checkpoint as the decoder tree (CPU torch
-    leaves; the caller moves them to the device or quantizes them)."""
+    """Load an HF Mistral/Llama/Mixtral checkpoint as the decoder tree (CPU
+    torch leaves; the caller moves them to the device or quantizes
+    them)."""
     torch_dtype = _DTYPES.get(dtype)
     if torch_dtype is None:
         raise CheckpointError(f"unsupported dtype {dtype!r}")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name!r} is a mixture-of-experts checkpoint "
-            f"({cfg.n_experts} experts): the port has no MoE decoder yet "
-            f"(ROADMAP Queue 1 item 6, models/moe.py)")
     reader = _LazyReader(pathlib.Path(path))
     n = cfg.n_layers
 
@@ -174,10 +172,38 @@ def load_hf_params(path: str | pathlib.Path, cfg: DecoderConfig,
         "wv": stack("self_attn.v_proj", _t),
         "wo": stack("self_attn.o_proj", _t),
         "ffn_norm": stack("post_attention_layernorm"),
-        "w_gate": stack("mlp.gate_proj", _t),
-        "w_up": stack("mlp.up_proj", _t),
-        "w_down": stack("mlp.down_proj", _t),
     }
+    if cfg.is_moe:
+        e = cfg.n_experts
+
+        def expert_stack(w_name: str) -> torch.Tensor:
+            # [n_layers, n_experts, in, out], one copy a (layer, expert)
+            def name(i: int, j: int) -> str:
+                return (f"model.layers.{i}.block_sparse_moe.experts.{j}."
+                        f"{w_name}.weight")
+
+            first = _t(reader.get(name(0, 0)))
+            out = torch.empty((n, e) + tuple(first.shape),
+                              dtype=torch_dtype)
+            for i in range(n):
+                for j in range(e):
+                    out[i, j].copy_(_t(reader.get(name(i, j))))
+            return out
+
+        layer.update({
+            # the router stays f32: routing is precision-sensitive
+            "router": _stacked(reader, n, torch.float32,
+                               lname("block_sparse_moe.gate"), _t),
+            "w_gate": expert_stack("w1"),
+            "w_up": expert_stack("w3"),
+            "w_down": expert_stack("w2"),
+        })
+    else:
+        layer.update({
+            "w_gate": stack("mlp.gate_proj", _t),
+            "w_up": stack("mlp.up_proj", _t),
+            "w_down": stack("mlp.down_proj", _t),
+        })
     params: dict[str, Any] = {
         "tok_emb": _cast(reader.get("model.embed_tokens.weight"),
                          torch_dtype),

@@ -497,10 +497,11 @@ class GenerationEngine:
                 layers_t["wq"] if "wq" in layers_t else layers_t["wqkv"]):
             # full-precision weights given: quantize on the fly
             params = quant.quantize_params(params, mode=qmode)
-        if qmode == "int4":
+        if qmode == "int4" and not cfg.is_moe:
             # q/k/v and gate/up fused: 4 kernel calls a layer instead of
-            # 7. The JAX engine fuses on a single TPU chip; the port
-            # serves dense decoders on one card, so always.
+            # 7, as the JAX engine does on a single chip. An MoE tree
+            # stays unfused, as there: its experts are called one by one
+            # by name, and q, k and v take a K5 call each.
             params = quant.fuse_int4_projections(params)
         self.params = params
         # A KV dtype below the activation dtype (float8_e4m3fn halves the

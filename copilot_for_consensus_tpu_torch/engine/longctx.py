@@ -253,8 +253,8 @@ class LongContextEngine:
                 masks)
             o = o.reshape(1, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
             x = x + L.qmatmul(o, layer["wo"])
-            x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                             layer)
+            x = x + decoder._ffn(
+                L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps), layer, cfg)
         return decoder._unembed(x, params, cfg)[:, 0]
 
     def _decode_dispatch(self, tok: int, prefix: dict, prefix_len: int,

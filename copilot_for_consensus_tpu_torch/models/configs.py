@@ -1,9 +1,9 @@
 """Model configuration registry (the port's own copy).
 
 Copied from the JAX package's ``models/configs.py`` — the port imports
-nothing of that package. Holds the decoder the port serves
-(``mistral-7b``) with the two test-scale models that keep its code path,
-and the sentence encoder of the embedding engine (``minilm-l6``, the
+nothing of that package. Holds the decoders the port serves
+(``mistral-7b`` and the mixture-of-experts ``mixtral-8x7b``) with the
+test-scale models that keep their code paths, and the sentence encoder of the embedding engine (``minilm-l6``, the
 reference's default embedder, and ``tiny``).
 """
 
@@ -65,6 +65,12 @@ DECODER_CONFIGS: dict[str, DecoderConfig] = {
         n_heads=32, n_kv_heads=8, d_ff=14336, rope_theta=1e6,
         max_seq_len=32768, sliding_window=4096,
     ),
+    # Mixtral-8x7B class: Mistral's attention, 8 experts, top-2.
+    "mixtral-8x7b": DecoderConfig(
+        name="mixtral-8x7b", vocab_size=32000, d_model=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, d_ff=14336, rope_theta=1e6,
+        max_seq_len=32768, n_experts=8, experts_per_token=2,
+    ),
     # Test-scale models: same code path, tiny widths.
     "tiny": DecoderConfig(
         name="tiny", vocab_size=512, d_model=128, n_layers=2, n_heads=4,
@@ -73,6 +79,11 @@ DECODER_CONFIGS: dict[str, DecoderConfig] = {
     "tiny-swa": DecoderConfig(
         name="tiny-swa", vocab_size=512, d_model=128, n_layers=2, n_heads=4,
         n_kv_heads=2, d_ff=256, max_seq_len=512, sliding_window=64,
+    ),
+    "tiny-moe": DecoderConfig(
+        name="tiny-moe", vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=256, max_seq_len=512, n_experts=4,
+        experts_per_token=2,
     ),
 }
 

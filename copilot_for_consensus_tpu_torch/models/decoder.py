@@ -1,7 +1,8 @@
 """Decoder-only LLM (Mistral / Llama class) — port of the JAX package's
 ``models/decoder.py`` for the contiguous and paged serving paths.
 
-Pre-norm transformer with RoPE, GQA, SwiGLU FFN and RMSNorm. Weights keep
+Pre-norm transformer with RoPE, GQA, SwiGLU FFN (or Mixtral-class
+experts, ``models/moe.py``, when the config has them) and RMSNorm. Weights keep
 the JAX layout — every layer leaf stacked on a leading layer axis — and
 the ``lax.scan`` over that axis becomes a Python loop. Entry points:
 
@@ -44,6 +45,7 @@ from copilot_for_consensus_tpu_torch.device import (
 )
 from copilot_for_consensus_tpu_torch.models import layers as L
 from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
+from copilot_for_consensus_tpu_torch.models.moe import moe_ffn
 from copilot_for_consensus_tpu_torch.models.quant import (
     init_random_quantized,
 )
@@ -74,6 +76,14 @@ def layer_params(params: Params, li: int) -> Params:
             for k, v in params["layers"].items()}
 
 
+def _ffn(x: torch.Tensor, layer: Params, cfg: DecoderConfig,
+         impl: str = "auto") -> torch.Tensor:
+    """The block's FFN: the experts of an MoE config, else SwiGLU."""
+    if cfg.is_moe:
+        return moe_ffn(x, layer, cfg, impl)
+    return L.swiglu(x, layer, impl)
+
+
 def _unembed(x: torch.Tensor, params: Params, cfg: DecoderConfig,
              impl: str = "auto") -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -90,8 +100,8 @@ def _block(x: torch.Tensor, layer: Params, cfg: DecoderConfig,
                              layer, cfg, lengths=lengths, impl=impl,
                              attn_impl=attn_impl)
     x = x + h
-    x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                     layer, impl)
+    x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps), layer,
+                 cfg, impl)
     return x, k, v
 
 
@@ -158,8 +168,8 @@ def prefill_seeded(params: Params, tokens: torch.Tensor,
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             k_pref[li], v_pref[li], prefix_lens, lengths)
         x = x + h
-        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                         layer)
+        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                     layer, cfg)
         cache["k"][li, :, :, :s] = k
         cache["v"][li, :, :, :s] = v
     x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
@@ -203,8 +213,8 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
             k_done_l=None if k_done is None else k_done[li],
             v_done_l=None if v_done is None else v_done[li])
         x = x + h
-        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                         layer)
+        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                     layer, cfg)
         k_cols.append(k_cur)
         v_cols.append(v_cur)
     return (_unembed(x, params, cfg)[:, 0], torch.stack(k_cols),
@@ -243,8 +253,8 @@ def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
             k_done_l=None if k_done is None else k_done[li],
             v_done_l=None if v_done is None else v_done[li])
         x = x + h
-        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                         layer)
+        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                     layer, cfg)
         k_cols.append(k_cur)
         v_cols.append(v_cur)
     return (_unembed(x, params, cfg)[:, 0], torch.stack(k_cols),
@@ -280,8 +290,8 @@ def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             functools.partial(partial_fn, li), prefix_lens, lengths)
         x = x + h
-        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                         layer)
+        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                     layer, cfg)
     if all_logits:
         return _unembed(x, params, cfg), k_new, v_new
     x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
@@ -324,8 +334,8 @@ def verify_seeded(params: Params, tokens: torch.Tensor,
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             k_pref[li], v_pref[li], prefix_lens, lengths)
         x = x + h
-        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                         layer)
+        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                     layer, cfg)
     return _unembed(x, params, cfg), k_new, v_new
 
 
@@ -369,7 +379,10 @@ def decode_step_piggyback(params: Params, tokens: torch.Tensor,
     (cache prefix ++ window ++ self) as in ``decode_step_windowed``.
 
     Returns (logits [B, V] f32, k_cols, v_cols [L, B, Hkv, Dh],
-    pre_k, pre_v [L, P, Hkv, C, Dh], h_step [P, D])."""
+    pre_k, pre_v [L, P, Hkv, C, Dh], h_step [P, D]). Dense FFN only: the
+    engine never piggybacks an MoE config."""
+    if cfg.is_moe:
+        raise ValueError("piggyback prefill: dense FFN only")
     b = tokens.shape[0]
     p, c = pre_tok.shape
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads

@@ -55,14 +55,26 @@ def qmatmul(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
     K2, or K4 in "a8" mode when x has at least ``A8_MIN_ROWS`` rows.
     ``impl="plain"`` takes the same route's plain versions; plain leaves go
     to ``torch.matmul``."""
+    a8 = act_quant_mode() == "a8"
+    if quant_kind(w) == "int8" and x.numel() // x.shape[-1] < A8_MIN_ROWS:
+        a8 = False
+    return _routed(x, w, impl, a8)
+
+
+def wmatmul(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
+    """``x @ w`` on the weight-only route whatever the activation mode:
+    int8 → K2, int4 → K5 (``impl="plain"``: their plain versions); plain
+    leaves go to ``torch.matmul``. The MoE experts' products, which the
+    JAX package's ``_q_einsum`` keeps weight-only in "a8" mode too."""
+    return _routed(x, w, impl, False)
+
+
+def _routed(x: torch.Tensor, w, impl: str, a8: bool) -> torch.Tensor:
     kind = quant_kind(w)
     if kind is None:
         return x @ w
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    a8 = act_quant_mode() == "a8"
-    if kind == "int8" and x.numel() // x.shape[-1] < A8_MIN_ROWS:
-        a8 = False
     kernel, plain = _ROUTES[kind][a8]
     fn = kernel if impl == "auto" else plain
     return fn(x.contiguous(), w["q4" if kind == "int4" else "q"],

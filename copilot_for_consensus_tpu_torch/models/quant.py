@@ -122,7 +122,9 @@ def fuse_int4_projections(params: dict) -> dict:
     [L, D/2, (Hq+2Hkv)·dh] and ``w_gu`` [L, D/2, 2F] — 4 kernel calls a
     layer instead of 7. ``layers._project_qkv`` / ``layers.swiglu`` split
     the product by column; the packing along D is untouched, so the group
-    scales stay exact. Already fused trees come back as they are."""
+    scales stay exact. Already fused trees come back as they are. MoE
+    trees are not fused (the engine does not call this for them, as the
+    JAX engine does not): 4-D expert leaves raise."""
     layers_t = params.get("layers", {})
     if "wqkv" in layers_t or "wq" not in layers_t:
         return params
@@ -183,19 +185,21 @@ def _trunc_normal(shape, fan_in: int, dtype, device,
 
 
 def param_shapes(cfg: DecoderConfig) -> dict:
-    """Shape tree of ``decoder.init_params`` (dense FFN)."""
+    """Shape tree of ``decoder.init_params``: a dense FFN, or for an MoE
+    config the router [L, D, E] and the experts stacked [L, E, in, out]."""
     n, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
     hq, hkv, f, v = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
-    shapes = {
-        "tok_emb": (v, d),
-        "layers": {
-            "attn_norm": (n, d), "wq": (n, d, hq * dh),
-            "wk": (n, d, hkv * dh), "wv": (n, d, hkv * dh),
-            "wo": (n, hq * dh, d), "ffn_norm": (n, d),
-            "w_gate": (n, d, f), "w_up": (n, d, f), "w_down": (n, f, d),
-        },
-        "final_norm": (d,),
+    ex = (cfg.n_experts,) if cfg.is_moe else ()
+    layer = {
+        "attn_norm": (n, d), "wq": (n, d, hq * dh),
+        "wk": (n, d, hkv * dh), "wv": (n, d, hkv * dh),
+        "wo": (n, hq * dh, d), "ffn_norm": (n, d),
     }
+    if cfg.is_moe:
+        layer["router"] = (n, d, cfg.n_experts)
+    layer.update({"w_gate": (n, *ex, d, f), "w_up": (n, *ex, d, f),
+                  "w_down": (n, *ex, f, d)})
+    shapes = {"tok_emb": (v, d), "layers": layer, "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, v)
     return shapes
@@ -212,17 +216,18 @@ def init_random_quantized(cfg: DecoderConfig, *, seed: int = 0,
     packed int4, ``mode="int4"``) on the device (None → the card), from a
     ``torch.Generator`` seeded with ``seed``.
 
-    The full-precision 7B weights are never made. int8 values are drawn
+    The full-precision weights are never made. int8 values are drawn
     uniform in [-127, 127] (std ≈ 73.3); int4 leaves are random packed
     bytes, each nibble uniform in [-8, 7] (std ≈ 4.61), with ``group``-row
     scale groups. Either way the scale is set so the dequantized weight
     has std ≈ 1/sqrt(fan_in) — the JAX package's rule. Norms are ones; the
-    other leaves are truncated normal / sqrt(fan_in).
+    other leaves (an MoE router among them) are truncated normal /
+    sqrt(fan_in) in ``dtype``. MoE experts are born quantized with the
+    expert axis leading: int8 ``q`` [L, E, D, F] with scale [L, E, 1, F],
+    int4 ``q4`` [L, E, D/2, F] with scale [L, E, G, F].
     """
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
-    if cfg.is_moe:
-        raise NotImplementedError("the port serves dense decoders only")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     quant_set = set(leaves)

@@ -113,9 +113,11 @@ PORTED = {
                             "set_slot_cap behind hasattr, and calls "
                             "on_repaired",
     "models/__init__.py": "the port's config exports",
-    "models/configs.py": "the decoder and encoder configs the port serves; "
-                         "the MoE configs come with item 6",
+    "models/configs.py": "the decoder and encoder configs the port serves "
+                         "(no llama-3-8b)",
     "models/decoder.py": "the decoder, in PyTorch",
+    "models/moe.py": "the MoE FFN, in PyTorch: a gather and scatter over "
+                     "the capacity slots in place of the one-hot einsums",
     "models/layers.py": "the layers, in PyTorch",
     "models/quant.py": "quantization, in PyTorch",
     "ops/__init__.py": "the port's kernel wrappers",

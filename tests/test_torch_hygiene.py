@@ -78,6 +78,15 @@ def test_the_long_context_modules_are_among_the_checked_files(rel):
     assert PKG / rel in PORT_FILES
 
 
+@pytest.mark.parametrize("rel", [
+    "models/moe.py", "models/configs.py", "checkpoint/hf.py",
+    "checkpoint/bridge.py"])
+def test_the_moe_modules_are_among_the_checked_files(rel):
+    # the MoE FFN, the Mixtral configs and the Mixtral reader are checked
+    # with every other file of the package
+    assert PKG / rel in PORT_FILES
+
+
 _STORM_ALONE = """
 import sys
 from copilot_for_consensus_tpu_torch.tools import journal_storm
