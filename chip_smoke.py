@@ -309,6 +309,28 @@ non-zero before the last line:
 37. moe_f32 — 2 layers at Mixtral-8x7B's widths, f32, greedy: the
    contiguous engine on K1 and a paged one on K1 and K3 against
    ``attn_impl="plain"``, streams equal (or a divergence at a top-2 tie).
+38. tp_shapes — (right after the probe) every shard shape a tp-2 or tp-4
+   rank of a Mistral-7B mesh runs, each held against its plain version
+   with the kernel phases' gates and timed beside its bound and a PyTorch
+   call: K2 at every int8 leaf at M 4 and M 4096, K5 at the int4 leaves
+   as the mesh engine fuses them (group 256; w_down at tp 4 is 14
+   groups) at M 32 and M 4096, K1 (B 4, 32/tp heads over 8/tp, S 1024)
+   and K3's decode (B 8, 8/tp kv heads, R 4); each row names the body
+   its wrapper's counters show it launched and the body the rules want
+   (reported, not gated);
+39. mesh_nccl — the collectives of ``parallel/collectives.py`` on the
+   world-1 NCCL group (``initialize_multihost`` with one process is a
+   no-op, so the phase joins the group itself): eagerly, then captured
+   in a CUDA graph replayed 3 times, each result checked; the backend and
+   NCCL's version;
+40. mesh_serve / mesh_serve_paged — (after phase 14's paged graphs)
+   ``GenerationEngine(mesh=build_mesh(MeshConfig()))`` at world size 1
+   against the un-meshed engine on the same int8 Mistral-7B tensors, the
+   deployed contiguous engine (4 slots) and the paged one (8 slots, 1024
+   blocks of 64), 8 threads of 32 new tokens: streams equal, launches by
+   body equal, graphs replayed, allocated bytes within 0.1 GB, and each
+   arm's ms a decode step, timed plain, mesh, mesh, plain and again
+   over engines built in the other order.
 
 The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
 llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
@@ -351,7 +373,9 @@ d32 body (its own row), every path's count beside it — the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. K1's row carries ``long_s16k``, K2's
 and K5's rows ``moe_cases`` (their body at the experts' shapes), and
-every row the ``long_serve`` and ``moe_serve_*`` paths. About 14 minutes
+every row the ``long_serve``, ``moe_serve_*`` and ``mesh_serve*`` paths;
+the rows of K1's wgmma, K2's, K3's decode and K5's bodies carry
+``tp_cases`` (phase 38's shard shapes on that body). About 14 minutes
 on one H100 (the host's speed varies), the build included.
 """
 
@@ -6408,6 +6432,468 @@ def phase_moe_graphs(dev, smi):
     torch.cuda.empty_cache()
 
 
+def phase_mesh_nccl(dev):
+    """The mesh's collectives on NCCL at world size 1 (one card). One
+    process makes ``initialize_multihost`` a no-op (as in the JAX
+    package), so the phase joins the world-1 NCCL group itself, over a
+    TCP store on localhost. Each helper of ``parallel/collectives.py``
+    runs on that group eagerly, then inside a CUDA graph replayed 3 times
+    on fresh inputs; every result is checked (world 1: each is its
+    input). ``capture_supported`` is the engine's own probe."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from copilot_for_consensus_tpu_torch.parallel import collectives as C
+    from copilot_for_consensus_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    noop = initialize_multihost({"coordinator_address": f"127.0.0.1:{port}",
+                                 "num_processes": 1, "process_id": 0})
+    if noop is not False:
+        raise AssertionError("initialize_multihost with one process joined "
+                             "a group")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        group = dist.group.WORLD
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def fresh():
+            return (torch.randn(4, 32, generator=g, device=dev),
+                    torch.randn(4, 32, generator=g, device=dev),
+                    torch.randn(4, 32, generator=g, device=dev))
+
+        def run(a, b, c):
+            return (C.all_reduce(a, group), C.all_gather_last(b, group),
+                    C.all_gather_rows(c, group))
+
+        checks = {}
+        a, b, c = fresh()
+        want = (a.clone(), b.clone(), c.clone())
+        got = run(a, b, c)
+        torch.cuda.synchronize()
+        checks["eager"] = all(torch.equal(x, y) for x, y in zip(got, want))
+        decision = C.broadcast_decision({"hold": True, "late": [3, 5]},
+                                        group)
+        checks["broadcast"] = decision == {"hold": True, "late": [3, 5]}
+        # captured: the collectives of one decode body, replayed
+        sa, sb, sc = fresh()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            outs = run(sa, sb, sc)
+        replays = []
+        for _ in range(3):
+            a, b, c = fresh()
+            for dst, src in zip((sa, sb, sc), (a, b, c)):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(all(torch.equal(x, y)
+                               for x, y in zip(outs, (a, b, c))))
+        checks["graph_replays"] = replays
+        ok, why = C.capture_supported(group, dev)
+        row = {"phase": "mesh_nccl", "backend": dist.get_backend(group),
+               "world_size": dist.get_world_size(),
+               "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+               "initialize_multihost_one_process": noop,
+               "group": "world-1 NCCL group joined by the phase (one "
+                        "process: initialize_multihost is a no-op)",
+               "checks": checks, "capture_supported": [ok, why]}
+        emit(row)
+        if not (checks["eager"] and checks["broadcast"]
+                and all(replays) and ok):
+            raise AssertionError(f"mesh_nccl: {row}")
+    finally:
+        dist.destroy_process_group()
+
+
+#: the mesh_serve phase's traffic: 8 threads, 32 new tokens
+MESH_SERVE_NEW = 32
+
+
+def phase_mesh_serve(dev, cfg, params, smi):
+    """The mesh engine at world size 1 on Mistral-7B int8 at full width and
+    depth, on the serve phases' param tensors (no second copy): the
+    deployed contiguous engine (4 slots, ``max_len`` 4096, window 8) and
+    the paged one (8 slots, 1024 blocks of 64), each built with and
+    without ``mesh=build_mesh(MeshConfig())``, on 8 threads of 32 new
+    tokens under CUDA graphs. The mesh engine must run the un-meshed
+    engine's kernels: greedy streams equal, launches by body equal,
+    graphs captured and replayed, its allocated bytes within 0.1 GB of
+    the un-meshed engine's. Each arm's ms a decode step (rounds of the
+    same traffic, all replays, timed plain, mesh, mesh, plain, then over
+    engines built again in the other order, mesh, plain, plain, mesh) is
+    reported beside the other's with the gap of each pair and the gap
+    between the engines built second and first (both replay the same
+    graph; not a gate). Returns the mesh arm's first-round (launches,
+    bodies) by path label."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.tokenizer import (
+        ByteTokenizer,
+    )
+    from copilot_for_consensus_tpu_torch.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        build_prompt,
+    )
+
+    tok = ByteTokenizer(max(259, cfg.vocab_size))
+    prompts = [tok.encode(build_prompt(t), add_bos=True)
+               for t in synthetic_threads(8)]
+    paths = {}
+    for label, kw, used in (
+            ("mesh_serve", dict(num_slots=4), ("K1", "K2")),
+            ("mesh_serve_paged", dict(num_slots=8, prefill_chunk=64,
+                                      kv_pool_blocks=1024),
+             ("K1", "K2", "K3"))):
+        def build(arm):
+            mesh = build_mesh(MeshConfig()) if arm == "mesh" else None
+            return GenerationEngine(cfg, params, max_len=4096,
+                                    quantize="int8", device=dev, mesh=mesh,
+                                    **kw)
+
+        def timed_round(eng):
+            """ms a decode step over one round of the traffic, every
+            dispatch a replay of a bucket the first round captured."""
+            dec0, n0 = eng.decode_s, eng.plain_dispatches
+            eng.generate(prompts, max_new_tokens=MESH_SERVE_NEW)
+            torch.cuda.synchronize()
+            steps = (eng.plain_dispatches - n0) * eng._dispatch_steps
+            return (eng.decode_s - dec0) / steps * 1e3
+
+        runs, engines = {}, {}
+        for arm in ("plain", "mesh"):
+            t_arm = time.monotonic()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            eng = build(arm)
+            if arm == "mesh" and (
+                    eng.params["layers"]["wq"]["q"] is not
+                    params["layers"]["wq"]["q"]):
+                raise AssertionError(f"{label}: the mesh engine copied the "
+                                     f"weights")
+            built = torch.cuda.memory_allocated() - base
+            reset_launches()
+            t0 = time.monotonic()
+            comps = eng.generate(prompts, max_new_tokens=MESH_SERVE_NEW)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            runs[arm] = {
+                "tokens": [c.tokens for c in comps],
+                "launches": read_launches(), "bodies": read_bodies(),
+                "allocated_gb": built / 1e9,
+                "allocated_after_gb":
+                    (torch.cuda.memory_allocated() - base) / 1e9,
+                "wall_s": wall, "decode_tokens": eng.decode_tokens}
+            engines[arm] = eng
+            runs[arm]["arm_s"] = time.monotonic() - t_arm
+        # ms a step, each arm timed first in one pair and second in the
+        # other (plain, mesh, mesh, plain), then again over engines built
+        # in the other order (mesh first), so that an order of timing or
+        # of building shows apart from the mesh: (arm, built first, ms)
+        rounds = [(arm, arm == "plain", timed_round(engines[arm]))
+                  for arm in ("plain", "mesh", "mesh", "plain")]
+        for arm, eng in engines.items():
+            runs[arm]["graphs"] = eng.graph_stats()
+        del eng, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        engines = {arm: build(arm) for arm in ("mesh", "plain")}
+        rebuilt_equal = 0
+        for arm, eng in engines.items():
+            comps = eng.generate(prompts, max_new_tokens=MESH_SERVE_NEW)
+            rebuilt_equal += [c.tokens for c in comps] == \
+                runs["plain"]["tokens"]
+        rounds += [(arm, arm == "mesh", timed_round(engines[arm]))
+                   for arm in ("mesh", "plain", "plain", "mesh")]
+        del eng, engines
+        p, m = runs["plain"], runs["mesh"]
+        equal = [a == b for a, b in zip(p["tokens"], m["tokens"])]
+
+        def mean_ms(pick):
+            got = [t for arm, first, t in rounds if pick(arm, first)]
+            return sum(got) / len(got)
+
+        ms = {"plain": mean_ms(lambda a, f: a == "plain"),
+              "mesh": mean_ms(lambda a, f: a == "mesh"),
+              "built_first": mean_ms(lambda a, f: f),
+              "built_second": mean_ms(lambda a, f: not f)}
+        # each pair's gap, mesh over plain
+        pair_gaps = []
+        for i in range(0, len(rounds), 2):
+            (a1, _, t1), (_, _, t2) = rounds[i], rounds[i + 1]
+            pair_gaps.append(t2 / t1 - 1.0 if a1 == "plain"
+                             else t1 / t2 - 1.0)
+        row = {"phase": label, "config": cfg.name, "threads": len(prompts),
+               "new_tokens": MESH_SERVE_NEW, "world_size": 1,
+               "streams_equal": sum(equal),
+               "launches_equal": (p["launches"], p["bodies"])
+               == (m["launches"], m["bodies"]),
+               "launches": m["launches"], "launches_by_body": m["bodies"],
+               "graphs": {"plain": p["graphs"], "mesh": m["graphs"]},
+               "engine_allocated_gb": {"plain": p["allocated_gb"],
+                                       "mesh": m["allocated_gb"]},
+               "allocated_after_gb": {"plain": p["allocated_after_gb"],
+                                      "mesh": m["allocated_after_gb"]},
+               "rebuilt_streams_equal": rebuilt_equal == 2,
+               "rounds": [{"arm": arm, "built_first": first, "ms": t}
+                          for arm, first, t in rounds],
+               "ms_per_step": ms,
+               "ms_per_step_gap": ms["mesh"] / ms["plain"] - 1.0,
+               "pair_gaps": pair_gaps,
+               "built_second_gap":
+                   ms["built_second"] / ms["built_first"] - 1.0,
+               "wall_s": {"plain": p["wall_s"], "mesh": m["wall_s"]},
+               "arm_s": {"plain": p["arm_s"], "mesh": m["arm_s"]},
+               "decode_tokens": m["decode_tokens"], "device": smi}
+        emit(row)
+        if not all(equal) or not row["rebuilt_streams_equal"]:
+            raise AssertionError(f"{label}: mesh streams differ from the "
+                                 f"un-meshed engine's: {equal}, rebuilt "
+                                 f"{row['rebuilt_streams_equal']}")
+        if not row["launches_equal"]:
+            raise AssertionError(f"{label}: launches {m['bodies']} != "
+                                 f"un-meshed {p['bodies']}")
+        if not m["graphs"]["captured"] or not m["graphs"]["replays"]:
+            raise AssertionError(f"{label}: graphs {m['graphs']}")
+        if m["allocated_gb"] > p["allocated_gb"] + 0.1 or \
+                m["allocated_after_gb"] > p["allocated_after_gb"] + 0.1:
+            raise AssertionError(f"{label}: the mesh engine holds more: "
+                                 f"{row['engine_allocated_gb']} "
+                                 f"{row['allocated_after_gb']}")
+        check_path(label, m["launches"], used)
+        check_bodies(label, m["bodies"])
+        check_k2_passes(label, m["launches"], m["bodies"], cfg.n_layers)
+        paths[label] = (m["launches"], m["bodies"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def tp_cases(tp: int):
+    """The shard shapes one rank of a tp-``tp`` Mistral-7B mesh runs:
+    K2's int8 leaves (D, F) (w_gate's and w_up's shape once, wk's and
+    wv's once), K5's int4 leaves as the mesh engine fuses them after the
+    cut (wqkv, wo, w_gu, w_down, the lm_head; group 256), K1's prefill
+    attention (B 4, S 1024, D 128) at 32/tp q heads over 8/tp kv heads,
+    and K3's decode at 8/tp kv heads (R 4)."""
+    k2 = [("wq", 4096, 4096 // tp), ("wk", 4096, 1024 // tp),
+          ("wo", 4096 // tp, 4096), ("w_gate", 4096, 14336 // tp),
+          ("w_down", 14336 // tp, 4096), ("lm_head", 4096, 32000 // tp)]
+    k5 = [("wqkv", 4096, (32 + 16) * 128 // tp), ("wo", 4096 // tp, 4096),
+          ("w_gu", 4096, 2 * 14336 // tp), ("w_down", 14336 // tp, 4096),
+          ("lm_head", 4096, 32000 // tp)]
+    return k2, k5
+
+
+def phase_tp_shapes(dev, flush):
+    """Every shard shape a tp-2 or tp-4 rank of a four-card cell runs,
+    held against its plain version on the card with the kernel phases'
+    gates, each timed beside its bound and a PyTorch call: K2 at M 4 (its
+    stream body) and M 4096 (wgmma), K5 at M 32 (stream) and M 4096
+    (wgmma), K1 and K3 at the local head counts. Each row names the body
+    the shape launched (the wrapper's counters) and the body the rules of
+    ``ops/quant_matmul.py`` want for it; a shape on another body is
+    reported, not gated (a finding, not a failure). Returns the rows by
+    (kernel, tp case, dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from copilot_for_consensus_tpu_torch.models import quant
+    from copilot_for_consensus_tpu_torch.ops import flash_attention as fa
+    from copilot_for_consensus_tpu_torch.ops import paged_attention as pa
+    from copilot_for_consensus_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    rows = {}
+
+    def launch(wrapper, call):
+        """``call()``'s result and the bodies of ``wrapper`` it launched,
+        read from the wrapper's counters."""
+        before = dict(wrapper.launches_by_body)
+        out = call()
+        torch.cuda.synchronize()
+        return out, "+".join(b for b, n in wrapper.launches_by_body.items()
+                             if n != before[b])
+
+    def record(row, ok, want_body):
+        row["expected_body"] = want_body
+        row["body_as_expected"] = row["body"] == want_body
+        emit(row)
+        if not ok:
+            raise AssertionError(f"tp_shapes {row['kernel']} {row['case']}: "
+                                 f"error {row['max_abs_err']} over "
+                                 f"{row['tol']}")
+        rows[(row["kernel"], row["case"], "bfloat16")] = row
+
+    for tp in (2, 4):
+        k2, k5 = tp_cases(tp)
+        for leaf, d, f in k2:
+            q = torch.randint(-127, 128, (d, f), generator=g,
+                              dtype=torch.int8, device=dev)
+            s = torch.rand(1, f, generator=g, device=dev) * (2 * d ** -0.5
+                                                              / 73.3)
+            for m in (4, 4096):
+                x = torch.randn(m, d, generator=g, device=dev).to(bf)
+                out, ran = launch(qm.int8_matmul,
+                                  lambda: qm.int8_matmul(x, q, s))
+                ref = qm.int8_matmul_ref(x, q, s)
+                tol = K2_RTOL["bfloat16"] * ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                bnd, by = bound_ms(nbytes(x, q, s, out), 2.0 * m * d * f,
+                                   "bfloat16")
+                row = {"phase": "tp_shapes", "kernel": "K2", "tp": tp,
+                       "leaf": leaf, "case": f"tp{tp}_{leaf}_m{m}",
+                       "shape": [m, d, f], "body": ran,
+                       "max_abs_err": err, "tol": tol,
+                       "ms": time_ms(lambda: qm.int8_matmul(x, q, s),
+                                     flush=flush),
+                       "plain_ms": time_ms(lambda: qm.int8_matmul_ref(
+                           x, q, s), n=3, flush=flush),
+                       "library_ms": time_ms(lambda: x @ q.to(bf) * s,
+                                             flush=flush),
+                       "library": "x @ q.to(bf16) * scale",
+                       "bound_ms": bnd, "bound_by": by}
+                record(row, bool(torch.isfinite(out).all()) and err <= tol,
+                       "stream" if m <= 8 else "wgmma")
+                del x, out, ref
+            del q, s
+        for leaf, d, f in k5:
+            q4 = torch.randint(-128, 128, (d // 2, f), generator=g,
+                               dtype=torch.int8, device=dev)
+            s = torch.rand(d // quant.INT4_GROUP, f, generator=g,
+                           device=dev) * (2 * d ** -0.5 / 4.61)
+            w = quant.dequant_int4({"q4": q4, "scale": s}, bf)
+            for m in (32, 4096):
+                x = torch.randn(m, d, generator=g, device=dev).to(bf)
+                out, ran = launch(qm.int4_matmul,
+                                  lambda: qm.int4_matmul(x, q4, s))
+                ref = qm.int4_matmul_ref(x, q4, s)
+                top = ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                bnd, by = bound_ms(nbytes(x, q4, s, out), 2.0 * m * d * f,
+                                   "bfloat16")
+                row = {"phase": "tp_shapes", "kernel": "K5", "tp": tp,
+                       "leaf": leaf, "case": f"tp{tp}_{leaf}_m{m}",
+                       "shape": [m, d, f],
+                       "groups": d // quant.INT4_GROUP,
+                       "body": ran,
+                       "max_abs_err": err, "tol": K5_RTOL["bfloat16"] * top,
+                       "ms": time_ms(lambda: qm.int4_matmul(x, q4, s),
+                                     flush=flush),
+                       "plain_ms": time_ms(lambda: qm.int4_matmul_ref(
+                           x, q4, s), n=3, flush=flush),
+                       "library_ms": time_ms(lambda: x @ w, flush=flush),
+                       "library": "x @ w, w dequantized to bf16 beforehand",
+                       "bound_ms": bnd, "bound_by": by}
+                record(row, bool(torch.isfinite(out).all())
+                       and err <= row["tol"],
+                       "stream" if m <= qm.STREAM_MAX_M else "wgmma")
+                del x, out, ref
+            del q4, s, w
+        # K1: a prefill wave's attention at the rank's heads
+        b, hq, hkv, sq, d = 4, 32 // tp, 8 // tp, 1024, 128
+        q = torch.randn(b, hq, sq, d, generator=g, device=dev).to(bf)
+        k = torch.randn(b, hkv, sq, d, generator=g, device=dev).to(bf)
+        v = torch.randn(b, hkv, sq, d, generator=g, device=dev).to(bf)
+        lens = torch.tensor([1024, 700, 333, 64], dtype=torch.int32,
+                            device=dev)
+        kw = dict(causal=True, window=4096, kv_lengths=lens)
+        out, ran = launch(fa.flash_attention,
+                          lambda: fa.flash_attention(q, k, v, **kw))
+        ref = fa.flash_attention_ref(q, k, v, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        lv, ov, bv = fa._row_params(b, sq, lens, None, None, dev)
+        mask = fa._mask(b, sq, sq, lv, ov, bv, causal=True, window=4096,
+                        device=dev)
+        pairs = int(mask.sum()) * hq
+        kv_rows = int(mask.any(dim=1).sum())
+        bnd, by = bound_ms(nbytes(q, out) + 2 * hkv * d * 2 * kv_rows
+                           + 4 * b, 4.0 * d * pairs, "bfloat16")
+        row = {"phase": "tp_shapes", "kernel": "K1", "tp": tp,
+               "case": f"tp{tp}_prefill_s1024",
+               "shape": [b, hq, hkv, sq, sq, d], "body": ran,
+               "max_abs_err": err, "tol": K1_ATOL["bfloat16"],
+               "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+               "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                   q, k, v, **kw), n=3),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask[:, None], enable_gqa=True)),
+               "library": "SDPA with the same mask",
+               "bound_ms": bnd, "bound_by": by}
+        record(row, bool(torch.isfinite(out).all())
+               and err <= K1_ATOL["bfloat16"], "wgmma")
+        del q, k, v, out, ref, mask
+        # K3: a paged decode step at the rank's kv heads
+        bsz, hkv, d, blk, nbtot, r = 8, 8 // tp, 128, 64, 1024, 4
+        pk = torch.randn(2, nbtot, hkv, blk, d, generator=g,
+                         device=dev).to(bf)
+        pv = torch.randn(2, nbtot, hkv, blk, d, generator=g,
+                         device=dev).to(bf)
+        lens_l = [0, 1, 64, 65, 1000, 4095, 2048, 777]
+        tables = torch.full((bsz, 64), nbtot, dtype=torch.int32, device=dev)
+        perm = torch.randperm(nbtot, generator=g, device=dev)
+        for i, n in enumerate(lens_l):
+            need = -(-n // blk)
+            tables[i, :need] = perm[i * 64:i * 64 + need].to(torch.int32)
+        lengths = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+        q_pos = lengths + 2
+        qr = torch.randn(bsz, hkv, r, d, generator=g, device=dev).to(bf)
+        args = (qr, pk, pv, 1, tables, lengths, q_pos)
+        part, body = launch(pa.paged_attention_partial,
+                            lambda: pa.paged_attention_partial(
+                                *args, window=4096))
+        ref = pa.paged_attention_partial_ref(*args, window=4096)
+        err, m_err, l_err, ok = k3_errors(part, ref)
+        # the positions [lo, hi) each row attends, read once each
+        hi = lengths.clamp(max=64 * blk).long()
+        lo = (q_pos.long() - 4096 + 1).clamp(min=0)
+        pos = int((hi - lo).clamp(min=0).sum())
+        bnd, by = bound_ms(pos * hkv * d * 2 * 2
+                           + nbytes(qr, tables, lengths, q_pos)
+                           + sum(t.numel() * 4 for t in part),
+                           4.0 * r * d * hkv * pos, "bfloat16")
+        kg, vg = pa.paged_gather_layer(pk[1], pv[1], tables)
+        t = torch.arange(kg.shape[2], device=dev)[None]
+        kmask = (t < lengths.long()[:, None]) & (t >= lo[:, None])
+        qs = qr.reshape(bsz, hkv * 4, 1, d)
+        row = {"phase": "tp_shapes", "kernel": "K3", "tp": tp,
+               "case": f"tp{tp}_decode", "shape": [bsz, hkv, r, d, blk, 64],
+               "body": body, "max_abs_err": err, "tol": K3_ATOL,
+               "m_err": m_err, "l_rel_err": l_err,
+               "ms": time_ms(lambda: pa.paged_attention_partial(
+                   *args, window=4096), flush=flush),
+               "plain_ms": time_ms(lambda: pa.paged_attention_partial_ref(
+                   *args, window=4096), n=3, flush=flush),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qs, kg, vg, attn_mask=kmask[:, None, None],
+                   enable_gqa=True), flush=flush),
+               "library": "SDPA over the pre-gathered view, gather excluded",
+               "bound_ms": bnd, "bound_by": by}
+        record(row, ok, "decode")
+        del pk, pv, qr, part, ref, kg, vg
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -6463,7 +6949,11 @@ def main() -> int:
     rows.update(phase_quant_kernels(dev, flush))
     probe_rows, probe_launches, probe_per_mode = phase_probe(dev, flush, smi)
     rows.update(probe_rows)
+    # the shard shapes a tp-2 or tp-4 rank runs, and the mesh's
+    # collectives on NCCL at world size 1
+    tp_rows = phase_tp_shapes(dev, flush)
     del flush
+    phase_mesh_nccl(dev)
 
     cfg = decoder_config("mistral-7b")
     t0 = time.monotonic()
@@ -6512,6 +7002,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_graphs(dev, cfg, params, smi, paged=True)
+    mesh_paths = phase_mesh_serve(dev, cfg, params, smi)
     fp8_launches, fp8_bodies = phase_paged_fp8(dev, cfg, params, smi,
                                                paged_comps)
     spec_launches, spec_bodies = phase_spec_serve(dev, cfg, params, smi)
@@ -6570,6 +7061,7 @@ def main() -> int:
                **{p: lb[0] for p, lb in slice20.items()},
                "long_serve": long_launches,
                **{p: lb[0] for p, lb in moe_paths.items()},
+               **{p: lb[0] for p, lb in mesh_paths.items()},
                "probe": probe_launches}
     bodies_by_path = {"pipeline": pipeline["sync"]["bodies"],
                       "pipeline_pipelined": pipeline["pipelined"]["bodies"],
@@ -6586,7 +7078,8 @@ def main() -> int:
                       "paged_chunk": paged_new["paged_chunk"][1],
                       **{p: lb[1] for p, lb in slice20.items()},
                       "long_serve": long_bodies,
-                      **{p: lb[1] for p, lb in moe_paths.items()}}
+                      **{p: lb[1] for p, lb in moe_paths.items()},
+                      **{p: lb[1] for p, lb in mesh_paths.items()}}
     table = []
     q = "copilot_for_consensus_tpu/ops/quant_matmul.py"
     csrc = "copilot_for_consensus_tpu_torch/csrc"
@@ -6682,6 +7175,19 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")}
                 for (kk, _, _), r in moe_rows.items()
+                if kk == k and r["body"] == row["body"]}
+    # each body's tp-2 and tp-4 shard shapes (tp_shapes), beside its row
+    kernel_of = {"flash_attention": "K1", "int8_matmul": "K2",
+                 "int8_matmul_tiled": "K2", "paged_attention": "K3",
+                 "int4_matmul": "K5", "int4_matmul_tiled": "K5"}
+    for row in table:
+        k = kernel_of.get(row["name"])
+        if k is not None:
+            row["tp_cases"] = {
+                r["case"]: {key: r[key] for key in (
+                    "shape", "body", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err")}
+                for (kk, _, _), r in tp_rows.items()
                 if kk == k and r["body"] == row["body"]}
     # P: one row a mode; unpack8 and unpack32 share the unpack wrapper's
     # count, so on the probe path each row gives the mode's own share. The

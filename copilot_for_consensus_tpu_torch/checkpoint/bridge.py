@@ -12,6 +12,11 @@ in f32, as the JAX engine keeps it; a random-init one is already in the
 activation dtype), and every other leaf is cast to ``dtype``. Layouts are the same in both packages, so the
 same weights drive both. A torch leaf moves to the device before it is
 cast, so a leaf mapped from a file reaches the card with one copy.
+
+With a ``mesh`` (and the decoder's ``cfg``) each leaf is first cut to this
+rank's shard by the serving rules (``parallel.sharding``): a mapped leaf
+is sliced before anything is read or copied, so a rank's device never
+holds a whole sharded leaf.
 """
 
 from __future__ import annotations
@@ -34,16 +39,29 @@ _INT8_LEAVES = ("q", "q4")
 _KEEP_DTYPE = ("router",)
 
 
-def params_from_numpy(tree: dict[str, Any], device, dtype) -> dict:
-    device = resolve_device(device)
+def params_from_numpy(tree: dict[str, Any], device, dtype, mesh=None, *,
+                      cfg=None) -> dict:
+    device = resolve_device(device, mesh)
     dtype = resolve_dtype(dtype)
+    if mesh is not None:
+        from copilot_for_consensus_tpu_torch.models import decoder
+        from copilot_for_consensus_tpu_torch.parallel.sharding import (
+            serving_param_rules,
+            shard_views,
+        )
+
+        if cfg is None:
+            raise ValueError("params_from_numpy(mesh=...) needs the "
+                             "decoder's cfg for its sharding rules")
+        tree = shard_views(tree, decoder.param_logical_axes(cfg, tree),
+                           mesh, serving_param_rules(cfg, mesh))
 
     def leaf(name: str, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             want = torch.int8 if name in _INT8_LEAVES else \
                 torch.float32 if name == "scale" else \
                 a.dtype if name in _KEEP_DTYPE else dtype
-            return a.to(device).to(want)
+            return a.to(device).to(want).contiguous()
         a = np.asarray(a)
         if name in _KEEP_DTYPE:
             if a.dtype.name == "bfloat16":          # ml_dtypes, as words

@@ -15,8 +15,18 @@ _DTYPES = {
 }
 
 
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` → ``cuda``; raises when the requested CUDA device is absent."""
+def resolve_device(device: str | torch.device | None = None,
+                   mesh=None) -> torch.device:
+    """``None`` → ``cuda`` (with a ``mesh``: the rank's device, which the
+    mesh gives); raises when the requested CUDA device is absent, or when
+    ``device`` is not the mesh's."""
+    if mesh is not None:
+        if device is None:
+            return mesh.device
+        want = getattr(mesh, "_device", None)
+        if want is not None and torch.device(want) != torch.device(device):
+            raise ValueError(f"device {device} is not this rank's mesh "
+                             f"device {want}")
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

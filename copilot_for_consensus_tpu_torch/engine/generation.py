@@ -123,8 +123,37 @@ The verify, chunk and piggyback dispatches run eagerly (no CUDA graph);
 they write the cache or the pool in place, and the decode graphs read
 positions and tokens from their static buffers, refilled before every
 dispatch. Where the JAX engine builds new arrays, this one updates the
-cache and the pool in place (no second allocation). Multi-device meshes
-(and with them roles over more than one device) are not served.
+cache and the pool in place (no second allocation).
+
+**A dp×tp mesh** (``mesh=``, ``parallel/``; lockstep SPMD: every rank
+builds the same engine and calls the same API with the same arguments in
+the same order, as a ``torchrun`` job runs one script a rank):
+
+* host state — the queue, the slots, the block tables, the allocator —
+  is whole on every rank; only device state is sharded. Each host
+  decision that reads a clock (the admission hold, the deadlines) is
+  taken on rank 0 and broadcast, so no rank decides otherwise and hangs
+  in the next collective;
+* tp: the weights are this rank's megatron shards (``shard_pytree`` by
+  ``serving_param_rules``; where tp does not divide the kv heads, the kv
+  head this rank's q heads group to), the passes run at the local head
+  and ffn widths of ``decoder.local_config``, whose ``TPShard`` gives
+  them the all-reduces and the vocab all-gather;
+* dp: slot ``s`` belongs to dp group ``s // (num_slots / dp)``, and each
+  group prefills and decodes only its own rows, over its own rows of the
+  cache or its own shard of the pool (block ids local to it). The rows'
+  logits are all-gathered over dp before every sample, and the whole
+  batch is sampled on every rank from generators seeded alike: the draws
+  are the un-meshed engine's, and every rank holds every token. Where dp
+  does not divide ``num_slots`` the contiguous engine replicates the
+  batch over dp (the JAX engine's rule); the paged engine raises.
+
+A size-1 axis has no collective: at world size 1 the mesh engine runs the
+un-meshed engine's kernels in the same order. On a mesh with any axis
+above 1, speculative verify, chunked prefill (the scheduler), the prefix
+caches, piggyback prefill, roles, the journal and the async runner raise,
+each naming the ROADMAP item that brings it, as do ``pp``, ``sp`` and
+``ep`` above 1.
 """
 
 from __future__ import annotations
@@ -176,6 +205,15 @@ from copilot_for_consensus_tpu_torch.ops.attention import IMPLS
 from copilot_for_consensus_tpu_torch.ops.paged_attention import (
     paged_attention_partial,
     paged_gather_kv,
+)
+from copilot_for_consensus_tpu_torch.parallel.collectives import (
+    all_gather_rows,
+    broadcast_decision,
+    capture_supported,
+)
+from copilot_for_consensus_tpu_torch.parallel.sharding import (
+    serving_param_rules,
+    shard_pytree,
 )
 
 @dataclass
@@ -277,8 +315,41 @@ def _to_device(tree: dict, device: torch.device) -> dict:
             else v.to(device) for k, v in tree.items()}
 
 
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+#: ROADMAP Queue 1 items that bring what a mesh above one rank refuses
+_MESH_ITEM = "ROADMAP Queue 1 item 6c.1 (the mesh engine's remaining " \
+    "features)"
+
+
+def _refuse_on_mesh(mesh, **features) -> None:
+    """Raise for what the mesh engine does not serve on a mesh of more
+    than one rank, naming the ROADMAP item that brings it. ``features``:
+    name → whether the caller asked for it."""
+    for axis, item in (("pp", "6e (pp, with training)"),
+                       ("sp", "6c.2 (sp)"), ("ep", "6c.3 (ep)")):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"GenerationEngine on a mesh with {axis}="
+                f"{mesh.shape[axis]}: the engine serves over dp×tp; "
+                f"{axis} is ROADMAP Queue 1 item {item}")
+    for name, asked in features.items():
+        if asked:
+            item = "ROADMAP Queue 1 item 6d (roles over several devices)" \
+                if name == "role" else _MESH_ITEM
+            raise NotImplementedError(
+                f"GenerationEngine({name}) on a mesh of {mesh.size} ranks "
+                f"is not served yet: {item}")
+
+
 class GenerationEngine:
-    """Continuous-batching decoder serving on one device."""
+    """Continuous-batching decoder serving on one device, or on a dp×tp
+    mesh of ranks (``mesh=``)."""
 
     def __init__(
         self,
@@ -320,8 +391,34 @@ class GenerationEngine:
         journal=None,
         profile_dir: str | None = None,
         device: str | torch.device | None = None,
+        mesh=None,
+        _params_local: bool = False,
     ):
-        self.device = resolve_device(device)
+        # A mesh of several ranks: refuse what it does not serve before
+        # anything is built (every rank raises alike, before any
+        # collective). ``_params_local`` (``from_checkpoint`` only):
+        # ``params`` already hold this rank's shard.
+        self.mesh = mesh
+        if mesh is not None and mesh.size > 1:
+            _refuse_on_mesh(
+                mesh, spec_decode=spec_decode,
+                **{"scheduler (chunked prefill)": scheduler is not None,
+                   "prefix_cache_blocks": bool(prefix_cache_blocks),
+                   "piggyback_min_prompt (piggyback prefill)":
+                       piggyback_min_prompt < 10**9,
+                   "journal": journal is not None,
+                   "role": role != "both"})
+            dp = mesh.shape["dp"]
+            if cfg.is_moe and dp > 1 and num_slots % dp == 0:
+                # expert capacity is counted over the whole batch: split
+                # rows would route against a capacity of their own and
+                # drop other tokens than the un-meshed engine
+                raise NotImplementedError(
+                    f"an MoE config on a mesh with dp={dp}: expert "
+                    f"capacity spans the whole batch, which the cross-rank "
+                    f"expert dispatch of ROADMAP Queue 1 item 6c.3 (ep) "
+                    f"brings; serve MoE over tp")
+        self.device = resolve_device(device, mesh)
         # The prefill waves' attention route: "auto" (K1 on the card, its
         # plain version on the CPU) or "plain" (K1's plain version). The
         # JAX engine also takes a callable (ring attention over a mesh).
@@ -491,12 +588,53 @@ class GenerationEngine:
                 params = decoder.init_params(cfg, seed=seed,
                                              dtype=self.dtype,
                                              device=self.device)
-        params = _to_device(params, self.device)
+        if mesh is None:
+            params = _to_device(params, self.device)
         layers_t = params["layers"]
         if qmode and not quant.is_quantized(
                 layers_t["wq"] if "wq" in layers_t else layers_t["wqkv"]):
-            # full-precision weights given: quantize on the fly
+            # full-precision weights given: quantize on the fly (on a
+            # mesh, where they lie, before the shards are cut)
             params = quant.quantize_params(params, mode=qmode)
+        # The mesh's axes as this engine uses them (the un-meshed engine
+        # is the mesh of one rank): this rank's tp shard (None: whole
+        # weights, no collective), its dp group's rows, and the group a
+        # host decision is broadcast over.
+        self._mcfg = cfg
+        self._tp_shard = None
+        self._dp, self._dp_rank, self._dp_group = 1, 0, None
+        self._world = None
+        if mesh is not None:
+            rules = serving_param_rules(cfg, mesh)
+            if not _params_local:
+                params = shard_pytree(
+                    params, decoder.param_logical_axes(cfg, params), mesh,
+                    rules, device=self.device)
+            tp = mesh.shape["tp"]
+            if tp > 1:
+                if rules["kv_heads"] != "tp":
+                    params = decoder.select_kv_heads(params, cfg, tp,
+                                                     mesh.coords["tp"])
+                self._tp_shard = decoder.TPShard(
+                    group=mesh.group("tp"),
+                    vocab_start=mesh.coords["tp"] * (cfg.vocab_size // tp))
+                self._mcfg = decoder.local_config(cfg, tp, rules,
+                                                  self._tp_shard)
+            dp = mesh.shape["dp"]
+            if dp > 1 and kv_pool_blocks and num_slots % dp:
+                raise ValueError(
+                    f"kv_pool_blocks on a mesh requires num_slots "
+                    f"({num_slots}) divisible by dp ({dp}): slots "
+                    f"partition over the dp shards")
+            if dp > 1 and num_slots % dp == 0:
+                # else the contiguous batch is replicated over dp
+                self._dp, self._dp_rank = dp, mesh.coords["dp"]
+                self._dp_group = mesh.group("dp")
+            self._world = mesh.world
+        #: slots a dp group owns, and this rank's first one
+        self._slots_ps = num_slots // self._dp
+        self._row0 = self._dp_rank * self._slots_ps
+        mcfg = self._mcfg
         if qmode == "int4" and not cfg.is_moe:
             # q/k/v and gate/up fused: 4 kernel calls a layer instead of
             # 7, as the JAX engine does on a single chip. An MoE tree
@@ -587,14 +725,19 @@ class GenerationEngine:
             self._write_margin = max(
                 self._dispatch_steps,
                 max(spec_draft_lens, default=0) + 1)
-            if kv_pool_blocks < self._max_blocks + 1:
+            if kv_pool_blocks < (self._max_blocks + 1) * self._dp:
                 raise ValueError(
                     f"kv_pool_blocks={kv_pool_blocks} cannot hold even "
                     f"one max_len={self.max_len} slot "
-                    f"({self._max_blocks} blocks) plus one block")
-            self._pool = BlockPool(cfg, num_blocks=kv_pool_blocks,
+                    f"({self._max_blocks} blocks) plus one block per dp "
+                    f"shard (dp={self._dp})")
+            # dp splits the block axis: this rank holds its group's shard
+            self._pool = BlockPool(mcfg, num_blocks=kv_pool_blocks,
                                    block_size=block, kv_dtype=self.kv_dtype,
-                                   device=self.device)
+                                   device=self.device, num_shards=self._dp,
+                                   shard=self._dp_rank)
+            #: the first global block id of this rank's dp shard
+            self._id_base = self._dp_rank * self._pool.blocks_per_shard
             # piggyback packing binds rows to contiguous slot-cache spans;
             # the paged engine's overlap path is chunked prefill
             self._piggyback_ok = False
@@ -621,7 +764,8 @@ class GenerationEngine:
                 self.telemetry.gauge_kv_route(self._kv_route)
         else:
             self._kv_route = ""
-            self._cache = decoder.init_cache(cfg, num_slots, self.max_len,
+            self._cache = decoder.init_cache(mcfg, self._slots_ps,
+                                             self.max_len,
                                              dtype=self.kv_dtype,
                                              device=self.device)
             if prefix_cache_blocks:
@@ -701,9 +845,24 @@ class GenerationEngine:
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
         self._static = self._static_buffers()
+        # Across ranks the captured body holds the mesh's collectives; a
+        # build that cannot capture them serves eagerly, and says so
+        eager_reason = ""
+        if cuda_graphs and self.device.type == "cuda" and \
+                mesh is not None and mesh.size > 1:
+            with self._on_stream():
+                ok, why = True, ""
+                for group in (self._tp_shard and self._tp_shard.group,
+                              self._dp_group):
+                    if ok and group is not None:
+                        ok, why = capture_supported(group, self.device)
+            if not ok:
+                cuda_graphs = False
+                eager_reason = f"mesh collectives not capturable: {why}"
         self._graphs = DecodeGraphs(
             self.device, enabled=cuda_graphs, stream=self._stream,
-            generators=(self._gen,) if sampling.temperature > 0 else ())
+            generators=(self._gen,) if sampling.temperature > 0 else (),
+            eager_reason=eager_reason)
 
         # Warm restart last: every queue and slot structure above must
         # exist before recovered requests resubmit through submit().
@@ -717,15 +876,18 @@ class GenerationEngine:
     @classmethod
     def from_checkpoint(cls, path, *, dtype: str | torch.dtype =
                         torch.bfloat16, device: str | torch.device | None =
-                        None, **engine_kw) -> "GenerationEngine":
+                        None, mesh=None, **engine_kw) -> "GenerationEngine":
         """An engine over a checkpoint directory: native (quantized
         offline, mapped) or HF safetensors (converted in memory). The
         quantize mode comes from the checkpoint's metadata ("int8",
         "int4" or none; True means int8), as do the EOS ids. Leaves go
-        to ``device`` (None → the card) by ``params_from_numpy``'s rules:
-        ``q`` and ``q4`` stay int8, ``scale`` f32, the rest ``dtype``.
-        ``engine_kw`` reaches the engine (``kv_dtype=``, ``journal=`` and
-        the rest): a journal with rows warm-restarts here."""
+        to ``device`` (None → the card; with a ``mesh``, the rank's) by
+        ``params_from_numpy``'s rules: ``q`` and ``q4`` stay int8,
+        ``scale`` f32, the rest ``dtype``; on a mesh each mapped leaf is
+        cut to this rank's shard before it is copied, so a rank's device
+        never holds a whole sharded leaf. ``engine_kw`` reaches the engine
+        (``kv_dtype=``, ``journal=`` and the rest): a journal with rows
+        warm-restarts here."""
         from copilot_for_consensus_tpu_torch.checkpoint import (
             load_checkpoint,
         )
@@ -734,13 +896,15 @@ class GenerationEngine:
         )
 
         dtype = resolve_dtype(dtype)
-        device = resolve_device(device)
+        device = resolve_device(device, mesh)
         cfg, params, meta = load_checkpoint(
             path, dtype=str(dtype).removeprefix("torch."))
         engine_kw.setdefault("eos_id", meta.get("eos_ids",
                                                 meta.get("eos_id", 2)))
-        return cls(cfg, params_from_numpy(params, device, dtype),
-                   dtype=dtype, device=device,
+        return cls(cfg, params_from_numpy(params, device, dtype, mesh=mesh,
+                                          cfg=cfg),
+                   dtype=dtype, device=device, mesh=mesh,
+                   _params_local=mesh is not None,
                    quantize=meta.get("quantized") or False, **engine_kw)
 
     @property
@@ -1028,7 +1192,7 @@ class GenerationEngine:
                 if self.paged_admits else 0.0),
             "peak_active": self.peak_active,
             "headroom_blocks": self._block_headroom(),
-            "dp_shards": 1,
+            "dp_shards": self._dp,
             "role": self.role,
             "handoff_parked": len(self._handoff),
             "handoff_exported": self.handoff_exported,
@@ -1093,8 +1257,9 @@ class GenerationEngine:
         if (len(self._queue) < self.admit_min_rows
                 and (self.admit_hold_strict
                      or len(self._free) * 4 <= self.num_slots)
-                and (time.monotonic() - self._queue[0].submitted_at
-                     < self.admit_max_wait_s)):
+                and self._decide(lambda: time.monotonic()
+                                 - self._queue[0].submitted_at
+                                 < self.admit_max_wait_s)):
             # let the wave fill while decode runs on, but only while the
             # batch is at least 3/4 occupied (or the hold is strict)
             return
@@ -1102,7 +1267,10 @@ class GenerationEngine:
         batch: list[tuple[int, Request]] = []
         matches: list = []            # PrefixMatch | None, aligned w/ batch
         longest = 0
-        headroom = self._block_headroom() if self.paged else 0
+        # Paged: free-block accounting per dp shard; a request goes to
+        # the first shard with a free slot and headroom for its worst case
+        headroom = [self._shard_headroom(s) for s in range(self._dp)] \
+            if self.paged else []
         # Cap a wave at 128 rows AND the prompt-token budget: prefill
         # scratch and activations scale with rows × bucket; and the slots
         # in use at the occupancy cap the resource breaker may lower.
@@ -1115,7 +1283,11 @@ class GenerationEngine:
                 # the matched blocks takes them out of the evictable
                 # headroom this gate was computed against
                 need = self._worst_blocks_total(head)
-                if need > headroom:
+                shard = next((sh for sh in range(self._dp)
+                              if need <= headroom[sh]
+                              and any(self._slot_shard(x) == sh
+                                      for x in self._free)), None)
+                if shard is None:
                     break
             if self._prefix is not None:
                 match_len = self._prefix.match_tokens(
@@ -1131,8 +1303,13 @@ class GenerationEngine:
                 if m.tokens == 0:       # miss: nothing pinned
                     m = None
             if self.paged:
-                headroom -= need
-            batch.append((self._free.pop(0), self._queue.pop(0)))
+                headroom[shard] -= need
+                slot = next(x for x in self._free
+                            if self._slot_shard(x) == shard)
+                self._free.remove(slot)
+            else:
+                slot = self._free.pop(0)
+            batch.append((slot, self._queue.pop(0)))
             matches.append(m)
         if not batch:
             return                      # the pool cannot take the head
@@ -1142,9 +1319,7 @@ class GenerationEngine:
         bucket = _next_bucket(max(suffix_lens), self.buckets)
         # Pad N to the next power of two; padded rows prefill garbage and
         # their KV is never written.
-        n = 1
-        while n < len(batch):
-            n *= 2
+        n = _pow2(len(batch))
         kind = "prefill_seeded" if any(matches) else "prefill"
         seq = self.telemetry.next_step() if self.telemetry is not None \
             else None
@@ -1234,26 +1409,83 @@ class GenerationEngine:
         if tok in self._eos_set or req.max_new_tokens <= 1:
             self._retire(slot, "eos" if tok in self._eos_set else "length")
 
+    # -- a wave over dp: each group prefills its own rows ---------------
+
+    def _wave_width(self, slots: list[int]) -> int:
+        """Rows every dp group's part of a wave pads to: the most any
+        group takes, to a power of two (the all-gather needs one
+        shape)."""
+        per = [0] * self._dp
+        for s in slots:
+            per[self._slot_shard(s)] += 1
+        return _pow2(max(per))
+
+    def _wave_rows(self, tokens: np.ndarray, lengths: np.ndarray,
+                   slots: list[int]):
+        """This dp group's rows of a contiguous wave, padded to
+        :meth:`_wave_width`: (tokens, lengths, its slots)."""
+        n = self._wave_width(slots)
+        mine = [i for i, s in enumerate(slots)
+                if self._slot_shard(s) == self._dp_rank]
+        tok = np.zeros((n, tokens.shape[1]), dtype=tokens.dtype)
+        lns = np.ones((n,), dtype=lengths.dtype)
+        tok[:len(mine)] = tokens[mine]
+        lns[:len(mine)] = lengths[mine]
+        return tok, lns, [slots[i] for i in mine]
+
+    def _no_rows(self, n: int) -> torch.Tensor:
+        """The logits a dp group with no row in a wave gives the
+        all-gather: it prefills nothing."""
+        return torch.zeros((n, self.cfg.vocab_size), dtype=torch.float32,
+                           device=self.device)
+
+    def _wave_sample(self, logits: torch.Tensor,
+                     wave: list[int]) -> np.ndarray:
+        """The first tokens of the wave into slots ``wave``, in its order,
+        from this group's ``logits`` [n, V]: without dp its first rows are
+        the wave; with dp every group's part is all-gathered and the
+        wave's rows are taken in order, so every rank samples the whole
+        wave as the un-meshed engine does."""
+        if self._dp == 1:
+            return sample(logits[:len(wave)], self._gen,
+                          self.sampling).cpu().numpy()
+        n = logits.shape[0]
+        every = all_gather_rows(logits, self._dp_group)
+        seen = [0] * self._dp
+        order = []
+        for s in wave:
+            g = self._slot_shard(s)
+            order.append(g * n + seen[g])
+            seen[g] += 1
+        idx = torch.tensor(order, device=every.device)
+        return sample(every[idx], self._gen, self.sampling).cpu().numpy()
+
     @torch.inference_mode()
     def _admit_wave(self, tokens: np.ndarray, lengths: np.ndarray,
                     slots: list[int]) -> np.ndarray:
         """Prefill + cache insert + first-token sample for one wave; the
         first ``len(slots)`` rows are real and go to ``slots``."""
+        wave = slots
+        if self._dp > 1:
+            tokens, lengths, slots = self._wave_rows(tokens, lengths, slots)
         n, bucket = tokens.shape
-        scratch = decoder.init_cache(self.cfg, n, bucket,
-                                     dtype=self.kv_dtype, device=self.device)
-        logits, scratch = decoder.prefill(
-            self.params, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(lengths).to(self.device), self.cfg, scratch,
-            attn_impl=self.attn_impl)
         rows = len(slots)
-        sl = torch.tensor(slots, device=self.device)
-        for name in ("k", "v"):
-            # fp8 caches move as bytes: index_put_ has no float8 kernel
-            storage_view(self._cache[name])[:, sl, :, :bucket] = \
-                storage_view(scratch[name][:, :rows])
-        first = sample(logits[:rows], self._gen, self.sampling)
-        return first.cpu().numpy()                 # the ONE host sync
+        if rows:
+            scratch = decoder.init_cache(self._mcfg, n, bucket,
+                                         dtype=self.kv_dtype,
+                                         device=self.device)
+            logits, scratch = decoder.prefill(
+                self.params, torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(lengths).to(self.device), self._mcfg,
+                scratch, attn_impl=self.attn_impl)
+            sl = torch.tensor(slots, device=self.device) - self._row0
+            for name in ("k", "v"):
+                # fp8 caches move as bytes: index_put_ has no float8 kernel
+                storage_view(self._cache[name])[:, sl, :, :bucket] = \
+                    storage_view(scratch[name][:, :rows])
+        else:
+            logits = self._no_rows(n)
+        return self._wave_sample(logits, wave)     # the ONE host sync
 
     @torch.inference_mode()
     def _admit_wave_seeded(self, batch, matches, suffix_lens: list[int],
@@ -1272,9 +1504,7 @@ class GenerationEngine:
         tokens = np.zeros((n, bucket), dtype=np.int64)
         lengths = np.ones((n,), dtype=np.int64)
         pref = np.zeros((n,), dtype=np.int64)
-        nb = 1
-        while nb < max(len(m.block_ids) for m in matches if m):
-            nb *= 2
+        nb = _pow2(max(len(m.block_ids) for m in matches if m))
         # padding ids are clamped by the gather and masked by pref
         bids = np.full((n, nb), self._prefix.num_blocks, dtype=np.int32)
         for i, (_slot, req) in enumerate(batch):
@@ -1289,12 +1519,12 @@ class GenerationEngine:
                                  torch.from_numpy(bids).to(dev))
         if pk.dtype != self.kv_dtype:              # fp8 pools as bytes
             pk, pv = pk.view(self.kv_dtype), pv.view(self.kv_dtype)
-        scratch = decoder.init_cache(self.cfg, n, bucket,
+        scratch = decoder.init_cache(self._mcfg, n, bucket,
                                      dtype=self.kv_dtype, device=dev)
         logits, scratch = decoder.prefill_seeded(
             self.params, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(lengths).to(dev), pk, pv,
-            torch.from_numpy(pref).to(dev), self.cfg, scratch)
+            torch.from_numpy(pref).to(dev), self._mcfg, scratch)
         for i, (slot, _req) in enumerate(batch):
             p0 = int(pref[i])
             cols = min(bucket, self.max_len - p0)
@@ -1317,27 +1547,35 @@ class GenerationEngine:
         matched prefixes in place with K3 (window 0). Either way the fresh
         suffix KV lands in the row's own blocks in one pool scatter."""
         dev = self.device
-        tokens = np.zeros((n, bucket), dtype=np.int64)
-        lengths = np.ones((n,), dtype=np.int64)
-        rows = []
         for i, (slot, req) in enumerate(batch):
             tbl = list(matches[i].block_ids) if matches[i] else []
             self._owned_from[slot] = len(tbl)
             need = self._pool.blocks_for(len(req.prompt)) - len(tbl)
             if need > 0:
-                tbl.extend(self._alloc_blocks(need))
+                tbl.extend(self._alloc_blocks(need, self._slot_shard(slot)))
             self._tables[slot] = tbl
+        # this dp group's rows of the wave (all of them without dp)
+        mine = [i for i, (slot, _) in enumerate(batch)
+                if self._slot_shard(slot) == self._dp_rank]
+        if self._dp > 1:
+            n = self._wave_width([slot for slot, _ in batch])
+        tokens = np.zeros((n, bucket), dtype=np.int64)
+        lengths = np.ones((n,), dtype=np.int64)
+        rows = []
+        for j, i in enumerate(mine):
+            slot, req = batch[i]
             start = len(req.prompt) - suffix_lens[i]
-            tokens[i, :suffix_lens[i]] = req.prompt[start:]
-            lengths[i] = suffix_lens[i]
-            rows.append((i, tbl, start, suffix_lens[i]))
+            tokens[j, :suffix_lens[i]] = req.prompt[start:]
+            lengths[j] = suffix_lens[i]
+            rows.append((j, self._tables[slot], start, suffix_lens[i]))
+        wave = [slot for slot, _ in batch]
+        if not mine:
+            return self._wave_sample(self._no_rows(n), wave)
         sbids, soffs = self._write_maps(rows, bucket, n)
         tokens_t = torch.from_numpy(tokens).to(dev)
         lengths_t = torch.from_numpy(lengths).to(dev)
         if any(m is not None for m in matches):
-            nb = 1
-            while nb < max(len(m.block_ids) for m in matches if m):
-                nb *= 2
+            nb = _pow2(max(len(m.block_ids) for m in matches if m))
             bids = np.full((n, nb), self._pool.num_blocks,
                            dtype=BLOCK_TABLE_DTYPE)
             # int32, as K3 takes it: no conversion in any layer
@@ -1352,11 +1590,11 @@ class GenerationEngine:
                 # the gather route: the matched prefixes as a dense view,
                 # the contiguous seeded pass over it
                 pk, pv = self._gather_view(tables)
-                scratch = decoder.init_cache(self.cfg, n, bucket,
+                scratch = decoder.init_cache(self._mcfg, n, bucket,
                                              dtype=self.kv_dtype, device=dev)
                 logits, scratch = decoder.prefill_seeded(
                     self.params, tokens_t, lengths_t, pk, pv,
-                    torch.from_numpy(pref).to(dev), self.cfg, scratch)
+                    torch.from_numpy(pref).to(dev), self._mcfg, scratch)
                 k_new, v_new = scratch["k"], scratch["v"]
             else:
                 def partial_fn(li, q_rows, lns, q_pos):
@@ -1366,18 +1604,17 @@ class GenerationEngine:
 
                 logits, k_new, v_new = decoder.prefill_seeded_paged(
                     self.params, tokens_t, lengths_t,
-                    torch.from_numpy(pref).to(dev), self.cfg, partial_fn,
+                    torch.from_numpy(pref).to(dev), self._mcfg, partial_fn,
                     all_logits=False)
         else:
-            scratch = decoder.init_cache(self.cfg, n, bucket,
+            scratch = decoder.init_cache(self._mcfg, n, bucket,
                                          dtype=self.kv_dtype, device=dev)
             logits, scratch = decoder.prefill(self.params, tokens_t,
-                                              lengths_t, self.cfg, scratch,
+                                              lengths_t, self._mcfg, scratch,
                                               attn_impl=self.attn_impl)
             k_new, v_new = scratch["k"], scratch["v"]
         self._pool.scatter(k_new, v_new, sbids, soffs)
-        first = sample(logits[:len(batch)], self._gen, self.sampling)
-        return first.cpu().numpy()                 # the ONE host sync
+        return self._wave_sample(logits, wave)     # the ONE host sync
 
     # ------------------------------------------------------------------
     # paged KV host plumbing
@@ -1392,33 +1629,48 @@ class GenerationEngine:
                    + self._write_margin, self.max_len)
         return self._pool.blocks_for(span)
 
-    def _block_headroom(self) -> int:
-        """Free + trie-evictable blocks minus what admitted work may
-        still allocate."""
+    def _slot_shard(self, slot: int) -> int:
+        """The dp shard a slot (and every block of its table) lives on:
+        shard s owns slots [s * slots_ps, (s + 1) * slots_ps)."""
+        return slot // self._slots_ps
+
+    def _shard_headroom(self, shard: int) -> int:
+        """Free + trie-evictable blocks of one dp shard minus what
+        admitted work on it may still allocate (the whole pool without
+        dp)."""
         need = sum(max(0, self._worst_blocks_total(req)
                        - len(self._tables[slot]))
-                   for slot, req in self._active.items())
+                   for slot, req in self._active.items()
+                   if self._slot_shard(slot) == shard)
         need += sum(max(0, self._worst_blocks_total(entry[0])
                         - len(self._tables[slot]))
-                    for slot, entry in self._chunking.items())
+                    for slot, entry in self._chunking.items()
+                    if self._slot_shard(slot) == shard)
         evictable = self._prefix.evictable_blocks \
             if self._prefix is not None else 0
-        return self._pool.free_blocks + evictable - need
+        return self._pool.free_blocks_shard(shard) + evictable - need
 
-    def _alloc_blocks(self, n: int) -> list[int]:
-        """Allocate ``n`` pool blocks, first reclaiming idle prefix-trie
-        leaves when the free list runs short."""
-        free = self._pool.free_blocks
+    def _block_headroom(self) -> int:
+        """Free + trie-evictable blocks minus what admitted work may
+        still allocate: the sum of the dp shards' headrooms."""
+        return sum(self._shard_headroom(s) for s in range(self._dp))
+
+    def _alloc_blocks(self, n: int, shard: int = 0) -> list[int]:
+        """Allocate ``n`` pool blocks on dp shard ``shard``, first
+        reclaiming idle prefix-trie leaves when the free list runs
+        short."""
+        free = self._pool.free_blocks_shard(shard)
         if n > free and self._prefix is not None:
             self._prefix.reclaim(n - free)
-        return self._pool.alloc(n)
+        return self._pool.alloc(n, shard=shard)
 
     def _ensure_blocks(self, slot: int, upto: int) -> None:
-        """Grow the slot's table to cover positions [0, upto)."""
+        """Grow the slot's table to cover positions [0, upto), with blocks
+        of the slot's own dp shard."""
         tbl = self._tables[slot]
         need = self._pool.blocks_for(upto) - len(tbl)
         if need > 0:
-            tbl.extend(self._alloc_blocks(need))
+            tbl.extend(self._alloc_blocks(need, self._slot_shard(slot)))
 
     def _paged_release_slot(self, slot: int, keep=frozenset()) -> None:
         """Return the slot's OWNED blocks to the pool (minus any the trie
@@ -1432,15 +1684,16 @@ class GenerationEngine:
         self._owned_from[slot] = 0
 
     def _gather_bids(self, width_tokens: int) -> np.ndarray:
-        """[num_slots, width/block] block-id map for a read of
-        ``width_tokens`` columns per slot; rows pad with the sentinel past
-        their table (clamped by K3, masked by the slot's length)."""
+        """[slots, width/block] block-id map, in local ids, of this rank's
+        dp group's slots for a read of ``width_tokens`` columns per slot;
+        rows pad with the sentinel past their table (clamped by K3, masked
+        by the slot's length)."""
         nb = -(-width_tokens // self._block)
-        arr = np.full((self.num_slots, nb), self._pool.num_blocks,
+        arr = np.full((self._slots_ps, nb), self._pool.blocks_per_shard,
                       dtype=BLOCK_TABLE_DTYPE)
-        for s in range(self.num_slots):
-            tbl = self._tables[s][:nb]
-            arr[s, :len(tbl)] = tbl
+        for i in range(self._slots_ps):
+            tbl = self._tables[self._row0 + i][:nb]
+            arr[i, :len(tbl)] = self._local_ids(tbl)
         return arr
 
     def _write_maps(self, rows, width: int, n_rows: int):
@@ -1449,8 +1702,9 @@ class GenerationEngine:
         targets block ``table[(start+j) // block]`` offset
         ``(start+j) % block`` for j < n_valid. Everything else — padding,
         rows without a request, columns at or past ``max_len`` — carries
-        the sentinel id and is dropped by the scatter."""
-        bids = np.full((n_rows, width), self._pool.num_blocks,
+        the sentinel id and is dropped by the scatter. Ids are local to
+        this rank's dp shard."""
+        bids = np.full((n_rows, width), self._pool.blocks_per_shard,
                        dtype=BLOCK_TABLE_DTYPE)
         offs = np.zeros((n_rows, width), dtype=BLOCK_TABLE_DTYPE)
         for idx, tbl, start, n_valid in rows:
@@ -1458,8 +1712,7 @@ class GenerationEngine:
             if n <= 0:
                 continue
             pos = start + np.arange(n)
-            bids[idx, :n] = np.asarray(tbl, dtype=BLOCK_TABLE_DTYPE)[
-                pos // self._block]
+            bids[idx, :n] = self._local_ids(tbl)[pos // self._block]
             offs[idx, :n] = pos % self._block
         return bids, offs
 
@@ -1548,9 +1801,7 @@ class GenerationEngine:
             req, tok, plen, ready_at, prefill_s = self._handoff.pop(slot)
             tbl = list(self._tables[slot])
             nb = self._pool.blocks_for(plen)
-            nbp = 1
-            while nbp < nb:
-                nbp *= 2
+            nbp = _pow2(nb)
             # padding ids clamp in the gather; their columns are dead
             bids = np.full((1, nbp), self._pool.num_blocks,
                            dtype=BLOCK_TABLE_DTYPE)
@@ -1671,7 +1922,7 @@ class GenerationEngine:
         ``back``), the window buffers [L, slots, Hkv, steps, Dh] and the
         output tokens [steps, slots]. A graph captured at a bucket keeps
         their addresses, so they live as long as the engine."""
-        cfg, b, steps = self.cfg, self.num_slots, self._dispatch_steps
+        cfg, b, steps = self._mcfg, self._slots_ps, self._dispatch_steps
         dev = self.device
         win = (cfg.n_layers, b, cfg.n_kv_heads, steps, cfg.head_dim)
         i32 = dict(dtype=torch.int32, device=dev)
@@ -1680,7 +1931,8 @@ class GenerationEngine:
                                  else torch.int64, device=dev),
               "k_win": zeros(win, self.kv_dtype, dev),
               "v_win": zeros(win, self.kv_dtype, dev),
-              "out": torch.zeros((steps, b), dtype=torch.int64, device=dev)}
+              "out": torch.zeros((steps, self.num_slots), dtype=torch.int64,
+                                 device=dev)}
         if self.paged:
             # the gather route's view reaches a dispatch's writes past
             # the bucket (``_view_width``)
@@ -1706,7 +1958,7 @@ class GenerationEngine:
         ``tables[:, :kv_len // block]`` in place with K3 (window = the
         model's sliding window), and the pool write drops the maps'
         sentinel on the device (``BlockPool.scatter_static``)."""
-        cfg, st, w_sz = self.cfg, self._static, self.decode_window
+        cfg, st, w_sz = self._mcfg, self._static, self.decode_window
         k_all, v_all = st["k_win"], st["v_win"]
         storage_view(k_all).zero_()
         storage_view(v_all).zero_()
@@ -1719,7 +1971,7 @@ class GenerationEngine:
             nb = self._view_width(kv_len, self._dispatch_steps) \
                 // self._block
             vk, vv = self._gather_view(
-                st["tables"][:self.num_slots * nb].view(self.num_slots, nb))
+                st["tables"][:self._slots_ps * nb].view(self._slots_ps, nb))
             view = {"k": vk, "v": vv}
 
             def step(tok, w, k_win, v_win, k_done, v_done):
@@ -1728,8 +1980,8 @@ class GenerationEngine:
                     v_win, kv_len=kv_len, k_done=k_done, v_done=v_done)
         elif self.paged:
             nb = kv_len // self._block
-            tables = st["tables"][:self.num_slots * nb].view(
-                self.num_slots, nb)
+            tables = st["tables"][:self._slots_ps * nb].view(
+                self._slots_ps, nb)
             pool = self._pool
 
             def partial_fn(li, q_rows, lengths, q_pos):
@@ -1757,8 +2009,11 @@ class GenerationEngine:
                 logits, k_cols, v_cols = step(tok, w, k_win, v_win, *done)
                 k_win[:, :, :, w] = k_cols
                 v_win[:, :, :, w] = v_cols
-                tok = sample(logits, self._gen, self.sampling)
+                tok = self._sample_rows(logits)
                 st["out"][off + w] = tok
+                if self._dp > 1:
+                    # the whole batch's tokens; this group feeds its own
+                    tok = tok[self._row0:self._row0 + self._slots_ps]
         if view is not None:
             # merge into the view, read the merged columns back, scatter
             # them into the pool at the write maps
@@ -1775,14 +2030,37 @@ class GenerationEngine:
             decoder.merge_window(self._cache, k_all, v_all, positions,
                                  steps=self._dispatch_steps)
 
+    def _sample_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """Sample a dispatch's tokens for every slot: the dp groups' rows
+        of ``logits`` all-gathered first (none without dp), so every rank
+        draws the whole batch from its generator as the un-meshed engine
+        does. [num_slots] int64."""
+        return sample(all_gather_rows(logits, self._dp_group), self._gen,
+                      self.sampling)
+
+    def _my_slots(self, slots):
+        """The slots of ``slots`` this rank's dp group owns."""
+        return [s for s in slots
+                if self._row0 <= s < self._row0 + self._slots_ps]
+
+    def _local_ids(self, bids) -> np.ndarray:
+        """Global block ids of this rank's dp shard as local ids into its
+        slice of the pool (the identity with one shard)."""
+        return np.asarray(bids, dtype=BLOCK_TABLE_DTYPE) - self._id_base
+
     def _write_back(self) -> np.ndarray:
         """Where the paged dispatch's pool write sends (and writes back)
         its dropped entries: an active slot's last committed position,
-        below every position the dispatch writes."""
-        slot = next(iter(self._active))
+        below every position the dispatch writes — a slot of this rank's
+        dp group (local id); with none active there, every entry of the
+        group's write is dropped, and block 0's first column is written
+        back as it is."""
+        slot = next(iter(self._my_slots(self._active)), None)
+        if slot is None:
+            return np.zeros(2, dtype=np.int32)
         p = int(self._positions[slot]) - 1
-        return np.array([self._tables[slot][p // self._block],
-                         p % self._block], dtype=np.int32)
+        return np.array([self._tables[slot][p // self._block]
+                         - self._id_base, p % self._block], dtype=np.int32)
 
     def _decode_dispatch(self, kv_len: int) -> np.ndarray:
         """One decode dispatch at bucket ``kv_len``: the host copies the
@@ -1790,15 +2068,17 @@ class GenerationEngine:
         card, a replay of the bucket's graph once it was captured), and
         one device-to-host fetch brings its tokens back: [steps, slots]."""
         st, steps = self._static, self._dispatch_steps
-        st["tok"].copy_(torch.from_numpy(self._next_tok))
+        mine = slice(self._row0, self._row0 + self._slots_ps)
+        st["tok"].copy_(torch.from_numpy(self._next_tok[mine]))
         if self.paged:
             st["pos"].copy_(torch.from_numpy(
-                self._positions.astype(np.int32)))
+                self._positions[mine].astype(np.int32)))
             for slot in self._active:
                 self._ensure_blocks(slot, int(self._positions[slot]) + steps)
-            rows = [(s, self._tables[s], int(self._positions[s]), steps)
-                    for s in self._active]
-            sbids, soffs = self._write_maps(rows, steps, self.num_slots)
+            rows = [(s - self._row0, self._tables[s],
+                     int(self._positions[s]), steps)
+                    for s in self._my_slots(self._active)]
+            sbids, soffs = self._write_maps(rows, steps, self._slots_ps)
             st["wbids"].copy_(torch.from_numpy(sbids))
             st["woffs"].copy_(torch.from_numpy(soffs))
             st["back"].copy_(torch.from_numpy(self._write_back()))
@@ -1808,10 +2088,10 @@ class GenerationEngine:
             width = kv_len if self._kv_route == "kernel" \
                 else self._view_width(kv_len, steps)
             nb = width // self._block
-            st["tables"][:self.num_slots * nb].copy_(
+            st["tables"][:self._slots_ps * nb].copy_(
                 torch.from_numpy(self._gather_bids(width).reshape(-1)))
         else:
-            st["pos"].copy_(torch.from_numpy(self._positions))
+            st["pos"].copy_(torch.from_numpy(self._positions[mine]))
         key = self._graph_key(kv_len)
         self._graphs.run(key, lambda: self._decode_body(kv_len),
                          family=key[1])
@@ -2072,7 +2352,7 @@ class GenerationEngine:
         qlens_t = torch.from_numpy(qlens).to(dev)
         positions_t = torch.from_numpy(positions).to(dev)
         logits, k_new, v_new = decoder.verify_seeded(
-            self.params, tokens_t, qlens_t, positions_t, self.cfg,
+            self.params, tokens_t, qlens_t, positions_t, self._mcfg,
             self._cache, kv_len=kv_len)
         decoder.merge_window(self._cache, k_new, v_new, positions_t,
                              steps=tokens.shape[1])
@@ -2112,7 +2392,7 @@ class GenerationEngine:
                           qlens_t - 1]
         else:
             last, k_new, v_new = decoder.prefill_seeded_paged(
-                self.params, tokens_t, qlens_t, positions_t, self.cfg,
+                self.params, tokens_t, qlens_t, positions_t, self._mcfg,
                 self._pool_partial_fn(kv_len), all_logits=False)
         self._pool.scatter(k_new, v_new, sbids, soffs)
         return sample(last, self._gen, self.sampling).cpu().numpy()
@@ -2131,7 +2411,7 @@ class GenerationEngine:
         vk, vv = self._gather_view(tables)
         view = {"k": vk, "v": vv}
         logits, k_new, v_new = decoder.verify_seeded(
-            self.params, tokens_t, qlens_t, positions_t, self.cfg, view,
+            self.params, tokens_t, qlens_t, positions_t, self._mcfg, view,
             kv_len=kv_len)
         decoder.merge_window(view, k_new, v_new, positions_t, steps=s)
         return (logits, self._view_take(view["k"], positions_t, s),
@@ -2229,7 +2509,7 @@ class GenerationEngine:
         (``merge_prefill``), and the placed rows' first tokens sampled
         from their last prompt positions. One host fetch brings back the
         decode tokens and the first tokens together."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev = self._mcfg, self.device
         w_sz, chunk, p = self.decode_window, self.prefill_chunk, \
             self.prefill_rows
         win = (cfg.n_layers, self.num_slots, cfg.n_kv_heads, w_sz,
@@ -2436,7 +2716,7 @@ class GenerationEngine:
         qlens_t = torch.from_numpy(qlens).to(dev)
         positions_t = torch.from_numpy(self._positions).to(dev)
         logits, k_new, v_new = decoder.verify_seeded(
-            self.params, tokens_t, qlens_t, positions_t, self.cfg,
+            self.params, tokens_t, qlens_t, positions_t, self._mcfg,
             self._cache, kv_len=kv_len)
         decoder.merge_window(self._cache, k_new, v_new, positions_t,
                              steps=tokens.shape[1])
@@ -2460,7 +2740,7 @@ class GenerationEngine:
                 tokens_t, qlens_t, positions_t, kv_len)
         else:
             logits, k_new, v_new = decoder.prefill_seeded_paged(
-                self.params, tokens_t, qlens_t, positions_t, self.cfg,
+                self.params, tokens_t, qlens_t, positions_t, self._mcfg,
                 self._pool_partial_fn(kv_len), all_logits=True)
         self._pool.scatter(k_new, v_new, sbids, soffs)
         return self._accept(logits, tokens_t, qlens_t)
@@ -2549,26 +2829,37 @@ class GenerationEngine:
         between dispatches, so a retired slot parks exactly as an eos or
         length retirement parks it: the next dispatch's static buffers are
         filled from host state that no longer holds it, and its pool
-        blocks are back in the pool."""
+        blocks are back in the pool. On a mesh the clock read is rank 0's:
+        it names the late requests, and every rank drops those."""
         if not self._deadlines_in_use:
             return    # no deadline ever submitted: skip the queue walk
         now = time.monotonic()
-        expired = [r for r in self._queue if r.deadline_at <= now]
+        if self._world is None:
+            def is_late(r: Request) -> bool:
+                return r.deadline_at <= now
+        else:
+            late_ids = self._decide(lambda: {
+                r.request_id for r in self._requests()
+                if r.deadline_at <= now})
+
+            def is_late(r: Request) -> bool:
+                return r.request_id in late_ids
+        expired = [r for r in self._queue if is_late(r)]
         if expired:
-            self._queue = [r for r in self._queue if r.deadline_at > now]
-        late = [r for r in self._chunk_pending if r.deadline_at <= now]
+            self._queue = [r for r in self._queue if not is_late(r)]
+        late = [r for r in self._chunk_pending if is_late(r)]
         if late:
             self._chunk_pending = [r for r in self._chunk_pending
-                                   if r.deadline_at > now]
+                                   if not is_late(r)]
             expired += late
-        late = [r for r, _t in self._prefilling if r.deadline_at <= now]
+        late = [r for r, _t in self._prefilling if is_late(r)]
         if late:
             self._prefilling = [(r, t) for r, t in self._prefilling
-                                if r.deadline_at > now]
+                                if not is_late(r)]
             expired += late
         for slot in list(self._chunking):
             req = self._chunking[slot][0]
-            if req.deadline_at <= now:
+            if is_late(req):
                 del self._chunking[slot]
                 self._positions[slot] = self.max_len
                 if self.paged:
@@ -2577,7 +2868,7 @@ class GenerationEngine:
                 expired.append(req)
         for slot in list(self._handoff):
             req = self._handoff[slot][0]
-            if req.deadline_at <= now:
+            if is_late(req):
                 del self._handoff[slot]
                 m = self._prefix_pins.pop(req.request_id, None)
                 if m is not None:
@@ -2599,11 +2890,25 @@ class GenerationEngine:
         # active slots: retire with what was accepted so far (the partial
         # output is real work; only future compute is dropped)
         for slot, req in list(self._active.items()):
-            if req.deadline_at <= now:
+            if is_late(req):
                 self.deadline_expired += 1
                 if self.telemetry is not None:
                     self.telemetry.on_deadline_expired()
                 self._retire(slot, "deadline")
+
+    def _requests(self) -> list[Request]:
+        """Every request the engine holds: queued, in the piggyback feed,
+        waiting to chunk or chunking, parked for the handoff, active."""
+        return (list(self._queue) + [r for r, _ in self._prefilling]
+                + list(self._chunk_pending)
+                + [e[0] for e in self._chunking.values()]
+                + [h[0] for h in self._handoff.values()]
+                + list(self._active.values()))
+
+    def _decide(self, decide):
+        """A host decision that reads a clock: ``decide()`` as rank 0 takes
+        it, on every rank (no mesh: here)."""
+        return broadcast_decision(decide(), self._world)
 
     # ------------------------------------------------------------------
     # the request journal
@@ -2784,7 +3089,9 @@ class GenerationEngine:
 
     def graph_stats(self) -> dict:
         """The decode graphs' counters: graphs held, captured, seconds
-        spent capturing, replays, and dispatches that ran eagerly."""
+        spent capturing, replays, and dispatches that ran eagerly — and,
+        where a mesh's collectives could not be captured, why the engine
+        serves eagerly (``eager_reason``)."""
         return self._graphs.stats()
 
     @contextlib.contextmanager

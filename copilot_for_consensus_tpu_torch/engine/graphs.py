@@ -91,12 +91,15 @@ class DecodeGraphs:
     ``cuda_graphs=False``, for holding replays against the eager body);
     ``stream``: the engine's CUDA stream, on which the body is captured;
     ``generators``: the random generators the body draws from, registered
-    with every graph so that replays advance them."""
+    with every graph so that replays advance them; ``eager_reason``: why
+    graphs are off where the engine turned them off itself (a mesh whose
+    collectives this build cannot capture), reported by :meth:`stats`."""
 
     def __init__(self, device: torch.device, *, enabled: bool = True,
                  stream: torch.cuda.Stream | None = None,
-                 generators: tuple = ()):
+                 generators: tuple = (), eager_reason: str = ""):
         self.enabled = enabled and device.type == "cuda"
+        self.eager_reason = eager_reason
         self._stream = stream
         self._generators = tuple(generators)
         self._graphs: dict[Hashable, tuple] = {}
@@ -123,9 +126,12 @@ class DecodeGraphs:
         return key in self._graphs
 
     def stats(self) -> dict:
-        return {"enabled": self.enabled, "graphs": len(self._graphs),
-                "captured": self.captured, "capture_s": self.capture_s,
-                "replays": self.replays, "eager": self.eager}
+        out = {"enabled": self.enabled, "graphs": len(self._graphs),
+               "captured": self.captured, "capture_s": self.capture_s,
+               "replays": self.replays, "eager": self.eager}
+        if self.eager_reason:
+            out["eager_reason"] = self.eager_reason
+        return out
 
     def run(self, key: Hashable, body: Callable[[], None],
             family: Hashable = None) -> None:

@@ -1,6 +1,6 @@
 """Bounded device KV block pool — the paged engine's native layout.
 
-Port of the JAX package's ``engine/kv_pool.py`` for one device. One pool
+Port of the JAX package's ``engine/kv_pool.py``. One pool
 ``[L, num_blocks, Hkv, block, Dh]`` backs every KV byte the paged engine
 serves from: active slots map logical positions onto pool blocks through
 per-slot block tables (position ``p`` of a slot lives at
@@ -52,27 +52,51 @@ class KVPoolExhausted(RuntimeError):
 class BlockPool:
     """Device KV blocks + the host allocator that owns them.
 
-    ``k``/``v``: ``[L, num_blocks, Hkv, block, Dh]`` in the serving KV
-    dtype on ``device`` (None → the card). ``num_blocks`` doubles as the
-    out-of-range sentinel id: the attention kernel clamps it (the length
-    mask hides what it reads), ``scatter`` drops it.
+    ``k``/``v``: ``[L, blocks, Hkv, block, Dh]`` in the serving KV dtype
+    on ``device`` (None → the card).
+
+    Over a dp mesh (``num_shards`` > 1, the JAX pool's ``mesh=``) the block
+    axis splits into shards: shard s owns the global ids
+    ``[s * blocks_per_shard, (s + 1) * blocks_per_shard)``, a free list of
+    its own, and ``alloc`` never crosses ranges — a slot's blocks stay in
+    its dp shard. The host allocator speaks global ids on every rank;
+    the device holds only shard ``shard``'s blocks, and the device writes
+    (``scatter``, ``scatter_static``) and K3 take LOCAL ids (global minus
+    the shard's base, :meth:`local_id`). ``blocks_per_shard`` doubles as
+    the out-of-range sentinel id of those local maps: the attention
+    kernel clamps it (the length mask hides what it reads), the writes
+    drop it. With one shard local ids are the global ones.
     """
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  kv_dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 num_shards: int = 1, shard: int = 0):
         if num_blocks < 1:
             raise ValueError("kv pool needs num_blocks >= 1")
         if block_size < 1:
             raise ValueError("kv pool needs block_size >= 1")
+        if num_blocks % num_shards:
+            raise ValueError(
+                f"kv pool num_blocks {num_blocks} must divide evenly "
+                f"over dp={num_shards} shards")
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} of {num_shards}")
         self.block = int(block_size)
         self.num_blocks = int(num_blocks)
-        shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads, block_size,
-                 cfg.head_dim)
+        self.num_shards = int(num_shards)
+        self.blocks_per_shard = self.num_blocks // self.num_shards
+        self.shard = int(shard)
+        shape = (cfg.n_layers, self.blocks_per_shard, cfg.n_kv_heads,
+                 block_size, cfg.head_dim)
         dev = resolve_device(device)
         self.k = zeros(shape, kv_dtype, dev)
         self.v = zeros(shape, kv_dtype, dev)
-        self._free: list[int] = list(range(num_blocks))
+        #: one free list a shard, over its disjoint global id range
+        self._free_by_shard: list[list[int]] = [
+            list(range(s * self.blocks_per_shard,
+                       (s + 1) * self.blocks_per_shard))
+            for s in range(self.num_shards)]
         self._is_free = np.ones(num_blocks, dtype=bool)
         self._pins = np.zeros(num_blocks, dtype=np.int64)
 
@@ -80,7 +104,18 @@ class BlockPool:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free_by_shard)
+
+    def free_blocks_shard(self, shard: int) -> int:
+        return len(self._free_by_shard[shard])
+
+    def shard_of(self, bid: int) -> int:
+        """The dp shard that owns global block ``bid``."""
+        return int(bid) // self.blocks_per_shard
+
+    def local_id(self, bid: int) -> int:
+        """``bid``'s index in its shard's slice of the pool."""
+        return int(bid) % self.blocks_per_shard
 
     @property
     def blocks_in_use(self) -> int:
@@ -99,23 +134,28 @@ class BlockPool:
 
     # -- allocation -----------------------------------------------------
 
-    def alloc(self, n: int = 1) -> list[int]:
-        """Take ``n`` blocks off the free list. All-or-nothing: a partial
-        grant would leave the caller's table covering less of the
-        timeline than its positions claim."""
+    def alloc(self, n: int = 1, *, shard: int = 0) -> list[int]:
+        """Take ``n`` blocks off ``shard``'s free list. All-or-nothing: a
+        partial grant would leave the caller's table covering less of the
+        timeline than its positions claim; a shard running dry never
+        borrows from another."""
         if n < 0:
             raise ValueError(f"alloc({n})")
-        if n > len(self._free):
+        if not 0 <= shard < self.num_shards:
+            raise ValueError(f"alloc on unknown shard {shard}")
+        free = self._free_by_shard[shard]
+        if n > len(free):
+            where = f" on shard {shard}" if self.num_shards > 1 else ""
             raise KVPoolExhausted(
-                f"kv pool exhausted: need {n} blocks, {len(self._free)} "
-                f"free of {self.num_blocks}", needed=n,
-                free=len(self._free))
-        out = [self._free.pop() for _ in range(n)]
+                f"kv pool exhausted: need {n} blocks, {len(free)} "
+                f"free of {self.blocks_per_shard}{where}", needed=n,
+                free=len(free))
+        out = [free.pop() for _ in range(n)]
         self._is_free[out] = False
         return out
 
     def free(self, bids) -> None:
-        """Return blocks to the free list. Double-free and
+        """Return blocks to their shard's free list. Double-free and
         free-while-pinned raise."""
         for bid in bids:
             bid = int(bid)
@@ -128,7 +168,7 @@ class BlockPool:
                     f"free of pinned block {bid} "
                     f"({int(self._pins[bid])} pins outstanding)")
             self._is_free[bid] = True
-            self._free.append(bid)
+            self._free_by_shard[self.shard_of(bid)].append(bid)
 
     def pin(self, bids) -> None:
         """Count a reader/owner reference on assigned blocks; pinning a
@@ -147,7 +187,7 @@ class BlockPool:
             self._pins[bid] -= 1
 
     def rebuild_free_list(self, owned: set[int]) -> list[int]:
-        """Recompute the free list as ``all - owned`` (repair after the
+        """Recompute the free lists as ``all - owned`` (repair after the
         allocator and the tables disagree). Pins on blocks nobody owns
         are cleared. Returns the ids whose free/used state changed."""
         changed = []
@@ -159,7 +199,10 @@ class BlockPool:
             elif not want_free and self._is_free[bid]:
                 changed.append(bid)
             self._is_free[bid] = want_free
-        self._free = [b for b in range(self.num_blocks) if self._is_free[b]]
+        bps = self.blocks_per_shard
+        self._free_by_shard = [
+            [b for b in range(s * bps, (s + 1) * bps) if self._is_free[b]]
+            for s in range(self.num_shards)]
         return changed
 
     # -- geometry helpers -------------------------------------------------
@@ -182,11 +225,12 @@ class BlockPool:
                 sbids: np.ndarray, soffs: np.ndarray) -> None:
         """Write fresh KV ``[L, R, Hkv, S, Dh]`` into the pool IN PLACE:
         column j of row i lands in block ``sbids[i, j]`` at offset
-        ``soffs[i, j]`` (host maps ``[R, S]``). Entries holding the
-        sentinel id (``num_blocks``: parked rows, padding, columns past
-        ``max_len``) are dropped, as the reference's ``mode="drop"``
-        drops them. An fp8 pool moves as bytes (``storage_view``)."""
-        rows, cols = np.nonzero(sbids < self.num_blocks)
+        ``soffs[i, j]`` (host maps ``[R, S]`` of local ids). Entries
+        holding the sentinel id (``blocks_per_shard``: parked rows,
+        padding, columns past ``max_len``) are dropped, as the reference's
+        ``mode="drop"`` drops them. An fp8 pool moves as bytes
+        (``storage_view``)."""
+        rows, cols = np.nonzero(sbids < self.blocks_per_shard)
         if rows.size == 0:
             return
         dev = self.k.device
@@ -214,7 +258,7 @@ class BlockPool:
         ``back`` a committed position that no kept entry of this write
         touches — a slot's position just below where the dispatch started
         — so the pool ends as :meth:`scatter` leaves it."""
-        keep = bids < self.num_blocks
+        keep = bids < self.blocks_per_shard
         b = torch.where(keep, bids, back[0]).long()
         o = torch.where(keep, offs, back[1]).long()
         keep = keep[:, :, None, None, None]

@@ -812,7 +812,18 @@ def resolve_supervisor(supervisor, engine) -> EngineSupervisor | None:
     disables, True builds one with defaults, a
     :class:`SupervisorConfig` builds from it, an
     :class:`EngineSupervisor` instance is used as-is (it must already
-    wrap the same engine)."""
+    wrap the same engine).
+
+    Every ``AsyncEngineRunner`` resolves its supervisor here as it is
+    built, so an engine on a mesh of several ranks is refused here: a
+    dispatcher thread a rank would step each rank's engine on that rank's
+    own arrivals, out of lockstep."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"AsyncEngineRunner over an engine on a mesh of {mesh.size} "
+            f"ranks is not served yet: ROADMAP Queue 1 item 6c.1 (the "
+            f"mesh engine's remaining features)")
     if supervisor is None or supervisor is False:
         return None
     if supervisor is True:

@@ -34,6 +34,7 @@ matmul of the pass; decode always goes through the wrappers.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass, fields, replace
 from typing import Any
 
 import torch
@@ -48,6 +49,8 @@ from copilot_for_consensus_tpu_torch.models.configs import DecoderConfig
 from copilot_for_consensus_tpu_torch.models.moe import moe_ffn
 from copilot_for_consensus_tpu_torch.models.quant import (
     init_random_quantized,
+    quant_kind,
+    quantize_logical_axes,
 )
 from copilot_for_consensus_tpu_torch.ops.attention import (
     decode_attention_prefix_window,
@@ -55,8 +58,177 @@ from copilot_for_consensus_tpu_torch.ops.attention import (
 from copilot_for_consensus_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from copilot_for_consensus_tpu_torch.parallel.collectives import (
+    all_gather_last,
+    all_reduce,
+)
 
 Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (megatron-style, as the JAX package's DEFAULT_RULES
+# lay it out): q/k/v and gate/up column-parallel, wo and w_down
+# row-parallel with an all-reduce after each (the JAX decoder's ``reduce``
+# hook), the token embedding and the lm_head vocab-parallel. A rank runs
+# the passes below over its shard of the weights with a ``local_config``
+# (its head and ffn widths, and its ``TPShard``); a config with no shard —
+# one rank on tp — makes every hook the identity, launching nothing.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TPShard:
+    """This rank's place on the tp axis: the group the partial products
+    are reduced over, and the first token id of its vocab rows."""
+
+    group: Any
+    vocab_start: int
+
+
+@dataclass(frozen=True)
+class LocalConfig(DecoderConfig):
+    """A config at one tp rank's widths (``local_config``), carrying the
+    rank's ``TPShard``: the passes given it reduce over tp."""
+
+    tp: TPShard | None = None
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           cfg: DecoderConfig) -> torch.Tensor:
+    """The token embedding; vocab-parallel under tp: ids outside this
+    rank's rows give zero rows, and the all-reduce sums the one rank's row
+    that holds each id."""
+    emb = params["tok_emb"]
+    tp = getattr(cfg, "tp", None)
+    if tp is None:
+        return emb[tokens.long()]
+    ids = tokens.long() - tp.vocab_start
+    mine = (ids >= 0) & (ids < emb.shape[0])
+    x = emb[ids.clamp(0, emb.shape[0] - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return all_reduce(x, tp.group)
+
+
+def _reduce(h: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """A row-parallel product's partial sum completed over tp (the JAX
+    decoder's ``reduce`` hook); the identity without a shard."""
+    tp = getattr(cfg, "tp", None)
+    return h if tp is None else all_reduce(h, tp.group)
+
+
+def logical_axes(cfg: DecoderConfig) -> Params:
+    """Same structure as params; leaves are logical-axis tuples (the JAX
+    package's)."""
+    layer = {
+        "attn_norm": (None, "norm"),
+        "wq": (None, "embed", "heads"),
+        "wk": (None, "embed", "kv_heads"),
+        "wv": (None, "embed", "kv_heads"),
+        "wo": (None, "heads", "embed"),
+        "ffn_norm": (None, "norm"),
+    }
+    if cfg.is_moe:
+        layer.update({
+            "router": (None, "embed", None),
+            "w_gate": (None, "experts", "embed", "expert_ffn"),
+            "w_up": (None, "experts", "embed", "expert_ffn"),
+            "w_down": (None, "experts", "expert_ffn", "embed"),
+        })
+    else:
+        layer.update({
+            "w_gate": (None, "embed", "ffn"),
+            "w_up": (None, "embed", "ffn"),
+            "w_down": (None, "ffn", "embed"),
+        })
+    axes: Params = {
+        "tok_emb": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": ("norm",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def cache_logical_axes() -> Params:
+    return {"k": (None, "batch", "kv_heads", None, None),
+            "v": (None, "batch", "kv_heads", None, None)}
+
+
+def param_logical_axes(cfg: DecoderConfig, params: Params) -> Params:
+    """:func:`logical_axes` shaped like ``params``: quantized leaves get
+    their ``q``/``q4`` and ``scale`` axes (``quant.quantize_logical_axes``,
+    the mode read off the tree). Fused int4 leaves have no axes: a tree is
+    sharded before it is fused."""
+    axes = logical_axes(cfg)
+    layers_t = params.get("layers", {})
+    if "wqkv" in layers_t or "w_gu" in layers_t:
+        raise ValueError("fused int4 leaves (wqkv, w_gu) cannot be sharded: "
+                         "shard the unfused tree, then fuse")
+    kinds = {quant_kind(v) for v in layers_t.values()} - {None}
+    if len(kinds) > 1:
+        raise ValueError(f"mixed quantized leaf kinds {sorted(kinds)}")
+    if kinds:
+        axes = quantize_logical_axes(axes, mode=kinds.pop())
+    return axes
+
+
+def local_config(cfg: DecoderConfig, tp: int, rules,
+                 shard: TPShard | None = None) -> DecoderConfig:
+    """The widths one rank of a tp-``tp`` mesh runs under ``rules``
+    (``parallel.sharding.serving_param_rules``): n_heads/tp, n_kv_heads/tp
+    (where kv heads are replicated, the one kv head this rank's q heads
+    group to), d_ff/tp; head_dim and the vocab stay whole. ``shard`` rides
+    on the result (a ``LocalConfig``) for its passes' collectives."""
+    if tp == 1:
+        return cfg
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if rules.get("heads") != "tp":
+        raise NotImplementedError(
+            f"tp={tp} does not divide n_heads={hq}: replicated q heads are "
+            f"not served on a mesh")
+    hq_l = hq // tp
+    if rules.get("kv_heads") == "tp":
+        hkv_l = hkv // tp
+    else:
+        group = hq // hkv
+        if group % hq_l:
+            raise NotImplementedError(
+                f"tp={tp}: a rank's {hq_l} q heads span more than one of "
+                f"the {hkv} replicated kv heads")
+        hkv_l = 1
+    ffn = cfg.d_ff
+    if ffn % tp:
+        raise ValueError(f"tp={tp} does not divide d_ff={ffn}")
+    local = replace(cfg, n_heads=hq_l, n_kv_heads=hkv_l, d_ff=ffn // tp,
+                    head_dim_override=cfg.head_dim)
+    return LocalConfig(**{f.name: getattr(local, f.name)
+                          for f in fields(DecoderConfig)}, tp=shard)
+
+
+def select_kv_heads(params: Params, cfg: DecoderConfig, tp: int,
+                    rank: int) -> Params:
+    """Where tp replicates the kv heads (tp does not divide n_kv_heads),
+    keep of ``wk``/``wv`` only the columns of the kv head tp rank
+    ``rank``'s q heads group to, so each rank attends its q heads with
+    their own kv head (GQA grouping: q head h reads kv head
+    h // (n_heads / n_kv_heads)). Every part of a quantized leaf keeps the
+    same columns."""
+    dh = cfg.head_dim
+    kv = (rank * (cfg.n_heads // tp)) // (cfg.n_heads // cfg.n_kv_heads)
+    cols = slice(kv * dh, (kv + 1) * dh)
+
+    def pick(w):
+        if isinstance(w, dict):
+            return {k: v[..., cols].contiguous() for k, v in w.items()}
+        return w[..., cols].contiguous()
+
+    layers_t = dict(params["layers"])
+    for name in ("wk", "wv"):
+        layers_t[name] = pick(layers_t[name])
+    return {**params, "layers": layers_t}
 
 
 def init_params(cfg: DecoderConfig, *, seed: int = 0,
@@ -88,8 +260,12 @@ def _unembed(x: torch.Tensor, params: Params, cfg: DecoderConfig,
              impl: str = "auto") -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return (x @ params["tok_emb"].T).float()
-    return L.qmatmul(x, params["lm_head"], impl).float()
+        logits = (x @ params["tok_emb"].T).float()
+    else:
+        logits = L.qmatmul(x, params["lm_head"], impl).float()
+    tp = getattr(cfg, "tp", None)
+    # vocab-parallel: every rank of a tp group ends with the whole row
+    return logits if tp is None else all_gather_last(logits, tp.group)
 
 
 def _block(x: torch.Tensor, layer: Params, cfg: DecoderConfig,
@@ -99,17 +275,23 @@ def _block(x: torch.Tensor, layer: Params, cfg: DecoderConfig,
     h, k, v = L.attn_prefill(L.rms_norm(x, layer["attn_norm"], cfg.norm_eps),
                              layer, cfg, lengths=lengths, impl=impl,
                              attn_impl=attn_impl)
-    x = x + h
-    x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps), layer,
-                 cfg, impl)
-    return x, k, v
+    x = x + _reduce(h, cfg)
+    return _ffn_residual(x, layer, cfg, impl), k, v
+
+
+def _ffn_residual(x: torch.Tensor, layer: Params, cfg: DecoderConfig,
+                  impl: str = "auto") -> torch.Tensor:
+    """x + the block's FFN of norm(x), its partial sum completed over tp
+    (after the experts' combine, for MoE)."""
+    return x + _reduce(_ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
+                            layer, cfg, impl), cfg)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             lengths: torch.Tensor | None = None,
             impl: str = "auto") -> torch.Tensor:
     """Scoring pass: [B, S] int tokens → [B, S, V] f32 logits."""
-    x = params["tok_emb"][tokens.long()]
+    x = _embed(params, tokens, cfg)
     for li in range(cfg.n_layers):
         x, _, _ = _block(x, layer_params(params, li), cfg, lengths, impl)
     return _unembed(x, params, cfg, impl)
@@ -133,7 +315,7 @@ def prefill(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
     the attention's route alone (the JAX package's ``attn_impl``; None:
     ``impl``'s)."""
     b, s = tokens.shape
-    x = params["tok_emb"][tokens.long()]
+    x = _embed(params, tokens, cfg)
     for li in range(cfg.n_layers):
         x, k, v = _block(x, layer_params(params, li), cfg, lengths, impl,
                          attn_impl)
@@ -161,15 +343,13 @@ def prefill_seeded(params: Params, tokens: torch.Tensor,
     attends its own causal suffix alone, so mixed hit/miss waves run as
     one pass."""
     b, s = tokens.shape
-    x = params["tok_emb"][tokens.long()]
+    x = _embed(params, tokens, cfg)
     for li in range(cfg.n_layers):
         layer = layer_params(params, li)
         h, k, v = L.attn_prefill_seeded(
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             k_pref[li], v_pref[li], prefix_lens, lengths)
-        x = x + h
-        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                     layer, cfg)
+        x = _ffn_residual(x + _reduce(h, cfg), layer, cfg)
         cache["k"][li, :, :, :s] = k
         cache["v"][li, :, :, :s] = v
     x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
@@ -198,7 +378,7 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
     index in the current window; ``kv_len`` bounds the cache prefix
     attention reads. Returns ([B, V] f32 logits, k_cols, v_cols
     [L, B, Hkv, Dh])."""
-    x = params["tok_emb"][tokens.long()][:, None, :]        # [B, 1, D]
+    x = _embed(params, tokens, cfg)[:, None, :]        # [B, 1, D]
     k_pref, v_pref = cache["k"], cache["v"]
     if kv_len is not None and kv_len < k_pref.shape[3]:
         k_pref = k_pref[:, :, :, :kv_len]
@@ -212,9 +392,7 @@ def decode_step_windowed(params: Params, tokens: torch.Tensor,
             k_win[li], v_win[li],
             k_done_l=None if k_done is None else k_done[li],
             v_done_l=None if v_done is None else v_done[li])
-        x = x + h
-        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                     layer, cfg)
+        x = _ffn_residual(x + _reduce(h, cfg), layer, cfg)
         k_cols.append(k_cur)
         v_cols.append(v_cur)
     return (_unembed(x, params, cfg)[:, 0], torch.stack(k_cols),
@@ -239,7 +417,7 @@ def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
     K3 takes int32 lengths and query positions: they are built here once
     a step (the engine passes int32 ``positions0``, so only the add runs),
     not in every layer."""
-    x = params["tok_emb"][tokens.long()][:, None, :]        # [B, 1, D]
+    x = _embed(params, tokens, cfg)[:, None, :]        # [B, 1, D]
     positions0 = positions0.to(torch.int32)
     n_done = 0 if k_done is None else k_done.shape[3]
     q_pos = positions0 + (n_done + w)
@@ -252,9 +430,7 @@ def decode_step_windowed_paged(params: Params, tokens: torch.Tensor,
             k_win[li], v_win[li],
             k_done_l=None if k_done is None else k_done[li],
             v_done_l=None if v_done is None else v_done[li])
-        x = x + h
-        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                     layer, cfg)
+        x = _ffn_residual(x + _reduce(h, cfg), layer, cfg)
         k_cols.append(k_cur)
         v_cols.append(v_cur)
     return (_unembed(x, params, cfg)[:, 0], torch.stack(k_cols),
@@ -280,7 +456,7 @@ def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
     int32, converted once here."""
     b, s = tokens.shape
     prefix_lens = prefix_lens.to(torch.int32)
-    x = params["tok_emb"][tokens.long()]
+    x = _embed(params, tokens, cfg)
     shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
     k_new = torch.empty(shape, dtype=x.dtype, device=x.device)
     v_new = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -289,9 +465,7 @@ def prefill_seeded_paged(params: Params, tokens: torch.Tensor,
         h, k_new[li], v_new[li] = L.attn_prefill_seeded_paged(
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             functools.partial(partial_fn, li), prefix_lens, lengths)
-        x = x + h
-        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                     layer, cfg)
+        x = _ffn_residual(x + _reduce(h, cfg), layer, cfg)
     if all_logits:
         return _unembed(x, params, cfg), k_new, v_new
     x_last = x[torch.arange(b, device=x.device), lengths.long() - 1]
@@ -320,7 +494,7 @@ def verify_seeded(params: Params, tokens: torch.Tensor,
     [B, S, V] f32, k_new, v_new [L, B, Hkv, S, Dh] in the compute dtype,
     ``merge_window``'s layout, for the one write at the per-row offset)."""
     b, s = tokens.shape
-    x = params["tok_emb"][tokens.long()]
+    x = _embed(params, tokens, cfg)
     k_pref, v_pref = cache["k"], cache["v"]
     if kv_len is not None and kv_len < k_pref.shape[3]:
         k_pref = k_pref[:, :, :, :kv_len]
@@ -333,9 +507,7 @@ def verify_seeded(params: Params, tokens: torch.Tensor,
         h, k_new[li], v_new[li] = L.attn_prefill_seeded(
             L.rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
             k_pref[li], v_pref[li], prefix_lens, lengths)
-        x = x + h
-        x = x + _ffn(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                     layer, cfg)
+        x = _ffn_residual(x + _reduce(h, cfg), layer, cfg)
     return _unembed(x, params, cfg), k_new, v_new
 
 

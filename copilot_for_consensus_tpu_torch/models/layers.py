@@ -9,6 +9,12 @@ kernel wrappers and their plain versions, as in ``ops.attention.attention``;
 decode always takes the wrappers. The ``_paged`` twins score the pool
 piece through a ``partial_fn`` (K3 over the paged block pool) and fold
 the dispatch-local pieces in with ``combine_partials``.
+
+On a tp mesh the same functions run on a rank's weight shards at its
+local widths (``decoder.local_config``: n_heads/tp q heads and their kv
+heads, so GQA groups q head h with kv head h // (n_heads / n_kv_heads)
+inside the rank); ``wo``'s and ``w_down``'s products are partial sums the
+decoder completes with a tp all-reduce.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ Expert products take the weight-only route whatever the activation mode
 (``layers.wmatmul``): an int8 expert is one K2 call a matrix, an int4
 expert one K5 call, on the contiguous ``[D, F]`` slice of the stacked
 leaf — 3·E calls a layer.
+
+On a tp mesh each expert holds a rank's shard of its ``expert_ffn``
+columns (w_gate, w_up) and rows (w_down); routing and capacity are whole
+on every rank, and the combine's output is a partial sum the decoder
+completes with one tp all-reduce after it. ``ep`` is 1, and an MoE
+engine refuses dp above 1: expert capacity spans the whole batch.
 """
 
 from __future__ import annotations

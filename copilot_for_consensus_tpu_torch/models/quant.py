@@ -157,6 +157,41 @@ def _get_path(tree: dict, path: tuple[str, ...]):
     return node
 
 
+def quantize_logical_axes(axes: dict,
+                          leaves: tuple[tuple[str, ...], ...]
+                          = DECODER_QUANT_LEAVES,
+                          mode: str = "int8") -> dict:
+    """Transform the logical-axes tree (``decoder.logical_axes``) to match
+    a quantized param tree.
+
+    int8: ``q`` keeps the weight's axes and the scale keeps every axis but
+    the (size-1) contraction axis — a column-parallel leaf shards its
+    scales with F, a row-parallel one keeps its per-channel scales whole.
+    int4: ``q4`` keeps the weight's axes (packed rows shard like the rows
+    they encode) and so does the scale: its group axis [G] shards like the
+    contraction rows its groups scale, so a row-parallel rank holds the
+    scales of its own rows. (The JAX package replicates G, which GSPMD can
+    do since it computes on whole arrays; a rank here multiplies its own
+    rows only.) A tp that would split a scale group raises when the tree
+    is sharded."""
+    out = {k: (dict(v) if isinstance(v, dict) else v)
+           for k, v in axes.items()}
+    for path in leaves:
+        t = _get_path(axes, path)
+        if t is None:
+            continue
+        if mode == "int4":
+            leaf = {"q4": t, "scale": t}
+        else:
+            leaf = {"q": t, "scale": tuple(
+                None if i == len(t) - 2 else a for i, a in enumerate(t))}
+        node = out
+        for p in path[:-1]:
+            node = node[p]
+        node[path[-1]] = leaf
+    return out
+
+
 def quantize_params(params: dict,
                     leaves: tuple[tuple[str, ...], ...] = DECODER_QUANT_LEAVES,
                     mode: str = "int8", group: int = INT4_GROUP) -> dict:

@@ -119,7 +119,12 @@ class CUDASummarizer(Summarizer):
     params (the same tensors), its EOS ids, ``max_new_tokens`` and
     ``profile_dir``; ``long_engine`` hands one in. Every prompt over the
     engine's ``prompt_limit`` then goes to it whole, in ``summarize``,
-    ``summarize_batch`` and ``summarize_async``."""
+    ``summarize_batch`` and ``summarize_async``.
+
+    ``mesh`` (``parallel.build_mesh``) builds the engine over a dp×tp mesh;
+    above one rank every rank makes the same calls with the same threads
+    (``summarize`` and ``summarize_batch``; lockstep) and gets the same
+    summaries, while ``summarize_async`` and the long route raise."""
 
     def __init__(self, model: str = "mistral-7b", *, engine=None,
                  tokenizer: Tokenizer | None = None,
@@ -136,7 +141,7 @@ class CUDASummarizer(Summarizer):
                  kv_dtype: str | torch.dtype | None = None,
                  long_engine=None, long_context: bool = False,
                  profile_dir: str | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self._model = model
         #: the default scheduling identity; a call's own overrides it
         self.tenant = tenant
@@ -173,7 +178,7 @@ class CUDASummarizer(Summarizer):
                 seed=seed, kv_dtype=kv_dtype, journal=journal,
                 profile_dir=profile_dir,
                 dtype=dtype if dtype is not None else torch.bfloat16,
-                device=device)
+                device=device, mesh=mesh)
             self._model = f"checkpoint:{checkpoint}"
         elif engine is None:
             cfg = decoder_config(model)
@@ -183,8 +188,16 @@ class CUDASummarizer(Summarizer):
                 seed=seed, kv_dtype=kv_dtype, journal=journal,
                 profile_dir=profile_dir,
                 dtype=dtype if dtype is not None else torch.bfloat16,
-                device=resolve_device(device))
+                device=resolve_device(device, mesh), mesh=mesh)
         self.engine = engine
+        #: the engine's mesh: above one rank, every rank calls this
+        #: summarizer alike (lockstep), and what cannot run so raises
+        self.mesh = getattr(engine, "mesh", None)
+        if self._multi_rank and (long_engine is not None or long_context):
+            raise NotImplementedError(
+                "CUDASummarizer(long_context=...) on a mesh of several "
+                "ranks: the long route's sequence parallelism is ROADMAP "
+                "Queue 1 item 6c.2 (sp)")
         if long_engine is None and long_context:
             from copilot_for_consensus_tpu_torch.engine.longctx import (
                 LongContextEngine,
@@ -214,6 +227,10 @@ class CUDASummarizer(Summarizer):
                 0, len(self.tokenizer.encode(head, add_bos=True)) - 1)
         elif cache_scope == "off":
             self._cache_eligible = 0
+
+    @property
+    def _multi_rank(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
 
     @property
     def _short_limit(self) -> int:
@@ -308,6 +325,12 @@ class CUDASummarizer(Summarizer):
         engine present, runs synchronously on the caller's thread, on the
         long engine (its own CUDA stream, the short engine's tensors), and
         the returned callable is ready at once."""
+        if self._multi_rank:
+            raise NotImplementedError(
+                f"CUDASummarizer.summarize_async on a mesh of "
+                f"{self.mesh.size} ranks: the async runner over a mesh is "
+                f"ROADMAP Queue 1 item 6c.1 (the mesh engine's remaining "
+                f"features)")
         from copilot_for_consensus_tpu_torch.engine.async_runner import (
             AsyncEngineRunner,
         )

@@ -111,7 +111,8 @@ PORTED = {
     "engine/sampling.py": "sampling, in PyTorch",
     "engine/supervisor.py": "reads the roles' _handoff with getattr, calls "
                             "set_slot_cap behind hasattr, and calls "
-                            "on_repaired",
+                            "on_repaired; refuses a runner over an engine "
+                            "on a mesh of several ranks (item 6c.1)",
     "models/__init__.py": "the port's config exports",
     "models/configs.py": "the decoder and encoder configs the port serves "
                          "(no llama-3-8b)",
@@ -127,6 +128,18 @@ PORTED = {
     "ops/paged_attention.py": "K3's wrapper and plain version",
     "ops/probe_stream.py": "P's wrappers and plain versions",
     "ops/quant_matmul.py": "K2, K4, K5, K6's wrappers and plain versions",
+    "parallel/__init__.py": "exports what parallel/ ports so far: no ring, "
+                            "Ulysses or pipeline (items 6c.2, 6e)",
+    "parallel/mesh.py": "the mesh on torch.distributed's DeviceMesh: a "
+                        "rank's view (groups, coordinates, device), "
+                        "without the shardcheck contracts",
+    "parallel/multihost.py": "the join on torch.distributed "
+                             "(init_process_group, NCCL or gloo)",
+    "parallel/sharding.py": "the rules, and shard_pytree slicing a rank's "
+                            "shard of each leaf, without the shardcheck "
+                            "contracts",
+    "parallel/collectives.py": "the collectives GSPMD inserts, written out; "
+                               "no JAX counterpart",
     "scripts/__init__.py": "the port's scripts package",
     "scripts/flash_d32_variants.py": "times variants of K1's d32 body on "
                                      "the card; no JAX counterpart (the "

@@ -87,6 +87,41 @@ def test_the_moe_modules_are_among_the_checked_files(rel):
     assert PKG / rel in PORT_FILES
 
 
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/multihost.py", "parallel/sharding.py",
+                    "parallel/collectives.py"]
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_the_parallel_modules_are_among_the_checked_files(rel):
+    # the mesh, the multihost join, the sharding rules and the collectives
+    # are checked with every other file of the package
+    assert PKG / rel in PORT_FILES
+
+
+_PARALLEL_ALONE = """
+import importlib, sys
+for rel in sys.argv[1:]:
+    name = rel.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+    importlib.import_module("copilot_for_consensus_tpu_torch." + name)
+from copilot_for_consensus_tpu_torch.parallel import build_mesh
+assert build_mesh().size == 1
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "copilot_for_consensus_tpu"
+             or m.startswith("copilot_for_consensus_tpu."))
+assert not bad, bad
+"""
+
+
+def test_parallel_modules_import_without_jax():
+    # each of them by name, in a fresh interpreter that never loads JAX
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_ALONE,
+                          *PARALLEL_MODULES], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 _STORM_ALONE = """
 import sys
 from copilot_for_consensus_tpu_torch.tools import journal_storm
