@@ -125,9 +125,9 @@ non-zero before the last line:
    2816) traced by kernel: device ms by kernel and by family, and the
    launches of each body; the same wave again in a8 (128 launches of K6's
    wgmma body, 1 of its stream body, 32 of K1); then phase 6 on the int4
-   engine, 32 slots busy, and again in a8 once those slots are freed
-   (``int4_a8_trace``: K6's device ms a decode step, every M <= 32 launch
-   on its stream body);
+   engine, 32 slots busy, and again in a8 once those slots are freed and
+   filled again weight-only (``int4_a8_trace``: K6's device ms a decode
+   step, every M <= 32 launch on its stream body);
 15. probe — (run right after phase 11, before the 7B weights are made) the
    weight-stream probe P: its five modes (dma, convdot, i8dot, unpack8,
    unpack32) against their plain versions at one [128, 4096] x [4096,
@@ -145,7 +145,8 @@ non-zero before the last line:
    unpack all on ``"wgmma"``), and none may stream faster than 1.05 x 3.35
    TB/s;
 16. graphs — (after phase 6, the serve engine freed) the serve phase's 8
-   threads through two contiguous int8 engines of the same weights, one
+   threads through two contiguous int8 engines of the same weights, cut to
+   ``GRAPHS_LAYERS`` layers, one
    replaying its decode graphs and one running the same dispatch body
    eagerly (``cuda_graphs=False``), at windows_per_dispatch 1 and 2, and
    sampled (top-k, top-p, one seed) at 1: the token streams must be equal
@@ -312,12 +313,15 @@ non-zero before the last line:
 38. tp_shapes — (right after the probe) every shard shape a tp-2 or tp-4
    rank of a Mistral-7B mesh runs, each held against its plain version
    with the kernel phases' gates and timed beside its bound and a PyTorch
-   call: K2 at every int8 leaf at M 4 and M 4096, K5 at the int4 leaves
-   as the mesh engine fuses them (group 256; w_down at tp 4 is 14
-   groups) at M 32 and M 4096, K1 (B 4, 32/tp heads over 8/tp, S 1024)
-   and K3's decode (B 8, 8/tp kv heads, R 4); each row names the body
-   its wrapper's counters show it launched and the body the rules want
-   (reported, not gated);
+   call: K2 at every int8 leaf at M 4, M 144 and 288 (verify passes of
+   16 and 32 slots at k = 8; 288 is also the piggyback dispatch's rows)
+   and M 4096, K5 at the int4 leaves as the mesh engine fuses them
+   (group 256; w_down at tp 4 is 14 groups) at M 32 and M 4096, K1 (B 4,
+   32/tp heads over 8/tp, S 1024, and the piggyback lanes' ``piggy_s64``)
+   and K3 (B 8, 8/tp kv heads over a 512-block pool shard: the decode
+   step, R 4, and the seeded verify and chunk passes, R 36 and 256);
+   each row names the body its wrapper's counters show it launched and
+   the body the rules want (reported, not gated);
 39. mesh_nccl — the collectives of ``parallel/collectives.py`` on the
    world-1 NCCL group (``initialize_multihost`` with one process is a
    no-op, so the phase joins the group itself): eagerly, then captured
@@ -330,7 +334,22 @@ non-zero before the last line:
    blocks of 64), 8 threads of 32 new tokens: streams equal, launches by
    body equal, graphs replayed, allocated bytes within 0.1 GB, and each
    arm's ms a decode step, timed plain, mesh, mesh, plain and again
-   over engines built in the other order.
+   over engines built in the other order;
+41. mesh_gloo2 — (right after mesh_nccl) two processes share the card as
+   a world-2 gloo mesh (``python chip_smoke.py --gloo2-rank``), tp2 then
+   dp2, at 2 layers of Mistral-7B's widths (int8, bf16, the lm_head cut
+   to a 64-token alphabet): plain serving, spec verify, chunked prefill,
+   paged prefix hits and piggyback; the ranks' streams equal, each
+   feature's counter above 0, graphs off (gloo is not capturable); the
+   un-meshed engine, following rank 0's draws, makes rank 0's calls in
+   order, with logits within rel-L2 5e-2 of rank 0's, the first wave's
+   and each feature's among them;
+42. mesh_features / mesh_journal — (after mesh_serve) the mesh engine's
+   features at world size 1 on the int8 Mistral-7B tensors beside the
+   un-meshed engine: spec verify and chunked prefill on both caches,
+   paged prefix hits, piggyback: streams and launches by body equal, the
+   feature's counter above 0; then a journal on the mesh stopped after 2
+   steps and warm-restarted, completions equal to an uninterrupted run's.
 
 The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
 llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
@@ -373,10 +392,11 @@ d32 body (its own row), every path's count beside it — the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. K1's row carries ``long_s16k``, K2's
 and K5's rows ``moe_cases`` (their body at the experts' shapes), and
-every row the ``long_serve``, ``moe_serve_*`` and ``mesh_serve*`` paths;
-the rows of K1's wgmma, K2's, K3's decode and K5's bodies carry
-``tp_cases`` (phase 38's shard shapes on that body). About 14 minutes
-on one H100 (the host's speed varies), the build included.
+every row the ``long_serve``, ``moe_serve_*``, ``mesh_serve*`` and
+``mesh_features_*`` paths; the rows of K1's wgmma, K2's, K3's decode and
+seeded and K5's bodies carry ``tp_cases`` (phase 38's shard shapes on
+that body). About 16 minutes on one H100 (the host's speed varies), the
+build included.
 """
 
 from __future__ import annotations
@@ -2078,10 +2098,31 @@ def phase_serve(dev, cfg, params, smi):
 #: new tokens a thread in the graphs phases (64 until the script outgrew
 #: ~600 s: the eager engine's steps were most of their time)
 GRAPHS_NEW = 32
+#: the graphs phases' depth (32 until the script neared its 1200 s limit:
+#: an eager step is host-bound, ~4x a replayed one; replay against eager
+#: is a per-layer claim)
+GRAPHS_LAYERS = 8
+
+
+def cut_depth(cfg, params: dict, n_layers: int):
+    """``cfg`` and ``params`` cut to their first ``n_layers`` layers (the
+    stacked layer leaves sliced as views: no copy)."""
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        return x[:n_layers]
+
+    return (decoder_config(cfg.name, n_layers=n_layers),
+            {**params, "layers": cut(params["layers"])})
 
 
 def phase_graphs(dev, cfg, params, smi, *, paged: bool):
-    """Decode through graph replays against the eager body, on the card:
+    """Decode through graph replays against the eager body, on the card
+    (``cfg`` and ``params`` cut to ``GRAPHS_LAYERS`` layers by the caller):
     the serve phase's 8 threads (``GRAPHS_NEW`` new tokens each) through
     two engines of the same weights and configuration, one replaying a
     CUDA graph per kv
@@ -3926,7 +3967,8 @@ def phase_int8_wave(cfg, eng, smi):
     return row, a8_row
 
 
-def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
+def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace",
+                before_measure=None):
     """Device busy and idle share of steady decode: the longest prompts
     fill the slots, in as many admission waves as the engine's token budget
     needs (one dispatch after each); after the last, ``n`` dispatches run
@@ -3936,8 +3978,9 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
     dispatches are graph replays: before each run of ``n``, single
     dispatches run (``warm_dispatches``, at most n + 1) until each of the
     next ``n`` lands on a kv bucket whose graph is captured, and the slots'
-    prompts are cut to leave room for them. The engine is left with its
-    slots busy: the caller discards it."""
+    prompts are cut to leave room for them. ``before_measure`` runs once
+    the slots are filled, before the first warm dispatch. The engine is
+    left with its slots busy: the caller discards it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3969,6 +4012,8 @@ def phase_trace(cfg, eng, prompts, smi, n: int = 2, label: str = "trace"):
         step()
     if eng._queue or len(eng._active) != len(ids):
         raise AssertionError(f"{label}: slots not filled in {waves} waves")
+    if before_measure is not None:
+        before_measure()
 
     def ahead():
         """The kv buckets of the next n dispatches."""
@@ -4142,16 +4187,21 @@ def phase_int4_a8_trace(cfg, eng, prompts, smi):
     """Phase 6's trace on the int4 engine under ``set_act_quant("a8")``
     (restored to "weight_only" after), 32 slots busy: the a8 decode step's
     busy ms, idle share and device ms by family a step (K6's stream body
-    and its ``quantize_rows``). Launches are counted over the phase: its
-    admission waves' layers on K6's wgmma body, every M <= 32 launch on
-    its stream body, none on the split qgemm, the mma.sync tiling or K5."""
+    and its ``quantize_rows``). The slots fill weight-only, as the int4
+    trace filled them, so the fill replays that trace's graphs; a8 starts
+    with the warm dispatches, and launches are counted from there: every
+    one (M <= 32) on K6's stream body, none on the split qgemm, the
+    mma.sync tiling or K5."""
     from copilot_for_consensus_tpu_torch.models import quant
 
+    def to_a8():
+        quant.set_act_quant("a8")
+        reset_launches()
+
     free_slots(eng)
-    quant.set_act_quant("a8")
-    reset_launches()
     try:
-        row = phase_trace(cfg, eng, prompts, smi, label="int4_a8_trace")
+        row = phase_trace(cfg, eng, prompts, smi, label="int4_a8_trace",
+                          before_measure=to_a8)
     finally:
         quant.set_act_quant("weight_only")
     bodies = read_bodies()
@@ -6687,6 +6737,555 @@ def phase_mesh_serve(dev, cfg, params, smi):
     return paths
 
 
+#: the mesh_features phase: each feature's traffic cut to 8 slots and at
+#: most 8 threads (4 for the chunk and piggyback arms, whose eager
+#: dispatches dominate), new tokens as given, on the mesh engine at world
+#: size 1 beside the un-meshed one
+MF_THREADS = 8
+
+
+def _mf_arms(cfg):
+    """The mesh_features arms: label → (engine keywords, rounds of
+    prompts, new tokens, the counter that shows the feature ran, the
+    kernels of the path). Spec reuses spec_serve's preset and prompts (32
+    new tokens; 64 on the paged cell, whose first window of 32 decodes
+    before any draft), the chunk arms paged_chunk's prompts (4 of 200–600
+    tokens, 8 new), the prefix arm shared_prefix's shape on the paged
+    cell (16 new), piggyback rag2k's (4 prompts: one piggyback dispatch,
+    one window of 32 new); each cut to 8 slots."""
+    import numpy as np
+
+    from copilot_for_consensus_tpu_torch.engine.scheduler import (
+        SchedulerConfig,
+    )
+
+    v = cfg.vocab_size
+    rng = np.random.default_rng(4)
+    spec_p = [copy_heavy(rng, v, SPEC_PROMPT) for _ in range(MF_THREADS)]
+    chunk_p = [rng.integers(3, v, size=n).tolist()
+               for n in np.linspace(200, 600, MF_THREADS // 2).astype(int)]
+    common = rng.integers(3, v, size=PREFIX_SHARED).tolist()
+    prefix_p = [common + rng.integers(3, v, size=PREFIX_PROMPT
+                                      - PREFIX_SHARED).tolist()
+                for _ in range(MF_THREADS)]
+    piggy_p = [rng.integers(3, v, size=PIGGY_PROMPT).tolist()
+               for _ in range(MF_THREADS // 2)]
+    chunk = dict(scheduler=SchedulerConfig(chunk_tokens=64))
+    return {
+        "spec": ({**SPEC_SERVE, "num_slots": MF_THREADS,
+                  "spec_decode": True}, [spec_p], 32, "spec_dispatches",
+                 ("K1", "K2")),
+        "spec_paged": ({**PAGED_CELL, "spec_decode": True}, [spec_p], 64,
+                       "spec_dispatches", ("K1", "K2", "K3")),
+        "chunk": ({"num_slots": MF_THREADS, "max_len": 2048, **chunk},
+                  [chunk_p], 8, "chunk_dispatches", ("K2",)),
+        "chunk_paged": ({**PAGED_CELL, **chunk}, [chunk_p], 8,
+                        "chunk_dispatches", ("K2", "K3")),
+        "prefix_paged": (dict(PAGED_CELL), [prefix_p, prefix_p], 16,
+                         "zero_copy_admits", ("K1", "K2", "K3")),
+        "piggy": ({**PIGGY, "num_slots": MF_THREADS,
+                   "piggyback_min_prompt": PIGGY_MIN}, [piggy_p], 32,
+                  "piggy_dispatches", ("K1", "K2")),
+    }
+
+
+def _mf_counter(eng, name: str) -> int:
+    if name == "zero_copy_admits":
+        return eng.kv_pool_stats()["zero_copy_admits"]
+    return getattr(eng, name)
+
+
+def phase_mesh_features(dev, cfg, params, smi):
+    """The mesh engine's features at world size 1 on Mistral-7B int8 at
+    full width and depth (``_mf_arms``): spec-decode verify and chunked
+    prefill under the scheduler on the contiguous cache and the paged
+    pool, paged prefix hits (a cold round, then the same prompts), and
+    piggyback prefill on the contiguous cache, each arm on an engine built
+    with ``mesh=build_mesh(MeshConfig())`` and on one built without, in
+    turn (the mesh engine first). The mesh engine must run the un-meshed
+    engine's kernels: greedy streams equal, launches by body equal, the
+    feature's own counter above 0 (verify dispatches with accepted tokens,
+    chunk dispatches, zero-copy admissions, piggyback dispatches), only the
+    path's kernels, on their Hopper bodies. Then the journal arm: a mesh
+    engine over the paged cell journals the chunk arms' 4 prompts (32 new
+    tokens), stops after 2 steps without retiring, and a new mesh engine
+    over the same journal warm-restarts them; the completions must equal an
+    uninterrupted run's (the rows hold no checkpoint yet, so each
+    continuation is its whole request again). Returns the mesh arms'
+    (launches, bodies) by path."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+
+    paths = {}
+    for label, (kw, rounds, new, counter, used) in _mf_arms(cfg).items():
+        runs = {}
+        for arm in ("mesh", "plain"):
+            mesh = build_mesh(MeshConfig()) if arm == "mesh" else None
+            eng = GenerationEngine(cfg, params, quantize="int8", device=dev,
+                                   mesh=mesh, **kw)
+            reset_launches()
+            with plain_calls() as plain:
+                t0 = time.monotonic()
+                toks = [[c.tokens for c in eng.generate(p, new)]
+                        for p in rounds]
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            runs[arm] = {"tokens": toks, "launches": read_launches(),
+                         "bodies": read_bodies(), "wall_s": wall,
+                         "counter": _mf_counter(eng, counter),
+                         "accepted": eng.spec_stats()["accepted_tokens"],
+                         "plain_calls": dict(plain),
+                         "graphs": eng.graph_stats()}
+            if eng.paged:
+                pool = eng.kv_pool_stats()
+                nodes = sum(pc.node_count for pc in eng._prefixes)
+                runs[arm]["pool_books"] = (
+                    pool["free_blocks"] + pool["pinned_blocks"]
+                    == pool["num_blocks"] and pool["pinned_blocks"] == nodes)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        m, p = runs["mesh"], runs["plain"]
+        row = {"phase": "mesh_features", "arm": label, "config": cfg.name,
+               "threads": len(rounds[0]), "rounds": len(rounds),
+               "new_tokens": new, "world_size": 1,
+               "streams_equal": m["tokens"] == p["tokens"],
+               "launches_equal": (m["launches"], m["bodies"])
+               == (p["launches"], p["bodies"]),
+               "counter": {counter: {"mesh": m["counter"],
+                                     "plain": p["counter"]}},
+               "accepted_tokens": m["accepted"],
+               "launches": m["launches"], "launches_by_body": m["bodies"],
+               "wall_s": {"mesh": m["wall_s"], "plain": p["wall_s"]},
+               "graphs": m["graphs"], "pool_books": m.get("pool_books"),
+               "device": smi}
+        emit(row)
+        if not (row["streams_equal"] and row["launches_equal"]):
+            raise AssertionError(f"mesh_features {label}: the mesh engine "
+                                 f"differs from the un-meshed one: {row}")
+        if m["counter"] <= 0 or (counter == "spec_dispatches"
+                                 and m["accepted"] <= 0):
+            raise AssertionError(f"mesh_features {label}: the feature did "
+                                 f"not run: {row}")
+        if m["plain_calls"] or m.get("pool_books") is False:
+            raise AssertionError(f"mesh_features {label}: a plain version "
+                                 f"ran or the pool's books do not hold: "
+                                 f"{m['plain_calls']} {row['pool_books']}")
+        check_path(f"mesh_features {label}", m["launches"], used)
+        check_bodies(f"mesh_features {label}", m["bodies"])
+        paths[f"mesh_features_{label}"] = (m["launches"], m["bodies"])
+    phase_mesh_journal(dev, cfg, params, smi)
+    return paths
+
+
+def phase_mesh_journal(dev, cfg, params, smi):
+    """The journal on the mesh at world size 1 (``phase_mesh_features``'
+    last arm): stop, warm-restart, completions against an uninterrupted
+    run's."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+
+    kw, (prompts,), _ = _mf_arms(cfg)["chunk_paged"][:3]
+    kw = {k: v for k, v in kw.items() if k != "scheduler"}
+    new = 32                # past the 2 steps' 17 tokens: none retires
+    path = Path(__file__).resolve().parent / "build" / \
+        "mesh_features_journal.sqlite3"
+    path.parent.mkdir(exist_ok=True)
+    for f in path.parent.glob(path.name + "*"):
+        f.unlink()
+    journal = {"path": str(path), "checkpoint_every": 1000}
+
+    def engine(**extra):
+        return GenerationEngine(cfg, params, quantize="int8", device=dev,
+                                **kw, **extra)
+
+    want = [c.tokens for c in engine().generate(prompts, new)]
+    gc.collect()
+    eng = engine(mesh=build_mesh(MeshConfig()), journal=journal)
+    ids = [eng.submit(p, new) for p in prompts]
+    done = {}
+    for _ in range(2):
+        for c in eng.step():
+            done[c.request_id] = c
+    depth = eng.journal.depth()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    back = engine(mesh=build_mesh(MeshConfig()), journal=journal)
+    rec = {rid: i for i, (rid, _c) in enumerate(back.journal_recovered)}
+    unfinished = [i for i, r in enumerate(ids) if r not in done]
+    t0 = time.monotonic()
+    got = {}
+    while len(got) < len(rec):
+        for c in back.step():
+            got[c.request_id] = c
+    torch.cuda.synchronize()
+    comps = {ids.index(r): c for r, c in done.items()}
+    for rid, c in got.items():
+        comps[unfinished[rec[rid]]] = c
+    tokens = [comps[i].tokens for i in range(len(prompts))]
+    row = {"phase": "mesh_journal", "config": cfg.name, "world_size": 1,
+           "threads": len(prompts), "new_tokens": new,
+           "stopped_after_steps": 2, "journal_depth_at_stop": depth,
+           "replayed": back.journal_replayed,
+           "abandoned": back.journal_abandoned,
+           "journal_stats": back.journal_stats(),
+           "restart_s": time.monotonic() - t0,
+           "completions_equal": tokens == want, "device": smi}
+    emit(row)
+    del back
+    gc.collect()
+    torch.cuda.empty_cache()
+    for f in path.parent.glob(path.name + "*"):
+        f.unlink()
+    if not (row["completions_equal"] and row["replayed"] == len(unfinished)
+            and row["replayed"] > 0):
+        raise AssertionError(f"mesh_journal: {row}")
+
+
+#: mesh_gloo2: two processes share the card as a world-2 gloo mesh, tp2
+#: then dp2, at 2 layers of mistral-7b's widths (int8, bf16; the lm_head
+#: keeps a 64-token alphabet, as spec_chunk_f32's, so drafts fire)
+GLOO2_TIMEOUT_S = 420
+GLOO2_BASE = dict(num_slots=4, max_len=1024, prefill_buckets=(128, 512),
+                  decode_window=8, dtype="bfloat16", quantize="int8")
+
+
+def _gloo2_params(cfg, dev):
+    """Seed-0 bf16 weights at ``cfg``, the lm_head cut to an alphabet,
+    and prompts drawn from it: (params, prompts by case)."""
+    import numpy as np
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models import decoder
+
+    params = decoder.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                 device=dev)
+    rng = np.random.default_rng(2)
+    alphabet = rng.choice(np.arange(3, cfg.vocab_size), F32_ALPHABET,
+                          replace=False)
+    keep = torch.zeros(cfg.vocab_size, dtype=torch.bool, device=dev)
+    keep[torch.from_numpy(alphabet).to(dev)] = True
+    params["lm_head"] = params["lm_head"] * keep
+
+    def draw(n):
+        return rng.choice(alphabet, n).tolist()
+    common = draw(256)
+    prompts = {"plain": [draw(n) for n in (200, 90, 300, 150)],
+               "spec": [draw(320) for _ in range(4)],
+               "chunk": [draw(n) for n in (300, 90, 512, 200)],
+               "paged_prefix": [common + draw(64) for _ in range(4)],
+               "piggy": [draw(n) for n in (300, 200, 90, 400)]}
+    return params, prompts
+
+
+#: the logits a mesh_gloo2 case keeps of each (kind, dispatch, round) of
+#: its sample and verify_draft calls: the first few
+GLOO2_LOGITS_KEPT = 3
+#: the calls that hold each case's feature: the first wave's draw (plain),
+#: a verify pass's acceptance (spec), a chunk pass's candidate (chunk), the
+#: repeat round's seeded hits (paged_prefix), a piggyback dispatch's draws
+GLOO2_FEATURE_CALL = {
+    "plain": lambda c: c["kind"] == "sample" and c["round"] == 0,
+    "spec": lambda c: c["kind"] == "verify",
+    "chunk": lambda c: c["where"] == "chunk",
+    "paged_prefix": lambda c: c["round"] == 1,
+    "piggy": lambda c: c["where"] == "piggy"}
+
+
+@contextlib.contextmanager
+def gloo2_call_log(eng, follow: list | None = None):
+    """Every ``sample`` and ``verify_draft`` call the engine module makes in
+    the block, in order (yielded list; the caller sets ``log.round``): its
+    kind, the dispatch it ran in ("chunk", "piggy" or ""), the round, its
+    outputs, and its logits on the host for the first
+    ``GLOO2_LOGITS_KEPT`` calls of each (kind, dispatch, round). With
+    ``follow`` (another run's log of the same traffic), each call returns
+    that run's outputs of the same call in place of its own (``own_equal``
+    says whether they agreed): the engine walks the other run's token
+    path, so every call reads the context the other run's call read."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine import generation
+
+    class Log(list):
+        round = 0
+    log, where, kept = Log(), [""], {}
+    real_sample, real_verify = generation.sample, generation.verify_draft
+
+    def record(kind, logits, outs) -> list:
+        key = (kind, where[0], log.round)
+        keep = kept.get(key, 0) < GLOO2_LOGITS_KEPT
+        kept[key] = kept.get(key, 0) + keep
+        entry = {"kind": kind, "where": where[0], "round": log.round,
+                 "out": [o.cpu().tolist() for o in outs], "own_equal": None,
+                 "logits": logits.float().cpu() if keep else None}
+        i = len(log)
+        log.append(entry)
+        if follow is None or i >= len(follow) \
+                or follow[i]["kind"] != kind:
+            return list(outs)
+        forced = [torch.tensor(v, dtype=o.dtype, device=o.device)
+                  for v, o in zip(follow[i]["out"], outs)]
+        if any(f.shape != o.shape for f, o in zip(forced, outs)):
+            return list(outs)
+        entry["own_equal"] = entry["out"] == follow[i]["out"]
+        return forced
+
+    def sample(logits, gen, scfg):
+        return record("sample", logits, (real_sample(logits, gen, scfg),))[0]
+
+    def verify_draft(logits, *a):
+        return tuple(record("verify", logits, real_verify(logits, *a)))
+
+    def inside(tag, fn):
+        def run(*a, **kw):
+            where[0] = tag
+            try:
+                return fn(*a, **kw)
+            finally:
+                where[0] = ""
+        return run
+
+    eng._chunk_step = inside("chunk", eng._chunk_step)
+    eng._dispatch_piggyback = inside("piggy", eng._dispatch_piggyback)
+    with patched(generation, "sample", sample), \
+            patched(generation, "verify_draft", verify_draft):
+        yield log
+
+
+def gloo2_compare(got: list, want: list, feature) -> dict:
+    """A mesh rank's call log against the un-meshed engine's, which
+    followed it (``gloo2_call_log``): the same calls in the same order
+    (``calls_match``), the logits both kept held by rel-L2, whether a call
+    of the case's feature was among them, and how many of the un-meshed
+    engine's own draws agreed with the rank's (tp sums in another order,
+    so a near tie may turn)."""
+    import numpy as np
+
+    worst, compared, reached = 0.0, 0, False
+    match = len(got) == len(want)
+    for g, w in zip(got, want):
+        if (g["kind"], g["where"], g["round"]) \
+                != (w["kind"], w["where"], w["round"]):
+            match = False
+            break
+        if g["logits"] is not None and w["logits"] is not None:
+            a, b = g["logits"].numpy(), w["logits"].numpy()
+            rel = float(np.linalg.norm(a - b) / np.linalg.norm(b)) \
+                if a.shape == b.shape else float("inf")
+            worst = max(worst, rel)
+            compared += 1
+            reached |= bool(feature(g))
+    return {"calls_match": match, "calls": len(got), "rel_l2": worst,
+            "compared": compared, "feature_reached": reached,
+            "own_draws_equal": sum(bool(w["own_equal"]) for w in want)}
+
+
+def _gloo2_cases(cfg, params, prompts, dev, mesh,
+                 follow: dict | None = None) -> dict:
+    """Each case of mesh_gloo2 on ``mesh`` (None: the un-meshed engine):
+    its streams, the feature's counter, the graphs' state, and its
+    ``gloo2_call_log`` (following ``follow[case]`` where given)."""
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.scheduler import (
+        SchedulerConfig,
+    )
+
+    cases = {
+        "plain": ({}, 32, None),
+        "spec": (dict(spec_decode=True), 64, "spec_dispatches"),
+        "chunk": (dict(scheduler=SchedulerConfig(chunk_tokens=64)), 24,
+                  "chunk_dispatches"),
+        "paged_prefix": (dict(prefill_chunk=64, kv_pool_blocks=80,
+                              prefix_cache_blocks=1), 16,
+                         "zero_copy_admits"),
+        "piggy": (dict(prefill_chunk=64, piggyback_min_prompt=64), 16,
+                  "piggy_dispatches")}
+    out = {}
+    for name, (kw, new, counter) in cases.items():
+        # the ranks probe capture and fall back to eager; the un-meshed
+        # engine runs eager too, so its log sees every call
+        eng = GenerationEngine(cfg, params, device=dev, mesh=mesh,
+                               cuda_graphs=mesh is not None, **GLOO2_BASE,
+                               **kw)
+        toks = []
+        with gloo2_call_log(eng, (follow or {}).get(name)) as log:
+            for r in range(2 if name == "paged_prefix" else 1):
+                log.round = r
+                toks.append([c.tokens
+                             for c in eng.generate(prompts[name], new)])
+        out[name] = {"tokens": toks,
+                     "counter": _mf_counter(eng, counter) if counter
+                     else None,
+                     "accepted": eng.spec_stats()["accepted_tokens"],
+                     "graphs": eng.graph_stats(), "calls": list(log)}
+        del eng
+    return out
+
+
+def gloo2_rank(spec_path: str, rank: int) -> int:
+    """One rank of mesh_gloo2 (``python chip_smoke.py --gloo2-rank SPEC
+    RANK``): joins the world-2 gloo group over TCP on localhost, serves
+    ``_gloo2_cases`` on tp2 and then dp2 on the card, and writes what each
+    gave to the spec's output path for its rank (``torch.save``: the call
+    logs hold the logits as tensors)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+    from copilot_for_consensus_tpu_torch.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+    from copilot_for_consensus_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+    )
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    out: dict = {"rank": rank}
+    try:
+        initialize_multihost({"coordinator_address": spec["address"],
+                              "num_processes": 2, "process_id": rank},
+                             backend="gloo", timeout_s=spec["timeout_s"])
+        cfg = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+        params, prompts = _gloo2_params(cfg, dev)
+        for tag, dp, tp in (("tp2", 1, 2), ("dp2", 2, 1)):
+            mesh = build_mesh(MeshConfig(dp=dp, tp=tp),
+                              timeout_s=spec["timeout_s"])
+            t0 = time.monotonic()
+            out[tag] = _gloo2_cases(cfg, params, prompts, dev, mesh)
+            out[f"{tag}_s"] = time.monotonic() - t0
+    except Exception:
+        out["error"] = traceback.format_exc()
+    torch.save(out, f"{spec['out']}.{rank}.pt")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh_gloo2(dev, smi):
+    """Two processes share the one card as a world-2 gloo mesh
+    (``initialize_multihost(backend="gloo")``; gloo moves CUDA tensors
+    through the host), first as tp2, then as dp2, at 2 layers of
+    mistral-7b's widths in int8 and bf16 (``GLOO2_BASE``): plain serving,
+    spec-decode verify, chunked prefill under the scheduler, paged prefix
+    hits over two rounds, and piggyback prefill. The kernels were built by
+    this process before the spawn. The two ranks' streams must equal each
+    other's, each feature's counter must be above 0, the decode graphs
+    stay off (the engine's own probe finds gloo's collectives not
+    capturable: ``eager_reason``). Then the un-meshed bf16 engine on the
+    same card serves each case again following rank 0's draws
+    (``gloo2_call_log``), so each of its calls reads rank 0's context: it
+    must make rank 0's calls in rank 0's order, and their logits, those of
+    the case's feature among them (``GLOO2_FEATURE_CALL``), must lie
+    within rel-L2 5e-2 of rank 0's (tp sums partial products in another
+    order). A timeout or an error in either rank fails the phase; both
+    processes end with it."""
+    import socket
+
+    import torch
+
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    work = Path(tempfile.mkdtemp(prefix="mesh_gloo2_"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = {"address": f"127.0.0.1:{port}", "out": str(work / "rank"),
+            "timeout_s": 120}
+    (work / "spec.json").write_text(json.dumps(spec))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--gloo2-rank", str(work / "spec.json"),
+                               str(r)], stdout=subprocess.DEVNULL)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, GLOO2_TIMEOUT_S
+                               - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"mesh_gloo2: the ranks did not finish in "
+                             f"{GLOO2_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.monotonic() - t0
+    ranks = []
+    for r in range(2):
+        f = Path(f"{spec['out']}.{r}.pt")
+        ranks.append(torch.load(f, weights_only=False) if f.exists()
+                     else {"error": "no result"})
+    shutil.rmtree(work, ignore_errors=True)
+    errors = {r: res["error"][-3000:] for r, res in enumerate(ranks)
+              if "error" in res}
+    if errors:
+        emit({"phase": "mesh_gloo2", "errors": errors, "device": smi})
+        raise AssertionError(f"mesh_gloo2: {errors}")
+    cfg = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+    params, prompts = _gloo2_params(cfg, dev)
+    refs = {tag: _gloo2_cases(cfg, params, prompts, dev, None, follow={
+        name: case["calls"] for name, case in ranks[0][tag].items()})
+        for tag in ("tp2", "dp2")}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "mesh_gloo2", "config": cfg.name,
+           "layers": cfg.n_layers, "base": GLOO2_BASE,
+           "spawn_s": spawn_s, "device": smi}
+    ok = True
+    for tag in ("tp2", "dp2"):
+        a, b, ref = ranks[0][tag], ranks[1][tag], refs[tag]
+        cases = {}
+        for name in a:
+            ca, cb = a[name], b[name]
+            logits = gloo2_compare(ca["calls"], ref[name]["calls"],
+                                   GLOO2_FEATURE_CALL[name])
+            cases[name] = {
+                "ranks_equal": ca["tokens"] == cb["tokens"],
+                "logits": logits,
+                "counter": ca["counter"], "accepted": ca["accepted"],
+                "eager_reason": ca["graphs"].get(
+                    "eager_reason", "").split("\n")[0],
+                "captured": ca["graphs"]["captured"]}
+            ok &= cases[name]["ranks_equal"] \
+                and bool(cases[name]["eager_reason"]) \
+                and not cases[name]["captured"] \
+                and (ca["counter"] is None or ca["counter"] > 0) \
+                and logits["calls_match"] and logits["feature_reached"] \
+                and logits["rel_l2"] <= 5e-2
+        row[tag] = {"seconds": ranks[0][f"{tag}_s"], "cases": cases}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"mesh_gloo2: {row}")
+
+
 def tp_cases(tp: int):
     """The shard shapes one rank of a tp-``tp`` Mistral-7B mesh runs:
     K2's int8 leaves (D, F) (w_gate's and w_up's shape once, wk's and
@@ -6703,12 +7302,32 @@ def tp_cases(tp: int):
     return k2, k5
 
 
+#: the mesh features' K2 rows at a tp rank's widths: a verify pass of 16
+#: and 32 slots x (k+1 = 9) rows, 288 also the piggyback dispatch's
+#: 32 + 4 x 64 rows
+TP_FEATURE_M = (144, 288)
+
+
+def tp_k3_cases(tp: int):
+    """(label, kv heads, R, lengths) of K3 at a tp rank's kv heads: the
+    decode step (R 4), and the mesh features' seeded passes, a verify of
+    k = 8 (R 36) and a 64-token chunk (R 256)."""
+    hkv = 8 // tp
+    return [("decode", hkv, 4, [0, 1, 64, 65, 1000, 4095, 2048, 777]),
+            ("verify_k8", hkv, 4 * 9, [0, 1, 64, 333, 512, 777, 960, 1000]),
+            ("chunk_s64", hkv, 4 * 64, [0, 0, 64, 128, 640, 896, 960, 0])]
+
+
 def phase_tp_shapes(dev, flush):
     """Every shard shape a tp-2 or tp-4 rank of a four-card cell runs,
     held against its plain version on the card with the kernel phases'
     gates, each timed beside its bound and a PyTorch call: K2 at M 4 (its
-    stream body) and M 4096 (wgmma), K5 at M 32 (stream) and M 4096
-    (wgmma), K1 and K3 at the local head counts. Each row names the body
+    stream body), M 144 and 288 (a verify pass of 16 and 32 slots at
+    k = 8, and the piggyback dispatch's rows) and M 4096 (wgmma), K5 at
+    M 32 (stream) and M 4096 (wgmma), K1 at the local head counts for a
+    prefill wave and the piggyback lanes (``piggy_s64``), and K3's decode
+    and seeded passes (verify R 36, chunk R 256) at the local kv heads
+    over a pool shard of 512 blocks. Each row names the body
     the shape launched (the wrapper's counters) and the body the rules of
     ``ops/quant_matmul.py`` want for it; a shape on another body is
     reported, not gated (a finding, not a failure). Returns the rows by
@@ -6751,7 +7370,7 @@ def phase_tp_shapes(dev, flush):
                               dtype=torch.int8, device=dev)
             s = torch.rand(1, f, generator=g, device=dev) * (2 * d ** -0.5
                                                               / 73.3)
-            for m in (4, 4096):
+            for m in (4, *TP_FEATURE_M, 4096):
                 x = torch.randn(m, d, generator=g, device=dev).to(bf)
                 out, ran = launch(qm.int8_matmul,
                                   lambda: qm.int8_matmul(x, q, s))
@@ -6809,87 +7428,111 @@ def phase_tp_shapes(dev, flush):
                        "stream" if m <= qm.STREAM_MAX_M else "wgmma")
                 del x, out, ref
             del q4, s, w
-        # K1: a prefill wave's attention at the rank's heads
-        b, hq, hkv, sq, d = 4, 32 // tp, 8 // tp, 1024, 128
-        q = torch.randn(b, hq, sq, d, generator=g, device=dev).to(bf)
-        k = torch.randn(b, hkv, sq, d, generator=g, device=dev).to(bf)
-        v = torch.randn(b, hkv, sq, d, generator=g, device=dev).to(bf)
-        lens = torch.tensor([1024, 700, 333, 64], dtype=torch.int32,
-                            device=dev)
-        kw = dict(causal=True, window=4096, kv_lengths=lens)
-        out, ran = launch(fa.flash_attention,
-                          lambda: fa.flash_attention(q, k, v, **kw))
-        ref = fa.flash_attention_ref(q, k, v, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
-        lv, ov, bv = fa._row_params(b, sq, lens, None, None, dev)
-        mask = fa._mask(b, sq, sq, lv, ov, bv, causal=True, window=4096,
-                        device=dev)
-        pairs = int(mask.sum()) * hq
-        kv_rows = int(mask.any(dim=1).sum())
-        bnd, by = bound_ms(nbytes(q, out) + 2 * hkv * d * 2 * kv_rows
-                           + 4 * b, 4.0 * d * pairs, "bfloat16")
-        row = {"phase": "tp_shapes", "kernel": "K1", "tp": tp,
-               "case": f"tp{tp}_prefill_s1024",
-               "shape": [b, hq, hkv, sq, sq, d], "body": ran,
-               "max_abs_err": err, "tol": K1_ATOL["bfloat16"],
-               "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
-               "plain_ms": time_ms(lambda: fa.flash_attention_ref(
-                   q, k, v, **kw), n=3),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=mask[:, None], enable_gqa=True)),
-               "library": "SDPA with the same mask",
-               "bound_ms": bnd, "bound_by": by}
-        record(row, bool(torch.isfinite(out).all())
-               and err <= K1_ATOL["bfloat16"], "wgmma")
-        del q, k, v, out, ref, mask
-        # K3: a paged decode step at the rank's kv heads
-        bsz, hkv, d, blk, nbtot, r = 8, 8 // tp, 128, 64, 1024, 4
-        pk = torch.randn(2, nbtot, hkv, blk, d, generator=g,
+        # K1: a prefill wave's attention, and the piggyback lanes' (P 4
+        # lanes of 64 rows at step 5 over 2048-column buffers, as
+        # phase_kernels' piggy_s64), at the rank's heads
+        hq, hkv, d = 32 // tp, 8 // tp, 128
+        for label, b, sq, skv, lens_l, offs, begins, window in (
+                ("prefill_s1024", 4, 1024, 1024, [1024, 700, 333, 64],
+                 None, None, 4096),
+                ("piggy_s64", 4, 64, 2048, [384, 384, 360, 0], [320] * 4,
+                 [0, 192, 128, 2048], 0)):
+            q = torch.randn(b, hq, sq, d, generator=g, device=dev).to(bf)
+            k = torch.randn(b, hkv, skv, d, generator=g, device=dev).to(bf)
+            v = torch.randn(b, hkv, skv, d, generator=g, device=dev).to(bf)
+
+            def ivec(x):
+                return None if x is None else torch.tensor(
+                    x, dtype=torch.int32, device=dev)
+            kw = dict(causal=True, window=window, kv_lengths=ivec(lens_l),
+                      q_offsets=ivec(offs), kv_begins=ivec(begins))
+            out, ran = launch(fa.flash_attention,
+                              lambda: fa.flash_attention(q, k, v, **kw))
+            ref = fa.flash_attention_ref(q, k, v, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            lv, ov, bv = fa._row_params(b, skv, kw["kv_lengths"],
+                                        kw["q_offsets"], kw["kv_begins"],
+                                        dev)
+            mask = fa._mask(b, sq, skv, lv, ov, bv, causal=True,
+                            window=window, device=dev)
+            pairs = int(mask.sum()) * hq
+            kv_rows = int(mask.any(dim=1).sum())
+            bnd, by = bound_ms(nbytes(q, out) + 2 * hkv * d * 2 * kv_rows
+                               + 3 * 4 * b, 4.0 * d * pairs, "bfloat16")
+            row = {"phase": "tp_shapes", "kernel": "K1", "tp": tp,
+                   "case": f"tp{tp}_{label}",
+                   "shape": [b, hq, hkv, sq, skv, d], "body": ran,
+                   "max_abs_err": err, "tol": K1_ATOL["bfloat16"],
+                   "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                   "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                       q, k, v, **kw), n=3),
+                   "library_ms": time_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask[:, None],
+                           enable_gqa=True)),
+                   "library": "SDPA with the same mask",
+                   "bound_ms": bnd, "bound_by": by}
+            record(row, bool(torch.isfinite(out).all())
+                   and err <= K1_ATOL["bfloat16"], "wgmma")
+            del q, k, v, out, ref, mask
+        # K3: a paged decode step and the mesh features' seeded passes at
+        # the rank's kv heads, over a dp shard's 512 blocks of the pool
+        bsz, d, blk, nbtot = 8, 128, 64, 512
+        pk = torch.randn(2, nbtot, 8 // tp, blk, d, generator=g,
                          device=dev).to(bf)
-        pv = torch.randn(2, nbtot, hkv, blk, d, generator=g,
+        pv = torch.randn(2, nbtot, 8 // tp, blk, d, generator=g,
                          device=dev).to(bf)
-        lens_l = [0, 1, 64, 65, 1000, 4095, 2048, 777]
-        tables = torch.full((bsz, 64), nbtot, dtype=torch.int32, device=dev)
-        perm = torch.randperm(nbtot, generator=g, device=dev)
-        for i, n in enumerate(lens_l):
-            need = -(-n // blk)
-            tables[i, :need] = perm[i * 64:i * 64 + need].to(torch.int32)
-        lengths = torch.tensor(lens_l, dtype=torch.int32, device=dev)
-        q_pos = lengths + 2
-        qr = torch.randn(bsz, hkv, r, d, generator=g, device=dev).to(bf)
-        args = (qr, pk, pv, 1, tables, lengths, q_pos)
-        part, body = launch(pa.paged_attention_partial,
-                            lambda: pa.paged_attention_partial(
-                                *args, window=4096))
-        ref = pa.paged_attention_partial_ref(*args, window=4096)
-        err, m_err, l_err, ok = k3_errors(part, ref)
-        # the positions [lo, hi) each row attends, read once each
-        hi = lengths.clamp(max=64 * blk).long()
-        lo = (q_pos.long() - 4096 + 1).clamp(min=0)
-        pos = int((hi - lo).clamp(min=0).sum())
-        bnd, by = bound_ms(pos * hkv * d * 2 * 2
-                           + nbytes(qr, tables, lengths, q_pos)
-                           + sum(t.numel() * 4 for t in part),
-                           4.0 * r * d * hkv * pos, "bfloat16")
-        kg, vg = pa.paged_gather_layer(pk[1], pv[1], tables)
-        t = torch.arange(kg.shape[2], device=dev)[None]
-        kmask = (t < lengths.long()[:, None]) & (t >= lo[:, None])
-        qs = qr.reshape(bsz, hkv * 4, 1, d)
-        row = {"phase": "tp_shapes", "kernel": "K3", "tp": tp,
-               "case": f"tp{tp}_decode", "shape": [bsz, hkv, r, d, blk, 64],
-               "body": body, "max_abs_err": err, "tol": K3_ATOL,
-               "m_err": m_err, "l_rel_err": l_err,
-               "ms": time_ms(lambda: pa.paged_attention_partial(
-                   *args, window=4096), flush=flush),
-               "plain_ms": time_ms(lambda: pa.paged_attention_partial_ref(
-                   *args, window=4096), n=3, flush=flush),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   qs, kg, vg, attn_mask=kmask[:, None, None],
-                   enable_gqa=True), flush=flush),
-               "library": "SDPA over the pre-gathered view, gather excluded",
-               "bound_ms": bnd, "bound_by": by}
-        record(row, ok, "decode")
-        del pk, pv, qr, part, ref, kg, vg
+        for label, hkv, r, lens_l in tp_k3_cases(tp):
+            window = 4096 if r == 4 else 0
+            nb = 64 if r == 4 else max(1, -(-max(lens_l) // blk))
+            tables = torch.full((bsz, nb), nbtot, dtype=torch.int32,
+                                device=dev)
+            perm = torch.randperm(nbtot, generator=g, device=dev)
+            for i, n in enumerate(lens_l):
+                need = -(-n // blk)
+                tables[i, :need] = perm[i * 64:i * 64 + need].to(
+                    torch.int32)
+            lengths = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+            q_pos = lengths + 2
+            qr = torch.randn(bsz, hkv, r, d, generator=g, device=dev).to(bf)
+            args = (qr, pk, pv, 1, tables, lengths, q_pos)
+            part, body = launch(pa.paged_attention_partial,
+                                lambda: pa.paged_attention_partial(
+                                    *args, window=window))
+            ref = pa.paged_attention_partial_ref(*args, window=window)
+            err, m_err, l_err, ok = k3_errors(part, ref)
+            # the positions [lo, hi) each row attends, read once each
+            hi = lengths.clamp(max=nb * blk).long()
+            lo = (q_pos.long() - window + 1).clamp(min=0) if window \
+                else torch.zeros_like(hi)
+            pos = int((hi - lo).clamp(min=0).sum())
+            bnd, by = bound_ms(pos * hkv * d * 2 * 2
+                               + nbytes(qr, tables, lengths, q_pos)
+                               + sum(t.numel() * 4 for t in part),
+                               4.0 * r * d * hkv * pos, "bfloat16")
+            kg, vg = pa.paged_gather_layer(pk[1], pv[1], tables)
+            t = torch.arange(kg.shape[2], device=dev)[None]
+            kmask = (t < lengths.long()[:, None]) & (t >= lo[:, None])
+            qs = qr.reshape(bsz, hkv * 4, r // 4, d)
+            row = {"phase": "tp_shapes", "kernel": "K3", "tp": tp,
+                   "case": f"tp{tp}_{label}",
+                   "shape": [bsz, hkv, r, d, blk, nb], "pool_blocks": nbtot,
+                   "body": body, "max_abs_err": err, "tol": K3_ATOL,
+                   "m_err": m_err, "l_rel_err": l_err,
+                   "ms": time_ms(lambda: pa.paged_attention_partial(
+                       *args, window=window), flush=flush),
+                   "plain_ms": time_ms(lambda: pa.paged_attention_partial_ref(
+                       *args, window=window), n=3, flush=flush),
+                   "library_ms": time_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           qs, kg, vg, attn_mask=kmask[:, None, None],
+                           enable_gqa=True), flush=flush),
+                   "library": "SDPA over the pre-gathered view, gather "
+                              "excluded",
+                   "bound_ms": bnd, "bound_by": by}
+            record(row, ok, "decode" if r <= 16 else "seeded")
+            del qr, part, ref, kg, vg
+        del pk, pv
     torch.cuda.empty_cache()
     return rows
 
@@ -6954,6 +7597,8 @@ def main() -> int:
     tp_rows = phase_tp_shapes(dev, flush)
     del flush
     phase_mesh_nccl(dev)
+    # two ranks on the one card, over gloo
+    phase_mesh_gloo2(dev, smi)
 
     cfg = decoder_config("mistral-7b")
     t0 = time.monotonic()
@@ -6974,7 +7619,8 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    phase_graphs(dev, cfg, params, smi, paged=False)
+    phase_graphs(dev, *cut_depth(cfg, params, GRAPHS_LAYERS), smi,
+                 paged=False)
     phase_async_serve(dev, cfg, params, smi, batch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7001,8 +7647,10 @@ def main() -> int:
     del paged
     gc.collect()
     torch.cuda.empty_cache()
-    phase_graphs(dev, cfg, params, smi, paged=True)
+    phase_graphs(dev, *cut_depth(cfg, params, GRAPHS_LAYERS), smi,
+                 paged=True)
     mesh_paths = phase_mesh_serve(dev, cfg, params, smi)
+    mesh_paths.update(phase_mesh_features(dev, cfg, params, smi))
     fp8_launches, fp8_bodies = phase_paged_fp8(dev, cfg, params, smi,
                                                paged_comps)
     spec_launches, spec_bodies = phase_spec_serve(dev, cfg, params, smi)
@@ -7179,6 +7827,7 @@ def main() -> int:
     # each body's tp-2 and tp-4 shard shapes (tp_shapes), beside its row
     kernel_of = {"flash_attention": "K1", "int8_matmul": "K2",
                  "int8_matmul_tiled": "K2", "paged_attention": "K3",
+                 "paged_attention_seeded": "K3",
                  "int4_matmul": "K5", "int4_matmul_tiled": "K5"}
     for row in table:
         k = kernel_of.get(row["name"])
@@ -7223,4 +7872,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo2-rank"]:
+        sys.exit(gloo2_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -148,12 +148,33 @@ the same order, as a ``torchrun`` job runs one script a rank):
   does not divide ``num_slots`` the contiguous engine replicates the
   batch over dp (the JAX engine's rule); the paged engine raises.
 
+The features decided inside ``step()`` keep that lockstep:
+
+* speculative verify and chunked prefill run each dp group's rows (its
+  cache rows, or its pool shard through shard-local block ids) and
+  all-gather the rows' logits over dp before the draw, as decode does;
+* the scheduler's turn: every rank observes, then takes rank 0's overload
+  level (the one signal that reads a clock and the rank's own telemetry),
+  so every rank sheds alike at the door; each rank's release is held to
+  rank 0's, request id by request id;
+* the paged prefix cache keeps one radix trie a dp shard (every rank
+  holds every trie host-side; only the shard's ranks hold its blocks'
+  KV); admission places a request on a shard with a free slot and
+  headroom, the longest match in that shard's trie first, so a hit never
+  crosses shards. A contiguous prefix cache on a mesh raises, as in the
+  JAX engine;
+* piggyback prefill (contiguous) runs all of a dispatch's lanes on every
+  dp group, each group merging only its own slots' rows, so the lanes'
+  first tokens are drawn alike everywhere;
+* the request journal lives on rank 0 alone: it journals and
+  checkpoints, and at a warm restart it reads the rows and broadcasts
+  them, so every rank resubmits the same rows under the same ids.
+
 A size-1 axis has no collective: at world size 1 the mesh engine runs the
-un-meshed engine's kernels in the same order. On a mesh with any axis
-above 1, speculative verify, chunked prefill (the scheduler), the prefix
-caches, piggyback prefill, roles, the journal and the async runner raise,
-each naming the ROADMAP item that brings it, as do ``pp``, ``sp`` and
-``ep`` above 1.
+un-meshed engine's kernels in the same order. On a mesh above one rank,
+roles raise (ROADMAP item 6d), as do ``pp``, ``sp`` and ``ep`` above 1 and
+a callable ``attn_impl``, each naming its item; the async runner over a
+mesh is refused where it is built (``engine/supervisor.py``, item 6c.1b).
 """
 
 from __future__ import annotations
@@ -322,15 +343,9 @@ def _pow2(n: int) -> int:
     return p
 
 
-#: ROADMAP Queue 1 items that bring what a mesh above one rank refuses
-_MESH_ITEM = "ROADMAP Queue 1 item 6c.1 (the mesh engine's remaining " \
-    "features)"
-
-
-def _refuse_on_mesh(mesh, **features) -> None:
+def _refuse_on_mesh(mesh, role: str) -> None:
     """Raise for what the mesh engine does not serve on a mesh of more
-    than one rank, naming the ROADMAP item that brings it. ``features``:
-    name → whether the caller asked for it."""
+    than one rank, naming the ROADMAP item that brings it."""
     for axis, item in (("pp", "6e (pp, with training)"),
                        ("sp", "6c.2 (sp)"), ("ep", "6c.3 (ep)")):
         if mesh.shape[axis] > 1:
@@ -338,13 +353,11 @@ def _refuse_on_mesh(mesh, **features) -> None:
                 f"GenerationEngine on a mesh with {axis}="
                 f"{mesh.shape[axis]}: the engine serves over dp×tp; "
                 f"{axis} is ROADMAP Queue 1 item {item}")
-    for name, asked in features.items():
-        if asked:
-            item = "ROADMAP Queue 1 item 6d (roles over several devices)" \
-                if name == "role" else _MESH_ITEM
-            raise NotImplementedError(
-                f"GenerationEngine({name}) on a mesh of {mesh.size} ranks "
-                f"is not served yet: {item}")
+    if role != "both":
+        raise NotImplementedError(
+            f"GenerationEngine(role) on a mesh of {mesh.size} ranks is "
+            f"not served yet: ROADMAP Queue 1 item 6d (roles over several "
+            f"devices)")
 
 
 class GenerationEngine:
@@ -399,15 +412,16 @@ class GenerationEngine:
         # collective). ``_params_local`` (``from_checkpoint`` only):
         # ``params`` already hold this rank's shard.
         self.mesh = mesh
+        if mesh is not None and prefix_cache_blocks and not kv_pool_blocks:
+            # the JAX engine's refusal, on any mesh (one rank included)
+            raise ValueError(
+                "prefix_cache_blocks on a mesh requires the paged "
+                "engine (kv_pool_blocks): the contiguous block "
+                "pool and a dp-sharded slot cache would live on "
+                "different shards; the paged pool shards WITH its "
+                "per-shard tries")
         if mesh is not None and mesh.size > 1:
-            _refuse_on_mesh(
-                mesh, spec_decode=spec_decode,
-                **{"scheduler (chunked prefill)": scheduler is not None,
-                   "prefix_cache_blocks": bool(prefix_cache_blocks),
-                   "piggyback_min_prompt (piggyback prefill)":
-                       piggyback_min_prompt < 10**9,
-                   "journal": journal is not None,
-                   "role": role != "both"})
+            _refuse_on_mesh(mesh, role)
             dp = mesh.shape["dp"]
             if cfg.is_moe and dp > 1 and num_slots % dp == 0:
                 # expert capacity is counted over the whole batch: split
@@ -425,8 +439,8 @@ class GenerationEngine:
         if callable(attn_impl):
             raise NotImplementedError(
                 "GenerationEngine(attn_impl=<callable>): a custom attention "
-                "(ring attention over a mesh) waits for the port's "
-                "parallel/ (ROADMAP Queue 1 item 6c)")
+                "(ring attention over a mesh) comes with sp, ROADMAP "
+                "Queue 1 item 6c.2")
         if attn_impl not in IMPLS:
             raise ValueError(f"attn_impl must be one of {IMPLS}, got "
                              f"{attn_impl!r}")
@@ -444,8 +458,13 @@ class GenerationEngine:
         # The durable request journal (the JAX engine's): submits journal
         # before they queue, accepted tokens checkpoint incrementally,
         # retire deletes at harvest; a non-empty journal at construction
-        # warm-restarts (``_recover_from_journal``, last in __init__).
-        self.journal = resolve_journal(journal)
+        # warm-restarts (``_recover_from_journal``, last in __init__). On
+        # a mesh of several ranks the store lives on rank 0 alone: the
+        # other ranks never open it, and take every step alike
+        # (``_journaled``: the engine has a journal somewhere).
+        self._journaled = journal is not None and journal is not False
+        self.journal = resolve_journal(journal) \
+            if mesh is None or mesh.is_first else None
         #: journal rows resubmitted at warm restart in this process
         self.journal_replayed = 0
         #: journal rows that could not be resumed (continuation past
@@ -702,7 +721,12 @@ class GenerationEngine:
                 "window masking the seeded prefill does not implement")
         self._cache = None
         self._pool: BlockPool | None = None
-        self._prefix: PrefixCache | None = None
+        #: the prefix tries: one a dp shard on the paged pool (a hit
+        #: appends ids of the slot's own shard, so cached prefixes are
+        #: shard-local by construction; every rank holds every trie
+        #: host-side), one over its own pool on the contiguous cache;
+        #: ``_prefix`` is the first, the whole cache without dp
+        self._prefixes: list[PrefixCache] = []
         if self.paged:
             block = self.prefill_chunk
             if 128 % block:
@@ -755,7 +779,8 @@ class GenerationEngine:
             if prefix_cache_blocks:
                 # an enable flag only: the trie's budget is the shared
                 # pool's, so 1 and 8 behave the same
-                self._prefix = PrefixCache(shared=self._pool)
+                self._prefixes = [PrefixCache(shared=self._pool)
+                                  for _ in range(self._dp)]
             #: the resolved paged route, labelled on every StepRecord and
             #: the copilot_engine_kv_route gauge
             self._kv_route = "reference" if kv_kernel == "reference" \
@@ -772,10 +797,10 @@ class GenerationEngine:
                 # the contiguous engine's cache owns its block pool: a
                 # retiring slot's prompt KV is copied in, and a hit's
                 # blocks are gathered back into the admitting slot
-                self._prefix = PrefixCache(
+                self._prefixes = [PrefixCache(
                     cfg, num_blocks=prefix_cache_blocks,
                     block_size=self.prefill_chunk, kv_dtype=self.kv_dtype,
-                    device=self.device)
+                    device=self.device)]
         self._prefix_pins: dict[int, object] = {}  # request_id → match
         #: prompt tokens prefilled / skipped through prefix hits
         self.prefill_tokens = 0
@@ -865,8 +890,11 @@ class GenerationEngine:
             eager_reason=eager_reason)
 
         # Warm restart last: every queue and slot structure above must
-        # exist before recovered requests resubmit through submit().
-        if self.journal is not None and self.journal.depth():
+        # exist before recovered requests resubmit through submit(). On a
+        # mesh rank 0 reads its store, and every rank follows.
+        if self._journaled and self._decide(
+                lambda: self.journal is not None
+                and self.journal.depth() > 0):
             self._recover_from_journal()
 
     # ------------------------------------------------------------------
@@ -906,6 +934,17 @@ class GenerationEngine:
                    dtype=dtype, device=device, mesh=mesh,
                    _params_local=mesh is not None,
                    quantize=meta.get("quantized") or False, **engine_kw)
+
+    @property
+    def _prefix(self) -> PrefixCache | None:
+        """The first prefix trie (None without a prefix cache): the
+        engine's one trie without dp; shard-aware paths index
+        ``_prefixes`` by dp shard."""
+        return self._prefixes[0] if self._prefixes else None
+
+    def _trie(self, slot: int) -> PrefixCache:
+        """The prefix trie of ``slot``'s dp shard."""
+        return self._prefixes[self._slot_shard(slot)]
 
     @property
     def prompt_limit(self) -> int:
@@ -1064,8 +1103,10 @@ class GenerationEngine:
     def journal_stats(self) -> dict:
         """Journal counters (the JAX engine's keys): ``replayed`` counts
         this process's warm-restart resubmissions, ``abandoned`` the rows
-        that could not be resumed; the rest come from the journal."""
-        out = {"enabled": self.journal is not None,
+        that could not be resumed; the rest come from the journal (on a
+        mesh, from rank 0's store: the other ranks report only the
+        first three)."""
+        out = {"enabled": self._journaled,
                "replayed": self.journal_replayed,
                "abandoned": self.journal_abandoned}
         if self.journal is not None:
@@ -1161,12 +1202,17 @@ class GenerationEngine:
                "prefill_tokens": self.prefill_tokens,
                "prefill_tokens_saved": self.prefill_tokens_saved,
                "publish_failures": self.prefix_publish_failures}
-        if self._prefix is not None:
-            st = self._prefix.stats.as_dict()
+        if self._prefixes:
+            # summed over the per-dp-shard tries (one without dp)
+            st: dict[str, int] = {}
+            for pc in self._prefixes:
+                for k, v in pc.stats.as_dict().items():
+                    st[k] = st.get(k, 0) + v
             out.update(st)
             out["hit_rate"] = (st["hits"] / st["lookups"]
                                if st["lookups"] else 0.0)
-            out["blocks_in_use"] = self._prefix.blocks_in_use
+            out["blocks_in_use"] = sum(pc.blocks_in_use
+                                       for pc in self._prefixes)
         return out
 
     def kv_pool_stats(self) -> dict:
@@ -1267,8 +1313,10 @@ class GenerationEngine:
         batch: list[tuple[int, Request]] = []
         matches: list = []            # PrefixMatch | None, aligned w/ batch
         longest = 0
-        # Paged: free-block accounting per dp shard; a request goes to
-        # the first shard with a free slot and headroom for its worst case
+        # Paged: free-block accounting per dp shard; a request goes to a
+        # shard with a free slot and headroom for its worst case, the
+        # longest match in that shard's trie first (the lowest shard on a
+        # tie), so a hit never crosses shards
         headroom = [self._shard_headroom(s) for s in range(self._dp)] \
             if self.paged else []
         # Cap a wave at 128 rows AND the prompt-token budget: prefill
@@ -1278,18 +1326,26 @@ class GenerationEngine:
                and self._occupied + len(batch) < self._slot_cap):
             head = self._queue[0]
             match_len = 0
+            shard = 0
             if self.paged:
                 # the FULL worst case, borrowed prefix included: pinning
                 # the matched blocks takes them out of the evictable
                 # headroom this gate was computed against
                 need = self._worst_blocks_total(head)
-                shard = next((sh for sh in range(self._dp)
-                              if need <= headroom[sh]
-                              and any(self._slot_shard(x) == sh
-                                      for x in self._free)), None)
-                if shard is None:
+                cand = None
+                for sh in range(self._dp):
+                    if need > headroom[sh] or not any(
+                            self._slot_shard(x) == sh for x in self._free):
+                        continue
+                    mt = self._prefixes[sh].match_tokens(
+                        head.prompt, digests=self._req_digests(head)) \
+                        if self._prefixes else 0
+                    if cand is None or mt > cand[1]:
+                        cand = (sh, mt)
+                if cand is None:
                     break
-            if self._prefix is not None:
+                shard, match_len = cand
+            elif self._prefix is not None:
                 match_len = self._prefix.match_tokens(
                     head.prompt, digests=self._req_digests(head))
             longest = max(longest, len(head.prompt) - match_len)
@@ -1297,9 +1353,9 @@ class GenerationEngine:
                     longest, self.buckets) > self.admission_token_budget:
                 break
             m = None
-            if self._prefix is not None:
-                m = self._prefix.lookup(head.prompt,
-                                        digests=self._req_digests(head))
+            if self._prefixes:
+                m = self._prefixes[shard].lookup(
+                    head.prompt, digests=self._req_digests(head))
                 if m.tokens == 0:       # miss: nothing pinned
                     m = None
             if self.paged:
@@ -1352,7 +1408,7 @@ class GenerationEngine:
                 if self.paged:
                     self._paged_release_slot(slot)
                 if matches[i] is not None:
-                    self._prefix.release(matches[i])
+                    self._trie(slot).release(matches[i])
             self._queue[0:0] = [req for _slot, req in batch]
             raise
         prefill_s = time.monotonic() - t0
@@ -1576,14 +1632,16 @@ class GenerationEngine:
         lengths_t = torch.from_numpy(lengths).to(dev)
         if any(m is not None for m in matches):
             nb = _pow2(max(len(m.block_ids) for m in matches if m))
-            bids = np.full((n, nb), self._pool.num_blocks,
+            # this group's rows: the matched ids of its own shard, local
+            bids = np.full((n, nb), self._pool.blocks_per_shard,
                            dtype=BLOCK_TABLE_DTYPE)
             # int32, as K3 takes it: no conversion in any layer
             pref = np.zeros((n,), dtype=np.int32)
-            for i, m in enumerate(matches):
+            for j, i in enumerate(mine):
+                m = matches[i]
                 if m is not None:
-                    bids[i, :len(m.block_ids)] = m.block_ids
-                    pref[i] = m.tokens
+                    bids[j, :len(m.block_ids)] = self._local_ids(m.block_ids)
+                    pref[j] = m.tokens
             tables = torch.from_numpy(bids).to(dev)
             pool = self._pool
             if self._kv_route == "reference":
@@ -1646,8 +1704,8 @@ class GenerationEngine:
                         - len(self._tables[slot]))
                     for slot, entry in self._chunking.items()
                     if self._slot_shard(slot) == shard)
-        evictable = self._prefix.evictable_blocks \
-            if self._prefix is not None else 0
+        evictable = self._prefixes[shard].evictable_blocks \
+            if self._prefixes else 0
         return self._pool.free_blocks_shard(shard) + evictable - need
 
     def _block_headroom(self) -> int:
@@ -1657,11 +1715,11 @@ class GenerationEngine:
 
     def _alloc_blocks(self, n: int, shard: int = 0) -> list[int]:
         """Allocate ``n`` pool blocks on dp shard ``shard``, first
-        reclaiming idle prefix-trie leaves when the free list runs
-        short."""
+        reclaiming idle leaves of that shard's prefix trie when its free
+        list runs short."""
         free = self._pool.free_blocks_shard(shard)
-        if n > free and self._prefix is not None:
-            self._prefix.reclaim(n - free)
+        if n > free and self._prefixes:
+            self._prefixes[shard].reclaim(n - free)
         return self._pool.alloc(n, shard=shard)
 
     def _ensure_blocks(self, slot: int, upto: int) -> None:
@@ -1761,8 +1819,7 @@ class GenerationEngine:
         used += sum(e[1] for e in self._chunking.values())
         used += sum(h[2] - self._owned_from[s] * self._block
                     for s, h in self._handoff.items())
-        if self._prefix is not None:
-            used += self._prefix.node_count * self._block
+        used += sum(pc.node_count for pc in self._prefixes) * self._block
         return used
 
     # ------------------------------------------------------------------
@@ -2013,7 +2070,7 @@ class GenerationEngine:
                 st["out"][off + w] = tok
                 if self._dp > 1:
                     # the whole batch's tokens; this group feeds its own
-                    tok = tok[self._row0:self._row0 + self._slots_ps]
+                    tok = tok[self._mine()]
         if view is not None:
             # merge into the view, read the merged columns back, scatter
             # them into the pool at the write maps
@@ -2035,13 +2092,27 @@ class GenerationEngine:
         of ``logits`` all-gathered first (none without dp), so every rank
         draws the whole batch from its generator as the un-meshed engine
         does. [num_slots] int64."""
-        return sample(all_gather_rows(logits, self._dp_group), self._gen,
-                      self.sampling)
+        return sample(self._gather_rows(logits), self._gen, self.sampling)
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A pass's per-row output of this dp group, all-gathered into the
+        whole batch's (slot order) on every rank; ``x`` itself without
+        dp."""
+        return all_gather_rows(x, self._dp_group)
+
+    def _mine(self) -> slice:
+        """This dp group's rows of a whole-batch host array."""
+        return slice(self._row0, self._row0 + self._slots_ps)
+
+    def _local_rows(self, slots):
+        """``(local row, slot)`` of this dp group's slots among
+        ``slots``."""
+        return [(s - self._row0, s) for s in self._my_slots(slots)]
 
     def _my_slots(self, slots):
         """The slots of ``slots`` this rank's dp group owns."""
-        return [s for s in slots
-                if self._row0 <= s < self._row0 + self._slots_ps]
+        mine = self._mine()
+        return [s for s in slots if mine.start <= s < mine.stop]
 
     def _local_ids(self, bids) -> np.ndarray:
         """Global block ids of this rank's dp shard as local ids into its
@@ -2068,7 +2139,7 @@ class GenerationEngine:
         card, a replay of the bucket's graph once it was captured), and
         one device-to-host fetch brings its tokens back: [steps, slots]."""
         st, steps = self._static, self._dispatch_steps
-        mine = slice(self._row0, self._row0 + self._slots_ps)
+        mine = self._mine()
         st["tok"].copy_(torch.from_numpy(self._next_tok[mine]))
         if self.paged:
             st["pos"].copy_(torch.from_numpy(
@@ -2201,11 +2272,13 @@ class GenerationEngine:
     def _sched_cost(self, req: Request) -> int:
         """What this request will prefill: its prompt minus the prefix
         cache's match — the DRR charge and the chunk-or-wave size, so a
-        cached prompt costs its suffix."""
-        if self._prefix is None:
+        cached prompt costs its suffix. Over dp shards: the best match of
+        any shard's trie (admission places the request there)."""
+        if not self._prefixes:
             return len(req.prompt)
-        match = self._prefix.match_tokens(req.prompt,
-                                          digests=self._req_digests(req))
+        digs = self._req_digests(req)
+        match = max(pc.match_tokens(req.prompt, digests=digs)
+                    for pc in self._prefixes)
         return max(1, len(req.prompt) - match)
 
     def _placement_key(self, req: Request):
@@ -2221,7 +2294,15 @@ class GenerationEngine:
     def _sched_pump(self) -> None:
         """One scheduler turn: feed the closed loop, release at most one
         wave's token budget of requests (DRR order), route long cache-miss
-        prompts to chunked prefill."""
+        prompts to chunked prefill.
+
+        On a mesh of several ranks the closed loop reads each rank's own
+        clock and telemetry (TTFT p99, queue-wait p95), so rank 0's
+        overload level, Retry-After and signals are broadcast and stand
+        on every rank: every rank's scheduler then sheds alike at the
+        door. The release reads only host state, which is whole on every
+        rank; it is held to rank 0's, request id by request id and route
+        by route, and a rank whose release differs raises."""
         sched = self._sched
         backlog = len(self._handoff) + self._handoff_external
         sched.observe(queued=self.queue_depth, active=len(self._active),
@@ -2232,27 +2313,37 @@ class GenerationEngine:
                                     if self.paged else None),
                       handoff_backlog=(backlog if self.role == "prefill"
                                        else None))
-        if self.role == "prefill" and backlog >= self._handoff_high:
-            # the release hold: finished prefills pile up faster than the
-            # decode role drains them, and more waves would only pin pool
-            # blocks behind the handoff (the shed loop guards the door)
-            return
+        reqs: list[Request] = []
         staged = (len(self._queue) + len(self._prefilling)
                   + len(self._chunk_pending))
         room = len(self._free) - staged
-        if room <= 0:
-            return
-        reqs = sched.select(max_requests=room,
-                            token_budget=sched.cfg.prefill_wave_tokens,
-                            cost_fn=self._sched_cost,
-                            placement_key=self._placement_key)
+        # the release hold (prefill role): finished prefills pile up
+        # faster than the decode role drains them, and more waves would
+        # only pin pool blocks behind the handoff (the shed loop guards
+        # the door)
+        hold = self.role == "prefill" and backlog >= self._handoff_high
+        if room > 0 and not hold:
+            reqs = sched.select(max_requests=room,
+                                token_budget=sched.cfg.prefill_wave_tokens,
+                                cost_fn=self._sched_cost,
+                                placement_key=self._placement_key)
         ct = sched.cfg.chunk_tokens
-        for req in reqs:
-            # Prefix hits keep the seeded wave; long cache misses chunk. A
-            # hit shows as a suffix cost below the prompt length.
-            cost = self._sched_cost(req)
-            if self._chunk_ok and cost >= len(req.prompt) \
-                    and len(req.prompt) > ct:
+        # Prefix hits keep the seeded wave; long cache misses chunk. A hit
+        # shows as a suffix cost below the prompt length.
+        route = [(req.request_id,
+                  self._chunk_ok and self._sched_cost(req) >= len(req.prompt)
+                  and len(req.prompt) > ct) for req in reqs]
+        level, retry, signals, want = self._decide(lambda: (
+            sched.overload_level, sched.retry_after_s,
+            sched.last_signals, route))
+        sched.overload_level, sched.retry_after_s = level, retry
+        sched.last_signals = signals
+        if want != route:
+            raise RuntimeError(
+                f"the scheduler released {route} on this rank and "
+                f"{want} on rank 0: host state diverged across the mesh")
+        for req, (_rid, chunk) in zip(reqs, route):
+            if chunk:
                 self._chunk_pending.append(req)
             else:
                 self._queue.append(req)
@@ -2265,11 +2356,29 @@ class GenerationEngine:
         and their output is discarded."""
         while self._chunk_pending and self._free \
                 and self._occupied < self._slot_cap:
-            if self.paged and self._worst_blocks_total(
-                    self._chunk_pending[0]) > self._block_headroom():
-                break           # the pool cannot take the head yet
-            self._chunking[self._free.pop(0)] = [
-                self._chunk_pending.pop(0), 0, time.monotonic()]
+            if self.paged:
+                # free-block accounting per dp shard (the JAX engine's
+                # rule): the first shard with a free slot and headroom
+                # for the worst case; chunked prompts are cache misses,
+                # so there is no prefix to chase
+                need = self._worst_blocks_total(self._chunk_pending[0])
+                slot = None
+                for sh in range(self._dp):
+                    cand = next((x for x in self._free
+                                 if self._slot_shard(x) == sh), None)
+                    if cand is not None \
+                            and need <= self._shard_headroom(sh):
+                        slot = cand
+                        break
+                if slot is None:
+                    break       # the pool cannot take the head yet
+                self._free.remove(slot)
+            else:
+                slot = self._free.pop(0)
+            # the start time feeds telemetry and prefill_s alone: no
+            # rank's clock orders or gates the work
+            self._chunking[slot] = [self._chunk_pending.pop(0), 0,
+                                    time.monotonic()]
         if not self._chunking:
             return
         t0 = time.monotonic()
@@ -2292,20 +2401,23 @@ class GenerationEngine:
             else None
         # The fill offsets advance only after the host fetch: a failed
         # dispatch leaves the entries as they were, and the next step
-        # retries the same chunk.
+        # retries the same chunk. Over dp each group passes its own rows.
+        mine = self._mine()
         with step_annotation("prefill_chunk", seq, self.device), \
                 self._dispatch_boundary("prefill_chunk"):
             if self.paged:
                 for slot, n in fed.items():
                     self._ensure_blocks(slot, self._chunking[slot][1] + n)
-                rows = [(slot, self._tables[slot], self._chunking[slot][1],
-                         n) for slot, n in fed.items()]
-                sbids, soffs = self._write_maps(rows, width, self.num_slots)
-                first = self._chunk_paged(tokens, qlens, positions, sbids,
-                                          soffs, kv_len)
+                rows = [(r, self._tables[slot], self._chunking[slot][1],
+                         fed[slot]) for r, slot in self._local_rows(fed)]
+                sbids, soffs = self._write_maps(rows, width,
+                                                self._slots_ps)
+                first = self._chunk_paged(tokens[mine], qlens[mine],
+                                          positions[mine], sbids, soffs,
+                                          kv_len)
             else:
-                first = self._prefill_chunk(tokens, qlens, positions,
-                                            kv_len)
+                first = self._prefill_chunk(tokens[mine], qlens[mine],
+                                            positions[mine], kv_len)
         step_s = time.monotonic() - t0
         self.chunk_s += step_s
         self.chunk_dispatches += 1
@@ -2341,11 +2453,12 @@ class GenerationEngine:
     @torch.inference_mode()
     def _prefill_chunk(self, tokens: np.ndarray, qlens: np.ndarray,
                        positions: np.ndarray, kv_len: int) -> np.ndarray:
-        """The contiguous chunk pass: every slot's next prompt chunk
-        attends (its own cache prefix ++ fresh causal chunk) in one weight
-        pass (``decoder.verify_seeded``), the fresh KV lands at the
-        per-row fill offset (``merge_window``), and each row samples a
-        candidate first token from its last fed position. Returns the
+        """The contiguous chunk pass over this dp group's rows: every
+        slot's next prompt chunk attends (its own cache prefix ++ fresh
+        causal chunk) in one weight pass (``decoder.verify_seeded``), the
+        fresh KV lands at the per-row fill offset (``merge_window``), and
+        every slot samples a candidate first token from its last fed
+        position, the groups' rows all-gathered first. Returns the
         candidates [slots] (the one host fetch)."""
         dev = self.device
         tokens_t = torch.from_numpy(tokens).to(dev)
@@ -2358,7 +2471,8 @@ class GenerationEngine:
                              steps=tokens.shape[1])
         last = logits[torch.arange(logits.shape[0], device=dev),
                       qlens_t - 1]
-        return sample(last, self._gen, self.sampling).cpu().numpy()
+        return sample(self._gather_rows(last), self._gen,
+                      self.sampling).cpu().numpy()
 
     def _pool_partial_fn(self, kv_len: int):
         """K3 over the pool for a seeded pass at extent ``kv_len``: each
@@ -2376,10 +2490,11 @@ class GenerationEngine:
     def _chunk_paged(self, tokens: np.ndarray, qlens: np.ndarray,
                      positions: np.ndarray, sbids: np.ndarray,
                      soffs: np.ndarray, kv_len: int) -> np.ndarray:
-        """The paged chunk pass: ``decoder.prefill_seeded_paged`` with the
-        slot's filled prefix scored in place by K3 and the last valid row
-        selected before the lm_head (``all_logits=False``), then one pool
-        scatter of the chunk's KV and the candidates' sample."""
+        """The paged chunk pass over this dp group's rows and pool shard:
+        ``decoder.prefill_seeded_paged`` with the slot's filled prefix
+        scored in place by K3 and the last valid row selected before the
+        lm_head (``all_logits=False``), then one pool scatter of the
+        chunk's KV and the candidates' sample over every group's rows."""
         dev = self.device
         tokens_t = torch.from_numpy(tokens).to(dev)
         qlens_t = torch.from_numpy(qlens).to(dev)
@@ -2395,7 +2510,8 @@ class GenerationEngine:
                 self.params, tokens_t, qlens_t, positions_t, self._mcfg,
                 self._pool_partial_fn(kv_len), all_logits=False)
         self._pool.scatter(k_new, v_new, sbids, soffs)
-        return sample(last, self._gen, self.sampling).cpu().numpy()
+        return sample(self._gather_rows(last), self._gen,
+                      self.sampling).cpu().numpy()
 
     def _seeded_over_view(self, tokens_t: torch.Tensor,
                           qlens_t: torch.Tensor, positions_t: torch.Tensor,
@@ -2508,19 +2624,27 @@ class GenerationEngine:
         parked, so their garbage decode lanes drop), the chunks' write
         (``merge_prefill``), and the placed rows' first tokens sampled
         from their last prompt positions. One host fetch brings back the
-        decode tokens and the first tokens together."""
+        decode tokens and the first tokens together.
+
+        Over dp each group decodes its own rows and runs every lane (the
+        pack is host state, alike on every rank): the lanes' work is
+        repeated on each group, each group merges only its own slots'
+        chunk columns, and the lanes' last hidden states — whole on every
+        rank — give every rank the same first tokens, drawn after the
+        window's, as the un-meshed engine draws them."""
         cfg, dev = self._mcfg, self.device
         w_sz, chunk, p = self.decode_window, self.prefill_chunk, \
             self.prefill_rows
-        win = (cfg.n_layers, self.num_slots, cfg.n_kv_heads, w_sz,
+        mine = self._mine()
+        win = (cfg.n_layers, self._slots_ps, cfg.n_kv_heads, w_sz,
                cfg.head_dim)
         bufs = (cfg.n_layers, p, cfg.n_kv_heads, w_sz * chunk, cfg.head_dim)
         k_win, v_win = zeros(win, self.kv_dtype, dev), \
             zeros(win, self.kv_dtype, dev)
         kbuf, vbuf = zeros(bufs, self.kv_dtype, dev), \
             zeros(bufs, self.kv_dtype, dev)
-        positions = torch.from_numpy(self._positions).to(dev)
-        tok = torch.from_numpy(self._next_tok).to(dev)
+        positions = torch.from_numpy(self._positions[mine]).to(dev)
+        tok = torch.from_numpy(self._next_tok[mine]).to(dev)
         pre_tok_t = torch.from_numpy(pre_tok).to(dev)
         rope_t = torch.from_numpy(rope_base).to(dev)
         begin_t = torch.from_numpy(kv_begin).to(dev)
@@ -2537,11 +2661,21 @@ class GenerationEngine:
             # the step wrote its chunk's KV into kbuf/vbuf itself
             k_win[:, :, :, w] = k_cols
             v_win[:, :, :, w] = v_cols
-            tok = sample(logits, self._gen, self.sampling)
+            tok = self._sample_rows(logits)     # the whole batch's
             outs.append(tok)
+            if self._dp > 1:
+                tok = tok[mine]                 # this group feeds its own
             h_steps.append(h_step)
         decoder.merge_window(self._cache, k_win, v_win, positions,
                              steps=w_sz)
+        if self._dp > 1:
+            # this group's slots' chunk columns, at their local rows
+            lanes, cols, slots, pos = maps
+            keep = [i for i, sl in enumerate(slots)
+                    if mine.start <= sl < mine.stop]
+            maps = ([lanes[i] for i in keep], [cols[i] for i in keep],
+                    [slots[i] - mine.start for i in keep],
+                    [pos[i] for i in keep])
         decoder.merge_prefill(self._cache, kbuf, vbuf, *maps)
         parts = [torch.stack(outs).reshape(-1)]
         if placed:
@@ -2573,7 +2707,10 @@ class GenerationEngine:
         verify failures) vetoes the verify dispatch; plain decode
         serves."""
         sup = self.supervisor
-        return sup is None or sup.spec_allowed()
+        if sup is None:
+            return True
+        # the breaker reads clocks: on a mesh, rank 0's verdict
+        return self._decide(sup.spec_allowed)
 
     def _spec_track(self, slot: int, req: Request, first_tok: int) -> None:
         """Build the stream's draft index at activation (spec engines):
@@ -2646,9 +2783,9 @@ class GenerationEngine:
                     self._ensure_blocks(
                         slot, min(int(self._positions[slot]) + s,
                                   self.max_len))
-                rows = [(sl, self._tables[sl], int(self._positions[sl]), s)
-                        for sl in self._active]
-                sbids, soffs = self._write_maps(rows, s, self.num_slots)
+                rows = [(r, self._tables[sl], int(self._positions[sl]), s)
+                        for r, sl in self._local_rows(self._active)]
+                sbids, soffs = self._write_maps(rows, s, self._slots_ps)
                 out, acc = self._verify_paged(tokens, qlens, sbids, soffs,
                                               kv_len)
             else:
@@ -2705,36 +2842,39 @@ class GenerationEngine:
     @torch.inference_mode()
     def _verify(self, tokens: np.ndarray, qlens: np.ndarray,
                 kv_len: int) -> tuple[np.ndarray, np.ndarray]:
-        """The contiguous verify pass: ``decoder.verify_seeded`` scores
-        k+1 positions a slot against the slot cache read in place, the
-        fresh KV of all fed tokens lands at the per-row offset in one
-        ``merge_window`` (columns past the accept point are dead by the
-        prefix mask), and ``verify_draft`` accepts. Returns (tokens
-        [slots, S], accepted [slots]) from one host fetch."""
-        dev = self.device
-        tokens_t = torch.from_numpy(tokens).to(dev)
-        qlens_t = torch.from_numpy(qlens).to(dev)
-        positions_t = torch.from_numpy(self._positions).to(dev)
+        """The contiguous verify pass over this dp group's rows:
+        ``decoder.verify_seeded`` scores k+1 positions a slot against the
+        slot cache read in place, the fresh KV of all fed tokens lands at
+        the per-row offset in one ``merge_window`` (columns past the
+        accept point are dead by the prefix mask), and ``verify_draft``
+        accepts over every group's rows. ``tokens``/``qlens`` are the
+        whole batch's. Returns (tokens [slots, S], accepted [slots]) from
+        one host fetch."""
+        dev, mine = self.device, self._mine()
+        tokens_t = torch.from_numpy(tokens[mine]).to(dev)
+        qlens_t = torch.from_numpy(qlens[mine]).to(dev)
+        positions_t = torch.from_numpy(self._positions[mine]).to(dev)
         logits, k_new, v_new = decoder.verify_seeded(
             self.params, tokens_t, qlens_t, positions_t, self._mcfg,
             self._cache, kv_len=kv_len)
         decoder.merge_window(self._cache, k_new, v_new, positions_t,
                              steps=tokens.shape[1])
-        return self._accept(logits, tokens_t, qlens_t)
+        return self._accept(logits, tokens, qlens)
 
     @torch.inference_mode()
     def _verify_paged(self, tokens: np.ndarray, qlens: np.ndarray,
                       sbids: np.ndarray, soffs: np.ndarray,
                       kv_len: int) -> tuple[np.ndarray, np.ndarray]:
-        """The paged verify pass: ``decoder.prefill_seeded_paged`` with
-        every position's logits (``all_logits=True``) and each slot's
-        committed prefix scored in place by K3 (R = group x (k+1) rows a
-        kv head), one pool scatter of the fed tokens' KV, then
-        ``verify_draft``."""
-        dev = self.device
-        tokens_t = torch.from_numpy(tokens).to(dev)
-        qlens_t = torch.from_numpy(qlens).to(dev)
-        positions_t = torch.from_numpy(self._positions).to(dev)
+        """The paged verify pass over this dp group's rows and pool shard:
+        ``decoder.prefill_seeded_paged`` with every position's logits
+        (``all_logits=True``) and each slot's committed prefix scored in
+        place by K3 (R = group x (k+1) rows a kv head), one pool scatter
+        of the fed tokens' KV, then ``verify_draft`` over every group's
+        rows."""
+        dev, mine = self.device, self._mine()
+        tokens_t = torch.from_numpy(tokens[mine]).to(dev)
+        qlens_t = torch.from_numpy(qlens[mine]).to(dev)
+        positions_t = torch.from_numpy(self._positions[mine]).to(dev)
         if self._kv_route == "reference":
             logits, k_new, v_new = self._seeded_over_view(
                 tokens_t, qlens_t, positions_t, kv_len)
@@ -2743,13 +2883,20 @@ class GenerationEngine:
                 self.params, tokens_t, qlens_t, positions_t, self._mcfg,
                 self._pool_partial_fn(kv_len), all_logits=True)
         self._pool.scatter(k_new, v_new, sbids, soffs)
-        return self._accept(logits, tokens_t, qlens_t)
+        return self._accept(logits, tokens, qlens)
 
-    def _accept(self, logits: torch.Tensor, tokens_t: torch.Tensor,
-                qlens_t: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
-        """``verify_draft`` over a verify pass's logits: the emitted
-        tokens [slots, S] and accept counts [slots] in one host fetch."""
-        out, n_accept = verify_draft(logits, tokens_t[:, 1:], qlens_t - 1,
+    def _accept(self, logits: torch.Tensor, tokens: np.ndarray,
+                qlens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``verify_draft`` over a verify pass's logits (this dp group's
+        rows, all-gathered into the whole batch's first, so every rank
+        draws as the un-meshed engine does) against the whole batch's
+        ``tokens``/``qlens``: the emitted tokens [slots, S] and accept
+        counts [slots] in one host fetch."""
+        dev = logits.device
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        qlens_t = torch.from_numpy(qlens).to(dev)
+        out, n_accept = verify_draft(self._gather_rows(logits),
+                                     tokens_t[:, 1:], qlens_t - 1,
                                      self._gen, self.sampling)
         both = torch.cat([out, n_accept[:, None]], dim=1).cpu().numpy()
         return both[:, :-1], both[:, -1]       # the ONE host fetch
@@ -2767,9 +2914,9 @@ class GenerationEngine:
         writes the cache in place). A failed publish is contained: it is
         counted and loses only the cache's share, never the completion."""
         adopted: set[int] | frozenset = frozenset()
-        pc = self._prefix
-        if pc is None:
+        if not self._prefixes:
             return adopted
+        pc = self._trie(slot)
         try:
             with self._dispatch_boundary("prefix_publish"):
                 if self.paged:
@@ -2815,7 +2962,7 @@ class GenerationEngine:
             # the ledgers are cumulative engine-wide counters: exported at
             # retire cadence, not every step
             self.telemetry.update_ledgers(
-                self.prefix_stats() if self._prefix is not None else None,
+                self.prefix_stats() if self._prefixes else None,
                 self.spec_stats() if self.spec_decode else None)
         self._free.append(slot)
 
@@ -2834,16 +2981,13 @@ class GenerationEngine:
         if not self._deadlines_in_use:
             return    # no deadline ever submitted: skip the queue walk
         now = time.monotonic()
-        if self._world is None:
-            def is_late(r: Request) -> bool:
-                return r.deadline_at <= now
-        else:
-            late_ids = self._decide(lambda: {
-                r.request_id for r in self._requests()
-                if r.deadline_at <= now})
+        late_ids = self._decide(lambda: {
+            r.request_id for r in self._requests() + self._sched_queued()
+            if r.deadline_at <= now})
 
-            def is_late(r: Request) -> bool:
-                return r.request_id in late_ids
+        def is_late(r: Request) -> bool:
+            return r.request_id in late_ids
+
         expired = [r for r in self._queue if is_late(r)]
         if expired:
             self._queue = [r for r in self._queue if not is_late(r)]
@@ -2872,12 +3016,17 @@ class GenerationEngine:
                 del self._handoff[slot]
                 m = self._prefix_pins.pop(req.request_id, None)
                 if m is not None:
-                    self._prefix.release(m)
+                    self._trie(slot).release(m)
                 self._paged_release_slot(slot)
                 self._free.append(slot)
                 expired.append(req)
         if self._sched is not None:
-            expired += self._sched.drop_expired(now)
+            # the scheduler drops by its own clock read: stamp the late
+            # requests past every clock, and drop exactly those
+            for r in self._sched_queued():
+                if r.request_id in late_ids:
+                    r.deadline_at = float("-inf")
+            expired += self._sched.drop_expired(float("-inf"))
         for req in expired:
             self.deadline_expired += 1
             self._done[req.request_id] = Completion(
@@ -2904,6 +3053,12 @@ class GenerationEngine:
                 + [e[0] for e in self._chunking.values()]
                 + [h[0] for h in self._handoff.values()]
                 + list(self._active.values()))
+
+    def _sched_queued(self) -> list[Request]:
+        """The requests the scheduler holds, in its queues' order."""
+        if self._sched is None:
+            return []
+        return [r for q in self._sched._queues.values() for r in q]
 
     def _decide(self, decide):
         """A host decision that reads a clock: ``decide()`` as rank 0 takes
@@ -2977,14 +3132,18 @@ class GenerationEngine:
         is abandoned (counted), never head-truncated into divergence."""
         from copilot_for_consensus_tpu_torch.obs import trace as _trace
 
-        entries = self.journal.unfinished()
+        # on a mesh: rank 0's rows and wall clock, on every rank, so each
+        # resubmits the same rows in the same order under the same ids
+        entries, now_wall = self._decide(lambda: (
+            self.journal.unfinished() if self.journal is not None
+            else None, time.time()))
         if not entries:
             return 0
+        j = self.journal                # None on the other ranks
         # continuation ids must never collide with journaled ids, or the
         # re-key and the retire would hit the wrong row
         self._next_id = max(self._next_id,
                             max(e.request_id for e in entries) + 1)
-        now_wall = time.time()
         self._journal_recovering = True
         self._journal_suppress = True
         try:
@@ -3008,7 +3167,8 @@ class GenerationEngine:
                     continue
                 prompt = list(e.prompt) + list(e.tokens)
                 if len(prompt) > self.prompt_limit:
-                    self.journal.record_abandon(e.request_id)
+                    if j is not None:
+                        j.record_abandon(e.request_id)
                     self.journal_abandoned += 1
                     continue
                 kw: dict = {}
@@ -3019,7 +3179,8 @@ class GenerationEngine:
                     cache_eligible_tokens=e.cache_eligible_tokens,
                     correlation_id=e.correlation_id, tenant=e.tenant,
                     priority=e.priority or "interactive", **kw)
-                self.journal.supersede(e.request_id, rid, e.tokens)
+                if j is not None:
+                    j.supersede(e.request_id, rid, e.tokens)
                 self._journal_stitch[rid] = (len(e.prompt), list(e.tokens))
                 self._journal_ckpt[rid] = 0
                 self.journal_recovered.append((rid, e.correlation_id))

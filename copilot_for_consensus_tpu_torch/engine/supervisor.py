@@ -817,13 +817,14 @@ def resolve_supervisor(supervisor, engine) -> EngineSupervisor | None:
     Every ``AsyncEngineRunner`` resolves its supervisor here as it is
     built, so an engine on a mesh of several ranks is refused here: a
     dispatcher thread a rank would step each rank's engine on that rank's
-    own arrivals, out of lockstep."""
+    own arrivals, out of lockstep (its idle waits would outlast the
+    groups' timeout, and the breaker and watchdog read clocks)."""
     mesh = getattr(engine, "mesh", None)
     if mesh is not None and mesh.size > 1:
         raise NotImplementedError(
             f"AsyncEngineRunner over an engine on a mesh of {mesh.size} "
-            f"ranks is not served yet: ROADMAP Queue 1 item 6c.1 (the "
-            f"mesh engine's remaining features)")
+            f"ranks is not served yet: ROADMAP Queue 1 item 6c.1b (the "
+            f"async runner and the supervisor over a mesh)")
     if supervisor is None or supervisor is False:
         return None
     if supervisor is True:

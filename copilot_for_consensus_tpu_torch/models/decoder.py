@@ -550,6 +550,11 @@ def decode_step_piggyback(params: Params, tokens: torch.Tensor,
     a row never reads a packed neighbour's kv. The decode rows attend
     (cache prefix ++ window ++ self) as in ``decode_step_windowed``.
 
+    Under tp (a ``local_config``) the heads are the rank's, one
+    all-reduce completes ``wo``'s and one the FFN's partial sums over the
+    M rows, and the embedding and the decode rows' lm_head are
+    vocab-parallel; ``h_step`` is whole, and the engine unembeds it.
+
     Returns (logits [B, V] f32, k_cols, v_cols [L, B, Hkv, Dh],
     pre_k, pre_v [L, P, Hkv, C, Dh], h_step [P, D]). Dense FFN only: the
     engine never piggybacks an MoE config."""
@@ -559,10 +564,10 @@ def decode_step_piggyback(params: Params, tokens: torch.Tensor,
     p, c = pre_tok.shape
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     dev = tokens.device
-    x_dec = params["tok_emb"][tokens.long()]                 # [B, D]
-    x_pre = params["tok_emb"][pre_tok.long()]                # [P, C, D]
-    d_model = x_dec.shape[-1]
-    x = torch.cat([x_dec, x_pre.reshape(p * c, d_model)])    # [M, D]
+    # the decode rows and the chunk rows in one lookup (one all-reduce)
+    x = _embed(params, torch.cat([tokens.long(), pre_tok.reshape(-1)
+                                  .long()]), cfg)            # [M, D]
+    d_model = x.shape[-1]
     pos_dec = (positions0 + w)[:, None]                      # [B, 1]
     pos_pre = pre_rope_base.long()[:, None] + torch.arange(
         c, device=dev)[None, :]                              # [P, C]
@@ -613,9 +618,10 @@ def decode_step_piggyback(params: Params, tokens: torch.Tensor,
             kv_begins=pre_kv_begin)                          # [P, Hq, C, Dh]
         o = torch.cat([o_dec.reshape(b, hq * dh),
                        o_pre.transpose(1, 2).reshape(p * c, hq * dh)])
-        x = x + L.qmatmul(o, layer["wo"])                    # one wo matmul
-        x = x + L.swiglu(L.rms_norm(x, layer["ffn_norm"], cfg.norm_eps),
-                         layer)                              # one FFN pass
+        x = x + _reduce(L.qmatmul(o, layer["wo"]), cfg)      # one wo matmul
+        x = x + _reduce(L.swiglu(L.rms_norm(x, layer["ffn_norm"],
+                                            cfg.norm_eps), layer),
+                        cfg)                                 # one FFN pass
         k_cols.append(kd[:, :, 0])
         v_cols.append(vd[:, :, 0])
         pre_k.append(kp)

@@ -82,7 +82,8 @@ class Mesh:
     ``shape``: axis → size; ``axis_names``: ``MESH_AXES``; ``coords``: axis
     → this rank's coordinate; :meth:`group`: an axis's process group (None
     at size 1); ``world``: the world group (None for one rank), over which
-    host decisions are broadcast; ``device``: this rank's device (None
+    host decisions are broadcast from its first rank (``is_first``);
+    ``device``: this rank's device (None
     given: the card, resolved when read). ``device_mesh`` is the
     ``DeviceMesh`` the groups came from (None for one rank)."""
 
@@ -115,6 +116,20 @@ class Mesh:
         import torch.distributed as dist
 
         return dist.group.WORLD
+
+    @property
+    def is_first(self) -> bool:
+        """Whether this rank is the world's first (rank 0), where the
+        mesh's host decisions are taken and host-only stores (the request
+        journal) live. True for a mesh of one rank; a view with no process
+        group is first where every coordinate is 0."""
+        if self.size == 1:
+            return True
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return not any(self.coords.values())
+        return dist.get_rank() == 0
 
     def group(self, axis: str):
         """The process group of ``axis`` holding this rank; None where the

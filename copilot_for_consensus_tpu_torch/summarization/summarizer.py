@@ -124,7 +124,11 @@ class CUDASummarizer(Summarizer):
     ``mesh`` (``parallel.build_mesh``) builds the engine over a dp×tp mesh;
     above one rank every rank makes the same calls with the same threads
     (``summarize`` and ``summarize_batch``; lockstep) and gets the same
-    summaries, while ``summarize_async`` and the long route raise."""
+    summaries. The options reach the mesh engine as they reach one
+    device (the journal lives on rank 0; an ``engine=`` built over the
+    mesh brings speculation, the scheduler and the paged prefix cache),
+    while ``summarize_async`` (item 6c.1b) and the long route (item
+    6c.2) raise."""
 
     def __init__(self, model: str = "mistral-7b", *, engine=None,
                  tokenizer: Tokenizer | None = None,
@@ -329,8 +333,8 @@ class CUDASummarizer(Summarizer):
             raise NotImplementedError(
                 f"CUDASummarizer.summarize_async on a mesh of "
                 f"{self.mesh.size} ranks: the async runner over a mesh is "
-                f"ROADMAP Queue 1 item 6c.1 (the mesh engine's remaining "
-                f"features)")
+                f"ROADMAP Queue 1 item 6c.1b (the async runner and the "
+                f"supervisor over a mesh)")
         from copilot_for_consensus_tpu_torch.engine.async_runner import (
             AsyncEngineRunner,
         )

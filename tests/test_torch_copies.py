@@ -112,7 +112,7 @@ PORTED = {
     "engine/supervisor.py": "reads the roles' _handoff with getattr, calls "
                             "set_slot_cap behind hasattr, and calls "
                             "on_repaired; refuses a runner over an engine "
-                            "on a mesh of several ranks (item 6c.1)",
+                            "on a mesh of several ranks (item 6c.1b)",
     "models/__init__.py": "the port's config exports",
     "models/configs.py": "the decoder and encoder configs the port serves "
                          "(no llama-3-8b)",

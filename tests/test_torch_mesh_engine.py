@@ -202,6 +202,9 @@ def port_ref(weights, spawned):
             "tiny", params=params_from_numpy(tree, "cpu", "float32"),
             quantize=False, dtype="float32", device="cpu", num_slots=4,
             max_len=256, max_new_tokens=8).summarize_batch(R.threads())],
+        "served": {name: R.tokens(_engine(tree, **kw).generate(R.PROMPTS,
+                                                               R.NEW))
+                   for name, kw in R.SERVED.items()},
     }
     return out
 
@@ -257,7 +260,8 @@ def test_mesh_step0_logits_match_jax(mesh, mesh_runs, jax_ref):
 @pytest.mark.parametrize("mesh", MESHES)
 def test_every_rank_returns_the_same_completions(mesh, mesh_runs):
     keys = ("greedy", "paged", "paged_gather", "sampled", "sampled_paged",
-            "skew", "ckpt", "int8", "moe", "summaries", "replicated")
+            "skew", "ckpt", "int8", "moe", "summaries", "replicated",
+            "served")
     first = mesh_runs[mesh][0]
     for res in mesh_runs[mesh][1:]:
         for k in keys:
@@ -377,9 +381,10 @@ def test_paged_blocks_stay_in_their_dp_shard(mesh, mesh_runs):
         assert res["dp_shards"] == dp
 
 
-#: each refusal and the ROADMAP item it names
-REFUSAL_ITEMS = {**{name: "6c.1" for name in R.REFUSED}, "role": "6d",
-                 "async_runner": "6c.1", "summarize_async": "6c.1",
+#: each refusal and the ROADMAP item it names (the contiguous prefix
+#: cache: the JAX engine's ValueError, on any mesh)
+REFUSAL_ITEMS = {"prefix_cache": None, "role": "6d",
+                 "async_runner": "6c.1b", "summarize_async": "6c.1b",
                  "long_context": "6c.2"}
 
 
@@ -388,8 +393,24 @@ REFUSAL_ITEMS = {**{name: "6c.1" for name in R.REFUSED}, "role": "6d",
 def test_mesh_refuses_what_it_does_not_serve(mesh, name, mesh_runs):
     for res in mesh_runs[mesh]:
         kind, msg = res["refusals"][name]
+        if REFUSAL_ITEMS[name] is None:
+            assert kind == "ValueError", msg
+            assert "requires the paged engine" in msg, msg
+            continue
         assert kind == "NotImplementedError", msg
         assert f"item {REFUSAL_ITEMS[name]}" in msg, msg
+
+
+@pytest.mark.parametrize("name", sorted(R.SERVED))
+@pytest.mark.parametrize("mesh", MESHES)
+def test_mesh_serves_what_it_refused_before(mesh, name, mesh_runs,
+                                            port_ref, weights):
+    # spec verify, the scheduler's chunked prefill, the paged prefix
+    # tries, piggyback and the journal, on this module's traffic: the
+    # un-meshed port's streams on every rank
+    for res in mesh_runs[mesh]:
+        _assert_streams(weights["tiny"][2], port_ref["served"][name],
+                        res["served"][name])
 
 
 @pytest.mark.parametrize("entry", ["engine", "from_checkpoint",
@@ -412,6 +433,8 @@ def test_gloo_mesh_with_no_device_asks_for_the_card(mesh, entry,
 
 
 def test_world_size_one_mesh_refuses_nothing(weights, tmp_path):
+    # nothing but what the JAX engine refuses on any mesh: a contiguous
+    # prefix cache
     from copilot_for_consensus_tpu_torch.engine.async_runner import (
         AsyncEngineRunner,
     )
@@ -419,18 +442,36 @@ def test_world_size_one_mesh_refuses_nothing(weights, tmp_path):
     tree = weights["tiny"][2]
     mesh = build_mesh()                     # no process group: one rank
     assert mesh.size == 1 and mesh.group("tp") is None
-    for name, kw in R.REFUSED.items():
+    for name, kw in {**R.REFUSED, **R.SERVED}.items():
         if name == "journal":
             kw = dict(journal=str(tmp_path / "j.sqlite3"))
-        if name == "scheduler":
-            from copilot_for_consensus_tpu_torch.engine.scheduler import (
-                SchedulerConfig,
-            )
-            kw = dict(scheduler=SchedulerConfig())
+        if name == "prefix_cache":
+            with pytest.raises(ValueError, match="requires the paged"):
+                _engine(tree, mesh=mesh, **kw)
+            continue
         _engine(tree, mesh=mesh, **kw)
     eng = _engine(tree, mesh=mesh)
     AsyncEngineRunner(eng)
     CUDASummarizer("tiny", engine=eng, long_context=True)
+
+
+def test_contiguous_prefix_cache_on_a_mesh_raises_as_the_jax_engine(
+        weights):
+    # both packages refuse it on a one-device mesh, in the same words
+    from copilot_for_consensus_tpu.parallel import MeshConfig as JaxMeshCfg
+    from copilot_for_consensus_tpu.parallel import build_mesh as jax_mesh
+
+    jcfg, jp, tree = weights["tiny"]
+    kw = dict(num_slots=4, max_len=64, prefill_buckets=(16, 32),
+              prefix_cache_blocks=8)
+    with pytest.raises(ValueError) as jax_err:
+        JaxEngine(jcfg, jp, dtype=jnp.float32, telemetry=False,
+                  mesh=jax_mesh(JaxMeshCfg(dp=1, tp=1),
+                                devices=jax.devices()[:1]), **kw)
+    with pytest.raises(ValueError) as port_err:
+        _engine(tree, mesh=build_mesh(), **kw)
+    assert str(port_err.value) == str(jax_err.value)
+    assert "requires the paged engine" in str(port_err.value)
 
 
 def test_world_size_one_mesh_engine_is_the_unmeshed_engine(weights):
