@@ -349,7 +349,20 @@ non-zero before the last line:
    un-meshed engine: spec verify and chunked prefill on both caches,
    paged prefix hits, piggyback: streams and launches by body equal, the
    feature's counter above 0; then a journal on the mesh stopped after 2
-   steps and warm-restarted, completions equal to an uninterrupted run's.
+   steps and warm-restarted, completions equal to an uninterrupted run's;
+43. mesh_async_gloo2 — (after mesh_features) two processes share the card
+   as a world-2 gloo mesh (``python chip_smoke.py --gloo2-async-rank``)
+   with a 5 s groups' timeout: rank 0 serves ``summarize_async`` (8
+   threads from two submitting threads, an idle gap past the timeout)
+   through ``MeshEngineRunner`` and its supervisor, rank 1 follows its
+   operation log (``CUDASummarizer.follow()``). tp2 at Mistral-7B's full
+   width and depth (int8, bf16, 4 slots, max_len 4096): completions and
+   ids equal on both ranks, the first wave's logits within rel-L2 5e-2 of
+   the un-meshed engine's, K1 on wgmma and K2 on stream and wgmma on each
+   rank. dp2 at 2 layers on the paged pool with the prefix cache and one
+   decode fault on every rank: one containment and its replays, equal
+   completions, an un-meshed replay of rank 0's log following its draws
+   within rel-L2 5e-2, K3 on its decode and seeded bodies.
 
 The pipelined run of phase 19 serves ``deploy/config/pipeline.json``'s
 llm block under the cuda driver (supervisor, ``deadline_s`` 300, the
@@ -402,6 +415,7 @@ build included.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -7286,6 +7300,407 @@ def phase_mesh_gloo2(dev, smi):
         raise AssertionError(f"mesh_gloo2: {row}")
 
 
+#: mesh_async_gloo2: two processes share the card as a world-2 gloo mesh;
+#: rank 0 serves summarize_async through MeshEngineRunner and rank 1 follows
+#: its operation log (``CUDASummarizer.follow()``). The groups' timeout is
+#: short, so that the idle gap outlasts it
+ASYNC2_TIMEOUT_S = 5.0
+ASYNC2_SPAWN_S = 360
+#: the tp2 arm: mistral-7b at full width and depth, the deployed geometry
+ASYNC2_TP = dict(num_slots=4, max_len=4096, dtype="bfloat16",
+                 quantize="int8")
+ASYNC2_TP_NEW = 16
+#: the dp2 arm: 2 layers of mistral-7b's widths on the paged pool with the
+#: prefix cache, and one decode fault on every rank
+ASYNC2_DP = dict(GLOO2_BASE, prefill_buckets=(128, 512, 1024),
+                 prefill_chunk=64, kv_pool_blocks=80, prefix_cache_blocks=1)
+ASYNC2_DP_NEW = 16
+ASYNC2_FAULT = dict(kind="decode", at=3)
+#: the two submitting threads' arrivals (thread, pause before it); the
+#: threads submitted after the idle gap
+ASYNC2_ARRIVALS = ([(0, 0.0), (2, 0.2), (4, 0.4)],
+                   [(1, 0.1), (3, 0.3), (5, 0.2)])
+ASYNC2_LATE = (6, 7)
+
+
+def _store_barrier(store, key: str, n: int, timeout_s: float = 600.0):
+    """Wait until ``n`` ranks reached ``key`` (the job's store, outside
+    every group: a rank slower to build its engine than the groups'
+    timeout is waited for here, not in a collective)."""
+    store.add(key, 1)
+    deadline = time.monotonic() + timeout_s
+    while store.add(key, 0) < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{key}: {n} ranks did not arrive")
+        time.sleep(0.01)
+
+
+def _async2_lead(summ, threads, gap_s: float, waves: bool) -> dict:
+    """Rank 0's traffic: six threads from two submitting threads at
+    staggered times, an idle gap of ``gap_s``, two more; then drain. With
+    ``waves``, four threads, the gap, four more: each wave fills the slots
+    in order and retires together, so an un-meshed engine places every
+    request in rank 0's slot (the dp2 arm's replay)."""
+    import threading
+
+    waits, errors = {}, []
+    if waves:
+        half = len(threads) // 2
+        done = {i: w(600) for i, w in
+                [(i, summ.summarize_async(threads[i],
+                                          correlation_id=f"a{i}"))
+                 for i in range(half)]}
+        late = range(half, len(threads))
+        return _async2_end(summ, threads, done, late, gap_s)
+
+    def submit(plan):
+        try:
+            for i, pause in plan:
+                time.sleep(pause)
+                waits[i] = summ.summarize_async(threads[i],
+                                                correlation_id=f"a{i}")
+        except Exception as exc:        # reported in the row, then failed
+            errors.append(f"{type(exc).__name__}: {exc}")
+
+    subs = [threading.Thread(target=submit, args=(plan,))
+            for plan in ASYNC2_ARRIVALS]
+    for t in subs:
+        t.start()
+    for t in subs:
+        t.join(600)
+    if errors:
+        raise AssertionError(f"summarize_async: {errors}")
+    done = {i: w(600) for i, w in waits.items()}
+    return _async2_end(summ, threads, done, ASYNC2_LATE, gap_s)
+
+
+def _async2_end(summ, threads, done: dict, late, gap_s: float) -> dict:
+    """The idle gap, then the ``late`` threads together; drain."""
+    runner = summ._runner
+    t0 = time.monotonic()
+    time.sleep(gap_s)
+    idle = time.monotonic() - t0
+    waits = [(i, summ.summarize_async(threads[i], correlation_id=f"a{i}"))
+             for i in late]
+    for i, w in waits:
+        done[i] = w(600)
+    oplog = runner.oplog
+    rec = runner.recovery_stats()
+    drained = summ.drain(120)
+    return {"completion_tokens": [done[i].completion_tokens
+                                  for i in range(len(threads))],
+            "idle_s": idle, "drained": drained,
+            "completions": oplog.completions, "batches": oplog.batches,
+            "log": oplog.stats(),
+            "recovery": {k: rec.get(k) for k in (
+                "replayed", "recovered", "failed", "containments",
+                "watchdog_trips", "suspect_failures")}}
+
+
+def _async2_arm(tag: str, mesh, rank: int, dev, store) -> dict:
+    """One arm of mesh_async_gloo2 on this rank: the engine, the
+    summarizer over it, rank 0's traffic or rank 1's ``follow()``, every
+    ``sample`` call logged (``gloo2_call_log``), and the launches by body
+    of the served path."""
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.faults import (
+        FaultPlan,
+        FaultSpec,
+    )
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.models import decoder, quant
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+
+    if tag == "tp2":
+        cfg = decoder_config("mistral-7b")
+        params = quant.init_random_quantized(cfg, seed=0,
+                                             dtype=torch.bfloat16,
+                                             device=dev)
+        eng = GenerationEngine(cfg, params, device=dev, mesh=mesh,
+                               **ASYNC2_TP)
+        new = ASYNC2_TP_NEW
+    else:
+        cfg = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+        params = decoder.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                     device=dev)
+        eng = GenerationEngine(
+            cfg, params, device=dev, mesh=mesh,
+            faults=FaultPlan(specs=[FaultSpec(**ASYNC2_FAULT)]),
+            **ASYNC2_DP)
+        new = ASYNC2_DP_NEW
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    threads = synthetic_threads(8)
+    if tag == "dp2":
+        # one chunk a thread: a replay's continuation (prompt and tokens)
+        # stays within the prompt limit
+        threads = [dataclasses.replace(t, chunks=t.chunks[:1])
+                   for t in threads]
+    summ = CUDASummarizer(cfg.name, engine=eng, max_new_tokens=new,
+                          supervisor=True)
+    summ.keep_mesh_log = True
+    _store_barrier(store, f"async2/{tag}", 2)
+    reset_launches()
+    t0 = time.monotonic()
+    with gloo2_call_log(eng) as log:
+        if rank == 0:
+            out = _async2_lead(summ, threads, ASYNC2_TIMEOUT_S + 1.0,
+                               waves=tag == "dp2")
+        else:
+            out = summ.follow(keep=True)
+        torch.cuda.synchronize()
+    out.update(wall_s=time.monotonic() - t0, launches=read_launches(),
+               bodies=read_bodies(), graphs=eng.graph_stats(),
+               calls=list(log), config=cfg.name, layers=cfg.n_layers,
+               allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del summ, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def async2_rank(spec_path: str, rank: int) -> int:
+    """One rank of mesh_async_gloo2 (``python chip_smoke.py
+    --gloo2-async-rank SPEC RANK``): joins the world-2 gloo group over TCP
+    on localhost with the phase's short timeout, serves the tp2 arm and
+    then the dp2 arm on the card (rank 0 through ``summarize_async``, rank
+    1 through ``follow()``), and writes what each gave to the spec's
+    output path for its rank (``torch.save``)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from copilot_for_consensus_tpu_torch.parallel import (
+        MeshConfig,
+        build_mesh,
+    )
+    from copilot_for_consensus_tpu_torch.parallel.multihost import (
+        default_store,
+        initialize_multihost,
+    )
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    out: dict = {"rank": rank}
+    try:
+        initialize_multihost({"coordinator_address": spec["address"],
+                              "num_processes": 2, "process_id": rank},
+                             backend="gloo", timeout_s=spec["timeout_s"])
+        for tag, dp, tp in (("tp2", 1, 2), ("dp2", 2, 1)):
+            mesh = build_mesh(MeshConfig(dp=dp, tp=tp),
+                              timeout_s=spec["timeout_s"])
+            out[tag] = _async2_arm(tag, mesh, rank, dev, default_store())
+    except Exception:
+        out["error"] = traceback.format_exc()
+    torch.save(out, f"{spec['out']}.{rank}.pt")
+    if dist.is_initialized() and "error" not in out:
+        dist.destroy_process_group()
+    return 0
+
+
+def _async2_first_wave(cfg, params, dev, batches) -> list:
+    """The un-meshed engine's call log of rank 0's first step: the first
+    batch's submits, as rank 0's engine admitted them, and one step."""
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+
+    eng = GenerationEngine(cfg, params, device=dev, cuda_graphs=False,
+                           **ASYNC2_TP)
+    with gloo2_call_log(eng) as log:
+        for op in batches[0]:
+            if op[0] == "submit":
+                _, rid, prompt, mnt, kw = op
+                if eng.submit(prompt, mnt, **kw) != rid:
+                    raise AssertionError("mesh_async_gloo2: the first "
+                                         "wave's ids differ")
+        eng.step()
+    del eng
+    return list(log)
+
+
+def phase_mesh_async_gloo2(dev, cfg, params, smi):
+    """The async front end over a world-2 gloo mesh on the one card: two
+    processes (``python chip_smoke.py --gloo2-async-rank``), rank 0 serving
+    ``CUDASummarizer(mesh=..., supervisor=True).summarize_async`` on 8
+    synthetic threads from two submitting threads at staggered times, with
+    an idle gap longer than the groups' timeout (set to
+    ``ASYNC2_TIMEOUT_S`` for the phase), rank 1 serving rank 0's
+    operation log through ``CUDASummarizer.follow()``. The tp2 arm runs
+    ``cfg`` (mistral-7b) at full width and depth on the seed-0 int8
+    weights (``params``, the same tensors each rank builds): every handle
+    completes and ``drain`` returns True, rank 1's completions and request
+    ids equal rank 0's, the first wave's logits lie within rel-L2 5e-2 of
+    the un-meshed engine's on the same admissions, and each rank launched
+    K1 on its wgmma body and K2 on its stream and wgmma bodies at the tp2
+    shard shapes. The dp2 arm runs 2 layers of mistral-7b's widths on the
+    paged pool with the prefix cache, every rank given the same fault
+    plan (one decode fault): one containment and its replays on rank 0,
+    the completions equal on both ranks, an un-meshed engine that replays
+    rank 0's log (``mesh_runner.replay``) while following rank 0's draws
+    (``gloo2_call_log``) makes rank 0's calls with logits within rel-L2
+    5e-2 of rank 0's, and K3 launched on its decode and seeded bodies on
+    each rank. The row gives each rank's wall, the operations a step and
+    the control channel's ms a step beside the step's ms. Returns rank
+    0's (launches, bodies) of each arm."""
+    import socket
+
+    import torch
+
+    from copilot_for_consensus_tpu_torch.engine.faults import (
+        FaultPlan,
+        FaultSpec,
+    )
+    from copilot_for_consensus_tpu_torch.engine.generation import (
+        GenerationEngine,
+    )
+    from copilot_for_consensus_tpu_torch.engine.mesh_runner import replay
+    from copilot_for_consensus_tpu_torch.models import decoder
+    from copilot_for_consensus_tpu_torch.models.configs import (
+        decoder_config,
+    )
+
+    work = Path(tempfile.mkdtemp(prefix="mesh_async_gloo2_"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = {"address": f"127.0.0.1:{port}", "out": str(work / "rank"),
+            "timeout_s": ASYNC2_TIMEOUT_S}
+    (work / "spec.json").write_text(json.dumps(spec))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--gloo2-async-rank", str(work / "spec.json"),
+                               str(r)], stdout=subprocess.DEVNULL)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, ASYNC2_SPAWN_S
+                               - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"mesh_async_gloo2: the ranks did not finish "
+                             f"in {ASYNC2_SPAWN_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.monotonic() - t0
+    ranks = []
+    for r in range(2):
+        f = Path(f"{spec['out']}.{r}.pt")
+        ranks.append(torch.load(f, weights_only=False) if f.exists()
+                     else {"error": "no result"})
+    shutil.rmtree(work, ignore_errors=True)
+    errors = {r: res["error"][-3000:] for r, res in enumerate(ranks)
+              if "error" in res}
+    if errors:
+        emit({"phase": "mesh_async_gloo2", "errors": errors, "device": smi})
+        raise AssertionError(f"mesh_async_gloo2: {errors}")
+
+    def per_step(res, key):
+        steps = res.get("log", res).get("steps", 0) or 1
+        return 1e3 * res.get("log", res)[key] / steps
+
+    row = {"phase": "mesh_async_gloo2", "spawn_s": spawn_s,
+           "timeout_s": ASYNC2_TIMEOUT_S, "device": smi}
+    ok = True
+    paths = {}
+    # the tp2 arm: the first wave against the un-meshed engine on the
+    # same tensors
+    a, b = ranks[0]["tp2"], ranks[1]["tp2"]
+    want = _async2_first_wave(cfg, params, dev, a["batches"])
+    ga, gw = a["calls"][0]["logits"], want[0]["logits"]
+    rel = float(torch.linalg.vector_norm(ga - gw)
+                / torch.linalg.vector_norm(gw)) \
+        if ga.shape == gw.shape else float("inf")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dp2 arm: an un-meshed engine replays rank 0's log, following its
+    # draws
+    a2, b2 = ranks[0]["dp2"], ranks[1]["dp2"]
+    cfg2 = decoder_config("mistral-7b", n_layers=F32_LAYERS)
+    params2 = decoder.init_params(cfg2, seed=0, dtype=torch.bfloat16,
+                                  device=dev)
+    ref = GenerationEngine(cfg2, params2, device=dev, cuda_graphs=False,
+                           faults=FaultPlan(specs=[FaultSpec(
+                               **ASYNC2_FAULT)]), **ASYNC2_DP)
+    with gloo2_call_log(ref, a2["calls"]) as log:
+        replayed = replay(ref, a2["batches"])
+    follow = gloo2_compare(a2["calls"], list(log),
+                           lambda c: c["kind"] == "sample")
+    del ref, params2
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, lead, fol, used in (("tp2", a, b, ("K1", "K2")),
+                                 ("dp2", a2, b2, ("K1", "K2", "K3"))):
+        arm = {
+            "config": lead["config"], "layers": lead["layers"],
+            "threads": len(lead["completion_tokens"]),
+            "completion_tokens": lead["completion_tokens"],
+            "drained": lead["drained"], "idle_s": lead["idle_s"],
+            "completions_equal": lead["completions"] == fol["completions"],
+            "completions": len(lead["completions"]),
+            "recovery": lead["recovery"], "follower_contained":
+                fol["contained"],
+            "wall_s": [lead["wall_s"], fol["wall_s"]],
+            "steps": [lead["log"]["steps"], fol["steps"]],
+            "ops_per_step": lead["log"]["ops"] / max(1, lead["log"][
+                "steps"]),
+            "channel_ms_per_step": [per_step(lead, "publish_s"),
+                                    1e3 * fol["channel_s"]
+                                    / max(1, fol["steps"])],
+            "step_ms": [per_step(lead, "step_s"),
+                        1e3 * fol["step_s"] / max(1, fol["steps"])],
+            "follower_wait_s": fol["wait_s"],
+            "launches": [lead["launches"], fol["launches"]],
+            "launches_by_body": [lead["bodies"], fol["bodies"]],
+            "eager_reason": lead["graphs"].get("eager_reason",
+                                               "").split("\n")[0],
+            "allocated_gib": [lead["allocated_gib"], fol["allocated_gib"]]}
+        ok &= bool(arm["drained"]) and arm["completions_equal"] \
+            and arm["completions"] == arm["threads"] \
+            and all(n > 0 for n in arm["completion_tokens"]) \
+            and arm["idle_s"] > ASYNC2_TIMEOUT_S
+        for r, res in ((0, lead), (1, fol)):
+            check_path(f"mesh_async_gloo2 {tag} rank {r}", res["launches"],
+                       used)
+            check_bodies(f"mesh_async_gloo2 {tag} rank {r}", res["bodies"])
+            k = res["bodies"]
+            ok &= k["K1"]["wgmma"] > 0 and k["K2"]["stream"] > 0 \
+                and k["K2"]["wgmma"] > 0
+            if tag == "dp2":
+                ok &= k["K3"]["decode"] > 0 and k["K3"]["seeded"] > 0
+        row[tag] = arm
+        paths[f"mesh_async_{tag}"] = (lead["launches"], lead["bodies"])
+    row["tp2"]["first_wave_rel_l2"] = rel
+    row["tp2"]["first_wave_rows"] = list(ga.shape)
+    row["dp2"]["fault"] = ASYNC2_FAULT
+    row["dp2"]["replay"] = {**follow,
+                            "completions_equal": replayed
+                            == a2["completions"]}
+    ok &= rel <= 5e-2
+    ok &= a2["recovery"]["containments"] == 1 \
+        and a2["recovery"]["replayed"] > 0 and b2["contained"] == 1
+    ok &= follow["calls_match"] and follow["rel_l2"] <= 5e-2 \
+        and follow["compared"] > 0 and row["dp2"]["replay"][
+            "completions_equal"]
+    emit(row)
+    if not ok:
+        raise AssertionError(f"mesh_async_gloo2: {row}")
+    return paths
+
+
 def tp_cases(tp: int):
     """The shard shapes one rank of a tp-``tp`` Mistral-7B mesh runs:
     K2's int8 leaves (D, F) (w_gate's and w_up's shape once, wk's and
@@ -7651,6 +8066,9 @@ def main() -> int:
                  paged=True)
     mesh_paths = phase_mesh_serve(dev, cfg, params, smi)
     mesh_paths.update(phase_mesh_features(dev, cfg, params, smi))
+    # rank 0 serving summarize_async, rank 1 following its log, over a
+    # world-2 gloo mesh on the card
+    mesh_paths.update(phase_mesh_async_gloo2(dev, cfg, params, smi))
     fp8_launches, fp8_bodies = phase_paged_fp8(dev, cfg, params, smi,
                                                paged_comps)
     spec_launches, spec_bodies = phase_spec_serve(dev, cfg, params, smi)
@@ -7874,4 +8292,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo2-rank"]:
         sys.exit(gloo2_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--gloo2-async-rank"]:
+        sys.exit(async2_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -170,16 +170,23 @@ The features decided inside ``step()`` keep that lockstep:
   checkpoints, and at a warm restart it reads the rows and broadcasts
   them, so every rank resubmits the same rows under the same ids.
 
+The async front end keeps it too (``engine/mesh_runner.py``): rank 0
+runs the ``AsyncEngineRunner`` and its supervisor, and records every call
+that changes the engine's host state — each accepted submit with its id,
+each step, each supervisor verdict — into an operation log it publishes
+before each step; every other rank applies the log in order and steps
+with rank 0 (``CUDASummarizer.follow()``).
+
 A size-1 axis has no collective: at world size 1 the mesh engine runs the
 un-meshed engine's kernels in the same order. On a mesh above one rank,
 roles raise (ROADMAP item 6d), as do ``pp``, ``sp`` and ``ep`` above 1 and
-a callable ``attn_impl``, each naming its item; the async runner over a
-mesh is refused where it is built (``engine/supervisor.py``, item 6c.1b).
+a callable ``attn_impl``, each naming its item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from dataclasses import dataclass, field
 
@@ -231,11 +238,17 @@ from copilot_for_consensus_tpu_torch.parallel.collectives import (
     all_gather_rows,
     broadcast_decision,
     capture_supported,
+    start_heartbeat,
 )
 from copilot_for_consensus_tpu_torch.parallel.sharding import (
     serving_param_rules,
     shard_pytree,
 )
+
+#: the serial of each engine built on a mesh of several ranks, in this
+#: process: its operation log's name in the job's store
+_LOG_SERIALS = itertools.count(1)
+
 
 @dataclass
 class Request:
@@ -486,6 +499,22 @@ class GenerationEngine:
         #: True while ``_recover_from_journal`` resubmits: those submits
         #: bypass the scheduler's shed gate
         self._journal_recovering = False
+        # The async runner over a mesh (``engine/mesh_runner.py``): on
+        # rank 0 ``_oplog`` records every submit and step, and defers a
+        # slot cap to the next step; a rank that follows rank 0's log
+        # (``_follows_log``) submits only what rank 0's gate admitted.
+        # ``_log_serial`` names this engine's log in the job's store: the
+        # ranks build their engines in the same order, so it agrees.
+        self._oplog = None
+        self._follows_log = False
+        self._log_serial = next(_LOG_SERIALS) \
+            if mesh is not None and mesh.size > 1 else 0
+        self._log_sessions = 0
+        if self._log_serial and mesh.is_first \
+                and mesh.device_mesh is not None:
+            # from now on a following rank tells a quiet rank 0 from a
+            # dead one by its heartbeat
+            start_heartbeat(mesh.store)
         #: set by the first submit with a deadline: engines that never see
         #: one skip the per-step expiry walk
         self._deadlines_in_use = False
@@ -979,7 +1008,8 @@ class GenerationEngine:
             # the cap indexed the ORIGINAL prompt; its head is gone
             if cache_eligible_tokens is not None:
                 cache_eligible_tokens = 0
-        if self._sched is not None and not self._journal_recovering:
+        if self._sched is not None and not (self._journal_recovering
+                                            or self._follows_log):
             # Warm-restart resubmits bypass the shed gate: journaled work
             # was admitted once, and shedding it at restart would turn a
             # crash into silent loss. They still queue through the
@@ -1024,6 +1054,13 @@ class GenerationEngine:
             self._queue.append(req)
         if self.telemetry is not None:
             self.telemetry.on_submit(rid, len(prompt), correlation_id)
+        if self._oplog is not None:
+            # accepted: rank 0's log carries it, with its id, as admitted
+            # (the tail kept, the cache cap adjusted)
+            self._oplog.on_submit(rid, prompt, max_new_tokens, dict(
+                cache_eligible_tokens=cache_eligible_tokens,
+                correlation_id=correlation_id, tenant=tenant,
+                priority=priority, deadline_s=deadline_s))
         return rid
 
     def step(self) -> list[Completion]:
@@ -1035,7 +1072,24 @@ class GenerationEngine:
         observes this step's signals, at most one wave's token budget is
         released (DRR order, interactive lane first), long prompts advance
         by ONE chunk dispatch, and only then does decode run — so one
-        step's prefill work, and with it ITL, stays bounded."""
+        step's prefill work, and with it ITL, stays bounded.
+
+        On rank 0 of a served mesh the operation log publishes what was
+        recorded since the last step before the step runs, and records the
+        step's outcome after it."""
+        log = self._oplog
+        if log is None:
+            return self._step()
+        log.before_step()
+        try:
+            comps = self._step()
+        except BaseException as exc:
+            log.after_step(None, exc)
+            raise
+        log.after_step(comps, None)
+        return comps
+
+    def _step(self) -> list[Completion]:
         with self._on_stream():
             self._expire_deadlines()
             if self._sched is not None:
@@ -3239,8 +3293,14 @@ class GenerationEngine:
         """Occupancy cap (≤ num_slots): admission stops filling slots past
         it. The supervisor's resource breaker lowers it after repeated
         device resource exhaustion and raises it again by half-open
-        probes; active slots above a lowered cap drain naturally."""
-        self._slot_cap = max(1, min(self.num_slots, int(cap)))
+        probes; active slots above a lowered cap drain naturally. On rank
+        0 of a served mesh the new cap is rank 0's verdict: the operation
+        log applies it on every rank as the next step begins."""
+        cap = max(1, min(self.num_slots, int(cap)))
+        if self._oplog is not None:
+            self._oplog.on_slot_cap(cap)
+            return
+        self._slot_cap = cap
 
     def on_repaired(self) -> None:
         """The supervisor repaired the engine's host state (a repairing

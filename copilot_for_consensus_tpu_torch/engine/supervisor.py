@@ -54,14 +54,20 @@ Design notes: ``docs/RESILIENCE.md``.
 The port's copy of the JAX package's ``engine/supervisor.py``. The port's
 engine has no disaggregated roles yet, so the member they add
 (``_handoff``) is read with ``getattr``, and ``set_slot_cap`` is called
-behind ``hasattr`` where the reference calls it outright. One addition: a
+behind ``hasattr`` where the reference calls it outright. Two additions: a
 repairing :meth:`audit` ends with the engine's ``on_repaired`` hook, which
 lets an engine that dropped its decode graphs after a failed dispatch
-capture them again.
+capture them again; and over a mesh of several ranks
+(``engine/mesh_runner.py``) the supervisor's verdicts are rank 0's. There
+each outermost :meth:`contain`, :meth:`evacuate`, :meth:`purge_queued` and
+:meth:`audit` goes into the engine's operation log with what it did, and
+every other rank applies it through a :class:`FollowerSupervisor`, which
+decides nothing and reads no clock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from dataclasses import dataclass, field
@@ -303,6 +309,9 @@ class EngineSupervisor:
         #: failed steps since the last successful dispatch — the
         #: engine-unhealthy terminal gate (max_consecutive_failures)
         self.consecutive_failures = 0
+        #: nesting of the state-changing calls: only the outermost one
+        #: goes into a mesh's operation log
+        self._verdict_depth = 0
 
     # -- lifecycle ------------------------------------------------------
 
@@ -503,12 +512,36 @@ class EngineSupervisor:
 
     # -- containment ----------------------------------------------------
 
+    @contextlib.contextmanager
+    def _verdict(self):
+        """Around each state-changing call: nested calls (contain's own
+        evacuate and audit) are part of the outermost one."""
+        self._verdict_depth += 1
+        try:
+            yield
+        finally:
+            self._verdict_depth -= 1
+
+    def _log(self, *op) -> None:
+        """Rank 0 of a served mesh: the outermost verdict, with what it
+        did, into the engine's operation log."""
+        log = getattr(self.engine, "_oplog", None)
+        if log is not None and self._verdict_depth == 1:
+            log.record(op)
+
     def contain(self, exc: BaseException) -> SalvagePlan:
         """Post-failure containment (DISPATCHER THREAD ONLY): evacuate
         every active/chunking slot, audit + repair the engine's host
         invariants, and — unless the failure provably never touched
         device state (:class:`InjectedFault`) — flush the prefix-cache
         pool. Returns the salvage plan the runner replays from."""
+        with self._verdict():
+            plan = self._contain(exc)
+            self._log("contain", plan.injected, plan.resource,
+                      [req.request_id for req, _gen in plan.evacuated])
+        return plan
+
+    def _contain(self, exc: BaseException) -> SalvagePlan:
         self.containments += 1
         self.consecutive_failures += 1
         was_suspect = self.take_suspect()
@@ -542,6 +575,12 @@ class EngineSupervisor:
         Returns ``[(request, generated_tokens)]`` — the host-side state
         replay continues from. Chunking requests restart from token
         zero (their partial cache fill is not trusted)."""
+        with self._verdict():
+            out = self._evacuate()
+            self._log("evacuate", [req.request_id for req, _gen in out])
+        return out
+
+    def _evacuate(self) -> list:
         eng = self.engine
         paged = bool(getattr(eng, "paged", False))
         out: list = []
@@ -587,6 +626,13 @@ class EngineSupervisor:
         Used after a watchdog suspect event or a terminal unhealthy
         declaration. Returns the dropped requests so the runner can
         fail any handle that is somehow still live."""
+        with self._verdict():
+            dropped = self._purge_queued()
+            self._log("purge_queued", [getattr(r, "request_id", None)
+                                       for r in dropped])
+        return dropped
+
+    def _purge_queued(self) -> list:
         eng = self.engine
         dropped: list = []
         dropped += list(getattr(eng, "_queue", []))
@@ -641,6 +687,12 @@ class EngineSupervisor:
           (the leak that would pin pool blocks forever);
         * recomputes the scheduler's per-tenant queued-token ledgers
           from the actual queues."""
+        with self._verdict():
+            findings = self._audit(repair)
+            self._log("audit", repair, findings)
+        return findings
+
+    def _audit(self, repair: bool) -> dict:
         eng = self.engine
         findings: dict[str, Any] = {}
         active = set(getattr(eng, "_active", {}))
@@ -807,6 +859,47 @@ class EngineSupervisor:
         }
 
 
+def _no_clock() -> float:
+    raise AssertionError("a follower's supervisor reads no clock: its "
+                         "verdicts are rank 0's")
+
+
+class FollowerSupervisor(EngineSupervisor):
+    """The supervisor of a rank that follows rank 0's operation log
+    (``engine/mesh_runner.py``). It applies rank 0's verdicts to this
+    rank's engine as the log names them (:meth:`contain` with rank 0's
+    classification of the failure, :meth:`evacuate`,
+    :meth:`purge_queued`, :meth:`audit`) and decides nothing itself: it
+    reads no clock, runs no watchdog thread, and its breakers stay
+    closed. Rank 0's ``spec_verify`` verdict reaches the engine through
+    its broadcast decision, a lowered slot cap through the log."""
+
+    def __init__(self, engine: Any, cfg: SupervisorConfig | None = None,
+                 *, telemetry: Any = None):
+        super().__init__(engine, cfg, telemetry=telemetry, clock=_no_clock)
+
+    def start(self) -> "FollowerSupervisor":
+        return self
+
+    def stop(self) -> None:
+        pass
+
+    def begin_dispatch(self, kind: str) -> None:
+        pass
+
+    def end_dispatch(self, kind: str) -> None:
+        pass
+
+    def spec_allowed(self) -> bool:
+        return True               # rank 0's verdict is the one broadcast
+
+    def on_dispatch_ok(self, kind: str) -> None:
+        self.consecutive_failures = 0
+
+    def on_dispatch_error(self, kind: str, exc: BaseException) -> None:
+        pass
+
+
 def resolve_supervisor(supervisor, engine) -> EngineSupervisor | None:
     """Runner-side ``supervisor=`` argument semantics: None/False
     disables, True builds one with defaults, a
@@ -815,16 +908,19 @@ def resolve_supervisor(supervisor, engine) -> EngineSupervisor | None:
     wrap the same engine).
 
     Every ``AsyncEngineRunner`` resolves its supervisor here as it is
-    built, so an engine on a mesh of several ranks is refused here: a
-    dispatcher thread a rank would step each rank's engine on that rank's
-    own arrivals, out of lockstep (its idle waits would outlast the
-    groups' timeout, and the breaker and watchdog read clocks)."""
+    built. Over an engine on a mesh of several ranks only rank 0 runs a
+    runner, and only with the engine's operation log attached
+    (``engine/mesh_runner.py``'s ``MeshEngineRunner``): a runner alone
+    would step rank 0's engine while the other ranks wait for no step."""
     mesh = getattr(engine, "mesh", None)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"AsyncEngineRunner over an engine on a mesh of {mesh.size} "
-            f"ranks is not served yet: ROADMAP Queue 1 item 6c.1b (the "
-            f"async runner and the supervisor over a mesh)")
+    if mesh is not None and mesh.size > 1 \
+            and getattr(engine, "_oplog", None) is None:
+        raise ValueError(
+            f"an AsyncEngineRunner over an engine on a mesh of {mesh.size} "
+            f"ranks serves on rank 0 as engine.mesh_runner.MeshEngineRunner "
+            f"(CUDASummarizer.summarize_async), while every other rank "
+            f"follows rank 0's log with mesh_runner.follow(engine) "
+            f"(CUDASummarizer.follow())")
     if supervisor is None or supervisor is False:
         return None
     if supervisor is True:

@@ -85,17 +85,22 @@ class Mesh:
     host decisions are broadcast from its first rank (``is_first``);
     ``device``: this rank's device (None
     given: the card, resolved when read). ``device_mesh`` is the
-    ``DeviceMesh`` the groups came from (None for one rank)."""
+    ``DeviceMesh`` the groups came from (None for one rank);
+    ``timeout_s`` is how long a collective of its groups waits for its
+    peers; :attr:`store` is the job's key-value store, outside every
+    group (the async runner's control channel)."""
 
     axis_names = MESH_AXES
 
     def __init__(self, config: MeshConfig, *, device_mesh=None,
-                 coords: dict | None = None, device=None):
+                 coords: dict | None = None, device=None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S):
         self.config = config
         self.shape = dict(zip(MESH_AXES, config.shape))
         self.coords = dict(coords) if coords else dict.fromkeys(MESH_AXES, 0)
         self.device_mesh = device_mesh
         self._device = device
+        self.timeout_s = float(timeout_s)
 
     @property
     def size(self) -> int:
@@ -130,6 +135,18 @@ class Mesh:
         if not dist.is_initialized():
             return not any(self.coords.values())
         return dist.get_rank() == 0
+
+    @property
+    def store(self):
+        """The process group's own key-value store (None for one rank):
+        what the ranks share outside every collective."""
+        if self.size == 1:
+            return None
+        from copilot_for_consensus_tpu_torch.parallel.multihost import (
+            default_store,
+        )
+
+        return default_store()
 
     def group(self, axis: str):
         """The process group of ``axis`` holding this rank; None where the
@@ -198,7 +215,8 @@ def build_mesh(config: MeshConfig | None = None,
     # an engine reaches the CPU only when it is given device="cpu"
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device_type == "cuda" else None
-    return Mesh(cfg, device_mesh=dm, coords=coords, device=device)
+    return Mesh(cfg, device_mesh=dm, coords=coords, device=device,
+                timeout_s=timeout_s)
 
 
 def _world_size() -> int:

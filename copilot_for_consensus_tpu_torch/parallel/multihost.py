@@ -144,3 +144,16 @@ def process_index() -> int:
 
 def is_multihost() -> bool:
     return process_count() > 1
+
+
+def default_store():
+    """The key-value store the process group joined through (tcp://: the
+    TCPStore rank 0 serves; a FileStore where one was given): the ranks'
+    channel outside every collective. Raises when no group is joined."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call initialize_multihost "
+                           "first")
+    return distributed_c10d._get_default_store()

@@ -127,8 +127,11 @@ class CUDASummarizer(Summarizer):
     summaries. The options reach the mesh engine as they reach one
     device (the journal lives on rank 0; an ``engine=`` built over the
     mesh brings speculation, the scheduler and the paged prefix cache),
-    while ``summarize_async`` (item 6c.1b) and the long route (item
-    6c.2) raise."""
+    while the long route (item 6c.2) raises. To serve work one event at a
+    time, rank 0 calls ``summarize_async`` (and ``drain``, ``close``)
+    and every other rank calls :meth:`follow`, which serves rank 0's
+    traffic until rank 0 stops (``engine/mesh_runner.py``); once rank 0's
+    runner runs, its ``summarize_batch`` goes through it too."""
 
     def __init__(self, model: str = "mistral-7b", *, engine=None,
                  tokenizer: Tokenizer | None = None,
@@ -164,6 +167,9 @@ class CUDASummarizer(Summarizer):
         # two threads submitting the first requests at once must not each
         # start a runner: two dispatchers would drive one engine
         self._runner_lock = threading.Lock()
+        #: on rank 0 of a mesh: keep the runner's operation log and its
+        #: completions (``self._runner.oplog``)
+        self.keep_mesh_log = False
         self.max_new_tokens = max_new_tokens
         self.template = template
         self.system = system
@@ -328,16 +334,16 @@ class CUDASummarizer(Summarizer):
         A prompt over the batch engine's window, with a long-context
         engine present, runs synchronously on the caller's thread, on the
         long engine (its own CUDA stream, the short engine's tensors), and
-        the returned callable is ready at once."""
-        if self._multi_rank:
-            raise NotImplementedError(
-                f"CUDASummarizer.summarize_async on a mesh of "
-                f"{self.mesh.size} ranks: the async runner over a mesh is "
-                f"ROADMAP Queue 1 item 6c.1b (the async runner and the "
-                f"supervisor over a mesh)")
-        from copilot_for_consensus_tpu_torch.engine.async_runner import (
-            AsyncEngineRunner,
-        )
+        the returned callable is ready at once.
+
+        On a mesh of several ranks this is rank 0's entry: its runner
+        publishes every engine call to the other ranks, which serve it in
+        :meth:`follow`; on any other rank it raises ``ValueError``."""
+        if self._multi_rank and not self.mesh.is_first:
+            raise ValueError(
+                f"CUDASummarizer.summarize_async serves on rank 0 of the "
+                f"mesh of {self.mesh.size} ranks; this rank serves rank 0's "
+                f"traffic through CUDASummarizer.follow()")
 
         fi = getattr(self.engine, "faults", None)
         if fi is not None:
@@ -353,9 +359,7 @@ class CUDASummarizer(Summarizer):
             return lambda timeout=600.0: summary
         with self._runner_lock:
             if self._runner is None:
-                self._runner = AsyncEngineRunner(
-                    self.engine, error_reporter=self.error_reporter,
-                    supervisor=self.supervisor).start()
+                self._runner = self._new_runner().start()
             runner = self._runner
         handle = runner.submit(
             prompt, self.max_new_tokens,
@@ -369,22 +373,74 @@ class CUDASummarizer(Summarizer):
 
         return wait
 
+    def _new_runner(self):
+        """The runner ``summarize_async`` starts: rank 0's
+        ``MeshEngineRunner`` on a mesh of several ranks, else the
+        ``AsyncEngineRunner``."""
+        if self._multi_rank:
+            from copilot_for_consensus_tpu_torch.engine.mesh_runner import (
+                MeshEngineRunner,
+            )
+            return MeshEngineRunner(
+                self.engine, error_reporter=self.error_reporter,
+                supervisor=self.supervisor, keep_log=self.keep_mesh_log)
+        from copilot_for_consensus_tpu_torch.engine.async_runner import (
+            AsyncEngineRunner,
+        )
+        return AsyncEngineRunner(
+            self.engine, error_reporter=self.error_reporter,
+            supervisor=self.supervisor)
+
+    def follow(self, *, keep: bool = False) -> dict:
+        """The entry of every rank but 0 of a mesh of several ranks: serve
+        rank 0's ``summarize_async`` traffic (its operation log) on this
+        rank's engine, blocking until rank 0's ``drain`` or ``close``
+        stops its runner. Returns this rank's counts
+        (``engine.mesh_runner.follow``); ``closed`` is True once rank 0
+        closed, so a rank that serves several of rank 0's sessions calls
+        this until then."""
+        if not self._multi_rank:
+            raise ValueError("CUDASummarizer.follow() serves a mesh of "
+                             "several ranks; one rank has no leader")
+        from copilot_for_consensus_tpu_torch.engine.mesh_runner import (
+            follow,
+        )
+        return follow(self.engine, keep=keep)
+
+    def _end(self, drain_s: float | None) -> bool:
+        """Stop the runner (after draining it for ``drain_s``, when
+        given); on rank 0 of a mesh, release the other ranks' ``follow``
+        even when no runner ran."""
+        with self._runner_lock:
+            runner, self._runner = self._runner, None
+        lead = self._multi_rank and self.mesh.is_first
+        if runner is None:
+            if lead:
+                from copilot_for_consensus_tpu_torch.engine import (
+                    mesh_runner,
+                )
+                mesh_runner.release_followers(self.engine,
+                                              final=drain_s is None)
+            return True
+        drained = runner.drain(drain_s) if drain_s is not None else True
+        if lead:
+            runner.stop(final=drain_s is None)
+        else:
+            runner.stop()
+        return drained
+
     def drain(self, deadline_s: float = 30.0) -> bool:
         """Graceful drain: wait up to ``deadline_s`` for the runner to
         finish its queued and active work, then stop it. True when the
-        engine fully drained (and when no runner was started)."""
-        with self._runner_lock:
-            runner, self._runner = self._runner, None
-        if runner is None:
-            return True
-        drained = runner.drain(deadline_s)
-        runner.stop()
-        return drained
+        engine fully drained (and when no runner was started). On rank 0
+        of a mesh, drainedness is rank 0's, on its clock; the stop then
+        ends the other ranks' ``follow``."""
+        return self._end(deadline_s)
 
     def close(self) -> None:
         """Stop the runner, if one was started; outstanding handles fail
-        with "runner stopped"."""
-        with self._runner_lock:
-            runner, self._runner = self._runner, None
-        if runner is not None:
-            runner.stop()
+        with "runner stopped". On rank 0 of a mesh the other ranks'
+        ``follow`` returns with ``closed``."""
+        if self._multi_rank and not self.mesh.is_first:
+            return
+        self._end(None)

@@ -111,8 +111,12 @@ PORTED = {
     "engine/sampling.py": "sampling, in PyTorch",
     "engine/supervisor.py": "reads the roles' _handoff with getattr, calls "
                             "set_slot_cap behind hasattr, and calls "
-                            "on_repaired; refuses a runner over an engine "
-                            "on a mesh of several ranks (item 6c.1b)",
+                            "on_repaired; over a mesh of several ranks it "
+                            "logs rank 0's verdicts, and FollowerSupervisor "
+                            "applies them on the other ranks",
+    "engine/mesh_runner.py": "the async runner over a dp×tp mesh: rank 0's "
+                             "operation log and the follower loop; the JAX "
+                             "package's one controller needs neither",
     "models/__init__.py": "the port's config exports",
     "models/configs.py": "the decoder and encoder configs the port serves "
                          "(no llama-3-8b)",

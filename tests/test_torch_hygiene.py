@@ -114,6 +114,25 @@ assert not bad, bad
 """
 
 
+#: the async runner over a mesh: rank 0's operation log, the follower
+#: loop, the follower's supervisor and the store channel
+MESH_ASYNC_MODULES = ["engine/mesh_runner.py", "engine/supervisor.py",
+                      "engine/async_runner.py", "parallel/collectives.py"]
+
+
+@pytest.mark.parametrize("rel", MESH_ASYNC_MODULES)
+def test_the_mesh_async_modules_are_among_the_checked_files(rel):
+    assert PKG / rel in PORT_FILES
+
+
+def test_mesh_runner_imports_without_jax():
+    # the mesh runner by name, in a fresh interpreter that never loads JAX
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_ALONE,
+                          *MESH_ASYNC_MODULES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_parallel_modules_import_without_jax():
     # each of them by name, in a fresh interpreter that never loads JAX
     out = subprocess.run([sys.executable, "-c", _PARALLEL_ALONE,

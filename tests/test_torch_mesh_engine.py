@@ -382,9 +382,11 @@ def test_paged_blocks_stay_in_their_dp_shard(mesh, mesh_runs):
 
 
 #: each refusal and the ROADMAP item it names (the contiguous prefix
-#: cache: the JAX engine's ValueError, on any mesh)
+#: cache: the JAX engine's ValueError, on any mesh; "follow": the async
+#: front end's wrong entry on each rank — a bare runner, follow() on rank
+#: 0, summarize_async elsewhere — which names the follower's entry)
 REFUSAL_ITEMS = {"prefix_cache": None, "role": "6d",
-                 "async_runner": "6c.1b", "summarize_async": "6c.1b",
+                 "async_runner": "follow", "summarize_async": "follow",
                  "long_context": "6c.2"}
 
 
@@ -396,6 +398,10 @@ def test_mesh_refuses_what_it_does_not_serve(mesh, name, mesh_runs):
         if REFUSAL_ITEMS[name] is None:
             assert kind == "ValueError", msg
             assert "requires the paged engine" in msg, msg
+            continue
+        if REFUSAL_ITEMS[name] == "follow":
+            assert kind == "ValueError", msg
+            assert "follow()" in msg or "follow(engine)" in msg, msg
             continue
         assert kind == "NotImplementedError", msg
         assert f"item {REFUSAL_ITEMS[name]}" in msg, msg

@@ -343,8 +343,7 @@ def test_mesh_summaries_with_the_features_equal_unmeshed(mesh, which,
 
 
 #: what the mesh still refuses, and the ROADMAP item each names
-STILL_REFUSED = {"async_runner": "6c.1b", "summarize_async": "6c.1b",
-                 "role": "6d", "attn_impl": "6c.2", "sp": "6c.2",
+STILL_REFUSED = {"role": "6d", "attn_impl": "6c.2", "sp": "6c.2",
                  "ep": "6c.3", "pp": "6e"}
 
 

@@ -1,21 +1,24 @@
-"""One rank of a gloo mesh for tests/test_torch_mesh_engine.py and
-tests/test_torch_mesh_features.py.
+"""One rank of a gloo mesh for tests/test_torch_mesh_engine.py,
+tests/test_torch_mesh_features.py and tests/test_torch_mesh_async.py.
 
 Run as ``python tests/torch_mesh_rank.py <spec.json> <rank>``: joins the
 process group (a FileStore, or ``initialize_multihost`` over tcp on
 localhost), builds the spec's mesh, runs every case of the spec's suite
 (``"engine"``, the default: the mesh engine's paths; ``"features"``: spec
 verify, chunked prefill, the paged prefix tries, piggyback, the journal
-and skewed clocks) on ``tiny`` at f32 on the CPU and writes what each
-gave to ``<out>.<rank>.json``. Imports nothing of JAX; torch runs one
-thread.
+and skewed clocks; ``"async"``: rank 0 serves ``summarize_async`` and the
+runner while the other ranks follow its operation log) on ``tiny`` at f32
+on the CPU and writes what each gave to ``<out>.<rank>.json``. Imports
+nothing of JAX; torch runs one thread.
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import os
 import sys
+import threading
 import time
 import traceback
 
@@ -288,10 +291,14 @@ def refusals(cfg, tree, mesh) -> dict:
     )
     eng = GenerationEngine(cfg, params_from_numpy(tree, "cpu", "float32"),
                            mesh=mesh, **ENGINE_KW)
+    # the async front end serves on rank 0 alone, the others follow it: a
+    # bare runner, and each side's wrong entry, raise
+    summ = CUDASummarizer("tiny", engine=eng)
+    wrong_entry = summ.follow if mesh.is_first \
+        else (lambda: summ.summarize_async(threads()[0]))
     for name, fn in (
             ("async_runner", lambda: AsyncEngineRunner(eng)),
-            ("summarize_async", lambda: CUDASummarizer(
-                "tiny", engine=eng).summarize_async(threads()[0])),
+            ("summarize_async", wrong_entry),
             ("long_context", lambda: CUDASummarizer(
                 "tiny", engine=eng, long_context=True))):
         try:
@@ -571,8 +578,8 @@ def summarizer_engine_kw() -> dict:
 def feature_summaries(cfg, tree, spec, mesh, rank) -> dict:
     """``CUDASummarizer(mesh=)`` with the deployed llm block's options
     (deadline_s, journal; its ``supervisor`` attaches only to the async
-    runner, which a mesh refuses), and over a mesh engine that brings
-    spec, the scheduler and the paged prefix cache."""
+    runner, which ``summarize_batch`` does not start), and over a mesh
+    engine that brings spec, the scheduler and the paged prefix cache."""
     from copilot_for_consensus_tpu_torch.summarization.summarizer import (
         CUDASummarizer,
     )
@@ -594,13 +601,7 @@ def feature_summaries(cfg, tree, spec, mesh, rank) -> dict:
 
 def feature_refusals(cfg, tree, mesh) -> dict:
     """What the mesh still refuses, each exception's type and message."""
-    from copilot_for_consensus_tpu_torch.engine.async_runner import (
-        AsyncEngineRunner,
-    )
     from copilot_for_consensus_tpu_torch.parallel.mesh import Mesh
-    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
-        CUDASummarizer,
-    )
 
     def params():
         return params_from_numpy(tree, "cpu", "float32")
@@ -614,9 +615,6 @@ def feature_refusals(cfg, tree, mesh) -> dict:
     eng = GenerationEngine(cfg, params(), mesh=mesh, **FEAT_KW)
     half = mesh.size // 2
     cases = {
-        "async_runner": lambda: AsyncEngineRunner(eng),
-        "summarize_async": lambda: CUDASummarizer(
-            "tiny", engine=eng).summarize_async(threads()[0]),
         "role": lambda: GenerationEngine(cfg, params(), mesh=mesh,
                                          role="decode", **FEAT_KW,
                                          **FEAT_PAGED),
@@ -637,6 +635,459 @@ def feature_refusals(cfg, tree, mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the async suite: rank 0 serves summarize_async (or a MeshEngineRunner) and
+# every other rank follows rank 0's operation log; each helper runs
+# un-meshed too (mesh None: rank 0 with no one to follow it)
+# ---------------------------------------------------------------------------
+
+#: the async suite's engines (explicit, so that the JAX engine gets the
+#: same geometry)
+ASYNC_KW = dict(num_slots=4, max_len=256, prefill_buckets=(128, 256),
+                decode_window=4, dtype="float32", device="cpu",
+                telemetry=False)
+ASYNC_NEW = 8
+#: the two submitting threads' arrivals: (thread, pause before it)
+ARRIVALS = ([(0, 0.0), (2, 0.05), (4, 0.1)], [(1, 0.03), (3, 0.08)])
+#: the threads submitted after the idle gap
+LATE = (5, 6)
+#: the fault cases' traffic
+FAULT_NEW = 12
+RUNNER_WAIT_S = 120.0
+
+
+def async_threads():
+    from copilot_for_consensus_tpu_torch.summarization.base import (
+        ThreadContext,
+    )
+
+    return [ThreadContext(
+        thread_id=f"t{i}", subject=f"Topic {i}",
+        participants=["alice@example.org", "bob@example.org"],
+        message_count=2 + i,
+        chunks=[{"chunk_id": f"c{i}", "text": f"Point {i}: ship the "
+                 f"draft by Friday."}]) for i in range(7)]
+
+
+def is_lead(mesh) -> bool:
+    return mesh is None or mesh.is_first
+
+
+def async_engine(cfg, tree, mesh, **kw):
+    return GenerationEngine(cfg, params_from_numpy(tree, "cpu", "float32"),
+                            mesh=mesh, **{**ASYNC_KW, **kw})
+
+
+def async_summarizer(cfg, tree, mesh, **kw):
+    from copilot_for_consensus_tpu_torch.summarization.summarizer import (
+        CUDASummarizer,
+    )
+    summ = CUDASummarizer("tiny", engine=async_engine(cfg, tree, mesh),
+                          max_new_tokens=ASYNC_NEW, supervisor=True, **kw)
+    summ.keep_mesh_log = True
+    return summ
+
+
+def staggered(summ, gap_s: float) -> dict:
+    """Rank 0's traffic: five threads from two submitting threads at
+    staggered times, then an idle gap of ``gap_s``, then two more."""
+    threads = async_threads()
+    waits: dict = {}
+
+    def submit(plan):
+        for i, pause in plan:
+            time.sleep(pause)
+            waits[i] = summ.summarize_async(threads[i],
+                                            correlation_id=f"e{i}")
+
+    subs = [threading.Thread(target=submit, args=(plan,))
+            for plan in ARRIVALS]
+    for t in subs:
+        t.start()
+    for t in subs:
+        t.join(RUNNER_WAIT_S)
+    got = {i: w(RUNNER_WAIT_S) for i, w in waits.items()}
+    runner = summ._runner
+    t0 = time.monotonic()
+    time.sleep(gap_s)
+    for i in LATE:
+        got[i] = summ.summarize_async(threads[i])(RUNNER_WAIT_S)
+    idle = time.monotonic() - t0
+    out = {"summaries": [[got[i].summary_text, got[i].completion_tokens,
+                          got[i].prompt_tokens]
+                         for i in range(len(threads))],
+           "idle_s": idle}
+    if getattr(runner, "oplog", None) is not None:
+        out["completions"] = runner.oplog.completions
+        out["log"] = runner.oplog.stats()
+    out["drained"] = summ.drain(RUNNER_WAIT_S)
+    return out
+
+
+def mesh_runner_serve(eng, mesh, submit_plan, *, supervisor=None,
+                      stop_when=None) -> dict:
+    """Rank 0: a MeshEngineRunner (an AsyncEngineRunner un-meshed) over
+    ``eng``; ``submit_plan(runner)`` submits and returns the handles.
+    Each handle's result or structured error, the runner's recovery
+    counters and, on a mesh, its kept log."""
+    from copilot_for_consensus_tpu_torch.engine.async_runner import (
+        AsyncEngineRunner,
+    )
+    from copilot_for_consensus_tpu_torch.engine.mesh_runner import (
+        MeshEngineRunner,
+    )
+    if mesh is None:
+        runner = AsyncEngineRunner(eng, supervisor=supervisor).start()
+    else:
+        runner = MeshEngineRunner(eng, supervisor=supervisor,
+                                  keep_log=True).start()
+    handles = submit_plan(runner)
+    if stop_when is not None:
+        deadline = time.monotonic() + RUNNER_WAIT_S
+        while not stop_when(runner) and time.monotonic() < deadline:
+            time.sleep(0.002)
+        runner.stop()
+    results = []
+    for h in handles:
+        try:
+            c = h.result(RUNNER_WAIT_S)
+            results.append(["ok", c.tokens, c.finish_reason])
+        except Exception as exc:                 # recorded, then held
+            results.append([type(exc).__name__, str(exc),
+                            getattr(exc, "reason", "")])
+    if stop_when is None:
+        runner.drain(RUNNER_WAIT_S)
+        runner.stop()
+    out = {"results": results, "recovery": {
+        k: v for k, v in runner.recovery_stats().items()
+        if k in ("replayed", "recovered", "failed", "suspect_failures",
+                 "watchdog_trips", "containments", "breaker_trips")}}
+    if runner.supervisor is not None:
+        out["breakers"] = {k: v["trips"] for k, v in
+                           runner.supervisor.stats()["breakers"].items()}
+    if mesh is not None:
+        out["completions"] = runner.oplog.completions
+        out["batches"] = runner.oplog.batches
+        out["log"] = runner.oplog.stats()
+    return out
+
+
+def follow_session(eng) -> dict:
+    from copilot_for_consensus_tpu_torch.engine.mesh_runner import follow
+    return follow(eng, keep=True)
+
+
+def engine_state(eng) -> dict:
+    """The host state every rank must hold alike."""
+    out = {"free": sorted(eng._free), "active": sorted(eng._active),
+           "queue": eng.queue_depth, "slot_cap": eng._slot_cap,
+           "next_id": eng._next_id}
+    if eng.paged:
+        out["free_blocks"] = eng._pool.free_blocks
+    return out
+
+
+def submit_all(prompts, new, pause=0.0):
+    def plan(runner):
+        hs = []
+        for i, p in enumerate(prompts):
+            hs.append(runner.submit(list(p), new, correlation_id=f"r{i}"))
+            if pause:
+                time.sleep(pause)
+        return hs
+    return plan
+
+
+def fault_plan(*specs):
+    from copilot_for_consensus_tpu_torch.engine.faults import (
+        FaultPlan,
+        FaultSpec,
+    )
+    return FaultPlan(specs=[FaultSpec(**s) for s in specs])
+
+
+#: a decode fault at its third occurrence, on every rank
+DECODE_FAULT = dict(kind="decode", at=3)
+#: a hang at the second decode, past the watchdog's decode deadline (the
+#: deadline far above a decode dispatch's time on a loaded host)
+HANG_FAULT = dict(kind="decode", at=2, mode="hang", hang_s=4.0)
+#: two resource-exhausted admission waves (the resource breaker halves
+#: the slot cap), then three failed verify passes (the spec_verify breaker
+#: opens)
+BREAKER_FAULTS = (dict(kind="prefill", at=1, count=2,
+                       message="RESOURCE_EXHAUSTED: injected"),
+                  dict(kind="verify", at=2, count=3))
+
+
+def breaker_supervisor():
+    from copilot_for_consensus_tpu_torch.engine.supervisor import (
+        SupervisorConfig,
+    )
+    return SupervisorConfig(breaker_probe_after_s=0.3, replay_budget=8,
+                            max_consecutive_failures=16)
+
+
+def watchdog_supervisor():
+    from copilot_for_consensus_tpu_torch.engine.supervisor import (
+        SupervisorConfig,
+    )
+    return SupervisorConfig(deadlines_s={"decode": 1.5},
+                            watchdog_poll_s=0.02)
+
+
+def async_fault_case(cfg, tree, mesh, name) -> dict:
+    """One of the supervised cases on rank 0 (or un-meshed), or its
+    follower side: the engine, its traffic and its supervisor."""
+    if name == "fault":
+        eng = async_engine(cfg, tree, mesh, faults=fault_plan(DECODE_FAULT))
+        plan, sup = submit_all(PROMPTS, FAULT_NEW), True
+    elif name == "watchdog":
+        eng = GenerationEngine(cfg, params_from_numpy(tree, "cpu",
+                                                      "float32"),
+                               mesh=mesh, faults=fault_plan(HANG_FAULT),
+                               **{**FEAT_KW, **FEAT_PAGED})
+        plan, sup = submit_all(PROMPTS[:4], FAULT_NEW), watchdog_supervisor()
+
+        def later(runner, first=plan):
+            hs = first(runner)
+            # submitted while the dispatch hangs: served after recovery
+            deadline = time.monotonic() + RUNNER_WAIT_S
+            while not runner.supervisor.watchdog_trips \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            return hs + [runner.submit(list(p), FAULT_NEW)
+                         for p in PROMPTS[4:]]
+        plan = later
+    elif name == "breakers":
+        t, kw, prompts, new = feature_engines(tree)["spec"]
+        eng = GenerationEngine(cfg, params_from_numpy(t, "cpu", "float32"),
+                               mesh=mesh, faults=fault_plan(
+                                   *BREAKER_FAULTS),
+                               **{**FEAT_KW, **kw})
+        plan, sup = submit_all(prompts, new, pause=0.05), \
+            breaker_supervisor()
+    else:
+        raise KeyError(name)
+    if not is_lead(mesh):
+        res = follow_session(eng)
+        res["state"] = engine_state(eng)
+        res["spec_dispatches"] = eng.spec_dispatches
+        return res
+    res = mesh_runner_serve(eng, mesh, plan, supervisor=sup)
+    res["state"] = engine_state(eng)
+    res["spec_dispatches"] = eng.spec_dispatches
+    return res
+
+
+def async_journal(cfg, tree, mesh, path) -> dict:
+    """Rank 0 journals; its runner stops after two steps with work left
+    (every request submitted to the engine by then), and a new engine on
+    the same journal warm-restarts the mesh and serves the rest."""
+    eng = async_engine(cfg, tree, mesh, journal=path)
+    plan = submit_all(JOURNAL_PROMPTS, JOURNAL_NEW)
+    if is_lead(mesh):
+        first = mesh_runner_serve(
+            eng, mesh, plan, stop_when=lambda r: r.oplog.steps >= 2
+            and r.engine._next_id >= len(JOURNAL_PROMPTS))
+    else:
+        first = follow_session(eng)
+    has_store = eng.journal is not None
+    del eng
+    back = async_engine(cfg, tree, mesh, journal=path)
+    recovered = [[rid, corr] for rid, corr in back.journal_recovered]
+    # the resumed rows have no handles: the runner stops once their
+    # completions are in (its drain may read the instant a wave holds
+    # them as idle)
+    second = mesh_runner_serve(
+        back, mesh, lambda runner: [],
+        stop_when=lambda r: len(r.oplog.completions) >= len(recovered)) \
+        if is_lead(mesh) else follow_session(back)
+    return {"first": first.get("completions"),
+            "second": second.get("completions"),
+            "first_results": first.get("results"),
+            "recovered": recovered,
+            "journal_store": [has_store, back.journal is not None]}
+
+
+def async_pipelined(summ, threads) -> dict:
+    """The copied SummarizationService in pipelined mode over ``summ``
+    (rank 0's mesh summarizer, or an un-meshed one): one
+    SummarizationRequested a thread at staggered times, then the stored
+    summaries (times left out) and the published events."""
+    from copilot_for_consensus_tpu_torch.services.summarization import (
+        SummarizationService,
+    )
+    from copilot_for_consensus_tpu_torch.storage.memory import (
+        InMemoryDocumentStore,
+    )
+
+    class Publisher:
+        def __init__(self):
+            self.events = []
+
+        def publish(self, event, *a, **kw):
+            self.events.append([type(event).__name__,
+                                getattr(event, "summary_id", ""),
+                                getattr(event, "thread_id", "")])
+
+    store = InMemoryDocumentStore()
+    for t in threads:
+        store.upsert_document("threads", {
+            "thread_id": t.thread_id, "subject": t.subject,
+            "participants": t.participants,
+            "message_count": t.message_count})
+        for c in t.chunks:
+            store.upsert_document("chunks", {
+                "chunk_id": c["chunk_id"], "thread_id": t.thread_id,
+                "text": c["text"], "message_doc_id": f"m{c['chunk_id']}"})
+    pub = Publisher()
+    svc = SummarizationService(pub, store, summ, pipelined=True)
+    for i, t in enumerate(threads):
+        svc.process_thread(t.thread_id, f"s{i}",
+                           [c["chunk_id"] for c in t.chunks],
+                           correlation_id=f"p{i}")
+        time.sleep(0.04 * (i % 2))
+    svc.flush(RUNNER_WAIT_S)
+    docs = sorted(({k: v for k, v in d.items()
+                    if k not in ("generation_seconds", "created_at")}
+                   for d in store.query_documents("summaries", {})),
+                  key=lambda d: d["summary_id"])
+    return {"summaries": docs, "events": sorted(pub.events),
+            "pipelined": svc.pipelined}
+
+
+def async_sessions(cfg, tree, mesh) -> dict:
+    """drain then close on one summarizer (the close with requests still
+    in flight), and a close with no runner on another: each ends the
+    other ranks' follow()."""
+    threads = async_threads()
+    summ = async_summarizer(cfg, tree, mesh)
+    out: dict = {}
+    if is_lead(mesh):
+        first = [summ.summarize_async(t)(RUNNER_WAIT_S).summary_text
+                 for t in threads[:2]]
+        out["drained"] = summ.drain(RUNNER_WAIT_S)
+        summ.max_new_tokens = 48
+        waits = [summ.summarize_async(t) for t in threads[2:4]]
+        summ.close()
+        closed = []
+        for w in waits:
+            try:
+                closed.append(w(RUNNER_WAIT_S).summary_text)
+            except Exception as exc:             # "runner stopped"
+                closed.append([type(exc).__name__, str(exc)])
+        out["first"], out["closed"] = first, closed
+        other = async_summarizer(cfg, tree, mesh)
+        other.close()
+    else:
+        out["follows"] = [summ.follow(), summ.follow()]
+        other = async_summarizer(cfg, tree, mesh)
+        out["follows"].append(other.follow())
+    return out
+
+
+def async_kill(cfg, tree, mesh, rank, kill_rank) -> dict:
+    """tp4: ``kill_rank`` SIGKILLs itself at its third step; rank 0's
+    handles must fail structured, and every other rank must raise."""
+    import os
+    import signal
+
+    eng = async_engine(cfg, tree, mesh)
+    if rank == kill_rank:
+        real, n = eng.step, [0]
+
+        def dying():
+            n[0] += 1
+            if n[0] == 3:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return real()
+        eng.step = dying
+    if rank:
+        try:
+            follow_session(eng)
+            return {"follow": "returned", "exit": 0}
+        except Exception as exc:                 # recorded, then held
+            return {"follow": [type(exc).__name__, str(exc)[:500]],
+                    "exit": 3}
+    from copilot_for_consensus_tpu_torch.engine.mesh_runner import (
+        MeshEngineRunner,
+    )
+    runner = MeshEngineRunner(eng, supervisor=True).start()
+    t0 = time.monotonic()
+    handles = [runner.submit(list(p), 40) for p in PROMPTS[:4]]
+    failed = []
+    for h in handles:
+        try:
+            h.result(RUNNER_WAIT_S)
+            failed.append(["ok"])
+        except Exception as exc:                 # recorded, then held
+            failed.append([type(exc).__name__, getattr(exc, "reason", ""),
+                           time.monotonic() - t0, str(exc)[:300]])
+    try:
+        runner.submit([5, 6, 7], 4)
+        after = None
+    except Exception as exc:                     # the structured refusal
+        after = [type(exc).__name__, getattr(exc, "reason", "")]
+    runner.stop(5.0)
+    return {"handles": failed, "after": after, "exit": 0,
+            "log": runner.oplog.stats()}
+
+
+def run_async_cases(spec: dict, rank: int, mesh) -> dict:
+    cfg = decoder_config("tiny")
+    tree = load_tree(spec["tiny"])
+    out: dict = {}
+    threads = async_threads()
+
+    # the wrong entry on each side
+    summ = async_summarizer(cfg, tree, mesh)
+    try:
+        if rank:
+            summ.summarize_async(threads[0])
+        else:
+            summ.follow()
+        out["wrong_entry"] = None
+    except Exception as exc:                     # recorded, then held
+        out["wrong_entry"] = [type(exc).__name__, str(exc)]
+
+    # greedy summaries through summarize_async, staggered, with an idle
+    # gap past the groups' timeout
+    if rank:
+        out["greedy"] = summ.follow(keep=True)
+    else:
+        out["greedy"] = staggered(summ, spec["timeout_s"] + 1.0)
+
+    # sampled completions; rank 0 keeps its log for an un-meshed replay
+    eng = async_engine(cfg, tree, mesh, sampling=SAMPLED, seed=3)
+    out["sampled"] = mesh_runner_serve(
+        eng, mesh, submit_all(PROMPTS, NEW, pause=0.02)) if rank == 0 \
+        else follow_session(eng)
+
+    # the pipelined service on rank 0
+    summ = async_summarizer(cfg, tree, mesh)
+    if rank:
+        out["pipelined"] = summ.follow(keep=True)
+    else:
+        out["pipelined"] = async_pipelined(summ, threads)
+        out["pipelined"]["completions"] = summ._runner.oplog.completions
+        summ.close()
+
+    for name in ("fault", "watchdog", "breakers"):
+        real_clock = time.monotonic
+        if rank and name == "breakers":
+            time.monotonic = lambda: real_clock() + 1000.0
+        try:
+            out[name] = async_fault_case(cfg, tree, mesh, name)
+        finally:
+            time.monotonic = real_clock
+    out["journal"] = async_journal(cfg, tree, mesh, spec["journal"])
+    out["sessions"] = async_sessions(cfg, tree, mesh)
+    if spec.get("kill_rank"):
+        out["kill"] = async_kill(cfg, tree, mesh, rank, spec["kill_rank"])
+        out["exit"] = out["kill"]["exit"]
+    return out
+
+
 def main(spec_path: str, rank: int) -> int:
     torch.set_num_threads(1)
     spec = json.loads(open(spec_path).read())
@@ -653,14 +1104,18 @@ def main(spec_path: str, rank: int) -> int:
     mesh = build_mesh(MeshConfig(dp=spec["dp"], tp=spec["tp"]),
                       timeout_s=timeout)
     result: dict = {"coords": mesh.coords}
-    suite = run_feature_cases if spec.get("suite") == "features" \
-        else run_cases
+    suite = {"features": run_feature_cases,
+             "async": run_async_cases}.get(spec.get("suite"), run_cases)
     try:
         result.update(suite(spec, rank, mesh))
     except Exception:
         result["error"] = traceback.format_exc()
     with open(f"{spec['out']}.{rank}.json", "w") as f:
         json.dump(result, f)
+    if "exit" in result:
+        # a rank of the mesh is gone: tearing the group down could wait on
+        # it, so this process ends here
+        os._exit(result["exit"])
     dist.destroy_process_group()
     return 0
 
